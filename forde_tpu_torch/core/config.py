@@ -1,0 +1,195 @@
+"""Typed configuration of the dual encoder (port of forde_tpu/core/config.py).
+
+Field names, order and defaults match the JAX package so that both write
+and read the same ``model_config.json``: dtypes serialise by name
+(``"float32"``, ``"bfloat16"``). The decoder-LM ``LLMConfig`` is not
+ported yet; ``config_from_dict`` raises for ``kind == "llm"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``torch.bfloat16`` -> ``"bfloat16"`` (the name numpy and JAX use)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def dtype_from_name(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+@dataclass(frozen=True)
+class DTypePolicy:
+    """``compute`` for activations and matmuls, ``param`` for parameter
+    storage, ``stats`` for sensing accumulators (always fp32)."""
+
+    compute: torch.dtype = torch.float32
+    param: torch.dtype = torch.float32
+    stats: torch.dtype = torch.float32
+
+    @staticmethod
+    def bf16() -> "DTypePolicy":
+        return DTypePolicy(compute=torch.bfloat16, param=torch.float32)
+
+    @staticmethod
+    def fp32() -> "DTypePolicy":
+        return DTypePolicy()
+
+
+@dataclass(frozen=True)
+class TowerConfig:
+    """One encoder tower (vision or text) of FORDE transformer blocks."""
+
+    d_model: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    head_dim: int = 64
+    mlp_hidden_dim: int = 2048
+    dropout_rate: float = 0.0
+
+
+@dataclass(frozen=True)
+class DualEncoderConfig:
+    """CLIP-style dual encoder with StatefulLayer blocks.
+
+    ``attention_kernel_impl``: "auto" runs the fused attention kernel on
+    CUDA (its plain version on CPU tensors); "reference" runs the plain
+    masked-attention path everywhere. ``num_neuron_types``,
+    ``forde_lite``, ``stateful_kernel_impl`` and ``remat`` are kept for the
+    checkpoint schema; serving reads none of them.
+    """
+
+    image_size: int = 224
+    patch_size: int = 16
+    vision: TowerConfig = field(default_factory=lambda: TowerConfig())
+    vocab_size: int = 30522
+    max_text_len: int = 64
+    text: TowerConfig = field(
+        default_factory=lambda: TowerConfig(d_model=512, num_layers=12)
+    )
+    embed_dim: int = 512
+    logit_scale_init: float = 2.6592
+    num_neuron_types: int = 3
+    specialist_gate: float = 0.1
+    forde_lite: bool = False
+    stateful_kernel_impl: str = "auto"
+    attention_kernel_impl: str = "auto"
+    remat: object = False
+    sense: bool = True
+    dtypes: DTypePolicy = field(default_factory=DTypePolicy)
+
+    def replace(self, **kw) -> "DualEncoderConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def vit_b16_config() -> DualEncoderConfig:
+    """ViT-B/16 + 12-layer text tower."""
+    return DualEncoderConfig(
+        image_size=224,
+        patch_size=16,
+        vision=TowerConfig(
+            d_model=768, num_layers=12, num_heads=12, head_dim=64, mlp_hidden_dim=3072
+        ),
+        text=TowerConfig(
+            d_model=512, num_layers=12, num_heads=8, head_dim=64, mlp_hidden_dim=2048
+        ),
+        embed_dim=512,
+    )
+
+
+def vit_tiny_config() -> DualEncoderConfig:
+    """Forde-lite tiny config: ViT-Ti/16 + 2-layer text."""
+    return DualEncoderConfig(
+        image_size=224,
+        patch_size=16,
+        vision=TowerConfig(
+            d_model=192, num_layers=12, num_heads=3, head_dim=64, mlp_hidden_dim=768
+        ),
+        text=TowerConfig(
+            d_model=192, num_layers=2, num_heads=3, head_dim=64, mlp_hidden_dim=768
+        ),
+        embed_dim=192,
+        forde_lite=True,
+    )
+
+
+def vit_tiny_hd128_config() -> DualEncoderConfig:
+    """ViT-Ti-scale towers with a single 128-wide attention head."""
+    return DualEncoderConfig(
+        image_size=224,
+        patch_size=16,
+        vision=TowerConfig(
+            d_model=192, num_layers=12, num_heads=1, head_dim=128,
+            mlp_hidden_dim=768,
+        ),
+        text=TowerConfig(
+            d_model=192, num_layers=2, num_heads=1, head_dim=128,
+            mlp_hidden_dim=768,
+        ),
+        embed_dim=192,
+        forde_lite=True,
+    )
+
+
+def vit_b16_hd128_config() -> DualEncoderConfig:
+    """ViT-B/16 with 128-wide heads: vision 6x128, text 4x128 (the same
+    parameter shapes as ``vit_b16_config``; only the head split differs)."""
+    return DualEncoderConfig(
+        image_size=224,
+        patch_size=16,
+        vision=TowerConfig(
+            d_model=768, num_layers=12, num_heads=6, head_dim=128,
+            mlp_hidden_dim=3072,
+        ),
+        text=TowerConfig(
+            d_model=512, num_layers=12, num_heads=4, head_dim=128,
+            mlp_hidden_dim=2048,
+        ),
+        embed_dim=512,
+    )
+
+
+PRESETS = {
+    "vit_b16": vit_b16_config,
+    "vit_tiny": vit_tiny_config,
+    "vit_tiny_hd128": vit_tiny_hd128_config,
+    "vit_b16_hd128": vit_b16_hd128_config,
+}
+
+
+def config_to_dict(cfg: DualEncoderConfig) -> dict:
+    """JSON-safe dict, the JAX package's schema (dtypes by name)."""
+    if not isinstance(cfg, DualEncoderConfig):
+        raise TypeError(f"unsupported config type {type(cfg)}")
+    d = dataclasses.asdict(cfg)
+    d["dtypes"] = {k: dtype_name(v) for k, v in d["dtypes"].items()}
+    return {"kind": "dual_encoder", **d}
+
+
+def config_from_dict(d: dict) -> DualEncoderConfig:
+    """Inverse of ``config_to_dict``; reads the JAX package's JSON too."""
+    d = dict(d)
+    kind = d.pop("kind")
+    if kind == "llm":
+        raise NotImplementedError(
+            "the decoder-LM config is not ported to forde_tpu_torch yet"
+        )
+    if kind != "dual_encoder":
+        raise ValueError(f"unknown config kind {kind!r}")
+    d["dtypes"] = DTypePolicy(
+        **{k: dtype_from_name(v) for k, v in d["dtypes"].items()}
+    )
+    d["vision"] = TowerConfig(**d["vision"])
+    d["text"] = TowerConfig(**d["text"])
+    return DualEncoderConfig(**d)

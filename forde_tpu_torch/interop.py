@@ -1,0 +1,132 @@
+"""Weights between the JAX package's Flax trees and this package's modules.
+
+A Flax path maps to a ``state_dict`` key by joining its names with "."
+(``block_3`` becomes ``blocks.3``) and renaming the leaf:
+
+* Dense ``kernel`` (in, out)  -> Linear ``weight`` (out, in), transposed
+* Embed ``embedding``         -> Embedding ``weight``
+* LayerNorm ``scale``         -> LayerNorm ``weight`` (``bias`` stays)
+* ``cls_token``, ``register_tokens``, ``pos_embed``, ``logit_scale``
+                              -> parameters of the same name
+* brain ``neuron_assignments`` -> the int32 buffer of the same name
+
+Trees are nested dicts of numpy arrays, ``{"params": ..., "brain": ...}``
+flattened as "/"-joined paths in a checkpoint's ``params.npz``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+_LEAF_TO_TORCH = {
+    "kernel": "weight",
+    "embedding": "weight",
+    "scale": "weight",
+    "bias": "bias",
+    "cls_token": "cls_token",
+    "register_tokens": "register_tokens",
+    "pos_embed": "pos_embed",
+    "logit_scale": "logit_scale",
+}
+_BRAIN_LEAVES = ("neuron_assignments",)
+_BLOCK = re.compile(r"^block_(\d+)$")
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """Nested dict -> {"a/b/c": leaf}."""
+    flat = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            flat.update(flatten(v, path))
+        else:
+            flat[path] = np.asarray(v)
+    return flat
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    """{"a/b/c": leaf} -> nested dict."""
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _torch_key(path: str, leaf_map: Mapping[str, str]) -> str:
+    *parents, leaf = path.split("/")
+    if leaf not in leaf_map:
+        raise KeyError(f"no mapping for the Flax leaf {path!r}")
+    names = []
+    for p in parents:
+        m = _BLOCK.match(p)
+        names += ["blocks", m.group(1)] if m else [p]
+    return ".".join(names + [leaf_map[leaf]])
+
+
+def flax_to_state_dict(
+    params: Mapping,
+    brain: Mapping,
+    expected: Optional[Mapping[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """The Flax ``params`` and ``brain`` collections -> a ``state_dict``.
+
+    With ``expected`` (a module's ``state_dict()``), raises on any key it
+    leaves unused, any key it is missing, and any shape that differs;
+    values take the dtype of the expected tensor. Leaves of a kind it does
+    not know always raise.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in flatten(params).items():
+        key = _torch_key(path, _LEAF_TO_TORCH)
+        t = torch.from_numpy(np.array(value))
+        if path.endswith("/kernel"):
+            t = t.T.contiguous()
+        out[key] = t
+    for path, value in flatten(brain).items():
+        key = _torch_key(path, {n: n for n in _BRAIN_LEAVES})
+        out[key] = torch.from_numpy(np.array(value, np.int32))
+    if expected is None:
+        return out
+    unused = sorted(set(out) - set(expected))
+    missing = sorted(set(expected) - set(out))
+    if unused or missing:
+        raise KeyError(f"Flax tree vs module: unused {unused}, missing {missing}")
+    for key, ref in expected.items():
+        if tuple(out[key].shape) != tuple(ref.shape):
+            raise ValueError(
+                f"{key}: Flax shape {tuple(out[key].shape)} != {tuple(ref.shape)}"
+            )
+        out[key] = out[key].to(ref.dtype)
+    return out
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+    """Inverse of ``flax_to_state_dict``: {"params": tree, "brain": tree}
+    of numpy arrays, the JAX package's layout."""
+    params: Dict[str, np.ndarray] = {}
+    brain: Dict[str, np.ndarray] = {}
+    for key, t in state_dict.items():
+        *names, leaf = key.replace("blocks.", "block_").split(".")
+        value = t.detach().cpu()
+        if leaf in _BRAIN_LEAVES:
+            brain["/".join(names + [leaf])] = value.numpy().astype(np.int32)
+            continue
+        value = value.float().numpy()
+        if leaf == "weight":
+            # Dense kernel (transposed), Embed embedding or LayerNorm scale
+            if names[-1] == "token_embed":
+                leaf = "embedding"
+            elif value.ndim == 2:
+                leaf, value = "kernel", value.T
+            else:
+                leaf = "scale"
+        params["/".join(names + [leaf])] = np.array(value)
+    return {"params": unflatten(params), "brain": unflatten(brain)}

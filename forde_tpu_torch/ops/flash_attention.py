@@ -1,0 +1,255 @@
+"""Fused-qkv flash attention of the encoder towers
+(port of ``flash_mha`` in forde_tpu/ops/flash_attention.py).
+
+``flash_mha`` reads q/k/v straight out of the (B, S, 3*H*D) output of the
+qkv projection and returns (B, S, H*D) ready for the output projection:
+no head split or merge copies. On a CUDA tensor it launches the
+hand-written kernel ``csrc/flash_mha_fwd.cu`` (``flash_mha_fwd``); on a
+CPU tensor the same wrapper runs the kernel's plain version
+(``flash_mha_fwd_reference``). ``flash_mha_reference`` is the plain masked
+attention path the JAX package runs as ``impl="reference"``.
+
+The 4-D flash-attention family (the JAX package's route for head_dim not
+a multiple of 64 or S > 512) is not ported yet: such shapes raise on CUDA.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from forde_tpu_torch import kernels
+from forde_tpu_torch.kernels import build
+from forde_tpu_torch.ops import attention_ref
+
+MASK_VALUE = -1e30
+MAX_FUSED_SEQ = 512
+KERNEL_IMPLS = ("auto", "pallas")
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _visible(s, device, causal, window, lens, kv_bound):
+    """(B or 1, 1, S, S) boolean mask, True = attend; None if unmasked."""
+    pos = torch.arange(s, device=device)
+    q_pos, k_pos = pos[:, None], pos[None, :]
+    mask = None
+
+    def both(a, b):
+        return b if a is None else a & b
+
+    if causal:
+        mask = both(mask, q_pos >= k_pos)
+    if window is not None:
+        mask = both(mask, q_pos - k_pos < window)
+    if kv_bound is not None:
+        mask = both(mask, k_pos < kv_bound)
+    mask = None if mask is None else mask[None, None]
+    if lens is not None:
+        mask = both(mask, (k_pos < lens.reshape(-1, 1, 1, 1)))
+    return mask
+
+
+def flash_mha_fwd_reference(
+    qkv: torch.Tensor,
+    lens: Optional[torch.Tensor],
+    num_heads: int,
+    head_dim: int,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_bound: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: the arithmetic of the TPU kernel
+    ``_mha_fwd_kernel`` on the same arguments. Returns o (B, S, H*D) in the
+    input dtype and lse (B, H, S, 1) in fp32."""
+    b, s, _ = qkv.shape
+    q, k, v = qkv.reshape(b, s, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    mask = _visible(s, qkv.device, causal, window, lens, kv_bound)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, MASK_VALUE)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.matmul((p / l_safe).to(v.dtype).float(), v.float())
+    # Rows with every key masked (kv_lens[b] == 0) are zero.
+    o = o * (m > MASK_VALUE * 0.5).to(o.dtype)
+    lse = m + torch.log(l_safe)
+    o = o.to(qkv.dtype).transpose(1, 2).reshape(b, s, num_heads * head_dim)
+    return o, lse
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library, its C signature declared."""
+    lib = build.load("flash_mha_fwd")
+    fn = lib.forde_flash_mha_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_mha_fwd(
+    qkv: torch.Tensor,
+    lens: Optional[torch.Tensor],
+    num_heads: int,
+    head_dim: int,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_bound: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's wrapper: o (B, S, H*D), lse (B, H, S, 1) fp32.
+
+    ``qkv`` is (B, S, 3*H*D), float32 or bfloat16; ``lens`` an optional
+    (B,) count of visible keys per sample; ``kv_bound`` an optional static
+    count of visible keys; ``window`` an optional ``q - k < window`` bound.
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel on the current stream, or raises.
+    """
+    if qkv.device.type == "cpu":
+        return flash_mha_fwd_reference(
+            qkv, lens, num_heads, head_dim, scale, window, causal, kv_bound
+        )
+    if qkv.device.type != "cuda":
+        raise ValueError(f"flash_mha_fwd takes CPU or CUDA tensors, got {qkv.device}")
+    b, s, three_hd = qkv.shape
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_mha_fwd takes float32 or bfloat16, got {qkv.dtype}")
+    if head_dim not in (64, 128):
+        raise ValueError(f"flash_mha_fwd takes head_dim 64 or 128, got {head_dim}")
+    if three_hd != 3 * num_heads * head_dim:
+        raise ValueError(f"qkv width {three_hd} != 3 * {num_heads} * {head_dim}")
+    if s > MAX_FUSED_SEQ:
+        raise ValueError(f"flash_mha_fwd takes S <= {MAX_FUSED_SEQ}, got {s}")
+    if not qkv.is_contiguous():
+        raise ValueError("flash_mha_fwd needs a contiguous qkv")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    lens_ptr = None
+    if lens is not None:
+        if lens.shape != (b,) or lens.device != qkv.device:
+            raise ValueError(f"lens must be ({b},) on {qkv.device}")
+        lens = lens.to(torch.int32).contiguous()
+        lens_ptr = lens.data_ptr()
+    o = torch.empty(b, s, num_heads * head_dim, dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty(b, num_heads, s, 1, dtype=torch.float32, device=qkv.device)
+
+    lib = _library()
+    with torch.cuda.device(qkv.device):
+        err = lib.forde_flash_mha_fwd(
+            qkv.data_ptr(), lens_ptr, o.data_ptr(), lse.data_ptr(),
+            b, s, num_heads, head_dim, _DTYPE_CODES[qkv.dtype], scale,
+            int(causal), -1 if window is None else int(window),
+            -1 if kv_bound is None else int(kv_bound),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    build.check(lib, err, "flash_mha_fwd")
+    kernels.launches["flash_mha_fwd"] += 1
+    return o, lse
+
+
+def flash_mha_reference(
+    qkv: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    kv_lens: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    window_size: Optional[int] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Plain masked attention over the fused qkv (the JAX package's
+    ``_mha_reference_path``), (B, S, 3*H*D) -> (B, S, H*D)."""
+    b, s, _ = qkv.shape
+    if scale is None:
+        scale = 1.0 / float(head_dim) ** 0.5
+    q, k, v = qkv.reshape(b, s, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
+    if kv_lens is not None:
+        pos = torch.arange(s, device=qkv.device)
+        mask = (pos[None, :] < kv_lens.to(torch.int32)[:, None])[:, None, None, :]
+        q_pos, k_pos = pos[:, None], pos[None, :]
+        if causal:
+            mask = mask & (q_pos >= k_pos)[None, None]
+        if window_size is not None:
+            mask = mask & (q_pos - k_pos < window_size)[None, None]
+        o = attention_ref.mha_reference(q, k, v, mask=mask, scale=scale)
+        # Rows of a sample with no visible key (kv_lens[b] == 0) are zero.
+        o = o * (kv_lens > 0).to(o.dtype)[:, None, None, None]
+    elif causal and window_size is not None:
+        o = attention_ref.sliding_window_attention_ref(q, k, v, window_size, scale=scale)
+    elif causal:
+        o = attention_ref.causal_attention_ref(q, k, v, scale=scale)
+    else:
+        o = attention_ref.mha_reference(q, k, v, scale=scale)
+    return o.transpose(1, 2).reshape(b, s, num_heads * head_dim)
+
+
+def flash_mha(
+    qkv: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    *,
+    causal: bool = False,
+    window_size: Optional[int] = None,
+    kv_lens: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Flash attention over a fused (B, S, 3*H*D) qkv, returning (B, S, H*D).
+
+    ``kv_lens``: optional (B,) valid-key counts of right-padded batches;
+    keys at positions >= kv_lens[b] are masked for every query (padded
+    query rows still produce outputs, as in the JAX package).
+
+    ``impl``: "reference" runs ``flash_mha_reference``; "auto" (and the
+    JAX config's "pallas") run ``flash_mha_fwd``: the CUDA kernel for a
+    CUDA tensor, its plain version for a CPU tensor.
+    """
+    b, s, three_hd = qkv.shape
+    if three_hd != 3 * num_heads * head_dim:
+        raise ValueError(f"qkv width {three_hd} != 3 * {num_heads} * {head_dim}")
+    scale = 1.0 / float(head_dim) ** 0.5 if scale is None else float(scale)
+    if impl == "reference":
+        return flash_mha_reference(
+            qkv, num_heads, head_dim, kv_lens, causal, window_size, scale
+        )
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    if head_dim % 64 != 0 or s > MAX_FUSED_SEQ:
+        if qkv.device.type != "cpu":
+            raise NotImplementedError(
+                f"head_dim={head_dim}, S={s} is outside the fused kernel "
+                f"(head_dim % 64 == 0, S <= {MAX_FUSED_SEQ}); the 4-D "
+                "flash-attention kernels (_fwd_kernel / _fwd_stream_kernel of "
+                "forde_tpu/ops/flash_attention.py) are not ported yet"
+            )
+        if kv_lens is not None:
+            raise ValueError("kv_lens needs the fused kernel's shapes")
+        # The plain version of the 4-D kernels is the masked reference.
+        return flash_mha_reference(
+            qkv, num_heads, head_dim, None, causal, window_size, scale
+        )
+
+    s_pad = _ceil_to(s, 8)
+    kv_bound = None
+    if s_pad != s:
+        qkv = F.pad(qkv, (0, 0, 0, s_pad - s))
+        if not causal and kv_lens is None:
+            kv_bound = s  # static mask for the padded tail
+    lens = None if kv_lens is None else torch.clamp(kv_lens, max=s).to(torch.int32)
+    o, _ = flash_mha_fwd(
+        qkv, lens, num_heads, head_dim, scale, window_size, causal, kv_bound
+    )
+    return o[:, :s]
