@@ -1,25 +1,44 @@
 #!/usr/bin/env python3
 """Smoke test of forde_tpu_torch on one NVIDIA GPU (H100).
 
-Drives the port's dual-encoder embedding path at the full width of the
-production ViT-B preset (``vit_b16_hd128``, bf16, seeded random weights)
-through the user's entry point, ``forde_tpu_torch.embed.main``, and holds
-every CUDA kernel of that path against its plain PyTorch version:
+Drives the port's two main paths through the entry points a user calls,
+and holds every CUDA kernel of them against its plain PyTorch version:
 
+  * the embedding path (``forde_tpu_torch.embed.main``) at the full width
+    of the production ViT-B preset (``vit_b16_hd128``, bf16, seeded random
+    weights);
+  * the training path (``forde_tpu_torch.train.clip_loop.main``) at the
+    full width of ``vit_b16`` in bf16, batch 128: 16 contrastive steps with
+    sensing every 8th, two GMM brain updates, and a checkpoint that
+    ``embed.main`` then serves.
+
+Phases:
   1. device: name, and name + power limit from nvidia-smi;
-  2. build every kernel under forde_tpu_torch/csrc from the checkout;
-  3. kernel vs plain version on the card, fp32 and bf16, at the shapes of
-     the path and at the mask options (kv_lens with 0, kv_bound, causal +
-     window);
-  4. the main path: a port checkpoint, .npy images (one resized) and
-     texts of different lengths through ``embed.main``; finite (N, 512)
-     embeddings, 24 kernel launches (12 + 12 layers), and the cosine of
-     each embedding against the same weights on the all-plain attention
-     path in the same dtype (>= 0.99999 in fp32, >= 0.997 in bf16);
-  5. timing at the serving batch (128 images + 128 texts): encode time,
-     pairs/s, and per attention call the kernel, its plain version,
-     PyTorch's scaled_dot_product_attention (timed as a yardstick only,
-     the port never calls it) and the least time the card could take.
+  2. build every kernel under forde_tpu_torch/csrc, one nvcc per source,
+     all started together;
+  3. each kernel against its plain version on the card, fp32 and bf16, at
+     the shapes of both paths (the training CLI's at its batch of 128)
+     and the mask options (kv_lens with 0, kv_bound, causal + window),
+     and the output and gradients of ``flash_mha`` on CUDA tensors
+     against the plain attention path's;
+  4. the embedding path: finite (N, 512) embeddings, 24 launches of
+     flash_mha_fwd (12 + 12 layers), and the cosine of each embedding
+     against the same weights on the all-plain attention path;
+  5. the training path: finite loss, the launches of each kernel (per
+     sensed step 24 flash_mha_fwd, 24 flash_mha_bwd, 48 moment_sums; per
+     unsensed step 24 + 24 + 0), two brain updates that were not skipped,
+     gradient statistics non-zero before each update and zero after, the
+     checkpoint served by ``embed.main``, and the CLI's prefetch route
+     delivering batches intact;
+  6. step parity at ``vit_b16_hd128``: one sensed step on the kernel path
+     against one on the all-plain path from the same weights, fp32 and
+     bf16 (with the bf16-vs-fp32 plain control printed beside it);
+  7. timing at ``vit_b16_hd128``, bf16, batch 128: encode time, sensed and
+     unsensed step times, pairs/s at sensing every 8th step, the neuron
+     slow loop, one encode and one sensed step under torch.profiler, and
+     per kernel its time, its plain version's, PyTorch's one-call
+     equivalent where there is one (timed as a yardstick only, the port
+     never calls it) and the least time the card could take.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
@@ -60,6 +79,50 @@ TOL_LSE = 1e-4
 # is printed beside it as the control.
 MIN_COSINE_FP32 = 0.99999
 MIN_COSINE_BF16 = 0.997
+# flash_mha_bwd against its plain version run in fp32 on the same values,
+# per element |Δ| <= atol + rtol * (|plain| + mag), mag the sum of the
+# absolute terms the element adds up (bwd_magnitudes). fp32 differs by
+# summation order (atol, and rtol for long sums). In bf16 the kernel rounds
+# p (for dv) and ds (for dq, dk) to bf16, as the TPU kernel does, each a
+# relative 2^-9 of a term, and rounds its output, 2^-9 of the value:
+# rtol 2^-8 bounds the sum of the two.
+TOL_BWD = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 2.0 ** -8)}
+# Gradients of flash_mha through the kernels against the plain path's
+# autograd, fp32: summation order only.
+TOL_GRAD = 1e-4
+# moment_sums: fp32 sums in another order. The kernel adds a chunk of at
+# most a few hundred rows in sequence, then ~100 chunk sums: each adds at
+# most (rows + chunks) * 2^-24 ~ 3e-5 of m.
+TOL_MOMENT_REL = 1e-4
+# Phase 6: one sensed step of vit_b16_hd128 at this batch, kernel path vs
+# all-plain path from the same weights; per quantity the relative L2
+# difference: loss, grad_norm, act_stats, grad_stats, the gradients (as
+# Adam's first moment), the update (each parameter leaf's change, median
+# leaf) and the parameters after it. Beyond summation order, the
+# multiplex's kinks at z = 0 (relu's derivative, the binary step) turn
+# fp32 noise in a pre-activation near 0 into a whole unit of change, and
+# Adam's first step, ~lr * sign(g), flips with the sign of a gradient at
+# noise level, so the update differs by far more than the gradients. The
+# parameters dilute that by |update| / |params| ~ 2.5e-3: an optimizer
+# that leaves the weights unchanged reads ~2.5e-3 on params and 1.0 on the
+# update. Readings (the same in every run): fp32 loss 8.0e-5, grad_norm
+# 6.2e-5, act_stats 4.2e-5, grad_stats 2.3e-4, grads 7.1e-3, update
+# 7.5e-2, params 1.9e-4; bf16 2.5e-3, 7.4e-3, 2.1e-3, 7.1e-3, 0.180,
+# 0.490, 1.24e-3; control, plain bf16 vs plain fp32: 3.0e-4, 1.02e-2,
+# 4.1e-3, 7.3e-3, 0.201, 0.517, 1.32e-3. fp32 bars at 4-10x the reading,
+# those of update and params below a no-op optimizer's. bf16 bars between the reading
+# and the control where the two differ by 10% or more (grad_norm,
+# act_stats, grads: these separate lower precision); elsewhere (loss is
+# above the control; grad_stats, update and params lie within 2-6% of it)
+# at 2-4x the reading, or below a no-op optimizer's reading (update,
+# params).
+PARITY_BATCH = 16
+PARITY_TOL = {
+    "fp32": {"loss": 1e-3, "grad_norm": 1e-3, "act_stats": 5e-4, "grad_stats": 2e-3,
+             "grads": 3e-2, "update": 0.3, "params": 1e-3},
+    "bf16": {"loss": 1e-2, "grad_norm": 9e-3, "act_stats": 3e-3, "grad_stats": 1.5e-2,
+             "grads": 0.19, "update": 0.75, "params": 2e-3},
+}
 
 
 def log(msg: str) -> None:
@@ -92,17 +155,20 @@ def cuda_ms(fns, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_bound(b, s, h, d, dtype_name, lens=None) -> tuple:
+def attention_bound(b, s, h, d, dtype_name, lens=None, backward=False) -> tuple:
     """(ms by bytes, ms by operations) of one fused-qkv attention forward
-    at the card's peaks. Bytes: qkv read once, o and lse written once,
-    lens read. Operations: 2 * 2 * D per (query, visible key, head) for
-    the two products, counting the keys these inputs leave visible."""
+    or backward at the card's peaks. Bytes, forward: qkv read once, o and
+    lse written once; backward: qkv, do and lse read, dqkv written; lens
+    read. Operations: 2 * D per (query, visible key, head) for each
+    product, two forward (q k^T, p v) and five backward (q k^T, do v^T,
+    p^T do, ds^T q, ds k), counting the keys these inputs leave visible."""
     elem = 2 if dtype_name == "bfloat16" else 4
-    moved = b * s * 3 * h * d * elem + b * s * h * d * elem + b * h * s * 4
+    qkv_bytes, o_bytes = b * s * 3 * h * d * elem, b * s * h * d * elem
+    moved = (2 if backward else 1) * qkv_bytes + o_bytes + b * h * s * 4
     keys = b * s if lens is None else int(lens.clamp(max=s).sum())
     if lens is not None:
         moved += 4 * b
-    ops = 4.0 * h * d * s * keys
+    ops = (10.0 if backward else 4.0) * h * d * s * keys
     return moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype_name] * 1e3
 
 
@@ -111,16 +177,19 @@ def bound(bytes_ms: float, ops_ms: float) -> tuple:
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
 
 
-# Every kernel of the main path: csrc/<name>.cu.
-KERNEL_SOURCES = ("flash_mha_fwd",)
+# Every kernel of the main paths: csrc/<name>.cu.
+KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums")
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from forde_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    for name in KERNEL_SOURCES:
-        build.load(name)
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(build.load, KERNEL_SOURCES))
     log(f"[build] {len(KERNEL_SOURCES)} kernel(s) ready in {time.perf_counter() - t0:.2f} s "
         f"under {build.BUILD_DIR}")
     for name, (secs, text) in build.build_log.items():
@@ -131,62 +200,182 @@ def phase_build():
 
 
 # (name, B, S, H, D, kv_lens, causal, window): the vision and text shapes
-# of vit_b16_hd128, the S=197 / D=64 shape that needs kv_bound, and the
-# causal + window option.
+# of vit_b16_hd128 and of vit_b16 (the training CLI's preset), the S=197
+# shape that needs kv_bound, the causal + window option, and the training
+# CLI's two shapes at its batch of 128.
 CHECK_CASES = [
     ("vision_s200_h6_d128", 4, 200, 6, 128, None, False, None),
     ("text_s64_h4_d128_lens", 4, 64, 4, 128, [0, 1, 17, 64], False, None),
+    ("text_s64_h8_d64_lens", 4, 64, 8, 64, [0, 1, 17, 64], False, None),
     ("s197_h12_d64_kv_bound", 2, 197, 12, 64, None, False, None),
     ("s128_h2_d64_causal_window32", 2, 128, 2, 64, None, True, 32),
     ("s200_h2_d128_causal_window32_lens", 3, 200, 2, 128, [200, 0, 5], True, 32),
+    ("vision_b128_s200_h12_d64", 128, 200, 12, 64, None, False, None),
+    ("text_b128_s64_h8_d64_lens", 128, 64, 8, 64, [0, 1, 17, 64] * 32, False, None),
+]
+# flash_mha on CUDA tensors against the plain attention path: (name, B, S,
+# H, D, kv_lens); S=197 goes through the entry point's padding to 200.
+GRAD_CASES = [
+    ("vision_s200_h6_d128", 2, 200, 6, 128, None),
+    ("text_s64_h4_d128_lens", 4, 64, 4, 128, [0, 1, 17, 64]),
+    ("text_s64_h8_d64_lens", 4, 64, 8, 64, [0, 1, 17, 64]),
+    ("s197_h12_d64", 2, 197, 12, 64, None),
 ]
 
 
-def phase_check(device) -> float:
+def bwd_magnitudes(qkv, lens, lse, do, h, d, scale, window, causal, kv_bound):
+    """(B, S, 3*H*D) fp32: per element of dq, dk, dv the sum of the
+    absolute terms it adds up (|ds|·|k|, |ds|ᵀ·|q|, |p|ᵀ·|do|), with the
+    plain version's fp32 p and ds. A rounding of p or ds by a relative
+    eps moves each element by at most eps times this."""
+    import torch
+
+    from forde_tpu_torch.ops import flash_attention as fa
+
+    b, s, _ = qkv.shape
+    q, k, v = qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+    do4 = do.reshape(b, s, h, d).transpose(1, 2)
+    p = torch.exp(q @ k.transpose(-1, -2) * scale - lse)
+    mask = fa._visible(s, qkv.device, causal, window, lens, kv_bound)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), device=p.device))
+    dp = do4 @ v.transpose(-1, -2)
+    ds = (p * (dp - (p * dp).sum(-1, keepdim=True)) * scale).abs()
+    mag = torch.stack([ds @ k.abs(), ds.transpose(-1, -2) @ q.abs(),
+                       p.transpose(-1, -2) @ do4.abs()], dim=2)
+    return mag.permute(0, 3, 2, 1, 4).reshape(b, s, 3 * h * d)
+
+
+def held_against(got, want, atol, rtol_term) -> tuple:
+    """(max |got - want|, worst |got - want| / (atol + rtol_term))."""
+    diff = (got.float() - want).abs()
+    return diff.max().item(), (diff / (atol + rtol_term)).max().item()
+
+
+def phase_check_attention(device) -> tuple:
+    """flash_mha_fwd and flash_mha_bwd against their plain versions run in
+    fp32 on the same (exactly widened) inputs, the backward from the kernel
+    forward's lse, at CHECK_CASES in fp32 and bf16; then flash_mha on CUDA
+    tensors against the plain attention path, output and gradients (the
+    regression check for an output with no grad_fn). Returns the worst
+    max |error| of the forward and of the backward."""
     import torch
     import torch.nn.functional as F
 
     from forde_tpu_torch.ops import flash_attention as fa
 
-    worst = 0.0
+    worst_fwd = worst_bwd = 0.0
     gen = torch.Generator(device=device).manual_seed(SEED)
     for name, b, s, h, d, lens, causal, window in CHECK_CASES:
         x = torch.randn(b, s, 3 * h * d, device=device, generator=gen) * 0.5
+        g = torch.randn(b, s, h * d, device=device, generator=gen)
         lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=device)
         s_pad = -(-s // 8) * 8
         kv_bound = s if (s_pad != s and not causal and lens is None) else None
         if s_pad != s:
             x = F.pad(x, (0, 0, 0, s_pad - s))
+            g = F.pad(g, (0, 0, 0, s_pad - s))
         for dtype_name in ("float32", "bfloat16"):
-            qkv = x.to(getattr(torch, dtype_name)).contiguous()
-            args = (lens_t, h, d, d ** -0.5, window, causal, kv_bound)
-            o, lse = fa.flash_mha_fwd(qkv, *args)
-            o_ref, lse_ref = fa.flash_mha_fwd_reference(qkv.float(), *args)
+            dt = getattr(torch, dtype_name)
+            qkv, do = x.to(dt).contiguous(), g.to(dt).contiguous()
+            args = (h, d, d ** -0.5, window, causal, kv_bound)
+            o, lse = fa.flash_mha_fwd(qkv, lens_t, *args)
+            dqkv = fa.flash_mha_bwd(qkv, lens_t, lse, do, *args)
+            o_ref, lse_ref = fa.flash_mha_fwd_reference(qkv.float(), lens_t, *args)
+            dqkv_ref = fa.flash_mha_bwd_reference(qkv.float(), lens_t, lse, do.float(), *args)
+            mag = bwd_magnitudes(qkv.float(), lens_t, lse, do.float(), *args)
             torch.cuda.synchronize()
+
             atol, rtol = TOL_O[dtype_name]
-            diff = (o.float() - o_ref).abs()
-            err = diff.max().item()
-            ratio = (diff / (atol + rtol * o_ref.abs())).max().item()
+            err, ratio = held_against(o, o_ref, atol, rtol * o_ref.abs())
             lse_err = (lse - lse_ref).abs().max().item()
             ok = ratio <= 1.0 and lse_err <= TOL_LSE
-            log(f"[check] {name} {dtype_name}: max|o - plain| {err:.3e}, worst "
+            log(f"[check] fwd {name} {dtype_name}: max|o - plain| {err:.3e}, worst "
                 f"|o - plain| / ({atol:g} + {rtol:g}|plain|) {ratio:.3f} (tol 1), "
                 f"max|lse - plain| {lse_err:.3e} (tol {TOL_LSE:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_mha_fwd disagrees with its plain version: {name} {dtype_name}")
+            worst_fwd = max(worst_fwd, err)
+
+            atol, rtol = TOL_BWD[dtype_name]
+            err, ratio = held_against(dqkv, dqkv_ref, atol, rtol * (dqkv_ref.abs() + mag))
+            finite = bool(torch.isfinite(dqkv).all())
+            ok = ratio <= 1.0 and finite
+            log(f"[check] bwd {name} {dtype_name}: max|dqkv - plain| {err:.3e}, worst "
+                f"|Δ| / ({atol:g} + {rtol:g}(|plain| + mag)) {ratio:.3f} (tol 1), "
+                f"finite {finite} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"flash_mha_bwd disagrees with its plain version: {name} {dtype_name}")
+            worst_bwd = max(worst_bwd, err)
+
             if lens is not None:
-                for i, n in enumerate(lens):
-                    if n == 0 and o[i].abs().max().item() != 0.0:
-                        raise AssertionError(f"{name}: kv_lens == 0 rows are not zero")
-            worst = max(worst, err)
-    # The public entry point at S=197 pads to 200 and bounds the keys.
-    x = torch.randn(2, 197, 3 * 12 * 64, device=device, generator=gen, dtype=torch.float32)
-    got = fa.flash_mha(x, 12, 64)
-    want = fa.flash_mha_reference(x, 12, 64)
-    err = (got - want).abs().max().item()
-    log(f"[check] flash_mha S=197 vs flash_mha_reference: {err:.3e}")
-    if not err <= TOL_O["float32"][0]:
-        raise AssertionError("flash_mha at S=197 disagrees with flash_mha_reference")
+                empty = lens_t == 0
+                if o[empty].abs().max().item() != 0.0 or dqkv[empty].abs().max().item() != 0.0:
+                    raise AssertionError(f"{name}: a kv_lens == 0 sample has a non-zero o or gradient")
+
+    # flash_mha on CUDA tensors: autograd through the kernels against the
+    # plain attention path (impl="reference"), fp32, same upstream weights.
+    for name, b, s, h, d, lens in GRAD_CASES:
+        x = torch.randn(b, s, 3 * h * d, device=device, generator=gen) * 0.5
+        w = torch.randn(b, s, h * d, device=device, generator=gen)
+        lens_t = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=device)
+        outs, grads = [], []
+        for impl in ("auto", "reference"):
+            qkv = x.clone().requires_grad_(True)
+            o = fa.flash_mha(qkv, h, d, kv_lens=lens_t, impl=impl)
+            if o.grad_fn is None:
+                raise AssertionError(f"flash_mha(impl={impl!r}) output has no grad_fn")
+            (o * w).sum().backward()
+            if qkv.grad is None:
+                raise AssertionError(f"flash_mha(impl={impl!r}): qkv.grad is missing")
+            outs.append(o.detach())
+            grads.append(qkv.grad)
+        o_err = (outs[0] - outs[1]).abs().max().item()
+        err = (grads[0] - grads[1]).abs().max().item()
+        ok = o_err <= TOL_O["float32"][0] and err <= TOL_GRAD
+        log(f"[check] flash_mha on CUDA {name}: grad_fn present, max|o - plain path| "
+            f"{o_err:.3e} (tol {TOL_O['float32'][0]:g}), max|dqkv - plain path| {err:.3e} "
+            f"(tol {TOL_GRAD:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash_mha disagrees with the plain path: {name}")
+    return worst_fwd, worst_bwd
+
+
+# (name, N, F, dtype): the vision and text z of vit_b16_hd128 at batch 128,
+# fp32, and an N that is not a multiple of the row chunk.
+MOMENT_CASES = [
+    ("vision_z", 25600, 3072, "bfloat16"),
+    ("text_z", 8192, 2048, "bfloat16"),
+    ("text_z_fp32", 8192, 2048, "float32"),
+    ("odd_n", 12345, 3072, "bfloat16"),
+]
+
+
+def phase_check_moments(device) -> float:
+    """moment_sums against its plain version (fp32 sums of the same
+    values). Per element |Δ| <= TOL_MOMENT_REL * m, m the sum of the
+    absolute terms (Σ|x| for Σ|x| and Σx, Σx² for Σx²)."""
+    import torch
+
+    from forde_tpu_torch.ops import stat_sums
+
+    worst = 0.0
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    for name, n, f, dtype_name in MOMENT_CASES:
+        x = (torch.randn(n, f, device=device, generator=gen) + 0.25).to(getattr(torch, dtype_name))
+        got = stat_sums.moment_sums(x)
+        want = stat_sums.moment_sums_reference(x)
+        torch.cuda.synchronize()
+        mag = want[[0, 1, 0]]
+        diff = (got - want).abs()
+        err = diff.max().item()
+        ratio = (diff / (TOL_MOMENT_REL * mag)).max().item()
+        ok = ratio <= 1.0
+        log(f"[check] moment_sums {name} ({n}, {f}) {dtype_name}: max|Δ| {err:.3e}, worst "
+            f"|Δ| / ({TOL_MOMENT_REL:g}·m) {ratio:.3f} (tol 1) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"moment_sums disagrees with its plain version: {name}")
+        worst = max(worst, err)
     return worst
 
 
@@ -299,11 +488,12 @@ def phase_main_path(device, workdir) -> dict:
             "min_cosine_plain_bf16_vs_fp32": float(cos_plain_bf16)}
 
 
-def phase_timing(device, model, cfg) -> dict:
+def phase_encode_timing(device, model, cfg) -> dict:
+    """Encode time of 128 images + 128 texts, kernel path vs all-plain
+    attention path in turns, and one encode under the profiler."""
     import torch
-    import torch.nn.functional as F
 
-    from forde_tpu_torch.ops import flash_attention as fa
+    from forde_tpu_torch.models.dual_encoder import FORDEDualEncoder
 
     batch = 128
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
@@ -314,22 +504,22 @@ def phase_timing(device, model, cfg) -> dict:
     ids = torch.randint(1, cfg.vocab_size, (batch, cfg.max_text_len), device=device,
                         generator=gen) * mask
 
-    def encode_ms(m, reps=5):
+    def encode(m):
         with torch.inference_mode():
-            for _ in range(2):
-                m.encode_image(images)
-                m.encode_text(ids, mask)
-            torch.cuda.synchronize()
-            times = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                m.encode_image(images)
-                m.encode_text(ids, mask)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(times))
+            m.encode_image(images)
+            m.encode_text(ids, mask)
 
-    from forde_tpu_torch.models.dual_encoder import FORDEDualEncoder
+    def encode_ms(m, reps=5):
+        for _ in range(2):
+            encode(m)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            encode(m)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
 
     plain = FORDEDualEncoder(
         cfg.replace(sense=False, attention_kernel_impl="reference"), device=device
@@ -344,75 +534,25 @@ def phase_timing(device, model, cfg) -> dict:
         f"plain path {p1:.3f} / {p2:.3f} ms (median of 5 each)")
     log(f"[time] pairs/s: kernel path {batch / kernel_ms * 1e3:.1f}, "
         f"plain path {batch / plain_ms * 1e3:.1f}")
-
-    shapes = {}
-    tw_v, tw_t = cfg.vision, cfg.text
-    for name, tw, s, shape_lens in (
-        ("vision", tw_v, model.vision.pos_embed.shape[1], None),
-        ("text", tw_t, cfg.max_text_len, lens.to(torch.int32)),
-    ):
-        h, d = tw.num_heads, tw.head_dim
-        nbytes = batch * s * 3 * h * d * 2
-        copies = max(2, -(-200_000_000 // nbytes))  # > 4x the 50 MB L2 in total
-        qkvs = [
-            (torch.randn(batch, s, 3 * h * d, device=device, generator=gen) * 0.5)
-            .to(torch.bfloat16) for _ in range(copies)
-        ]
-        scale = d ** -0.5
-        args = (shape_lens, h, d, scale, None, False, None)
-        k_ms = cuda_ms([lambda q=q: fa.flash_mha_fwd(q, *args) for q in qkvs])
-        p_ms = cuda_ms([lambda q=q: fa.flash_mha_fwd_reference(q, *args) for q in qkvs])
-        attn_mask = None if shape_lens is None else (
-            pos[None, None, None, :s] < shape_lens[:, None, None, None]
-        )
-
-        def sdpa(q):
-            qq, kk, vv = q.view(batch, s, 3, h, d).unbind(2)
-            return F.scaled_dot_product_attention(
-                qq.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2),
-                attn_mask=attn_mask, scale=scale,
-            )
-
-        l_ms = cuda_ms([lambda q=q: sdpa(q) for q in qkvs])
-        bytes_ms, ops_ms = attention_bound(batch, s, h, d, "bfloat16", shape_lens)
-        b_ms, b_by = bound(bytes_ms, ops_ms)
-        shapes[name] = {
-            "B": batch, "S": s, "H": h, "D": d, "dtype": "bfloat16",
-            "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
-            "bytes_ms": bytes_ms, "operations_ms": ops_ms,
-        }
-        log(f"[time] flash_mha_fwd {name} (B={batch}, S={s}, H={h}, D={d}, bf16): "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, sdpa {l_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        del qkvs
-    attn_share = (
-        tw_v.num_layers * shapes["vision"]["ms"] + tw_t.num_layers * shapes["text"]["ms"]
-    ) / kernel_ms
-    log(f"[time] attention kernel share of the kernel-path encode: {attn_share:.3f}")
-    profile_encode(model, images, ids, mask)
-    return {
-        "shapes": shapes, "encode_ms": kernel_ms, "plain_encode_ms": plain_ms,
-        "pairs_per_s": batch / kernel_ms * 1e3,
-    }
+    profile_device(lambda: encode(model), "one encode (128 images + 128 texts)")
+    return {"encode_ms": kernel_ms, "plain_encode_ms": plain_ms,
+            "pairs_per_s": batch / kernel_ms * 1e3}
 
 
-def profile_encode(model, images, ids, mask, top: int = 12) -> None:
-    """Device time by kernel over one encode (128 images + 128 texts) under
-    torch.profiler, and the device's idle share of the wall time."""
+def profile_device(run, label: str, top: int = 12) -> dict:
+    """Device time by kernel over one call of ``run`` (after one warm-up
+    call) under torch.profiler, and the device's idle share of the wall
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model.encode_image(images)
-        model.encode_text(ids, mask)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.encode_image(images)
-            model.encode_text(ids, mask)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     kernels_ms = []
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -423,10 +563,438 @@ def profile_encode(model, images, ids, mask, top: int = 12) -> None:
         kernels_ms.append((total / 1e3, evt.count, evt.key))
     kernels_ms.sort(reverse=True)
     busy_ms = sum(k[0] for k in kernels_ms)
-    log(f"[profile] one encode: wall {wall_ms:.3f} ms (profiled), device busy "
-        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    idle = 1 - busy_ms / wall_ms
+    log(f"[profile] {label}: wall {wall_ms:.3f} ms (profiled), device busy "
+        f"{busy_ms:.3f} ms, idle share {idle:.3f}")
     for ms, count, name in kernels_ms[:top]:
         log(f"[profile]   {ms:9.3f} ms {ms / busy_ms:6.3f}  x{count:<4d} {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": idle}
+
+
+# The training path's command line (phase 5): full width of vit_b16 (the
+# CLI's preset: vision 12 x 64, text 8 x 64 heads), bf16, batch 128, the
+# GMM slow loop.
+TRAIN_ARGV = [
+    "--preset", "vit_b16", "--bf16", "--use_dummy_data", "--dummy_pool", "2",
+    "--batch_size", "128", "--num_steps", "16", "--sense_interval", "8",
+    "--slow_loop_interval", "8", "--moment_dtype", "bfloat16", "--warmup_steps", "4",
+    "--log_interval", "8",
+]
+
+
+def launches_per_step(cfg, sensed: bool) -> dict:
+    """Kernel launches of one training step: attention forward and
+    backward once per layer of both towers; two moment sums per
+    StatefulLayer (activations, gradient tap) on a sensed step."""
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    return {"flash_mha_fwd": layers, "flash_mha_bwd": layers,
+            "moment_sums": 2 * layers if sensed else 0}
+
+
+def phase_train_path(workdir) -> dict:
+    import torch
+
+    from forde_tpu_torch import embed, kernels
+    from forde_tpu_torch.train import clip_loop
+
+    ckpt = os.path.join(workdir, "train_ckpt")
+    argv = TRAIN_ARGV + ["--checkpoint_dir", ckpt, "--seed", str(SEED)]
+    args = clip_loop.build_parser().parse_args(argv)
+    cfg = clip_loop.config_from_args(args)
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the loop's metrics land in ./runs
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = clip_loop.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        os.chdir(cwd)
+    loss = out["final_metrics"]["loss/contrastive"]
+    log(f"[train] clip_loop.main ({' '.join(TRAIN_ARGV)}) took {secs:.2f} s; "
+        f"final loss {loss:.4f}, launches {launches}")
+    if not np.isfinite(loss) or out["step"] != args.num_steps:
+        raise AssertionError(f"training path: loss {loss}, steps {out['step']}")
+
+    n_sensed = len(range(0, args.num_steps, args.sense_interval))
+    n_unsensed = args.num_steps - n_sensed
+    sensed, unsensed = launches_per_step(cfg, True), launches_per_step(cfg, False)
+    want = {k: n_sensed * sensed[k] + n_unsensed * unsensed[k] for k in sensed}
+    if launches != want:
+        raise AssertionError(
+            f"training path launches {launches}, expected {want} "
+            f"({n_sensed} sensed steps x {sensed} + {n_unsensed} unsensed x {unsensed})"
+        )
+
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    updates = out["brain_updates"]
+    for u in updates:
+        log(f"[train] brain update @ {u['step']}: {u['latency_ms']:.2f} ms, skipped "
+            f"{u['skipped']}, |grad_stats| {u['grad_stats_abs_sum_before']:.4g} -> "
+            f"{u['grad_stats_abs_sum_after']:.4g}, sensed layer-steps "
+            f"{u['sensed_steps_before']} -> {u['sensed_steps_after']}")
+    if [u["step"] for u in updates] != [8, 16] or any(
+        u["skipped"] or not u["grad_stats_abs_sum_before"] > 0
+        or u["grad_stats_abs_sum_after"] != 0
+        or u["sensed_steps_before"] != layers or u["sensed_steps_after"] != 0
+        for u in updates
+    ):
+        raise AssertionError(f"brain updates of the training path: {updates}")
+
+    # The trained checkpoint through the serving entry point.
+    rng = np.random.RandomState(SEED + 4)
+    img_path = os.path.join(workdir, "train_img.npy")
+    np.save(img_path, rng.rand(cfg.image_size, cfg.image_size, 3).astype(np.float32))
+    prefix = os.path.join(workdir, "train_emb")
+    embed.main(["--checkpoint_dir", ckpt, "--image_npy", img_path,
+                "--text_ids", "12,99,407;7,5", "--out", prefix])
+    img, txt = np.load(prefix + "_image.npy"), np.load(prefix + "_text.npy")
+    if img.shape != (1, cfg.embed_dim) or txt.shape != (2, cfg.embed_dim) or not (
+        np.isfinite(img).all() and np.isfinite(txt).all()
+    ):
+        raise AssertionError(f"serving the trained checkpoint: {img.shape} {txt.shape}")
+    log(f"[train] embed.main served the trained checkpoint: image {img.shape}, "
+        f"text {txt.shape}, finite")
+    return {"launches": launches, "seconds": secs, "final_loss": loss,
+            "brain_update_ms": [u["latency_ms"] for u in updates]}
+
+
+def check_prefetch(device) -> None:
+    """The training CLI's data route without --dummy_pool: batches
+    assembled in pinned host memory and copied ahead on a side stream
+    arrive on the card intact."""
+    import torch
+
+    from forde_tpu_torch.data.prefetch import prefetch_to_device
+    from forde_tpu_torch.data.vl import SyntheticVLDataset
+
+    cfg = main_path_config()
+    dataset = SyntheticVLDataset(
+        16, 4, image_size=cfg.image_size, text_len=cfg.max_text_len,
+        vocab_size=cfg.vocab_size, seed=SEED,
+    )
+    n = 0
+    for host, dev in zip(dataset, prefetch_to_device(iter(dataset), device)):
+        torch.cuda.synchronize()
+        for k, v in host.items():
+            if dev[k].device != device or not np.array_equal(dev[k].cpu().numpy(), v):
+                raise AssertionError(f"prefetch_to_device: batch {n} {k} differs")
+        n += 1
+    log(f"[train] prefetch_to_device delivered {n} batches intact")
+
+
+class plain_moment_sums:
+    """Context: the StatefulLayers' moment sums take the plain version on
+    CUDA tensors too (the all-plain path of phases 6 and 7)."""
+
+    def __enter__(self):
+        from forde_tpu_torch.ops import stat_sums
+
+        self.saved = stat_sums.moment_sums
+        stat_sums.moment_sums = stat_sums.moment_sums_reference
+        return self
+
+    def __exit__(self, *exc):
+        from forde_tpu_torch.ops import stat_sums
+
+        stat_sums.moment_sums = self.saved
+
+
+def training_batch(cfg, batch: int, device, seed: int) -> dict:
+    import torch
+
+    from forde_tpu_torch.data.vl import SyntheticVLDataset
+
+    host = next(iter(SyntheticVLDataset(
+        batch, 1, image_size=cfg.image_size, text_len=cfg.max_text_len,
+        vocab_size=cfg.vocab_size, seed=seed,
+    )))
+    return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+
+
+def train_state(cfg, reference_state, device, impl="auto", moment_dtype="bfloat16"):
+    """A fresh train state at ``cfg`` (sense on, attention ``impl``) whose
+    model holds ``reference_state`` (a serving model's: the stat buffers
+    start at 0)."""
+    from forde_tpu_torch.models.dual_encoder import FORDEDualEncoder
+    from forde_tpu_torch.train.clip_step import create_clip_train_state
+
+    cfg = cfg.replace(sense=True, attention_kernel_impl=impl)
+    model = FORDEDualEncoder(cfg, device=device)
+    missing, unexpected = model.load_state_dict(reference_state, strict=False)
+    if unexpected or not all(k.endswith(("act_stats", "step_count")) for k in missing):
+        raise KeyError(f"train state: unexpected {unexpected}, missing {missing}")
+    return create_clip_train_state(
+        cfg, None, 1e-4, 0.01, warmup_steps=0, moment_dtype=moment_dtype, model=model
+    )
+
+
+def phase_step_parity(device) -> dict:
+    """One sensed step of vit_b16_hd128 on the kernel path against one on
+    the all-plain path (plain attention, plain moment sums) from the same
+    weights and batch; fp32 and bf16. Then the launches of one sensed and
+    one unsensed step on the kernel path."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.nn.stateful import stateful_layers
+    from forde_tpu_torch.train.clip_step import clip_train_step, make_nosense_step
+
+    cfg = main_path_config().replace(sense=True)
+    weights = build_model(cfg, device).state_dict()
+    batch = training_batch(cfg, PARITY_BATCH, device, SEED + 5)
+
+    def one_step(dtypes, impl):
+        state = train_state(cfg.replace(dtypes=dtypes), weights, device, impl, moment_dtype=None)
+        before = [p.detach().float().clone() for p in state.optimizer.params]
+        if impl == "reference":
+            with plain_moment_sums():
+                state, m = clip_train_step(state, batch)
+        else:
+            state, m = clip_train_step(state, batch)
+        layers = stateful_layers(state.model).values()
+        return {
+            "loss": m["loss/contrastive"].reshape(1),
+            "grad_norm": m["training/grad_norm"].reshape(1),
+            "act_stats": torch.cat([layer.act_stats.flatten() for layer in layers]),
+            "grad_stats": torch.cat([g.flatten() for g in state.grad_stats.values()]),
+            # Adam's first moment after one step: (1 - b1) * the clipped gradient
+            "grads": torch.cat([m.flatten() for m in state.optimizer.mu]),
+            # the change of each parameter leaf, and the parameters after it
+            "update": [p.detach().float() - b for p, b in zip(state.optimizer.params, before)],
+            "params": torch.cat([p.detach().flatten() for p in state.optimizer.params]),
+        }
+
+    def rel_l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def rel(a, b):
+        """Relative L2 per quantity; for the update, the median leaf's. Not
+        held to a bar: the update's worst leaf and whole vector, and the
+        share of gradient elements whose sign differs (Adam's first step
+        moves each weight by about lr * sign(g), so a share f of flipped
+        signs gives the whole update a relative L2 near 2 * sqrt(f))."""
+        out = {k: rel_l2(a[k], b[k]) for k in a if k != "update"}
+        leaves = [rel_l2(x, y) for x, y in zip(a["update"], b["update"])]
+        out["update"] = float(np.median(leaves))
+        out["update_worst_leaf"] = max(leaves)
+        out["update_whole"] = rel_l2(torch.cat([x.flatten() for x in a["update"]]),
+                                     torch.cat([y.flatten() for y in b["update"]]))
+        out["grad_sign_flips"] = float((a["grads"].sign() != b["grads"].sign()).float().mean())
+        return out
+
+    k32 = one_step(DTypePolicy.fp32(), "auto")
+    p32 = one_step(DTypePolicy.fp32(), "reference")
+    k16 = one_step(DTypePolicy.bf16(), "auto")
+    p16 = one_step(DTypePolicy.bf16(), "reference")
+    readings = {"fp32": rel(k32, p32), "bf16": rel(k16, p16), "control": rel(p16, p32),
+                "kernel_bf16_vs_plain_fp32": rel(k16, p32)}
+    for name, r in readings.items():
+        label = {"fp32": "kernel vs plain, fp32", "bf16": "kernel vs plain, bf16",
+                 "control": "control: plain bf16 vs plain fp32",
+                 "kernel_bf16_vs_plain_fp32": "kernel bf16 vs plain fp32"}[name]
+        log(f"[parity] {label}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
+    for name in ("fp32", "bf16"):
+        for k, tol in PARITY_TOL[name].items():
+            v = readings[name][k]
+            if not v <= tol:
+                raise AssertionError(f"step parity {name} {k}: {v:.3e} > {tol:g}")
+
+    # Launches of one sensed and one unsensed step on the kernel path (bf16).
+    state = train_state(cfg.replace(dtypes=DTypePolicy.bf16()), weights, device)
+    per_step = {}
+    for sensed, step in ((True, clip_train_step), (False, make_nosense_step(cfg))):
+        kernels.reset_launches()
+        step(state, batch)
+        torch.cuda.synchronize()
+        per_step["sensed" if sensed else "unsensed"] = got = dict(kernels.launches)
+        want = {k: v for k, v in launches_per_step(cfg, sensed).items() if v}
+        if got != want:
+            raise AssertionError(f"launches of one {'sensed' if sensed else 'unsensed'} step: {got} != {want}")
+    log(f"[parity] launches per step on the kernel path: {per_step}")
+    return {"readings": readings, "launches_per_step": per_step}
+
+
+def phase_train_timing(device) -> dict:
+    """Step times at vit_b16_hd128, bf16, batch 128 (kernel path vs
+    all-plain path in turns), pairs/s with sensing every 8th step, the
+    neuron slow loop over the 24 layers, and one sensed step under the
+    profiler."""
+    import torch
+
+    from forde_tpu_torch.brain.neuron_slow_loop import neuron_slow_loop_step
+    from forde_tpu_torch.train.clip_step import clip_train_step, make_nosense_step
+
+    cfg = main_path_config().replace(sense=True)
+    weights = build_model(cfg, device).state_dict()
+    batch = training_batch(cfg, 128, device, SEED + 6)
+    batch["image"] = batch["image"].to(cfg.dtypes.compute)
+    nosense = make_nosense_step(cfg)
+    kernel_state = train_state(cfg, weights, device)
+    plain_state = train_state(cfg, weights, device, impl="reference")
+
+    def step_ms(state, step, plain=False, reps=5):
+        def run():
+            if plain:
+                with plain_moment_sums():
+                    step(state, batch)
+            else:
+                step(state, batch)
+        for _ in range(2):
+            run()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    p1 = step_ms(plain_state, clip_train_step, plain=True)
+    k1 = step_ms(kernel_state, clip_train_step)
+    k2 = step_ms(kernel_state, clip_train_step)
+    p2 = step_ms(plain_state, clip_train_step, plain=True)
+    sensed_ms, plain_sensed_ms = min(k1, k2), min(p1, p2)
+    unsensed_ms = step_ms(kernel_state, nosense)
+    plain_unsensed_ms = step_ms(plain_state, nosense, plain=True)
+    pairs = 128 * 8 / (sensed_ms + 7 * unsensed_ms) * 1e3
+    plain_pairs = 128 * 8 / (plain_sensed_ms + 7 * plain_unsensed_ms) * 1e3
+    log(f"[time] train step, batch 128: sensed {k1:.2f} / {k2:.2f} ms (plain path "
+        f"{p1:.2f} / {p2:.2f} ms), unsensed {unsensed_ms:.2f} ms (plain path "
+        f"{plain_unsensed_ms:.2f} ms); median of 5 each")
+    log(f"[time] pairs/s with sensing every 8th step: kernel path {pairs:.1f}, "
+        f"plain path {plain_pairs:.1f}")
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    slow = []
+    for _ in range(3):
+        clip_train_step(kernel_state, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diag = neuron_slow_loop_step(
+            kernel_state.model, kernel_state.grad_stats, kernel_state.grad_step_count, gen
+        )
+        skipped = bool(diag["skipped"])
+        torch.cuda.synchronize()
+        slow.append((time.perf_counter() - t0) * 1e3)
+        if skipped:
+            raise AssertionError("the timed slow loop skipped its update")
+    log(f"[time] neuron slow loop (GMM, {cfg.vision.num_layers} + {cfg.text.num_layers} layers): "
+        f"{' / '.join(f'{t:.2f}' for t in slow)} ms")
+    profile_device(lambda: neuron_slow_loop_step(
+        kernel_state.model, kernel_state.grad_stats, kernel_state.grad_step_count, gen
+    ), "one neuron slow loop (GMM)")
+
+    prof = profile_device(lambda: clip_train_step(kernel_state, batch),
+                          "one sensed train step (batch 128)")
+    return {"sensed_step_ms": sensed_ms, "unsensed_step_ms": unsensed_ms,
+            "plain_sensed_step_ms": plain_sensed_ms, "plain_unsensed_step_ms": plain_unsensed_ms,
+            "pairs_per_s_sense8": pairs, "plain_pairs_per_s_sense8": plain_pairs,
+            "slow_loop_ms": float(np.median(slow)), "sensed_step_idle_share": prof["idle_share"]}
+
+
+def moment_bound(n, f, dtype_name) -> tuple:
+    """(ms by bytes, ms by operations) of one moment_sums: x read once and
+    (3, F) fp32 written; 4 fp32 operations per element (abs-add, fused
+    multiply-add, add) on the CUDA cores."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    moved = n * f * elem + 3 * f * 4
+    return moved / HBM_BYTES_PER_S * 1e3, 4.0 * n * f / PEAK_OPS_PER_S["float32"] * 1e3
+
+
+def time_kernel(label, kernel_fns, plain_fns, library_fns, bytes_ms, ops_ms, **shape) -> dict:
+    """CUDA-event ms of a kernel, its plain version and PyTorch's one-call
+    equivalent (None: there is none), each cycling through its closures,
+    beside the bound."""
+    k_ms, p_ms = cuda_ms(kernel_fns), cuda_ms(plain_fns)
+    l_ms = None if library_fns is None else cuda_ms(library_fns)
+    b_ms, b_by = bound(bytes_ms, ops_ms)
+    log(f"[time] {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+        f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
+    return {**shape, "dtype": "bfloat16", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms, "operations_ms": ops_ms}
+
+
+def phase_kernel_timing(device, cfg, encode_ms) -> dict:
+    """Per call of each kernel at the training shapes of vit_b16_hd128
+    (bf16, batch 128, text lengths 4-64): kernel, plain version, the
+    library yardstick (scaled_dot_product_attention's forward and its
+    backward on the same q/k/v; none for the moment sums) and the bound.
+    Inputs cycle through copies that together exceed the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from forde_tpu_torch.ops import flash_attention as fa
+    from forde_tpu_torch.ops import stat_sums
+
+    batch = 128
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    lens = torch.randint(4, cfg.max_text_len + 1, (batch,), device=device,
+                         generator=gen).to(torch.int32)
+    pos = torch.arange(cfg.max_text_len, device=device)
+    s_vision = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    s_vision = -(-s_vision // 8) * 8  # CLS + patches + registers
+    out = {"flash_mha_fwd": {}, "flash_mha_bwd": {}, "moment_sums": {}}
+    for name, tw, s, shape_lens in (
+        ("vision", cfg.vision, s_vision, None),
+        ("text", cfg.text, cfg.max_text_len, lens),
+    ):
+        h, d = tw.num_heads, tw.head_dim
+        scale = d ** -0.5
+        copies = max(2, -(-200_000_000 // (batch * s * 3 * h * d * 2)))
+        args = (h, d, scale, None, False, None)
+        attn_mask = None if shape_lens is None else (
+            pos[None, None, None, :s] < shape_lens[:, None, None, None]
+        )
+        inputs = []
+        for _ in range(copies):
+            qkv = (torch.randn(batch, s, 3 * h * d, device=device, generator=gen) * 0.5).to(torch.bfloat16)
+            do = torch.randn(batch, s, h * d, device=device, generator=gen).to(torch.bfloat16)
+            _, lse = fa.flash_mha_fwd(qkv, shape_lens, *args)
+            q, k, v = (t.transpose(1, 2).detach().requires_grad_(True)
+                       for t in qkv.view(batch, s, 3, h, d).unbind(2))
+            o = F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
+            inputs.append((qkv, do, lse, (q, k, v), o, do.view(batch, s, h, d).transpose(1, 2)))
+
+        def sdpa(q, k, v):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
+
+        shape = {"B": batch, "S": s, "H": h, "D": d}
+        label = f"{name} (B={batch}, S={s}, H={h}, D={d}, bf16)"
+        out["flash_mha_fwd"][name] = time_kernel(
+            f"flash_mha_fwd {label}",
+            [lambda i=i: fa.flash_mha_fwd(i[0], shape_lens, *args) for i in inputs],
+            [lambda i=i: fa.flash_mha_fwd_reference(i[0], shape_lens, *args) for i in inputs],
+            [lambda i=i: sdpa(*i[3]) for i in inputs],
+            *attention_bound(batch, s, h, d, "bfloat16", shape_lens), **shape)
+        out["flash_mha_bwd"][name] = time_kernel(
+            f"flash_mha_bwd {label}",
+            [lambda i=i: fa.flash_mha_bwd(i[0], shape_lens, i[2], i[1], *args) for i in inputs],
+            [lambda i=i: fa.flash_mha_bwd_reference(i[0], shape_lens, i[2], i[1], *args)
+             for i in inputs],
+            [lambda i=i: i[4].backward(i[5], retain_graph=True) for i in inputs],
+            *attention_bound(batch, s, h, d, "bfloat16", shape_lens, backward=True), **shape)
+        del inputs
+
+        n, f = batch * s, tw.mlp_hidden_dim
+        xs = [torch.randn(n, f, device=device, generator=gen).to(torch.bfloat16)
+              for _ in range(max(2, -(-200_000_000 // (n * f * 2))))]
+        out["moment_sums"][name] = time_kernel(
+            f"moment_sums {name} z ({n} x {f}, bf16)",
+            [lambda x=x: stat_sums.moment_sums(x) for x in xs],
+            [lambda x=x: stat_sums.moment_sums_reference(x) for x in xs],
+            None, *moment_bound(n, f, "bfloat16"), N=n, F=f)
+        del xs
+    fwd = out["flash_mha_fwd"]
+    attn_share = (cfg.vision.num_layers * fwd["vision"]["ms"]
+                  + cfg.text.num_layers * fwd["text"]["ms"]) / encode_ms
+    log(f"[time] attention kernel share of the kernel-path encode: {attn_share:.3f}")
+    return out
 
 
 def main() -> int:
@@ -449,40 +1017,60 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
 
     phase_build()
-    max_err = phase_check(device)
+    max_err = dict(zip(("flash_mha_fwd", "flash_mha_bwd"), phase_check_attention(device)))
+    max_err["moment_sums"] = phase_check_moments(device)
 
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         main_run = phase_main_path(device, workdir)
-    timing = phase_timing(device, main_run["model"], main_run["cfg"])
+        train_run = phase_train_path(workdir)
+    check_prefetch(device)
+    parity = phase_step_parity(device)
+    timing = phase_encode_timing(device, main_run["model"], main_run["cfg"])
+    shapes = phase_kernel_timing(device, main_run["cfg"], timing["encode_ms"])
+    train_timing = phase_train_timing(device)
 
-    v, t = timing["shapes"]["vision"], timing["shapes"]["text"]
-    bound_ms, bound_by = bound(
-        v["bytes_ms"] + t["bytes_ms"], v["operations_ms"] + t["operations_ms"]
-    )
-    entry = {
-        "name": "flash_mha_fwd",
-        "route": "cuda",
-        "source": "forde_tpu_torch/csrc/flash_mha_fwd.cu",
-        "replaces": "forde_tpu/ops/flash_attention.py:992",
-        "launches": main_run["launches"].get("flash_mha_fwd", 0),
-        "max_abs_err": max_err,
-        # One call at the vision shape plus one at the text shape (a layer
-        # of each tower at batch 128); "shapes" has each on its own.
-        "ms": v["ms"] + t["ms"],
-        "plain_ms": v["plain_ms"] + t["plain_ms"],
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": v["library_ms"] + t["library_ms"],
-        "shapes": timing["shapes"],
-    }
+    entries = []
+    for name, replaces in (
+        ("flash_mha_fwd", "forde_tpu/ops/flash_attention.py:992"),
+        ("flash_mha_bwd", "forde_tpu/ops/flash_attention.py:1036"),
+        ("moment_sums", "forde_tpu/ops/stat_sums.py:28"),
+    ):
+        v, t = shapes[name]["vision"], shapes[name]["text"]
+        bound_ms, bound_by = bound(
+            v["bytes_ms"] + t["bytes_ms"], v["operations_ms"] + t["operations_ms"]
+        )
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"forde_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces,
+            # The training path's run (phase 5); the embedding path's below.
+            "launches": train_run["launches"].get(name, 0),
+            "launches_by_path": {
+                "embed": main_run["launches"].get(name, 0),
+                "train": train_run["launches"].get(name, 0),
+            },
+            "max_abs_err": max_err[name],
+            # One call at the vision shape plus one at the text shape (a
+            # layer of each tower at batch 128); "shapes" has each alone.
+            "ms": v["ms"] + t["ms"],
+            "plain_ms": v["plain_ms"] + t["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": None if v["library_ms"] is None else v["library_ms"] + t["library_ms"],
+            "shapes": shapes[name],
+        })
     result = {
-        "kernels": [entry],
+        "kernels": entries,
         "encode_ms_batch128": timing["encode_ms"],
         "plain_encode_ms_batch128": timing["plain_encode_ms"],
         "pairs_per_s": timing["pairs_per_s"],
         "min_cosine_vs_plain": {
             k: main_run[f"min_cosine_{k}"] for k in ("fp32", "bf16", "plain_bf16_vs_fp32")
         },
+        "train_path": {k: train_run[k] for k in ("seconds", "final_loss", "brain_update_ms")},
+        "train_step_batch128": train_timing,
+        "step_parity": parity,
         "card": smi,
     }
     print(smi)

@@ -63,11 +63,13 @@ class TowerConfig:
 class DualEncoderConfig:
     """CLIP-style dual encoder with StatefulLayer blocks.
 
-    ``attention_kernel_impl``: "auto" runs the fused attention kernel on
-    CUDA (its plain version on CPU tensors); "reference" runs the plain
-    masked-attention path everywhere. ``num_neuron_types``,
-    ``forde_lite``, ``stateful_kernel_impl`` and ``remat`` are kept for the
-    checkpoint schema; serving reads none of them.
+    ``attention_kernel_impl``: "auto" runs the fused attention kernels on
+    CUDA (their plain versions on CPU tensors); "reference" runs the plain
+    masked-attention path everywhere. ``sense`` builds the StatefulLayers'
+    fast-loop state (a call still chooses whether to sense);
+    ``forde_lite`` picks the slow loop's rule-based assigner over the GMM.
+    ``num_neuron_types``, ``stateful_kernel_impl`` and ``remat`` are kept
+    for the checkpoint schema; the port reads none of them.
     """
 
     image_size: int = 224
@@ -158,6 +160,21 @@ def vit_b16_hd128_config() -> DualEncoderConfig:
         ),
         embed_dim=512,
     )
+
+
+@dataclass(frozen=True)
+class BrainConfig:
+    """Sense -> Cluster -> Smooth -> Actuate: the fields of the JAX
+    package's ``BrainConfig`` that the neuron slow loop reads, with its
+    defaults (the router fields come with the MoE loop)."""
+
+    num_clusters: int = 3
+    gmm_iterations: int = 50
+    gmm_kmeans_iterations: int = 10
+    smoothing_kernel_size: int = 3
+    # Forde-lite rule thresholds
+    lite_spec_grad_gini: float = 0.8
+    lite_pool_act_gini: float = 0.3
 
 
 PRESETS = {

@@ -35,51 +35,24 @@
 // cores in fp32, so this kernel is bound by its arithmetic, not by the
 // bytes above; tensor cores (wgmma) and TMA are the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 
+#include "common.cuh"
+
 namespace {
+
+using forde::from_float;
+using forde::load_tile;
+using forde::visible;
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 x 16 thread grid
 constexpr float MASK_VALUE = -1e30f;
 
-template <typename T>
-__device__ __forceinline__ float to_float(T x);
-template <>
-__device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int D>
 constexpr size_t smem_bytes() {
   return ((BQ + BK) * (D + 1) + BQ * (BK + 1) + 3 * BQ) * sizeof(float);
-}
-
-// Rows [0, 64) of a tile from a strided (row stride `stride`) D-wide slice
-// into fp32 shared memory with row pitch D + 1; rows at or past `limit`
-// are zero.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int limit, long long stride) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int g = row0 + r;
-    dst[r * (D + 1) + d] = g < limit ? to_float(src[g * stride + d]) : 0.f;
-  }
 }
 
 template <typename T, int D>
@@ -127,7 +100,7 @@ flash_mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ lens,
   // scores (m = -1e30, zeroed output, lse = -1e30) as the TPU kernel does.
   if (j_end <= j_begin) j_end = j_begin + 1;
 
-  load_tile<T, D>(q_s, q_g, q0, S, stride);
+  load_tile<T, D, THREADS>(q_s, q_g, q0, S, stride);
   if (tid < BQ) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -141,7 +114,7 @@ flash_mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ lens,
   for (int jt = j_begin; jt < j_end; ++jt) {
     const int k0 = jt * BK;
     __syncthreads();  // the previous tile is done with kv_s and p_s
-    load_tile<T, D>(kv_s, k_g, k0, S, stride);
+    load_tile<T, D, THREADS>(kv_s, k_g, k0, S, stride);
     __syncthreads();
 
     // Scores of rows ty + 16i, keys tx + 16j.
@@ -175,10 +148,7 @@ flash_mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ lens,
           s = -INFINITY;  // not a key at all: contributes nothing
         } else {
           s = sc[i][j] * scale;
-          bool visible = kc < kv_len;
-          if (causal) visible = visible && qr >= kc;
-          if (window >= 0) visible = visible && (qr - kc) < window;
-          if (!visible) s = MASK_VALUE;
+          if (!visible(qr, kc, kv_len, causal, window)) s = MASK_VALUE;
         }
         p_s[r * LP + c] = s;
       }
@@ -213,7 +183,7 @@ flash_mha_fwd_kernel(const T* __restrict__ qkv, const int* __restrict__ lens,
       }
     }
     // K is no longer read: the same buffer takes V.
-    load_tile<T, D>(kv_s, v_g, k0, S, stride);
+    load_tile<T, D, THREADS>(kv_s, v_g, k0, S, stride);
     __syncthreads();
 
     // acc = alpha * acc + P V for rows ty + 16i, columns tx + 16j.
@@ -297,10 +267,6 @@ int forde_flash_mha_fwd(const void* qkv, const void* lens, void* o, void* lse,
     return launch<__nv_bfloat16, 128>(qkv, lens, o, lse, batch, seq, heads,
                                       scale, causal, window, kv_bound, st);
   return (int)cudaErrorInvalidValue;
-}
-
-const char* forde_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -9,6 +9,13 @@ A Flax path maps to a ``state_dict`` key by joining its names with "."
 * ``cls_token``, ``register_tokens``, ``pos_embed``, ``logit_scale``
                               -> parameters of the same name
 * brain ``neuron_assignments`` -> the int32 buffer of the same name
+* stats_buffer ``act_stats`` (fp32), ``step_count`` (int32)
+                              -> the StatefulLayer buffers of the same name
+
+The JAX train state's ``perturbations`` (the zero tap slots) and
+``grad_stats`` trees hold one (F, 2) leaf ``z_tap`` per StatefulLayer; the
+port keys the same arrays by the layer's module name
+(``vision/block_0/stateful/z_tap`` <-> ``vision.blocks.0.stateful``).
 
 Trees are nested dicts of numpy arrays, ``{"params": ..., "brain": ...}``
 flattened as "/"-joined paths in a checkpoint's ``params.npz``.
@@ -33,6 +40,8 @@ _LEAF_TO_TORCH = {
     "logit_scale": "logit_scale",
 }
 _BRAIN_LEAVES = ("neuron_assignments",)
+_STATS_LEAVES = {"act_stats": np.float32, "step_count": np.int32}
+_TAP_LEAF = "z_tap"
 _BLOCK = re.compile(r"^block_(\d+)$")
 
 
@@ -75,8 +84,10 @@ def flax_to_state_dict(
     params: Mapping,
     brain: Mapping,
     expected: Optional[Mapping[str, torch.Tensor]] = None,
+    stats_buffer: Optional[Mapping] = None,
 ) -> Dict[str, torch.Tensor]:
-    """The Flax ``params`` and ``brain`` collections -> a ``state_dict``.
+    """The Flax ``params``, ``brain`` and (optional) ``stats_buffer``
+    collections -> a ``state_dict``.
 
     With ``expected`` (a module's ``state_dict()``), raises on any key it
     leaves unused, any key it is missing, and any shape that differs;
@@ -93,6 +104,10 @@ def flax_to_state_dict(
     for path, value in flatten(brain).items():
         key = _torch_key(path, {n: n for n in _BRAIN_LEAVES})
         out[key] = torch.from_numpy(np.array(value, np.int32))
+    for path, value in flatten(stats_buffer or {}).items():
+        leaf = path.rsplit("/", 1)[-1]
+        key = _torch_key(path, {n: n for n in _STATS_LEAVES})
+        out[key] = torch.from_numpy(np.array(value, _STATS_LEAVES[leaf]))
     if expected is None:
         return out
     unused = sorted(set(out) - set(expected))
@@ -109,15 +124,20 @@ def flax_to_state_dict(
 
 
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
-    """Inverse of ``flax_to_state_dict``: {"params": tree, "brain": tree}
-    of numpy arrays, the JAX package's layout."""
+    """Inverse of ``flax_to_state_dict``: {"params": tree, "brain": tree,
+    "stats_buffer": tree} of numpy arrays, the JAX package's layout
+    (``stats_buffer`` empty for a model built without sensing)."""
     params: Dict[str, np.ndarray] = {}
     brain: Dict[str, np.ndarray] = {}
+    stats: Dict[str, np.ndarray] = {}
     for key, t in state_dict.items():
         *names, leaf = key.replace("blocks.", "block_").split(".")
         value = t.detach().cpu()
         if leaf in _BRAIN_LEAVES:
             brain["/".join(names + [leaf])] = value.numpy().astype(np.int32)
+            continue
+        if leaf in _STATS_LEAVES:
+            stats["/".join(names + [leaf])] = value.numpy().astype(_STATS_LEAVES[leaf])
             continue
         value = value.float().numpy()
         if leaf == "weight":
@@ -129,4 +149,27 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict
             else:
                 leaf = "scale"
         params["/".join(names + [leaf])] = np.array(value)
-    return {"params": unflatten(params), "brain": unflatten(brain)}
+    return {
+        "params": unflatten(params), "brain": unflatten(brain),
+        "stats_buffer": unflatten(stats),
+    }
+
+
+def grad_stats_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """A ``perturbations`` or ``grad_stats`` tree -> {layer name: (F, 2)
+    fp32 tensor}."""
+    out = {}
+    for path, value in flatten(tree).items():
+        key = _torch_key(path, {_TAP_LEAF: _TAP_LEAF})
+        out[key.removesuffix("." + _TAP_LEAF)] = torch.from_numpy(np.array(value, np.float32))
+    return out
+
+
+def grad_stats_to_flax(grad_stats: Mapping[str, torch.Tensor]) -> dict:
+    """Inverse of ``grad_stats_from_flax``: the JAX package's tree of
+    numpy arrays."""
+    return unflatten({
+        "/".join(name.replace("blocks.", "block_").split(".") + [_TAP_LEAF]):
+            t.detach().cpu().float().numpy()
+        for name, t in grad_stats.items()
+    })

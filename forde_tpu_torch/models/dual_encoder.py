@@ -65,7 +65,9 @@ class VisionTransformer(torch.nn.Module):
         self.blocks = _blocks(cfg, tw, device)
         self.final_norm = LayerNorm(tw.d_model, dtype=self.dtype, param_dtype=pdt, device=device)
 
-    def forward(self, images: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
+    def forward(
+        self, images: torch.Tensor, deterministic: bool = True, sense: bool = False
+    ) -> torch.Tensor:
         dtype = self.dtype
         b, h, w, c = images.shape
         p = self.patch_size
@@ -80,7 +82,7 @@ class VisionTransformer(torch.nn.Module):
             parts.append(self.register_tokens.to(dtype).expand(b, -1, -1))
         x = torch.cat(parts, dim=1) + self.pos_embed.to(dtype)
         for block in self.blocks:
-            x = block(x, None, deterministic)
+            x = block(x, None, deterministic, sense)
         return self.final_norm(x)[:, 0, :]
 
 
@@ -107,6 +109,7 @@ class TextTransformer(torch.nn.Module):
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        sense: bool = False,
     ) -> torch.Tensor:
         dtype = self.dtype
         b, s = input_ids.shape
@@ -115,7 +118,7 @@ class TextTransformer(torch.nn.Module):
         x = self.token_embed(input_ids.to(torch.int64)).to(dtype)
         x = x + self.pos_embed[:, :s].to(dtype)
         for block in self.blocks:
-            x = block(x, attention_mask, deterministic)
+            x = block(x, attention_mask, deterministic, sense)
         return self.final_norm(x)[:, 0, :]
 
 
@@ -125,7 +128,9 @@ class FORDEDualEncoder(torch.nn.Module):
     ``encode_image`` / ``encode_text`` are the serving surface; both
     return fp32 embeddings. Parameters start from ``init_params`` with a
     ``torch.Generator`` (Flax's initialisers, normal where Flax truncates)
-    or come from a checkpoint.
+    or come from a checkpoint. ``sense=True`` on a call accumulates the
+    fast-loop statistics of every StatefulLayer (a model built with
+    ``config.sense``); the default leaves them as they are.
     """
 
     def __init__(
@@ -178,13 +183,16 @@ class FORDEDualEncoder(torch.nn.Module):
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        sense: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        img_emb = self.encode_image(images, deterministic)
-        txt_emb = self.encode_text(input_ids, attention_mask, deterministic)
+        img_emb = self.encode_image(images, deterministic, sense)
+        txt_emb = self.encode_text(input_ids, attention_mask, deterministic, sense)
         return img_emb, txt_emb, self.logit_scale
 
-    def encode_image(self, images: torch.Tensor, deterministic: bool = True) -> torch.Tensor:
-        feat = self.vision(images, deterministic)
+    def encode_image(
+        self, images: torch.Tensor, deterministic: bool = True, sense: bool = False
+    ) -> torch.Tensor:
+        feat = self.vision(images, deterministic, sense)
         return self.image_projection(feat).float()
 
     def encode_text(
@@ -192,8 +200,9 @@ class FORDEDualEncoder(torch.nn.Module):
         input_ids: torch.Tensor,
         attention_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        sense: bool = False,
     ) -> torch.Tensor:
-        feat = self.text(input_ids, attention_mask, deterministic)
+        feat = self.text(input_ids, attention_mask, deterministic, sense)
         return self.text_projection(feat).float()
 
 

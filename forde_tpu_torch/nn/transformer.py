@@ -92,9 +92,12 @@ class FORDETransformerBlock(torch.nn.Module):
         x: torch.Tensor,
         key_padding_mask: Optional[torch.Tensor] = None,
         deterministic: bool = True,
+        sense: bool = False,
     ) -> torch.Tensor:
+        """``sense``: this call accumulates the StatefulLayer's fast-loop
+        statistics (nn/stateful.py)."""
         training = not deterministic
         attn_out = self.attention(self.attn_norm(x), key_padding_mask)
         x = x + F.dropout(attn_out, self.dropout_rate, training=training)
-        mlp_out = self.stateful(self.mlp_norm(x))
+        mlp_out = self.stateful(self.mlp_norm(x), sense)
         return x + F.dropout(mlp_out, self.dropout_rate, training=training)

@@ -3,11 +3,16 @@
 
 ``flash_mha`` reads q/k/v straight out of the (B, S, 3*H*D) output of the
 qkv projection and returns (B, S, H*D) ready for the output projection:
-no head split or merge copies. On a CUDA tensor it launches the
-hand-written kernel ``csrc/flash_mha_fwd.cu`` (``flash_mha_fwd``); on a
-CPU tensor the same wrapper runs the kernel's plain version
-(``flash_mha_fwd_reference``). ``flash_mha_reference`` is the plain masked
-attention path the JAX package runs as ``impl="reference"``.
+no head split or merge copies. Its gradient is a ``torch.autograd.Function``
+(``FlashMHAFused``, the JAX package's ``custom_vjp``): the forward saves the
+fp32 row log-sum-exp, the backward recomputes p from it and writes dq, dk
+and dv into one (B, S, 3*H*D) tensor. On a CUDA tensor the two wrappers
+launch the hand-written kernels ``csrc/flash_mha_fwd.cu``
+(``flash_mha_fwd``) and ``csrc/flash_mha_bwd.cu`` (``flash_mha_bwd``); on a
+CPU tensor they run the kernels' plain versions
+(``flash_mha_fwd_reference``, ``flash_mha_bwd_reference``).
+``flash_mha_reference`` is the plain masked attention path the JAX package
+runs as ``impl="reference"``, differentiated by autograd.
 
 The 4-D flash-attention family (the JAX package's route for head_dim not
 a multiple of 64 or S > 512) is not ported yet: such shapes raise on CUDA.
@@ -88,17 +93,58 @@ def flash_mha_fwd_reference(
     return o, lse
 
 
-def _library() -> ctypes.CDLL:
-    """The built kernel library, its C signature declared."""
-    lib = build.load("flash_mha_fwd")
-    fn = lib.forde_flash_mha_fwd
+def _library(name: str, n_pointers: int) -> ctypes.CDLL:
+    """The built kernel library ``csrc/<name>.cu``, its C signature
+    declared: ``n_pointers`` tensors, then (batch, seq, heads, head_dim,
+    dtype, scale, causal, window, kv_bound, stream)."""
+    lib = build.load(name)
+    fn = getattr(lib, f"forde_{name}")
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
+
+
+def _check_kernel_args(
+    name: str,
+    qkv: torch.Tensor,
+    lens: Optional[torch.Tensor],
+    num_heads: int,
+    head_dim: int,
+    window: Optional[int],
+) -> Optional[torch.Tensor]:
+    """Raise on what the CUDA kernels do not take; returns ``lens`` as a
+    contiguous int32 tensor (or None)."""
+    if qkv.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {qkv.device}")
+    b, s, three_hd = qkv.shape
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {qkv.dtype}")
+    if head_dim not in (64, 128):
+        raise ValueError(f"{name} takes head_dim 64 or 128, got {head_dim}")
+    if three_hd != 3 * num_heads * head_dim:
+        raise ValueError(f"qkv width {three_hd} != 3 * {num_heads} * {head_dim}")
+    if s > MAX_FUSED_SEQ:
+        raise ValueError(f"{name} takes S <= {MAX_FUSED_SEQ}, got {s}")
+    if not qkv.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous qkv")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    if lens is None:
+        return None
+    if lens.shape != (b,) or lens.device != qkv.device:
+        raise ValueError(f"lens must be ({b},) on {qkv.device}")
+    return lens.to(torch.int32).contiguous()
+
+
+def _mask_args(window, causal, kv_bound) -> tuple:
+    return (
+        int(causal), -1 if window is None else int(window),
+        -1 if kv_bound is None else int(kv_bound),
+    )
 
 
 def flash_mha_fwd(
@@ -123,42 +169,133 @@ def flash_mha_fwd(
         return flash_mha_fwd_reference(
             qkv, lens, num_heads, head_dim, scale, window, causal, kv_bound
         )
-    if qkv.device.type != "cuda":
-        raise ValueError(f"flash_mha_fwd takes CPU or CUDA tensors, got {qkv.device}")
-    b, s, three_hd = qkv.shape
-    if qkv.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_mha_fwd takes float32 or bfloat16, got {qkv.dtype}")
-    if head_dim not in (64, 128):
-        raise ValueError(f"flash_mha_fwd takes head_dim 64 or 128, got {head_dim}")
-    if three_hd != 3 * num_heads * head_dim:
-        raise ValueError(f"qkv width {three_hd} != 3 * {num_heads} * {head_dim}")
-    if s > MAX_FUSED_SEQ:
-        raise ValueError(f"flash_mha_fwd takes S <= {MAX_FUSED_SEQ}, got {s}")
-    if not qkv.is_contiguous():
-        raise ValueError("flash_mha_fwd needs a contiguous qkv")
-    if window is not None and window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
-    lens_ptr = None
-    if lens is not None:
-        if lens.shape != (b,) or lens.device != qkv.device:
-            raise ValueError(f"lens must be ({b},) on {qkv.device}")
-        lens = lens.to(torch.int32).contiguous()
-        lens_ptr = lens.data_ptr()
+    lens = _check_kernel_args("flash_mha_fwd", qkv, lens, num_heads, head_dim, window)
+    b, s, _ = qkv.shape
     o = torch.empty(b, s, num_heads * head_dim, dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty(b, num_heads, s, 1, dtype=torch.float32, device=qkv.device)
 
-    lib = _library()
+    lib = _library("flash_mha_fwd", 4)
     with torch.cuda.device(qkv.device):
         err = lib.forde_flash_mha_fwd(
-            qkv.data_ptr(), lens_ptr, o.data_ptr(), lse.data_ptr(),
+            qkv.data_ptr(), None if lens is None else lens.data_ptr(),
+            o.data_ptr(), lse.data_ptr(),
             b, s, num_heads, head_dim, _DTYPE_CODES[qkv.dtype], scale,
-            int(causal), -1 if window is None else int(window),
-            -1 if kv_bound is None else int(kv_bound),
+            *_mask_args(window, causal, kv_bound),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     build.check(lib, err, "flash_mha_fwd")
     kernels.launches["flash_mha_fwd"] += 1
     return o, lse
+
+
+def flash_mha_bwd_reference(
+    qkv: torch.Tensor,
+    lens: Optional[torch.Tensor],
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_bound: Optional[int],
+) -> torch.Tensor:
+    """Plain version of the backward kernel: the arithmetic of the TPU
+    kernel ``_mha_bwd_kernel`` on the same arguments. p = exp(s - lse) is
+    *selected* to 0 where masked (a row with no visible key has lse =
+    -1e30 and would give inf); delta = sum(p * dp) per row; p is rounded
+    to ``do.dtype`` for dv and ds to ``qkv.dtype`` for dq and dk. Returns
+    dqkv (B, S, 3*H*D) in the input dtype."""
+    b, s, _ = qkv.shape
+    h, d = num_heads, head_dim
+    q, k, v = (t.float() for t in qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4))
+    dof = do.reshape(b, s, h, d).transpose(1, 2).float()
+    p = torch.exp(torch.matmul(q, k.transpose(-1, -2)) * scale - lse)
+    mask = _visible(s, qkv.device, causal, window, lens, kv_bound)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), dtype=p.dtype, device=p.device))
+    pb = p.to(do.dtype).float()
+    dv = torch.matmul(pb.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.transpose(-1, -2))
+    delta = torch.sum(p * dp, dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv], dim=2)  # (B, H, 3, S, D)
+    return dqkv.permute(0, 3, 2, 1, 4).reshape(b, s, 3 * h * d).to(qkv.dtype)
+
+
+def flash_mha_bwd(
+    qkv: torch.Tensor,
+    lens: Optional[torch.Tensor],
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    num_heads: int,
+    head_dim: int,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_bound: Optional[int],
+) -> torch.Tensor:
+    """The backward kernel's wrapper: dqkv (B, S, 3*H*D) in the input
+    dtype, from qkv, the forward's lse (B, H, S, 1) fp32 and the output
+    gradient ``do`` (B, S, H*D) in the input dtype. Arguments as
+    ``flash_mha_fwd``. A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel on the current stream, or raises."""
+    if qkv.device.type == "cpu":
+        return flash_mha_bwd_reference(
+            qkv, lens, lse, do, num_heads, head_dim, scale, window, causal, kv_bound
+        )
+    lens = _check_kernel_args("flash_mha_bwd", qkv, lens, num_heads, head_dim, window)
+    b, s, _ = qkv.shape
+    if do.shape != (b, s, num_heads * head_dim) or do.dtype != qkv.dtype:
+        raise ValueError(f"do must be ({b}, {s}, {num_heads * head_dim}) {qkv.dtype}")
+    if lse.shape != (b, num_heads, s, 1) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be ({b}, {num_heads}, {s}, 1) float32")
+    if not (do.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_mha_bwd needs a contiguous do and lse")
+    if do.device != qkv.device or lse.device != qkv.device:
+        raise ValueError(f"do and lse must be on {qkv.device}")
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty(b, num_heads, s, dtype=torch.float32, device=qkv.device)
+
+    lib = _library("flash_mha_bwd", 6)
+    with torch.cuda.device(qkv.device):
+        err = lib.forde_flash_mha_bwd(
+            qkv.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            None if lens is None else lens.data_ptr(),
+            dqkv.data_ptr(), delta.data_ptr(),
+            b, s, num_heads, head_dim, _DTYPE_CODES[qkv.dtype], scale,
+            *_mask_args(window, causal, kv_bound),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    build.check(lib, err, "flash_mha_bwd")
+    kernels.launches["flash_mha_bwd"] += 1
+    return dqkv
+
+
+class FlashMHAFused(torch.autograd.Function):
+    """``flash_mha_fwd`` with ``flash_mha_bwd`` as its gradient (the JAX
+    package's ``_flash_mha_fused`` custom_vjp). The forward saves qkv,
+    lens and the fp32 lse; ``lens`` and the static arguments get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, qkv, lens, num_heads, head_dim, scale, window, causal, kv_bound):
+        o, lse = flash_mha_fwd(qkv, lens, num_heads, head_dim, scale, window, causal, kv_bound)
+        ctx.save_for_backward(qkv, lens, lse)
+        ctx.static = (num_heads, head_dim, scale, window, causal, kv_bound)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        qkv, lens, lse = ctx.saved_tensors
+        num_heads, head_dim, scale, window, causal, kv_bound = ctx.static
+        dqkv = flash_mha_bwd(
+            qkv, lens, lse, do.contiguous(), num_heads, head_dim, scale,
+            window, causal, kv_bound,
+        )
+        return dqkv, None, None, None, None, None, None, None
 
 
 def flash_mha_reference(
@@ -214,8 +351,8 @@ def flash_mha(
     query rows still produce outputs, as in the JAX package).
 
     ``impl``: "reference" runs ``flash_mha_reference``; "auto" (and the
-    JAX config's "pallas") run ``flash_mha_fwd``: the CUDA kernel for a
-    CUDA tensor, its plain version for a CPU tensor.
+    JAX config's "pallas") run ``FlashMHAFused``: the CUDA kernels for a
+    CUDA tensor, their plain versions for a CPU tensor.
     """
     b, s, three_hd = qkv.shape
     if three_hd != 3 * num_heads * head_dim:
@@ -249,7 +386,7 @@ def flash_mha(
         if not causal and kv_lens is None:
             kv_bound = s  # static mask for the padded tail
     lens = None if kv_lens is None else torch.clamp(kv_lens, max=s).to(torch.int32)
-    o, _ = flash_mha_fwd(
+    o = FlashMHAFused.apply(
         qkv, lens, num_heads, head_dim, scale, window_size, causal, kv_bound
     )
     return o[:, :s]

@@ -210,8 +210,16 @@ def test_interop_round_trip():
 
 
 def test_sense_true_not_ported():
+    """Sensing is ported: a config with ``sense=True`` builds the fast-loop
+    buffers, and what stays unsupported is a sensed call on a model built
+    without them."""
     cfg = tcfg.config_from_dict(
         jcfg.config_to_dict(small_config(jcfg, jcfg.DTypePolicy()).replace(sense=True))
     )
-    with pytest.raises(NotImplementedError):
-        tde.FORDEDualEncoder(cfg)
+    keys = tde.FORDEDualEncoder(cfg).state_dict()
+    assert "vision.blocks.0.stateful.act_stats" in keys
+    assert "text.blocks.1.stateful.step_count" in keys
+    plain = tde.FORDEDualEncoder(cfg.replace(sense=False))
+    images, ids, mask = (torch.from_numpy(a) for a in inputs())
+    with pytest.raises(ValueError, match="sense=True"):
+        plain(images, ids, mask, sense=True)
