@@ -1,9 +1,10 @@
-"""Typed configuration of the dual encoder (port of forde_tpu/core/config.py).
+"""Typed configuration of the decoder LM and the dual encoder (port of
+forde_tpu/core/config.py).
 
 Field names, order and defaults match the JAX package so that both write
 and read the same ``model_config.json``: dtypes serialise by name
-(``"float32"``, ``"bfloat16"``). The decoder-LM ``LLMConfig`` is not
-ported yet; ``config_from_dict`` raises for ``kind == "llm"``.
+(``"float32"``, ``"bfloat16"``), and the ``kind`` key tells ``"llm"``
+from ``"dual_encoder"``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,78 @@ class DTypePolicy:
     @staticmethod
     def fp32() -> "DTypePolicy":
         return DTypePolicy()
+
+
+@dataclass(frozen=True)
+class LLMConfig:
+    """The FORDE decoder-only LM (MoE + NSA + mHC).
+
+    ``attention_impl``: "auto" (and the JAX config's "pallas" or
+    "interpret") runs the attention kernels on CUDA tensors and their
+    plain versions on CPU tensors; "reference" runs the plain attention
+    paths everywhere. ``moe_dispatch``: "dense" only (capacity and "ep"
+    dispatch come with the training slice). ``remat`` and ``scan_layers``
+    are kept for the checkpoint schema: the port's model is unrolled and
+    reads the ``scan_layers`` parameter layout too (``interop``).
+    ``quantized`` is kept for the schema; int8 serving is not ported.
+    """
+
+    vocab_size: int = 32000
+    d_model: int = 512
+    num_layers: int = 12
+    num_heads: int = 8
+    head_dim: int = 64
+    max_seq_len: int = 2048
+    use_moe: bool = True
+    num_experts: int = 8
+    top_k_experts: int = 2
+    expert_hidden_dim: int = 2048
+    moe_aux_loss_weight: float = 0.01
+    use_sparse_attention: bool = True
+    window_size: int = 512
+    compression_ratio: int = 8
+    top_k_global: int = 64
+    use_hyper_connections: bool = True
+    num_streams: int = 4
+    sinkhorn_iterations: int = 5
+    dropout_rate: float = 0.1
+    moe_dispatch: str = "dense"
+    moe_capacity_factor: float = 2.0
+    attention_impl: str = "auto"
+    remat: bool = False
+    scan_layers: bool = False
+    quantized: bool = False
+    # The reference's final-norm ordering: with mHC on, final_norm is
+    # computed and dropped and lm_head reads the raw collapsed streams.
+    reference_quirks: bool = False
+    dtypes: DTypePolicy = field(default_factory=DTypePolicy)
+
+    def replace(self, **kw) -> "LLMConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def create_default_config() -> LLMConfig:
+    """The small test config of the JAX package."""
+    return LLMConfig(
+        vocab_size=50257,
+        d_model=256,
+        num_layers=4,
+        num_heads=4,
+        head_dim=64,
+        max_seq_len=1024,
+        use_moe=True,
+        num_experts=4,
+        top_k_experts=2,
+        expert_hidden_dim=512,
+        use_sparse_attention=True,
+        window_size=128,
+        compression_ratio=4,
+        top_k_global=32,
+        use_hyper_connections=True,
+        num_streams=2,
+        sinkhorn_iterations=3,
+        dropout_rate=0.0,
+    )
 
 
 @dataclass(frozen=True)
@@ -185,28 +258,31 @@ PRESETS = {
 }
 
 
-def config_to_dict(cfg: DualEncoderConfig) -> dict:
-    """JSON-safe dict, the JAX package's schema (dtypes by name)."""
-    if not isinstance(cfg, DualEncoderConfig):
+def config_to_dict(cfg) -> dict:
+    """JSON-safe dict of an LLMConfig or DualEncoderConfig, the JAX
+    package's schema (dtypes by name)."""
+    if isinstance(cfg, LLMConfig):
+        kind = "llm"
+    elif isinstance(cfg, DualEncoderConfig):
+        kind = "dual_encoder"
+    else:
         raise TypeError(f"unsupported config type {type(cfg)}")
     d = dataclasses.asdict(cfg)
     d["dtypes"] = {k: dtype_name(v) for k, v in d["dtypes"].items()}
-    return {"kind": "dual_encoder", **d}
+    return {"kind": kind, **d}
 
 
-def config_from_dict(d: dict) -> DualEncoderConfig:
+def config_from_dict(d: dict):
     """Inverse of ``config_to_dict``; reads the JAX package's JSON too."""
     d = dict(d)
     kind = d.pop("kind")
-    if kind == "llm":
-        raise NotImplementedError(
-            "the decoder-LM config is not ported to forde_tpu_torch yet"
-        )
-    if kind != "dual_encoder":
+    if kind not in ("llm", "dual_encoder"):
         raise ValueError(f"unknown config kind {kind!r}")
     d["dtypes"] = DTypePolicy(
         **{k: dtype_from_name(v) for k, v in d["dtypes"].items()}
     )
+    if kind == "llm":
+        return LLMConfig(**d)
     d["vision"] = TowerConfig(**d["vision"])
     d["text"] = TowerConfig(**d["text"])
     return DualEncoderConfig(**d)

@@ -88,10 +88,10 @@ def main(argv: Optional[list] = None) -> None:
         raise NotImplementedError("--use_ema: EMA weights are not ported yet")
     device = resolve_device(args.device)
     from forde_tpu_torch.models.dual_encoder import l2_normalize
-    from forde_tpu_torch.train.checkpoint import load_clip_meta, load_clip_params
+    from forde_tpu_torch.train.checkpoint import load_meta, load_clip_params
 
     cfg, model = load_clip_params(args.checkpoint_dir, device)
-    step = int(load_clip_meta(args.checkpoint_dir)[1].get("step", 0))
+    step = int(load_meta(args.checkpoint_dir)[1].get("step", 0))
     print(f"[embed] restored step {step} from {args.checkpoint_dir}")
 
     img_emb = txt_emb = None

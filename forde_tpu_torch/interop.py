@@ -1,24 +1,35 @@
 """Weights between the JAX package's Flax trees and this package's modules.
 
 A Flax path maps to a ``state_dict`` key by joining its names with "."
-(``block_3`` becomes ``blocks.3``) and renaming the leaf:
+(``block_3`` becomes ``blocks.3``, ``layer_3`` becomes ``layers.3``) and
+renaming the leaf:
 
 * Dense ``kernel`` (in, out)  -> Linear ``weight`` (out, in), transposed
 * Embed ``embedding``         -> Embedding ``weight``
 * LayerNorm ``scale``         -> LayerNorm ``weight`` (``bias`` stays)
-* ``cls_token``, ``register_tokens``, ``pos_embed``, ``logit_scale``
+* ``cls_token``, ``register_tokens``, ``pos_embed``, ``logit_scale``, the
+  stacked expert banks ``w_up``, ``w_down``, ``b_up``, ``b_down`` (not
+  transposed), ``mixing_logits``, ``stream_weights``
                               -> parameters of the same name
 * brain ``neuron_assignments`` -> the int32 buffer of the same name
-* stats_buffer ``act_stats`` (fp32), ``step_count`` (int32)
-                              -> the StatefulLayer buffers of the same name
+* stats_buffer ``act_stats``, ``expert_usage`` (fp32), ``step_count``
+  (int32)                     -> the buffers of the same name
+
+The way back names each ``weight`` by the module that holds it (an exact
+map of the port's module names, ``_WEIGHT_OWNERS``), not by its rank.
+
+A decoder LM trained with ``scan_layers`` keeps its blocks under
+``layers/block/...`` with a leading (L,) axis; ``split_scan_layers``
+turns that into the unrolled ``layer_{i}/...`` trees the port's model has.
 
 The JAX train state's ``perturbations`` (the zero tap slots) and
 ``grad_stats`` trees hold one (F, 2) leaf ``z_tap`` per StatefulLayer; the
 port keys the same arrays by the layer's module name
 (``vision/block_0/stateful/z_tap`` <-> ``vision.blocks.0.stateful``).
 
-Trees are nested dicts of numpy arrays, ``{"params": ..., "brain": ...}``
-flattened as "/"-joined paths in a checkpoint's ``params.npz``.
+Trees are nested dicts of numpy arrays, flattened as "/"-joined paths in
+a checkpoint's ``params.npz`` (``params/...``, ``brain/...``,
+``stats_buffer/...``).
 """
 
 from __future__ import annotations
@@ -38,11 +49,36 @@ _LEAF_TO_TORCH = {
     "register_tokens": "register_tokens",
     "pos_embed": "pos_embed",
     "logit_scale": "logit_scale",
+    "w_up": "w_up",
+    "w_down": "w_down",
+    "b_up": "b_up",
+    "b_down": "b_down",
+    "mixing_logits": "mixing_logits",
+    "stream_weights": "stream_weights",
 }
 _BRAIN_LEAVES = ("neuron_assignments",)
-_STATS_LEAVES = {"act_stats": np.float32, "step_count": np.int32}
+_STATS_LEAVES = {"act_stats": np.float32, "expert_usage": np.float32, "step_count": np.int32}
 _TAP_LEAF = "z_tap"
-_BLOCK = re.compile(r"^block_(\d+)$")
+_BLOCK = re.compile(r"^(block|layer)_(\d+)$")
+_TORCH_LIST = {"block": "blocks", "layer": "layers"}
+_FLAX_ITEM = {v: k for k, v in _TORCH_LIST.items()}
+# The Flax leaf behind each torch ``weight``, by the name of the module
+# that holds it (the same in both packages).
+_WEIGHT_OWNERS = {
+    **dict.fromkeys(("token_embed", "pos_embed"), "embedding"),
+    **dict.fromkeys(("attn_norm", "mlp_norm", "ffn_norm", "final_norm"), "scale"),
+    **dict.fromkeys((
+        # dual encoder
+        "patch_embed", "qkv_proj", "out_proj", "w_in", "w_out",
+        "image_projection", "text_projection",
+        # decoder LM
+        "stream_init", "collapse_proj", "router_linear", "ffn_up", "ffn_down",
+        "lm_head", "gate_compressed", "gate_top_k", "importance_scorer",
+        "compressed_q_proj", "compressed_k_proj", "compressed_v_proj",
+        "compressed_out_proj", "topk_q_proj", "topk_k_proj", "topk_v_proj",
+        "topk_out_proj",
+    ), "kernel"),
+}
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -76,8 +112,22 @@ def _torch_key(path: str, leaf_map: Mapping[str, str]) -> str:
     names = []
     for p in parents:
         m = _BLOCK.match(p)
-        names += ["blocks", m.group(1)] if m else [p]
+        names += [_TORCH_LIST[m.group(1)], m.group(2)] if m else [p]
     return ".".join(names + [leaf_map[leaf]])
+
+
+def split_scan_layers(tree: Mapping) -> dict:
+    """A ``scan_layers`` tree (``layers/block/...`` leaves with a leading
+    (L,) axis) -> the unrolled ``layer_{i}/...`` tree; other trees are
+    returned as they are."""
+    scanned = tree.get("layers")
+    if not (isinstance(scanned, Mapping) and "block" in scanned):
+        return dict(tree)
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    for path, value in flatten(scanned["block"]).items():
+        for i, row in enumerate(np.asarray(value)):
+            out[f"layer_{i}/{path}"] = row
+    return unflatten(flatten(out))
 
 
 def flax_to_state_dict(
@@ -123,15 +173,31 @@ def flax_to_state_dict(
     return out
 
 
+def _flax_names(key: str) -> list:
+    """"layers.3.moe.expert_usage" -> ["layer_3", "moe", "expert_usage"]."""
+    parts, names = key.split("."), []
+    i = 0
+    while i < len(parts):
+        if parts[i] in _FLAX_ITEM and i + 1 < len(parts) and parts[i + 1].isdigit():
+            names.append(f"{_FLAX_ITEM[parts[i]]}_{parts[i + 1]}")
+            i += 2
+        else:
+            names.append(parts[i])
+            i += 1
+    return names
+
+
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
     """Inverse of ``flax_to_state_dict``: {"params": tree, "brain": tree,
     "stats_buffer": tree} of numpy arrays, the JAX package's layout
-    (``stats_buffer`` empty for a model built without sensing)."""
+    (``brain`` and ``stats_buffer`` empty where the model has none). A
+    ``weight`` takes the Flax leaf of its module (``_WEIGHT_OWNERS``);
+    one under a module of another name raises."""
     params: Dict[str, np.ndarray] = {}
     brain: Dict[str, np.ndarray] = {}
     stats: Dict[str, np.ndarray] = {}
     for key, t in state_dict.items():
-        *names, leaf = key.replace("blocks.", "block_").split(".")
+        *names, leaf = _flax_names(key)
         value = t.detach().cpu()
         if leaf in _BRAIN_LEAVES:
             brain["/".join(names + [leaf])] = value.numpy().astype(np.int32)
@@ -141,13 +207,12 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict
             continue
         value = value.float().numpy()
         if leaf == "weight":
-            # Dense kernel (transposed), Embed embedding or LayerNorm scale
-            if names[-1] == "token_embed":
-                leaf = "embedding"
-            elif value.ndim == 2:
-                leaf, value = "kernel", value.T
-            else:
-                leaf = "scale"
+            owner = names[-1] if names else ""
+            if owner not in _WEIGHT_OWNERS:
+                raise KeyError(f"no Flax leaf known for the weight of module {owner!r} ({key})")
+            leaf = _WEIGHT_OWNERS[owner]
+            if leaf == "kernel":
+                value = value.T
         params["/".join(names + [leaf])] = np.array(value)
     return {
         "params": unflatten(params), "brain": unflatten(brain),
@@ -169,7 +234,7 @@ def grad_stats_to_flax(grad_stats: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of ``grad_stats_from_flax``: the JAX package's tree of
     numpy arrays."""
     return unflatten({
-        "/".join(name.replace("blocks.", "block_").split(".") + [_TAP_LEAF]):
+        "/".join(_flax_names(name) + [_TAP_LEAF]):
             t.detach().cpu().float().numpy()
         for name, t in grad_stats.items()
     })

@@ -14,8 +14,13 @@ CPU tensor they run the kernels' plain versions
 ``flash_mha_reference`` is the plain masked attention path the JAX package
 runs as ``impl="reference"``, differentiated by autograd.
 
-The 4-D flash-attention family (the JAX package's route for head_dim not
-a multiple of 64 or S > 512) is not ported yet: such shapes raise on CUDA.
+``flash_attention`` is the 4-D (B, H, S, D) forward of the decoder LM's
+causal and sliding-window attention (the JAX package's resident and
+streaming kernels): its wrapper ``flash_fwd`` launches
+``csrc/flash_fwd.cu`` on a CUDA tensor and runs ``flash_fwd_reference``
+on a CPU tensor. It is also ``flash_mha``'s route for head_dim not a
+multiple of 64 or S > 512. Its backward kernels are not ported yet: on
+CUDA a call whose inputs require grad raises.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from forde_tpu_torch.ops import attention_ref
 
 MASK_VALUE = -1e30
 MAX_FUSED_SEQ = 512
-KERNEL_IMPLS = ("auto", "pallas")
+KERNEL_IMPLS = ("auto", "pallas", "interpret")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -351,8 +356,10 @@ def flash_mha(
     query rows still produce outputs, as in the JAX package).
 
     ``impl``: "reference" runs ``flash_mha_reference``; "auto" (and the
-    JAX config's "pallas") run ``FlashMHAFused``: the CUDA kernels for a
-    CUDA tensor, their plain versions for a CPU tensor.
+    JAX config's "pallas" or "interpret") run ``FlashMHAFused``: the CUDA
+    kernels for a CUDA tensor, their plain versions for a CPU tensor.
+    head_dim not a multiple of 64 or S > 512 go through the 4-D
+    ``flash_attention`` (forward only on CUDA).
     """
     b, s, three_hd = qkv.shape
     if three_hd != 3 * num_heads * head_dim:
@@ -365,19 +372,19 @@ def flash_mha(
     if impl not in KERNEL_IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     if head_dim % 64 != 0 or s > MAX_FUSED_SEQ:
-        if qkv.device.type != "cpu":
-            raise NotImplementedError(
-                f"head_dim={head_dim}, S={s} is outside the fused kernel "
-                f"(head_dim % 64 == 0, S <= {MAX_FUSED_SEQ}); the 4-D "
-                "flash-attention kernels (_fwd_kernel / _fwd_stream_kernel of "
-                "forde_tpu/ops/flash_attention.py) are not ported yet"
-            )
+        # Outside the fused kernel's shapes: the 4-D forward, which pads
+        # D and streams k tiles (inference only until its backward
+        # kernels are ported; see flash_attention).
         if kv_lens is not None:
-            raise ValueError("kv_lens needs the fused kernel's shapes")
-        # The plain version of the 4-D kernels is the masked reference.
-        return flash_mha_reference(
-            qkv, num_heads, head_dim, None, causal, window_size, scale
+            raise ValueError(
+                "kv_lens needs the fused kernel (64-aligned head_dim, "
+                f"S <= {MAX_FUSED_SEQ}); got head_dim={head_dim}, S={s}"
+            )
+        q, k, v = qkv.reshape(b, s, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
+        o = flash_attention(
+            q, k, v, causal=causal, window_size=window_size, scale=scale, impl=impl
         )
+        return o.transpose(1, 2).reshape(b, s, num_heads * head_dim)
 
     s_pad = _ceil_to(s, 8)
     kv_bound = None
@@ -390,3 +397,167 @@ def flash_mha(
         qkv, lens, num_heads, head_dim, scale, window_size, causal, kv_bound
     )
     return o[:, :s]
+
+
+# ---------------------------------------------------------------------------
+# 4-D flash attention (B, H, S, D): the decoder LM's causal and
+# sliding-window attention
+# ---------------------------------------------------------------------------
+
+# The kernel's q and k tile: flash_attention pads S to a multiple of it.
+BLOCK = 64
+
+
+def flash_fwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_len: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: the arithmetic of the TPU kernels
+    ``_fwd_kernel`` / ``_fwd_stream_kernel`` on (B, H, S, D) q, k, v.
+    Scores are fp32 products of the input values; masked scores (causal
+    ``q >= k``, window ``q - k < window``, ``k < kv_len``) are -1e30;
+    p = exp(s - m) is rounded to v's dtype before the product with v,
+    while l sums the unrounded p. Returns o in the input dtype and lse
+    (B, H, S, 1) in fp32."""
+    s_len = q.shape[2]
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    mask = _visible(s_len, q.device, causal, window, None, kv_len)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, MASK_VALUE)
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    o = torch.matmul(p.to(v.dtype).float(), v.float()) / l_safe
+    return o.to(q.dtype), m + torch.log(l_safe)
+
+
+def flash_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_len: Optional[int],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's wrapper: o (B, H, S, D) in the input dtype, lse
+    (B, H, S, 1) fp32.
+
+    q, k and v are (B, H, S, D), float32 or bfloat16, with S a multiple of
+    ``BLOCK`` and D 64 or 128 on CUDA (``flash_attention`` pads). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel on
+    the current stream, or raises.
+    """
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, scale, window, causal, kv_len)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
+    b, h, s, d = q.shape
+    for t in (k, v):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError("flash_fwd needs q, k, v of one shape, dtype and device")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
+    if d not in (64, 128):
+        raise ValueError(f"flash_fwd takes head_dim 64 or 128, got {d}")
+    if s % BLOCK:
+        raise ValueError(f"flash_fwd takes S a multiple of {BLOCK}, got {s}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_fwd needs contiguous q, k, v")
+    if window is not None and window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    o = torch.empty_like(q)
+    lse = torch.empty(b, h, s, 1, dtype=torch.float32, device=q.device)
+
+    lib = build.load("flash_fwd")
+    fn = lib.forde_flash_fwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, h, s, d, _DTYPE_CODES[q.dtype], scale,
+            *_mask_args(window, causal, kv_len),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    build.check(lib, err, "flash_fwd")
+    kernels.launches["flash_fwd"] += 1
+    return o, lse
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``flash_fwd`` launches its kernel for this tensor."""
+    return t.device.type != "cpu"
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window_size: Optional[int] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Flash attention over (B, H, S, D) with causal / sliding-window
+    masking (``0 <= q - k < window_size``).
+
+    ``impl``: "reference" runs the plain masked attention
+    (``attention_ref``); "auto" (and "pallas", "interpret") runs
+    ``flash_fwd``: the CUDA kernel for a CUDA tensor, its plain version
+    for a CPU tensor. As in the JAX package, D is padded to a multiple of
+    64 and S to the kernel's tile, and a non-causal padded call masks the
+    padded keys with the static ``kv_len = S``. The JAX package sends S >
+    4096 (causal) to a streaming kernel and shorter S to a resident one,
+    a split that came from VMEM size; the one CUDA kernel streams k tiles
+    at any S, so the call is the same on both sides of 4096.
+
+    The backward kernels (``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` and
+    their streaming twins) are not ported yet: on CUDA, a call whose
+    inputs require grad raises rather than return an output with no
+    gradient. On the CPU, autograd differentiates the plain version.
+    """
+    if impl == "reference":
+        if window_size is not None and causal:
+            return attention_ref.sliding_window_attention_ref(q, k, v, window_size, scale=scale)
+        if causal:
+            return attention_ref.causal_attention_ref(q, k, v, scale=scale)
+        return attention_ref.mha_reference(q, k, v, scale=scale)
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    b, h, s, d = q.shape
+    scale = 1.0 / float(d) ** 0.5 if scale is None else float(scale)
+    if (
+        _on_card(q)
+        and torch.is_grad_enabled()
+        and any(t.requires_grad for t in (q, k, v))
+    ):
+        raise NotImplementedError(
+            "flash_attention on CUDA is forward only: its backward kernels "
+            "(_bwd_dq_kernel / _bwd_dkv_kernel and _bwd_dq_stream_kernel / "
+            "_bwd_dkv_stream_kernel of forde_tpu/ops/flash_attention.py) are "
+            "not ported yet; call it under torch.no_grad() or "
+            "torch.inference_mode()"
+        )
+    s_pad = _ceil_to(s, BLOCK)
+    d_pad = max(_ceil_to(d, 64), 64)
+    if s_pad != s or d_pad != d:
+        pad = (0, d_pad - d, 0, s_pad - s)
+        q, k, v = (F.pad(t, pad) for t in (q, k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    # Padded keys sit after every real query, so the causal mask already
+    # hides them; without it the static bound does.
+    kv_len = s if (not causal and s_pad != s) else None
+    o, _ = flash_fwd(q, k, v, scale, window_size, causal, kv_len)
+    return o[:, :, :s, :d]

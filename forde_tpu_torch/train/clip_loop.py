@@ -149,7 +149,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     from forde_tpu_torch.interop import flatten, state_dict_to_flax
     from forde_tpu_torch.nn.stateful import stateful_layers
     from forde_tpu_torch.obs.metrics import MetricsWriter, ThroughputMeter
-    from forde_tpu_torch.train.checkpoint import save_clip_params
+    from forde_tpu_torch.train.checkpoint import save_params
     from forde_tpu_torch.train.clip_step import (
         clip_train_step,
         create_clip_train_state,
@@ -265,7 +265,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             last = {k: float(v) for k, v in metrics.items()}
         if args.checkpoint_dir:
             tree = state_dict_to_flax(state.model.state_dict())
-            save_clip_params(
+            save_params(
                 args.checkpoint_dir, cfg,
                 flatten({"params": tree["params"], "brain": tree["brain"]}),
                 {

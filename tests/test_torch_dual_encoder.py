@@ -176,9 +176,15 @@ def test_config_fields_match_jax():
 
 
 def test_llm_config_not_ported():
+    """The decoder-LM config is ported now: the JAX package's JSON loads
+    into the port's ``LLMConfig`` and writes back the same; an unknown
+    kind still raises."""
     d = jcfg.config_to_dict(jcfg.create_default_config())
-    with pytest.raises(NotImplementedError):
-        tcfg.config_from_dict(json.loads(json.dumps(d)))
+    t = tcfg.config_from_dict(json.loads(json.dumps(d)))
+    assert t == tcfg.create_default_config()
+    assert json.dumps(tcfg.config_to_dict(t)) == json.dumps(d)
+    with pytest.raises(ValueError, match="unknown config kind"):
+        tcfg.config_from_dict(dict(d, kind="vae"))
 
 
 def test_interop_raises_on_unused_and_missing_keys():

@@ -59,6 +59,15 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.train.state",
         "forde_tpu_torch.train.clip_step",
         "forde_tpu_torch.train.clip_loop",
+        "forde_tpu_torch.ops.nsa_attention",
+        "forde_tpu_torch.ops.sinkhorn",
+        "forde_tpu_torch.ops.moe_dispatch",
+        "forde_tpu_torch.nn.hyper_connections",
+        "forde_tpu_torch.nn.moe",
+        "forde_tpu_torch.nn.attention",
+        "forde_tpu_torch.models.decoder_lm",
+        "forde_tpu_torch.models.generate",
+        "forde_tpu_torch.serve",
     ):
         assert name in result["modules"]
 
@@ -67,7 +76,7 @@ def test_every_kernel_source_is_found():
     from forde_tpu_torch.kernels import build
 
     assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == [
-        "flash_mha_bwd", "flash_mha_fwd", "moment_sums"
+        "flash_fwd", "flash_mha_bwd", "flash_mha_fwd", "moment_sums", "small_kv_fwd"
     ]
     path = build.library_path("flash_mha_fwd")
     assert path.parent == REPO / "build" / "forde_tpu_torch"
