@@ -1,42 +1,49 @@
 #!/usr/bin/env python3
 """Smoke test of forde_tpu_torch on one NVIDIA GPU (H100).
 
-Drives the port's three main paths through the entry points a user calls,
-and holds every CUDA kernel of them against its plain PyTorch version:
+Drives the port's main paths through the entry points a user calls, and
+holds every CUDA kernel of them against its plain PyTorch version:
 
   * the embedding path (``forde_tpu_torch.embed.main``) at the full width
     of the production ViT-B preset (``vit_b16_hd128``, bf16, seeded random
     weights);
-  * the training path (``forde_tpu_torch.train.clip_loop.main``) at the
-    full width of ``vit_b16`` in bf16, batch 128: 16 contrastive steps with
-    sensing every 8th, two GMM brain updates, and a checkpoint that
-    ``embed.main`` then serves;
+  * the dual encoder's training path (``forde_tpu_torch.train.clip_loop.
+    main``) at the full width of ``vit_b16`` in bf16, batch 128: 16
+    contrastive steps with sensing every 8th, two GMM brain updates, and a
+    checkpoint that ``embed.main`` then serves;
   * the decoder LM's serving path (``forde_tpu_torch.serve.main``) at the
     full width of the reference-default decoder (d 512, 12 layers, 8 heads
     x 64, NSA window 512, MoE top-2 of 8, 4 mHC streams, bf16), from a
     checkpoint of seeded random weights: a ragged batch of 8 prompts of
-    640-1,920 tokens, greedy, and one sampled prompt of 1,536 tokens.
+    640-1,920 tokens, greedy, and one sampled prompt of 1,536 tokens;
+  * the decoder LM's training path (``forde_tpu_torch.train.loop.main``)
+    at the same width on batches of 8 x 2,048 seeded Markov tokens: 6
+    steps, the MoE slow loop every 3rd, a checkpoint that ``serve.main``
+    then decodes from; and one step at 2 layers, batch 1, 8,192 tokens
+    (the JAX package's streaming side, 960 NSA pools).
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
   2. build every kernel under forde_tpu_torch/csrc, one nvcc per source,
      all started together;
   3. each kernel against its plain version on the card, fp32 and bf16, at
-     the shapes of the paths (the training CLI's at its batch of 128; the
-     serving prefill and decode shapes, the streaming S = 8192, an odd S
-     and a padded D) and the mask options (kv_lens with 0, kv_bound,
-     causal + window; kv_len; INVALID_KEY_POS keys, keys all in the
-     future), and the output and gradients of ``flash_mha`` on CUDA
-     tensors against the plain attention path's;
+     the shapes of the paths (the training CLIs' shapes; the serving
+     prefill and decode shapes, the streaming S = 8192, an odd S and a
+     padded D) and the mask options (kv_lens with 0, kv_bound, causal +
+     window; kv_len; INVALID_KEY_POS keys, keys all in the future; an lse
+     cotangent), each backward kernel's bf16 error against its plain
+     version's, and the output and gradients of ``flash_mha``,
+     ``flash_attention`` and ``small_kv_attention`` on CUDA tensors
+     against the kernels or the plain attention path;
   4. the embedding path: finite (N, 512) embeddings, 24 launches of
      flash_mha_fwd (12 + 12 layers), and the cosine of each embedding
      against the same weights on the all-plain attention path;
-  5. the training path: finite loss, the launches of each kernel (per
-     sensed step 24 flash_mha_fwd, 24 flash_mha_bwd, 48 moment_sums; per
-     unsensed step 24 + 24 + 0), two brain updates that were not skipped,
-     gradient statistics non-zero before each update and zero after, the
-     checkpoint served by ``embed.main``, and the CLI's prefetch route
-     delivering batches intact;
+  5. the dual encoder's training path: finite loss, the launches of each
+     kernel (per sensed step 24 flash_mha_fwd, 24 flash_mha_bwd, 48
+     moment_sums; per unsensed step 24 + 24 + 0), two brain updates that
+     were not skipped, gradient statistics non-zero before each update and
+     zero after, the checkpoint served by ``embed.main``, and the CLI's
+     prefetch route delivering batches intact;
   6. step parity at ``vit_b16_hd128``: one sensed step on the kernel path
      against one on the all-plain path from the same weights, fp32 and
      bf16 (with the bf16-vs-fp32 plain control printed beside it);
@@ -56,12 +63,23 @@ Phases:
  10. serving time: time to first token and ms per output token of the
      8-prompt batch (kernel path vs all-plain path in turns), output
      tokens/s, one prefill and one decode step under torch.profiler, and
-     per new kernel its time, its plain version's, SDPA's with the same
-     mask, and the bound.
+     per kernel its time, its plain version's, SDPA's with the same mask,
+     and the bound;
+ 11. the LM training path: finite loss, exact launches (per step 12
+     flash_fwd, 12 flash_bwd_dq, 12 flash_bwd_dkv, 24 small_kv_fwd, 24
+     small_kv_bwd), two MoE slow loops that moved all 12 router biases,
+     peak memory, the trained checkpoint served; the 8,192-token step;
+ 12. LM step parity (batch 2 x 2,048): the kernel path against the
+     all-plain path (every kernel's plain version) and the plain attention
+     path, fp32 and bf16, with the bf16-vs-fp32 control;
+ 13. LM training time (bf16, 8 x 2,048): step time, tokens/s, the MoE slow
+     loop, one step under torch.profiler, and per backward kernel its
+     time, its plain version's, SDPA's backward with the same mask, and the
+     bound.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (well under 20 minutes):
+Run with no arguments on a machine with one GPU (about 3 minutes):
 
   python3 chip_smoke.py
 """
@@ -199,7 +217,8 @@ def bound(bytes_ms: float, ops_ms: float) -> tuple:
 
 
 # Every kernel of the main paths: csrc/<name>.cu.
-KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", "small_kv_fwd")
+KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", "small_kv_fwd",
+                  "flash_bwd", "small_kv_bwd")
 
 
 def phase_build():
@@ -1200,6 +1219,193 @@ def phase_check_serving_kernels(device) -> dict:
     return worst
 
 
+# ---------------------------------------------------------------------------
+# The decoder LM's training path: kernels flash_bwd_dq, flash_bwd_dkv and
+# small_kv_bwd
+# ---------------------------------------------------------------------------
+
+# The backward kernels against their plain versions run in fp32 on the same
+# (exactly widened) inputs, per element |Δ| <= atol + rtol * (|plain| +
+# mag), mag the sum of the absolute terms the element adds up (|ds|·|k| for
+# dq, |ds|ᵀ·|q| for dk, |p|ᵀ·|do| for dv). flash_bwd as flash_mha_bwd
+# (TOL_BWD): fp32 differs by summation order; in bf16 the kernels round p
+# (for dv) and ds (for dq, dk) to bf16, at most 2^-8 of each term, and
+# their output, 2^-8 of the value. small_kv_bwd sums dk and dv over its q
+# tiles with fp32 atomicAdd in an order that changes from run to run: up to
+# S / 32 = 256 partial sums, each addition a rounding of 2^-24 of the
+# running magnitude, so its rtol takes 1e-4 more in both types.
+TOL_SKV_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -8 + 1e-4)}
+# And in bf16 each backward kernel's relative L2 error against the exact
+# (fp32) result is at most this much above its plain version's run in bf16:
+# the same roundings at the same places, summed in other orders (on an
+# NVIDIA H100 the two read within 0.01% of each other at every case).
+BF16_AS_PRECISE = 1.05
+
+# (name, B, H, S, D, causal, window, dlse): the training step's shape (the
+# NSA local branch), the --no_nsa dense causal one, the streaming side of
+# the JAX package's split (S = 8192), an odd S with a padded D (S to the
+# tile, D to 64), non-causal with padded keys (kv_len), D = 128, and a
+# nonzero lse cotangent (the ring-attention route).
+FLASH_BWD_CASES = [
+    ("train_b8_s2048_window512", 8, 8, 2048, 64, True, 512, False),
+    ("train_b8_s2048_causal", 8, 8, 2048, 64, True, None, False),
+    ("stream_b1_s8192_window512", 1, 8, 8192, 64, True, 512, False),
+    ("odd_s1000_d48_causal", 2, 4, 1000, 48, True, None, False),
+    ("odd_s1000_d48_noncausal_kv_len", 2, 4, 1000, 48, False, None, False),
+    ("s512_d128_window128", 2, 4, 512, 128, True, 128, False),
+    ("s512_d64_window128_dlse", 2, 4, 512, 64, True, 128, True),
+]
+# (name, B, H, S, K, D, keys): the compressed and top-k branches of the
+# training step (S = 2048: 192 pools, 64 selected), 960 pools at S = 8192,
+# pools a row does not have (INVALID_KEY_POS), every key in the future (the
+# uniform quirk: dq = dk = 0), and D = 128.
+SMALL_KV_BWD_CASES = [
+    ("train_pools_s2048_k192", 8, 8, 2048, 192, 64, "pools"),
+    ("train_topk_s2048_k64", 8, 8, 2048, 64, 64, "topk"),
+    ("long_pools_s8192_k960", 1, 8, 8192, 960, 64, "pools"),
+    ("invalid_keys_s512_k96", 4, 8, 512, 96, 64, "invalid"),
+    ("all_future_s64_k40", 2, 4, 64, 40, 64, "future"),
+    ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
+]
+
+
+def flash_bwd_magnitudes(q, k, v, lse, do, delta, scale, window, causal, kv_len):
+    """(mag_dq, mag_dk, mag_dv), each (B, H, S, D) fp32, from the plain
+    version's fp32 p and ds."""
+    import torch
+
+    from forde_tpu_torch.ops import flash_attention as fa
+
+    p = torch.exp(q @ k.transpose(-1, -2) * scale - lse)
+    mask = fa._visible(q.shape[2], q.device, causal, window, None, kv_len)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), device=p.device))
+    ds = (p * (do @ v.transpose(-1, -2) - delta) * scale).abs()
+    return ds @ k.abs(), ds.transpose(-1, -2) @ q.abs(), p.transpose(-1, -2) @ do.abs()
+
+
+def small_kv_bwd_magnitudes(q, k, v, key_pos, do, scale):
+    import torch
+
+    from forde_tpu_torch.ops import nsa_attention as nsa
+
+    w = torch.softmax(nsa._masked_scores(q, k, key_pos, scale), dim=-1)
+    dw = do @ v.transpose(-1, -2)
+    ds = (w * (dw - (dw * w).sum(-1, keepdim=True)) * scale).abs()
+    return ds @ k.abs(), ds.transpose(-1, -2) @ q.abs(), w.transpose(-1, -2) @ do.abs()
+
+
+def phase_check_training_kernels(device) -> dict:
+    """flash_bwd (its dq and dk/dv kernels) and small_kv_bwd against their
+    plain versions run in fp32 on the same values, FLASH_BWD_CASES and
+    SMALL_KV_BWD_CASES in fp32 and bf16; the gradients of flash_attention
+    and small_kv_attention on CUDA tensors against the kernels they wrap.
+    Returns the worst max |error| of each kernel."""
+    import torch
+
+    from forde_tpu_torch.ops import flash_attention as fa
+    from forde_tpu_torch.ops import nsa_attention as nsa
+
+    worst = {"flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0, "small_kv_bwd": 0.0}
+    gen = torch.Generator(device=device).manual_seed(SEED + 30)
+
+    def hold(name, case, dtype_name, got, want, mag, tol):
+        atol, rtol = tol[dtype_name]
+        err, ratio = held_against(got, want, atol, rtol * (want.abs() + mag))
+        finite = bool(torch.isfinite(got).all())
+        ok = ratio <= 1.0 and finite
+        log(f"[check] {name} {case} {dtype_name}: max|Δ| {err:.3e}, worst |Δ| / ({atol:g} + "
+            f"{rtol:.4g}(|plain| + mag)) {ratio:.3f} (tol 1), finite {finite} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {case} {dtype_name}")
+        worst[name] = max(worst[name], err)
+
+    def as_precise(name, case, got, plain, exact):
+        """The kernel's bf16 result is as far from the exact (fp32) one as
+        its plain version run in bf16, within BF16_AS_PRECISE."""
+        err_k = ((got.float() - exact).norm() / exact.norm()).item()
+        err_p = ((plain.float() - exact).norm() / exact.norm()).item()
+        ok = err_k <= BF16_AS_PRECISE * err_p + 1e-6
+        log(f"[check] {name} {case} bfloat16: relative L2 error kernel {err_k:.4e}, plain "
+            f"version in bf16 {err_p:.4e} (tol {BF16_AS_PRECISE:g}x) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} is less precise in bf16 than its plain version: {case}")
+
+    for case, b, h, s, d, causal, window, with_dlse in FLASH_BWD_CASES:
+        x = [torch.randn(b, h, s, d, device=device, generator=gen) for _ in range(4)]
+        (q, k, v), kv_len = pad_for_flash(*x[:3], s, d, causal)
+        scale = d ** -0.5
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            qd, kd, vd = (t.to(dt) for t in (q, k, v))
+            o, lse = fa.flash_fwd(qd, kd, vd, scale, window, causal, kv_len)
+            do = torch.zeros_like(o)
+            do[:, :, :s, :d] = x[3].to(dt)  # the padded rows get no gradient
+            dlse = (torch.randn(b, h, o.shape[2], 1, device=device, generator=gen)
+                    if with_dlse else None)
+            got = fa.flash_bwd(qd, kd, vd, o, lse, do, scale, window, causal, kv_len, dlse)
+            f32 = [t.float() for t in (qd, kd, vd, o)]
+            want = fa.flash_bwd_reference(*f32, lse, do.float(), scale, window, causal, kv_len,
+                                          dlse)
+            delta = fa._delta(o, do, dlse)
+            mags = flash_bwd_magnitudes(f32[0], f32[1], f32[2], lse, do.float(), delta, scale,
+                                        window, causal, kv_len)
+            torch.cuda.synchronize()
+            for part, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+                name = "flash_bwd_dq" if part == "dq" else "flash_bwd_dkv"
+                hold(name, f"{case} {part}", dtype_name, g, w, m, TOL_BWD)
+            if dtype_name == "bfloat16":
+                plain = fa.flash_bwd_reference(qd, kd, vd, o, lse, do, scale, window, causal,
+                                               kv_len, dlse)
+                for part, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+                    name = "flash_bwd_dq" if part == "dq" else "flash_bwd_dkv"
+                    as_precise(name, f"{case} {part}", g, p, w)
+            if dtype_name == "float32" and not with_dlse:
+                # flash_attention's gradient on CUDA is these kernels' output.
+                leaves = [t.to(dt).requires_grad_(True) for t in x[:3]]
+                out = fa.flash_attention(*leaves, causal=causal, window_size=window, scale=scale)
+                out.backward(x[3])
+                for part, leaf, g in zip(("dq", "dk", "dv"), leaves, got):
+                    if not torch.equal(leaf.grad, g[:, :, :s, :d]):
+                        raise AssertionError(f"flash_attention's {part} on CUDA is not flash_bwd's: {case}")
+            del o, lse, do, got, want, mags, f32
+        del x, q, k, v
+        torch.cuda.empty_cache()
+
+    for case, b, h, s, kk, d, kind in SMALL_KV_BWD_CASES:
+        q, g_out = (torch.randn(b, h, s, d, device=device, generator=gen) for _ in range(2))
+        k, v = (torch.randn(b, h, kk, d, device=device, generator=gen) for _ in range(2))
+        key_pos = small_kv_key_pos(kind, b, s, kk, device, gen)
+        scale = d ** -0.5
+        for dtype_name in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype_name)
+            qd, kd, vd, dod = (t.to(dt) for t in (q, k, v, g_out))
+            got = nsa.small_kv_bwd(qd, kd, vd, key_pos, dod, scale)
+            f32 = [t.float() for t in (qd, kd, vd)]
+            want = nsa.small_kv_bwd_reference(*f32, key_pos, dod.float(), scale)
+            mags = small_kv_bwd_magnitudes(*f32, key_pos, dod.float(), scale)
+            torch.cuda.synchronize()
+            for part, g, w, m in zip(("dq", "dk", "dv"), got, want, mags):
+                hold("small_kv_bwd", f"{case} {part}", dtype_name, g, w, m, TOL_SKV_BWD)
+            if dtype_name == "bfloat16" and kind != "future":
+                plain = nsa.small_kv_bwd_reference(qd, kd, vd, key_pos, dod, scale)
+                for part, g, p, w in zip(("dq", "dk", "dv"), got, plain, want):
+                    as_precise("small_kv_bwd", f"{case} {part}", g, p, w)
+            if kind == "future" and (got[0].abs().max().item() != 0.0
+                                     or got[1].abs().max().item() != 0.0):
+                raise AssertionError("small_kv_bwd: a row with no visible key moved dq or dk")
+            if dtype_name == "float32":
+                leaves = [t.clone().requires_grad_(True) for t in (qd, kd, vd)]
+                nsa.small_kv_attention(*leaves, key_pos, scale=scale).backward(dod)
+                # atomics: the same sums in another order, so held, not equal
+                for part, leaf, g, m in zip(("dq", "dk", "dv"), leaves, got, mags):
+                    hold("small_kv_bwd", f"{case} {part} via small_kv_attention", dtype_name,
+                         leaf.grad, g.float(), m, TOL_SKV_BWD)
+            del got, want, mags
+    return worst
+
+
 # The reference-default decoder at full width, through the serving CLI's
 # derivation of the config (benchmarks/decoder.py's configuration):
 # vocab 50,257, d 512, 12 layers, 8 heads x 64, expert hidden 2048 (top-2
@@ -1572,6 +1778,461 @@ def phase_serving_kernel_timing(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The decoder LM's training path (train.loop), at the serving phases' width
+# ---------------------------------------------------------------------------
+
+# The training CLI at the reference-default width (SERVE_FLAGS: d 512, 12
+# layers, 8 heads x 64, MoE top-2 of 8 dense, NSA window 512, 4 mHC
+# streams, bf16) on batches of 8 x 2,048 seeded Markov tokens: 6 steps, the
+# MoE slow loop every 3rd.
+TRAIN_LM_STEPS = 6
+TRAIN_LM_ARGV = SERVE_FLAGS + [
+    "--batch_size", "8", "--use_markov_data", "--steps_per_epoch", str(TRAIN_LM_STEPS),
+    "--slow_loop_interval", "3", "--log_interval", "3",
+]
+# The long-S route: the same width at 2 layers, one step of 1 x 8,192
+# tokens, where the JAX package runs its streaming kernels and NSA has
+# (8192 - 512) / 8 = 960 pools.
+LONG_LM_ARGV = [
+    "--d_model", "512", "--num_layers", "2", "--num_heads", "8", "--num_experts", "8",
+    "--top_k_experts", "2", "--window_size", "512", "--num_streams", "4",
+    "--seq_len", "8192", "--bf16", "--batch_size", "1", "--use_markov_data",
+    "--steps_per_epoch", "1", "--slow_loop_interval", "0", "--log_interval", "1",
+]
+LM_SERVE_NEW = 8
+LM_SEQ = 2048  # the positions of the parity and timing batches
+
+
+def lm_launches_per_step(cfg) -> dict:
+    """Kernel launches of one training step of the decoder LM: per layer
+    the NSA local branch (flash_fwd and its two backward kernels) and the
+    compressed and top-k branches (small_kv_fwd and small_kv_bwd twice)."""
+    n = cfg.num_layers
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "small_kv_fwd": 2 * n, "small_kv_bwd": 2 * n}
+
+
+def run_train_loop(argv, workdir) -> tuple:
+    """train.loop.main(argv) from ``workdir`` (its metrics land in ./runs):
+    (result, launches, seconds, peak GiB allocated)."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.train import loop
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = loop.main(argv)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        os.chdir(cwd)
+    return out, launches, secs, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def phase_train_lm_path(device, workdir) -> dict:
+    """train.loop.main at TRAIN_LM_ARGV with a checkpoint: finite loss,
+    exact launches, two brain updates that were not skipped; serve.main
+    then decodes from the trained checkpoint."""
+    import torch
+
+    from forde_tpu_torch import kernels, serve
+    from forde_tpu_torch.train import loop
+
+    ckpt = os.path.join(workdir, "lm_train_ckpt")
+    argv = TRAIN_LM_ARGV + ["--checkpoint_dir", ckpt, "--seed", str(SEED)]
+    cfg = loop.config_from_args(loop.build_parser().parse_args(argv))
+    out, launches, secs, peak = run_train_loop(argv, workdir)
+    loss = out["final_metrics"]["loss/total"]
+    log(f"[train_lm] train.loop.main ({' '.join(TRAIN_LM_ARGV)}) took {secs:.2f} s; final loss "
+        f"{loss:.4f} (lm {out['final_metrics']['loss/lm']:.4f}), peak memory allocated "
+        f"{peak:.2f} GiB, launches {launches}")
+    if not np.isfinite(loss) or out["step"] != TRAIN_LM_STEPS:
+        raise AssertionError(f"LM training path: loss {loss}, steps {out['step']}")
+    want = {k: TRAIN_LM_STEPS * v for k, v in lm_launches_per_step(cfg).items()}
+    if launches != want:
+        raise AssertionError(f"LM training path launches {launches}, expected {want}")
+    updates = out["brain_updates"]
+    for u in updates:
+        log(f"[train_lm] MoE slow loop @ {u['step']}: {u['latency_ms']:.2f} ms, skipped "
+            f"{u['skipped']}, load imbalance {u['load_imbalance']:.4g}, routing entropy "
+            f"{u['routing_entropy']:.4g}, router biases moved {u['updates_count']}")
+    if [u["step"] for u in updates] != [3, 6] or any(
+        u["skipped"] or u["updates_count"] != cfg.num_layers for u in updates
+    ):
+        raise AssertionError(f"MoE slow loop of the LM training path: {updates}")
+
+    prompt = np.random.RandomState(SEED + 12).randint(1, cfg.vocab_size, 700).tolist()
+    printed = io.StringIO()
+    kernels.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        rows = serve.main(["--checkpoint_dir", ckpt, "--prompt_ids", ",".join(map(str, prompt)),
+                           "--max_new_tokens", str(LM_SERVE_NEW), "--temperature", "0"])
+    torch.cuda.synchronize()
+    served = dict(kernels.launches)
+    row = rows[0]
+    if (row[: len(prompt)] != prompt or len(row) != len(prompt) + LM_SERVE_NEW
+            or not all(0 <= t < cfg.vocab_size for t in row)
+            or served != serve_launches(cfg, LM_SERVE_NEW)
+            or f"restored step {TRAIN_LM_STEPS}" not in printed.getvalue()):
+        raise AssertionError(f"serving the trained checkpoint: launches {served}, row {row[-8:]}")
+    log(f"[train_lm] serve.main served the trained checkpoint (step {TRAIN_LM_STEPS}): a prompt "
+        f"of {len(prompt)} tokens, greedy {row[len(prompt):]}; launches {served}")
+    return {"launches": launches, "seconds": secs, "final_loss": loss,
+            "peak_gib": peak, "brain_update_ms": [u["latency_ms"] for u in updates]}
+
+
+def phase_long_lm_path(workdir) -> dict:
+    """One step of train.loop.main at LONG_LM_ARGV (S = 8192, K = 960)."""
+    from forde_tpu_torch.train import loop
+
+    args = loop.build_parser().parse_args(LONG_LM_ARGV)
+    cfg = loop.config_from_args(args)
+    out, launches, secs, peak = run_train_loop(LONG_LM_ARGV + ["--seed", str(SEED)], workdir)
+    loss = out["final_metrics"]["loss/total"]
+    pools = (args.seq_len - cfg.window_size) // cfg.compression_ratio
+    log(f"[train_lm] long S: train.loop.main ({' '.join(LONG_LM_ARGV)}) took {secs:.2f} s; "
+        f"loss {loss:.4f}, {pools} pools per row, peak memory allocated {peak:.2f} GiB, "
+        f"launches {launches}")
+    if not np.isfinite(loss) or launches != lm_launches_per_step(cfg):
+        raise AssertionError(f"long-S training step: loss {loss}, launches {launches}")
+    return {"launches": launches, "seconds": secs, "loss": loss, "peak_gib": peak}
+
+
+def lm_batch(batch: int, seq: int, vocab: int, device, seed: int) -> dict:
+    import torch
+
+    from forde_tpu_torch.data.lm import MarkovDataset
+
+    host = next(iter(MarkovDataset(batch, seq, vocab, num_batches=1, seed=seed)))
+    return {"input_ids": torch.from_numpy(host["input_ids"]).to(device)}
+
+
+def lm_weights(cfg, device) -> dict:
+    import torch
+
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    model = FORDEDecoderLM(cfg, device=device, generator=gen)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def lm_train_state(cfg, weights, device, dtypes=None, impl="auto"):
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.train.state import create_train_state
+
+    cfg = cfg.replace(attention_impl=impl, **({} if dtypes is None else {"dtypes": dtypes}))
+    model = FORDEDecoderLM(cfg, device=device)
+    model.load_state_dict(weights)
+    return create_train_state(cfg, None, 3e-4, 0.01, model=model)
+
+
+class plain_lm_kernels:
+    """Context: every kernel wrapper of the decoder LM's path takes its
+    plain version on CUDA tensors too (the all-plain path of phase 12):
+    the same arithmetic as the kernels, in PyTorch operations."""
+
+    NAMES = (("flash_attention", "flash_fwd"), ("flash_attention", "flash_bwd_dq"),
+             ("flash_attention", "flash_bwd_dkv"), ("nsa_attention", "small_kv_fwd"),
+             ("nsa_attention", "small_kv_bwd"))
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = []
+        for module, name in self.NAMES:
+            mod = importlib.import_module(f"forde_tpu_torch.ops.{module}")
+            self.saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, getattr(mod, f"{name}_reference"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+
+
+# Phase 12 bars. One training step of the reference-default decoder from
+# the same weights and batch (2 x 2,048): the relative L2 of the loss, the
+# gradients (Adam's first moment after the step, i.e. 0.1 x the clipped
+# gradient) and the parameters after the AdamW update, kernel path vs the
+# all-plain path (every kernel replaced by its plain version). fp32 bars:
+# summation order, and what that order flips (an MoE routing choice or an
+# NSA top-k selection whose two candidates lie within fp32 noise; Adam's
+# first step, ~lr * sign(g), for gradients at noise level; the parameters
+# dilute the update by |update| / |params| ~ 1e-2). bf16: at random
+# initialisation a fifth to a half of the NSA top-k selections and a tenth
+# to a third of the MoE routings flip between ANY two bf16 runs (ties of
+# bf16 importance scores and router logits), so one batch's bf16 step is
+# chaotic: on an NVIDIA H100 two paths that are equally precise per
+# kernel read 0.15-0.63 apart on three batches, and the plain path's own
+# control 0.23-0.67 (scripts/lm_bf16_step_chaos.py shows the flips). So
+# the bf16 bar holds the mean over LM_PARITY_SEEDS' batches of each reading
+# to 1.5x the mean of its control (plain bf16 vs plain fp32); phase 3
+# holds each kernel's bf16 error to its plain version's. The plain attention path (attention_impl="reference") is read
+# beside them: fp32 to the same bars; its bf16 backward is autograd in fp32
+# (ds and delta unrounded), so its bf16 readings are reported, not held.
+LM_PARITY_BATCH = 2
+LM_PARITY_SEEDS = (SEED + 41, SEED + 50, SEED + 51)
+LM_PARITY_TOL_FP32 = {"loss": 1e-4, "grads": 5e-2, "params": 2e-3}
+LM_PARITY_OF_CONTROL = 1.5
+
+
+def phase_lm_step_parity(device) -> dict:
+    """One training step of the reference-default decoder on the kernel
+    path, the all-plain path (the kernels' plain versions) and the plain
+    attention path (attention_impl="reference"): fp32 and bf16 on the
+    first batch, bf16 and its control on every batch of LM_PARITY_SEEDS;
+    and the launches of the kernel path's step."""
+    import contextlib as ctx
+
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.train.step import train_step
+
+    cfg = serve_config()
+    weights = lm_weights(cfg, device)
+    launches = {}
+
+    def one_step(name, seed):
+        """The step of path ``name`` (kernel / plain / reference + 32 / 16)
+        on the batch of ``seed``."""
+        dtypes = DTypePolicy.fp32() if name.endswith("32") else DTypePolicy.bf16()
+        impl = "reference" if name.startswith("reference") else "auto"
+        state = lm_train_state(cfg, weights, device, dtypes, impl)
+        batch = lm_batch(LM_PARITY_BATCH, LM_SEQ, cfg.vocab_size, device, seed)
+        kernels.reset_launches()
+        with plain_lm_kernels() if name.startswith("plain") else ctx.nullcontext():
+            state, m = train_step(state, batch, aux_loss_weight=0.01)
+        torch.cuda.synchronize()
+        launches[name] = dict(kernels.launches)
+        out = {"loss": m["loss/total"].reshape(1).float(),
+               "grads": torch.cat([t.flatten().float() for t in state.optimizer.mu]),
+               "params": torch.cat([t.detach().flatten().float() for t in state.optimizer.params])}
+        del state
+        torch.cuda.empty_cache()
+        if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+            raise AssertionError(f"non-finite step on the {name} path")
+        return out
+
+    def rel(a, b):
+        return {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in a}
+
+    readings = {}
+    first = {name: one_step(name, LM_PARITY_SEEDS[0]) for name in (
+        "kernel32", "plain32", "reference32", "kernel16", "plain16", "reference16")}
+    readings["fp32"] = rel(first["kernel32"], first["plain32"])
+    readings["reference_fp32"] = rel(first["kernel32"], first["reference32"])
+    readings["reference_bf16"] = rel(first["kernel16"], first["reference16"])
+    readings["reference_control"] = rel(first["reference16"], first["reference32"])
+    per_batch = [(rel(first["kernel16"], first["plain16"]), rel(first["plain16"], first["plain32"]))]
+    del first
+    for seed in LM_PARITY_SEEDS[1:]:
+        run = {name: one_step(name, seed) for name in ("kernel16", "plain16", "plain32")}
+        per_batch.append((rel(run["kernel16"], run["plain16"]), rel(run["plain16"], run["plain32"])))
+        del run
+    for i, (bf16, control) in enumerate(per_batch):
+        readings[f"bf16_batch{i}"], readings[f"control_batch{i}"] = bf16, control
+    readings["bf16"] = {k: float(np.mean([b[k] for b, _ in per_batch])) for k in per_batch[0][0]}
+    readings["control"] = {k: float(np.mean([c[k] for _, c in per_batch])) for k in per_batch[0][1]}
+    for name, r in readings.items():
+        log(f"[lm parity] {name}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
+    want = lm_launches_per_step(cfg)
+    log(f"[lm parity] launches of one step: kernel path {launches['kernel32']}, all-plain "
+        f"path {launches['plain32']}, plain attention path {launches['reference32']}")
+    if (launches["kernel32"] != want or launches["kernel16"] != want
+            or any(v for k, v in launches.items() if not k.startswith("kernel"))):
+        raise AssertionError(f"launches of one training step: {launches}, expected {want}")
+    for name in ("fp32", "reference_fp32"):
+        for k, tol in LM_PARITY_TOL_FP32.items():
+            if not readings[name][k] <= tol:
+                raise AssertionError(f"LM step parity {name} {k}: {readings[name][k]:.3e} > {tol:g}")
+    for k, v in readings["bf16"].items():
+        bar = LM_PARITY_OF_CONTROL * readings["control"][k]
+        if not v <= bar:
+            raise AssertionError(f"LM step parity bf16 {k} (mean of {len(per_batch)} batches): "
+                                 f"{v:.3e} > {bar:.3e}")
+    return {"readings": readings, "launches_per_step": launches["kernel16"]}
+
+
+def phase_lm_train_timing(device) -> dict:
+    """The training step of the reference-default decoder, bf16, batch 8 x
+    2,048: median of 5 after 2 warm-ups (host clock ending in a
+    synchronize), tokens/s, the MoE slow loop's latency, one step under
+    the profiler."""
+    import torch
+
+    from forde_tpu_torch.brain.slow_loop import moe_slow_loop_step
+    from forde_tpu_torch.train.step import train_step
+
+    cfg = serve_config()
+    state = lm_train_state(cfg, lm_weights(cfg, device), device)
+    batch = lm_batch(8, LM_SEQ, cfg.vocab_size, device, SEED + 42)
+
+    def step():
+        train_step(state, batch, aux_loss_weight=0.01)
+
+    for _ in range(2):
+        step()
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(times))
+    tokens = 8 * LM_SEQ / step_ms * 1e3
+    log(f"[time] LM train step (8 x 2048, bf16): {' / '.join(f'{t:.1f}' for t in times)} ms, "
+        f"median {step_ms:.2f} ms, {tokens:.0f} tokens/s")
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 43)
+    slow = []
+    for _ in range(3):
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        diag = moe_slow_loop_step(state.model, cfg, gen)
+        skipped = bool(diag["skipped"])
+        torch.cuda.synchronize()
+        slow.append((time.perf_counter() - t0) * 1e3)
+        if skipped:
+            raise AssertionError("the timed MoE slow loop skipped its update")
+    log(f"[time] MoE slow loop ({cfg.num_layers} layers x {cfg.num_experts} experts): {' / '.join(f'{t:.2f}' for t in slow)} ms")
+    prof = profile_device(step, "one LM train step (8 x 2048, bf16)", top=16)
+    return {"step_ms": step_ms, "step_ms_all": times, "tokens_per_s": tokens,
+            "slow_loop_ms": float(np.median(slow)), "idle_share": prof["idle_share"],
+            "busy_ms": prof["busy_ms"]}
+
+
+def flash_bwd_bound(b, h, s, d, window, causal, part, dtype_name) -> tuple:
+    """(ms by bytes, ms by operations) of one flash_bwd_dq or
+    flash_bwd_dkv call: q, k, v, do, lse and delta read once, dq (or dk and
+    dv) written once; 2 * D operations per product and visible (query,
+    key): three products for dq (q k^T, do v^T, ds k), four for dk/dv
+    (q k^T, do v^T, p^T do, ds^T q)."""
+    elem = 2 if dtype_name == "bfloat16" else 4
+    outs = 1 if part == "dq" else 2
+    moved = (4 + outs) * b * h * s * d * elem + 2 * b * h * s * 4
+    _, fwd_ops_ms = flash_fwd_bound(b, h, s, d, window, causal, None, dtype_name)
+    products = 3 if part == "dq" else 4
+    return moved / HBM_BYTES_PER_S * 1e3, fwd_ops_ms * products / 2
+
+
+def small_kv_bwd_bound(q, k, key_pos, dtype_name) -> tuple:
+    """(ms by bytes, ms by operations) of one small_kv_bwd: q, do, k, v and
+    key_pos read once, dq, dk, dv written once; 10 * D operations per
+    visible (query, key) pair (q k^T, do v^T, w^T do, ds k, ds^T q), and
+    2 * D per real key for a query that sees none (its uniform weights
+    reach dv only)."""
+    import torch
+
+    from forde_tpu_torch.ops.nsa_attention import INVALID_KEY_POS
+
+    b, h, s, d = q.shape
+    kk = k.shape[2]
+    elem = 2 if dtype_name == "bfloat16" else 4
+    moved = (3 * b * h * s * d + 4 * b * h * kk * d) * elem + b * kk * 4
+    pos = torch.arange(s, device=q.device)[None, :, None]
+    real = key_pos[:, None, :] < INVALID_KEY_POS
+    n_vis = ((pos >= key_pos[:, None, :]) & real).sum(-1)  # (B, S)
+    blind = float((real.sum(-1) * (n_vis == 0)).sum())
+    ops = (10.0 * float(n_vis.sum()) + 2.0 * blind) * d * h
+    return moved / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+
+
+# Timed shapes of the backward kernels: (name, B, H, S, window) of the
+# 4-D backward at the training step and on the streaming side; (name, B,
+# H, S, K, keys) of small_kv_bwd, one step layer's two launches and the
+# 960 pools of S = 8192.
+FLASH_BWD_TIMING = [
+    ("train_s2048_window512", 8, 8, 2048, WINDOW),
+    ("stream_s8192_window512", 1, 8, 8192, WINDOW),
+]
+SMALL_KV_BWD_TIMING = [
+    ("train_pools_s2048_k192", 8, 8, 2048, 192, "pools"),
+    ("train_topk_s2048_k64", 8, 8, 2048, 64, "topk"),
+    ("long_pools_s8192_k960", 1, 8, 8192, 960, "pools"),
+]
+
+
+def phase_training_kernel_timing(device) -> dict:
+    """Per call of flash_bwd_dq, flash_bwd_dkv and small_kv_bwd at the
+    training shapes (bf16, D 64): kernel, plain version, the backward of
+    SDPA with the same mask (a yardstick only: the port never calls it;
+    it computes dq, dk and dv in one call, so both 4-D kernels carry it)
+    and the bound. Inputs cycle through copies that together exceed the
+    50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from forde_tpu_torch.ops import flash_attention as fa
+    from forde_tpu_torch.ops import nsa_attention as nsa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 44)
+    bf16, d = torch.bfloat16, 64
+    scale = d ** -0.5
+    out = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}, "small_kv_bwd": {}}
+    for name, b, h, s, window in FLASH_BWD_TIMING:
+        copies = max(2, -(-200_000_000 // (4 * b * h * s * d * 2)))
+        pos = torch.arange(s, device=device)
+        mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+        inputs = []
+        for _ in range(copies):
+            q, k, v, do = (torch.randn(b, h, s, d, device=device, generator=gen).to(bf16)
+                           for _ in range(4))
+            o, lse = fa.flash_fwd(q, k, v, scale, window, True, None)
+            delta = fa._delta(o, do, None)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+            inputs.append(((q, k, v, do, lse, delta, scale, window, True, None), o_lib, do))
+        shape = {"B": b, "H": h, "S": s, "D": d, "window": window}
+        library = [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs]
+        for part, kernel, plain in (("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
+                                    ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
+            out[f"flash_bwd_{part}"][name] = time_kernel(
+                f"flash_bwd_{part} {name} (B={b}, H={h}, S={s}, D={d}, bf16)",
+                [lambda i=i: kernel(*i[0]) for i in inputs],
+                [lambda i=i: plain(*i[0]) for i in inputs[:2]],
+                library, *flash_bwd_bound(b, h, s, d, window, True, part, "bfloat16"), **shape)
+        del inputs, library
+        torch.cuda.empty_cache()
+
+    for name, b, h, s, kk, kind in SMALL_KV_BWD_TIMING:
+        per_copy = (2 * b * h * s * d + 2 * b * h * kk * d) * 2
+        copies = max(2, -(-200_000_000 // per_copy))
+        key_pos = small_kv_key_pos(kind, b, s, kk, device, gen)
+        qpos = torch.arange(s, device=device)[None, None, :, None]
+        kpos = key_pos[:, None, None, :]
+        add = torch.where(qpos >= kpos, 0.0, nsa.NEG_BIG)
+        add = torch.where(kpos >= nsa.INVALID_KEY_POS, -float("inf"), add).to(bf16)
+        inputs = []
+        for _ in range(copies):
+            q, do = (torch.randn(b, h, s, d, device=device, generator=gen).to(bf16) for _ in range(2))
+            k, v = (torch.randn(b, h, kk, d, device=device, generator=gen).to(bf16) for _ in range(2))
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=add, scale=scale)
+            inputs.append(((q, k, v, key_pos, do, scale), o_lib, do))
+        out["small_kv_bwd"][name] = time_kernel(
+            f"small_kv_bwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, bf16)",
+            [lambda i=i: nsa.small_kv_bwd(*i[0]) for i in inputs],
+            [lambda i=i: nsa.small_kv_bwd_reference(*i[0]) for i in inputs[:2]],
+            [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs],
+            *small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos, "bfloat16"),
+            B=b, H=h, S=s, K=kk, D=d)
+        del inputs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1595,11 +2256,14 @@ def main() -> int:
     max_err = dict(zip(("flash_mha_fwd", "flash_mha_bwd"), phase_check_attention(device)))
     max_err["moment_sums"] = phase_check_moments(device)
     max_err.update(phase_check_serving_kernels(device))
+    max_err.update(phase_check_training_kernels(device))
 
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         main_run = phase_main_path(device, workdir)
         train_run = phase_train_path(workdir)
         serve_run = phase_serve_path(device, workdir)
+        lm_run = phase_train_lm_path(device, workdir)
+        long_run = phase_long_lm_path(workdir)
     check_prefetch(device)
     parity = phase_step_parity(device)
     timing = phase_encode_timing(device, main_run["model"], main_run["cfg"])
@@ -1608,6 +2272,16 @@ def main() -> int:
     serve_parity = phase_serve_parity(device, serve_run["state"])
     serve_timing = phase_serve_timing(device, serve_run["state"])
     shapes.update(phase_serving_kernel_timing(device))
+    lm_parity = phase_lm_step_parity(device)
+    lm_timing = phase_lm_train_timing(device)
+    shapes.update(phase_training_kernel_timing(device))
+
+    def by_path(name):
+        return {"embed": main_run["launches"].get(name, 0),
+                "train": train_run["launches"].get(name, 0),
+                "serve": serve_run["launches"].get(name, 0),
+                "train_lm": lm_run["launches"].get(name, 0),
+                "train_lm_s8192": long_run["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -1624,13 +2298,9 @@ def main() -> int:
             "route": "cuda",
             "source": f"forde_tpu_torch/csrc/{name}.cu",
             "replaces": replaces,
-            # The training path's run (phase 5); the embedding path's below.
+            # The training path's run (phase 5); the other paths' below.
             "launches": train_run["launches"].get(name, 0),
-            "launches_by_path": {
-                "embed": main_run["launches"].get(name, 0),
-                "train": train_run["launches"].get(name, 0),
-                "serve": serve_run["launches"].get(name, 0),
-            },
+            "launches_by_path": by_path(name),
             "max_abs_err": max_err[name],
             # One call at the vision shape plus one at the text shape (a
             # layer of each tower at batch 128); "shapes" has each alone.
@@ -1661,11 +2331,40 @@ def main() -> int:
             "replaces": replaces,
             **({"also_replaces": also} if also else {}),
             "launches": serve_run["launches"].get(name, 0),
-            "launches_by_path": {
-                "embed": main_run["launches"].get(name, 0),
-                "train": train_run["launches"].get(name, 0),
-                "serve": serve_run["launches"].get(name, 0),
-            },
+            "launches_by_path": by_path(name),
+            "max_abs_err": max_err[name],
+            "ms": sum(t["ms"] for t in ts),
+            "plain_ms": sum(t["plain_ms"] for t in ts),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": sum(t["library_ms"] for t in ts),
+            "shapes": shapes[name],
+        })
+    # The LM training path's kernels: the 4-D backward at the training
+    # step's shape (one launch of each per layer), small_kv_bwd at one step
+    # layer's two launches; "shapes" has the streaming S = 8192 and K = 960.
+    # SDPA's backward computes dq, dk and dv in one call: both 4-D kernels
+    # carry its time as library_ms.
+    for name, replaces, also, parts in (
+        ("flash_bwd_dq", "forde_tpu/ops/flash_attention.py:201",
+         "forde_tpu/ops/flash_attention.py:481", ("train_s2048_window512",)),
+        ("flash_bwd_dkv", "forde_tpu/ops/flash_attention.py:250",
+         "forde_tpu/ops/flash_attention.py:528", ("train_s2048_window512",)),
+        ("small_kv_bwd", "forde_tpu/ops/nsa_attention.py:126", None,
+         ("train_pools_s2048_k192", "train_topk_s2048_k64")),
+    ):
+        ts = [shapes[name][part] for part in parts]
+        bound_ms, bound_by = bound(sum(t["bytes_ms"] for t in ts),
+                                   sum(t["operations_ms"] for t in ts))
+        source = "flash_bwd" if name.startswith("flash_bwd") else name
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"forde_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            **({"also_replaces": also} if also else {}),
+            "launches": lm_run["launches"].get(name, 0),
+            "launches_by_path": by_path(name),
             "max_abs_err": max_err[name],
             "ms": sum(t["ms"] for t in ts),
             "plain_ms": sum(t["plain_ms"] for t in ts),
@@ -1689,6 +2388,11 @@ def main() -> int:
                        "launches_sampled": serve_run["launches_sampled"]},
         "serve_batch8": serve_timing,
         "serve_parity": serve_parity,
+        "train_lm_path": {k: lm_run[k] for k in
+                          ("seconds", "final_loss", "peak_gib", "brain_update_ms")},
+        "train_lm_s8192": {k: long_run[k] for k in ("seconds", "loss", "peak_gib")},
+        "train_lm_step_8x2048": lm_timing,
+        "train_lm_step_parity": lm_parity,
         "card": smi,
     }
     print(smi)

@@ -55,8 +55,8 @@ class LLMConfig:
     ``attention_impl``: "auto" (and the JAX config's "pallas" or
     "interpret") runs the attention kernels on CUDA tensors and their
     plain versions on CPU tensors; "reference" runs the plain attention
-    paths everywhere. ``moe_dispatch``: "dense" only (capacity and "ep"
-    dispatch come with the training slice). ``remat`` and ``scan_layers``
+    paths everywhere. ``moe_dispatch``: "dense" or "capacity" ("ep", expert
+    parallelism over a device mesh, comes with the multi-device slice). ``remat`` and ``scan_layers``
     are kept for the checkpoint schema: the port's model is unrolled and
     reads the ``scan_layers`` parameter layout too (``interop``).
     ``quantized`` is kept for the schema; int8 serving is not ported.
@@ -238,13 +238,17 @@ def vit_b16_hd128_config() -> DualEncoderConfig:
 @dataclass(frozen=True)
 class BrainConfig:
     """Sense -> Cluster -> Smooth -> Actuate: the fields of the JAX
-    package's ``BrainConfig`` that the neuron slow loop reads, with its
-    defaults (the router fields come with the MoE loop)."""
+    package's ``BrainConfig`` that the neuron and MoE slow loops read,
+    with its defaults."""
 
     num_clusters: int = 3
     gmm_iterations: int = 50
     gmm_kmeans_iterations: int = 10
     smoothing_kernel_size: int = 3
+    # Router actuation of the MoE slow loop
+    target_balance: float = 0.1
+    max_adjustment: float = 0.1
+    specialist_damping: float = 0.5
     # Forde-lite rule thresholds
     lite_spec_grad_gini: float = 0.8
     lite_pool_act_gini: float = 0.3

@@ -1,7 +1,8 @@
 // Pieces shared by the hand-written kernels under csrc/: conversions
 // between the storage types and fp32, the staging of a 64-row fp32 tile in
-// shared memory, the mask contract of the fused-qkv attention kernels, and
-// the error-string export every kernel library has.
+// shared memory, the mask contract of the flash kernels, the tile products
+// of the attention backward kernels, and the error-string export every
+// kernel library has.
 //
 // Each csrc/<name>.cu is compiled on its own into lib<name>.so, so the
 // definitions here land once in each library.
@@ -10,6 +11,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace forde {
 
@@ -52,15 +54,86 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
-// The fused-qkv attention mask: key `kc` is visible to query row `qr` iff
-// kc < kv_len (per-sample length and static bound, both folded into
-// kv_len <= S), qr >= kc when causal, and qr - kc < window when window >= 0.
+// The attention mask of the flash kernels: key `kc` is visible to query row
+// `qr` iff kc < kv_len (per-sample length and static bound, both folded
+// into kv_len <= S), qr >= kc when causal, and qr - kc < window when
+// window >= 0.
 __device__ __forceinline__ bool visible(int qr, int kc, int kv_len,
                                         int causal, int window) {
   bool v = kc < kv_len;
   if (causal) v = v && qr >= kc;
   if (window >= 0) v = v && (qr - kc) < window;
   return v;
+}
+
+// The backward kernels' tile arithmetic, on a 16 x 16 thread grid (tx, ty)
+// over 64 x 64 tiles held as fp32 in shared memory with row pitch D + 1.
+
+// out[i][j] = sum_d a[row ty + 16i][d] * b[row tx + 16j][d].
+template <int D>
+__device__ __forceinline__ void tile_dot(float out[4][4], const float* a,
+                                         const float* b, int tx, int ty) {
+  constexpr int LD = D + 1;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
+  }
+}
+
+// acc[i][j] += sum_c p(ty + 16i, c) * m[row c][col tx + 16j] for c < 64,
+// where p(r, c) = p_s[r * RS + c * CS]: (RS, CS) = (65, 1) reads a 64 x 64
+// tile of pitch 65 as it is, (1, 65) reads its transpose.
+template <int D, int RS, int CS>
+__device__ __forceinline__ void tile_mac(float acc[4][D / 16], const float* p_s,
+                                         const float* m, int tx, int ty) {
+  constexpr int LD = D + 1;
+#pragma unroll 4
+  for (int c = 0; c < 64; ++c) {
+    float pv[4], mv[D / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * RS + c * CS];
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) mv[j] = m[c * LD + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(pv[i], mv[j], acc[i][j]);
+  }
+}
+
+// p of rows q0 + ty + 16i, keys k0 + tx + 16j from the scores of q_s and
+// k_s: exp(s * scale - lse) where visible, else SELECTED to 0 (a row with
+// no visible key has lse = -1e30, and exp() is inf on its masked keys).
+template <int D>
+__device__ __forceinline__ void probs(float p[4][4], const float* q_s,
+                                      const float* k_s, const float* lse_s,
+                                      int q0, int k0, int S, int kv_len,
+                                      int causal, int window, float scale,
+                                      int tx, int ty) {
+  tile_dot<D>(p, q_s, k_s, tx, ty);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = ty + 16 * i;
+    const int qr = q0 + r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int kc = k0 + tx + 16 * j;
+      const bool vis = qr < S && visible(qr, kc, kv_len, causal, window);
+      p[i][j] = vis ? expf(p[i][j] * scale - lse_s[r]) : 0.f;
+    }
+  }
 }
 
 }  // namespace forde

@@ -51,8 +51,10 @@ namespace {
 
 using forde::from_float;
 using forde::load_tile;
+using forde::probs;
 using forde::round_to;
-using forde::visible;
+using forde::tile_dot;
+using forde::tile_mac;
 
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
@@ -68,73 +70,6 @@ template <int D>
 constexpr size_t dkdv_smem_bytes() {
   return (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP + 2 * BQ) *
          sizeof(float);
-}
-
-// out[i][j] = sum_d a[row ty + 16i][d] * b[row tx + 16j][d] over two fp32
-// tiles of pitch D + 1, with the forward kernel's order of summation.
-template <int D>
-__device__ __forceinline__ void tile_dot(float out[4][4], const float* a,
-                                         const float* b, int tx, int ty) {
-  constexpr int LD = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(av[i], bv[j], out[i][j]);
-  }
-}
-
-// acc[i][j] += sum_c p(ty + 16i, c) * m[row c][col tx + 16j] for c < 64,
-// where p(r, c) = p_s[r * RS + c * CS]: (RS, CS) = (LP, 1) reads the 64 x 64
-// tile as it is, (1, LP) reads its transpose.
-template <int D, int RS, int CS>
-__device__ __forceinline__ void tile_mac(float acc[4][D / 16], const float* p_s,
-                                         const float* m, int tx, int ty) {
-  constexpr int LD = D + 1;
-#pragma unroll 4
-  for (int c = 0; c < 64; ++c) {
-    float pv[4], mv[D / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * RS + c * CS];
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) mv[j] = m[c * LD + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) acc[i][j] = fmaf(pv[i], mv[j], acc[i][j]);
-  }
-}
-
-// p of rows q0 + ty + 16i, keys k0 + tx + 16j from the scores of q_s and
-// k_s: exp(s * scale - lse) where visible, else selected to 0.
-template <int D>
-__device__ __forceinline__ void probs(float p[4][4], const float* q_s,
-                                      const float* k_s, const float* lse_s,
-                                      int q0, int k0, int S, int kv_len,
-                                      int causal, int window, float scale,
-                                      int tx, int ty) {
-  tile_dot<D>(p, q_s, k_s, tx, ty);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qr = q0 + r;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int kc = k0 + tx + 16 * j;
-      const bool vis = qr < S && visible(qr, kc, kv_len, causal, window);
-      p[i][j] = vis ? expf(p[i][j] * scale - lse_s[r]) : 0.f;
-    }
-  }
 }
 
 __device__ __forceinline__ int key_count(const int* lens, int b, int S,

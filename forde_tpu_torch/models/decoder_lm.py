@@ -57,7 +57,7 @@ class DecoderBlock(torch.nn.Module):
         if cfg.use_moe:
             self.moe = MoEStatefulLayer(
                 cfg.num_experts, cfg.top_k_experts, cfg.expert_hidden_dim, cfg.d_model,
-                cfg.moe_aux_loss_weight, cfg.moe_dispatch, **kw,
+                cfg.moe_aux_loss_weight, cfg.moe_dispatch, cfg.moe_capacity_factor, **kw,
             )
         else:
             self.ffn_up = Dense(cfg.d_model, cfg.expert_hidden_dim, **kw)

@@ -1,10 +1,13 @@
 """Mixture-of-Experts layers with a stacked expert bank (port of
-forde_tpu/nn/moe.py, dense dispatch).
+forde_tpu/nn/moe.py).
 
 The experts are one (E, d, h) and one (E, h, d) parameter, so the whole
-bank runs as two batched products. ``MoEStatefulLayer`` adds the FORDE
-sensing buffers ``expert_usage`` (the summed mean router probability of
-each expert) and ``step_count``, which the MoE slow loop reads.
+bank runs as two batched products: over every token ("dense" dispatch,
+the reference's math) or over per-expert buffers of ``capacity`` tokens
+("capacity" dispatch, capacity = max(int(factor * T * k / E), k)).
+``MoEStatefulLayer`` adds the FORDE sensing buffers ``expert_usage`` (the
+summed mean router probability of each expert) and ``step_count``, which
+the MoE slow loop reads.
 """
 
 from __future__ import annotations
@@ -18,13 +21,18 @@ from forde_tpu_torch.nn.layers import Dense
 from forde_tpu_torch.ops import moe_dispatch
 
 
+DISPATCHES = ("dense", "capacity")
+
+
 def _dispatch_check(dispatch: str) -> None:
-    if dispatch != "dense":
+    if dispatch == "ep":
         raise NotImplementedError(
-            f"moe_dispatch={dispatch!r}: capacity and expert-parallel dispatch "
-            "come with the decoder LM's training slice; the port serves "
-            "dense dispatch"
+            "moe_dispatch='ep' (expert parallelism over a device mesh) is not "
+            "ported to forde_tpu_torch yet (it waits for the multi-device "
+            "slice; see ROADMAP.md)"
         )
+    if dispatch not in DISPATCHES:
+        raise ValueError(f"unknown moe_dispatch {dispatch!r}")
 
 
 class ExpertsFFN(torch.nn.Module):
@@ -58,6 +66,14 @@ class ExpertsFFN(torch.nn.Module):
         out = torch.einsum("ebsh,ehd->ebsd", h, self.w_down.to(dt))
         return out + self.b_down.to(dt)[:, None, None, :]
 
+    def dispatched(self, expert_inputs: torch.Tensor) -> torch.Tensor:
+        """Each expert on its own buffer: (E, C, D) -> (E, C, D)."""
+        dt = self.dtype
+        h = torch.einsum("ecd,edh->ech", expert_inputs.to(dt), self.w_up.to(dt))
+        h = F.gelu(h + self.b_up.to(dt)[:, None, :], approximate="tanh")
+        out = torch.einsum("ech,ehd->ecd", h, self.w_down.to(dt))
+        return out + self.b_down.to(dt)[:, None, :]
+
 
 class MoERouter(torch.nn.Module):
     """The linear router."""
@@ -83,12 +99,15 @@ class MoELayer(torch.nn.Module):
 
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
-                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+                 capacity_factor: float = 2.0, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         _dispatch_check(dispatch)
         self.num_experts = num_experts
         self.top_k = top_k
         self.aux_loss_weight = aux_loss_weight
+        self.dispatch = dispatch
+        self.capacity_factor = capacity_factor
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.router = MoERouter(d_model, num_experts, **kw)
         self.experts = ExpertsFFN(num_experts, expert_hidden_dim, d_model, **kw)
@@ -97,9 +116,20 @@ class MoELayer(torch.nn.Module):
         router_logits = self.router(x).float()
         router_probs = torch.softmax(router_logits, dim=-1)
         top_k_indices, top_k_probs = moe_dispatch.top_k_gating(router_logits, self.top_k)
-        all_out = self.experts.all_tokens(x)  # (E, B, S, D)
-        combine = moe_dispatch.combine_matrix(top_k_indices, top_k_probs, self.num_experts)
-        output = moe_dispatch.dense_combine(all_out, combine)
+        if self.dispatch == "dense":
+            all_out = self.experts.all_tokens(x)  # (E, B, S, D)
+            combine = moe_dispatch.combine_matrix(top_k_indices, top_k_probs, self.num_experts)
+            output = moe_dispatch.dense_combine(all_out, combine)
+        else:
+            b, s, d = x.shape
+            t, k = b * s, self.top_k
+            capacity = max(int(self.capacity_factor * t * k / self.num_experts), k)
+            plan = moe_dispatch.capacity_route(
+                top_k_indices.reshape(t, k), top_k_probs.reshape(t, k), self.num_experts,
+                capacity,
+            )
+            expert_out = self.experts.dispatched(moe_dispatch.capacity_gather(x.reshape(t, d), plan))
+            output = moe_dispatch.capacity_combine(expert_out, plan).reshape(b, s, d)
         aux_loss = moe_dispatch.load_balancing_loss(
             router_probs, top_k_indices, self.num_experts
         ) * self.aux_loss_weight
@@ -115,11 +145,12 @@ class MoEStatefulLayer(torch.nn.Module):
 
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
-                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+                 capacity_factor: float = 2.0, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         self.moe_layer = MoELayer(
             num_experts, top_k, expert_hidden_dim, d_model, aux_loss_weight, dispatch,
-            dtype=dtype, param_dtype=param_dtype, device=device,
+            capacity_factor, dtype=dtype, param_dtype=param_dtype, device=device,
         )
         self.register_buffer(
             "expert_usage", torch.zeros(num_experts, dtype=torch.float32, device=device)

@@ -9,6 +9,14 @@ import os
 import time
 from typing import Dict
 
+# The decoder LM's metric keys under the reference's TensorBoard tags.
+REFERENCE_TAGS = {
+    "loss/total": "Loss/total",
+    "loss/lm": "Loss/lm",
+    "loss/aux": "Loss/aux",
+    "training/grad_norm": "Training/grad_norm",
+}
+
 
 class MetricsWriter:
     """Appends {"tag", "value", "step"} lines to ``<log_dir>/metrics.jsonl``."""

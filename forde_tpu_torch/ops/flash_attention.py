@@ -14,13 +14,17 @@ CPU tensor they run the kernels' plain versions
 ``flash_mha_reference`` is the plain masked attention path the JAX package
 runs as ``impl="reference"``, differentiated by autograd.
 
-``flash_attention`` is the 4-D (B, H, S, D) forward of the decoder LM's
-causal and sliding-window attention (the JAX package's resident and
-streaming kernels): its wrapper ``flash_fwd`` launches
-``csrc/flash_fwd.cu`` on a CUDA tensor and runs ``flash_fwd_reference``
-on a CPU tensor. It is also ``flash_mha``'s route for head_dim not a
-multiple of 64 or S > 512. Its backward kernels are not ported yet: on
-CUDA a call whose inputs require grad raises.
+``flash_attention`` is the 4-D (B, H, S, D) causal and sliding-window
+attention of the decoder LM (the JAX package's resident and streaming
+kernels), also ``flash_mha``'s route for head_dim not a multiple of 64 or
+S > 512. Its gradient is ``FlashAttention`` (the JAX package's
+``_flash_attention_padded`` custom_vjp): the forward wrapper ``flash_fwd``
+launches ``csrc/flash_fwd.cu`` and saves q, k, v, o and the fp32 lse;
+``flash_bwd`` computes delta and calls the wrappers of the two kernels of
+``csrc/flash_bwd.cu``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. On a CPU
+tensor every wrapper runs its kernel's plain version
+(``flash_fwd_reference``, ``flash_bwd_dq_reference``,
+``flash_bwd_dkv_reference``).
 """
 
 from __future__ import annotations
@@ -359,7 +363,7 @@ def flash_mha(
     JAX config's "pallas" or "interpret") run ``FlashMHAFused``: the CUDA
     kernels for a CUDA tensor, their plain versions for a CPU tensor.
     head_dim not a multiple of 64 or S > 512 go through the 4-D
-    ``flash_attention`` (forward only on CUDA).
+    ``flash_attention``.
     """
     b, s, three_hd = qkv.shape
     if three_hd != 3 * num_heads * head_dim:
@@ -372,9 +376,8 @@ def flash_mha(
     if impl not in KERNEL_IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     if head_dim % 64 != 0 or s > MAX_FUSED_SEQ:
-        # Outside the fused kernel's shapes: the 4-D forward, which pads
-        # D and streams k tiles (inference only until its backward
-        # kernels are ported; see flash_attention).
+        # Outside the fused kernel's shapes: the 4-D kernels, which pad D
+        # and stream k tiles.
         if kv_lens is not None:
             raise ValueError(
                 "kv_lens needs the fused kernel (64-aligned head_dim, "
@@ -437,6 +440,26 @@ def flash_fwd_reference(
     return o.to(q.dtype), m + torch.log(l_safe)
 
 
+def _check_4d(name: str, q: torch.Tensor, *others: torch.Tensor) -> None:
+    """Raise on what the 4-D CUDA kernels do not take: tensors of q's
+    shape, dtype and device, float32 or bfloat16, contiguous, head_dim 64
+    or 128, S a multiple of ``BLOCK``."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
+    for t in others:
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} needs inputs of one shape, dtype and device")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    s, d = q.shape[2], q.shape[3]
+    if d not in (64, 128):
+        raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
+    if s % BLOCK:
+        raise ValueError(f"{name} takes S a multiple of {BLOCK}, got {s}")
+    if not all(t.is_contiguous() for t in (q, *others)):
+        raise ValueError(f"{name} needs contiguous inputs")
+
+
 def flash_fwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -456,22 +479,10 @@ def flash_fwd(
     """
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale, window, causal, kv_len)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd takes CPU or CUDA tensors, got {q.device}")
-    b, h, s, d = q.shape
-    for t in (k, v):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError("flash_fwd needs q, k, v of one shape, dtype and device")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16, got {q.dtype}")
-    if d not in (64, 128):
-        raise ValueError(f"flash_fwd takes head_dim 64 or 128, got {d}")
-    if s % BLOCK:
-        raise ValueError(f"flash_fwd takes S a multiple of {BLOCK}, got {s}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_fwd needs contiguous q, k, v")
+    _check_4d("flash_fwd", q, k, v)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    b, h, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, s, 1, dtype=torch.float32, device=q.device)
 
@@ -495,9 +506,147 @@ def flash_fwd(
     return o, lse
 
 
-def _on_card(t: torch.Tensor) -> bool:
-    """Whether ``flash_fwd`` launches its kernel for this tensor."""
-    return t.device.type != "cpu"
+def _bwd_probs(q, k, lse, scale, window, causal, kv_len):
+    """fp32 p = exp(q k^T * scale - lse), *selected* to 0 where masked (a
+    row with no visible key has lse = -1e30 and would give inf)."""
+    p = torch.exp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale - lse)
+    mask = _visible(q.shape[2], q.device, causal, window, None, kv_len)
+    if mask is not None:
+        p = torch.where(mask, p, torch.zeros((), dtype=p.dtype, device=p.device))
+    return p
+
+
+def _bwd_ds(q, v, do, p, delta, scale):
+    """ds = p * (do v^T - delta) * scale, rounded to the input dtype."""
+    dp = torch.matmul(do.float(), v.float().transpose(-1, -2))
+    return (p * (dp - delta) * scale).to(q.dtype).float()
+
+
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len):
+    """Plain version of the dq kernel: the arithmetic of the TPU kernels
+    ``_bwd_dq_kernel`` / ``_bwd_dq_stream_kernel``: dq = ds k, with ds as
+    ``_bwd_ds`` rounds it. Returns dq in the input dtype."""
+    p = _bwd_probs(q, k, lse, scale, window, causal, kv_len)
+    ds = _bwd_ds(q, v, do, p, delta, scale)
+    return torch.matmul(ds, k.float()).to(q.dtype)
+
+
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len):
+    """Plain version of the dk/dv kernel: the arithmetic of the TPU kernels
+    ``_bwd_dkv_kernel`` / ``_bwd_dkv_stream_kernel``: dv = round(p)^T do
+    with p rounded to ``do.dtype``, dk = ds^T q. Returns (dk, dv) in the
+    input dtype."""
+    p = _bwd_probs(q, k, lse, scale, window, causal, kv_len)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), do.float())
+    ds = _bwd_ds(q, v, do, p, delta, scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _delta(o, do, dlse):
+    """(B, H, S, 1) fp32 rowsum(do * o) - dlse, computed outside the
+    kernels from the saved o, as the TPU code does (``_bwd_pallas``)."""
+    delta = torch.sum(do.float() * o.float(), dim=-1, keepdim=True)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def flash_bwd_reference(q, k, v, o, lse, do, scale, window, causal, kv_len, dlse=None):
+    """Plain version of ``flash_bwd``: (dq, dk, dv) in the input dtype."""
+    delta = _delta(o, do, dlse)
+    args = (q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    return (flash_bwd_dq_reference(*args), *flash_bwd_dkv_reference(*args))
+
+
+def _bwd_launch(name: str, outputs, q, k, v, do, lse, delta, scale, window, causal, kv_len):
+    """Launch ``forde_<name>`` of ``csrc/flash_bwd.cu`` on the current
+    stream and count it."""
+    _check_4d(name, q, k, v, do)
+    b, h, s, d = q.shape
+    if lse.shape != (b, h, s, 1) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"lse must be ({b}, {h}, {s}, 1) float32 on {q.device}")
+    if delta.shape != lse.shape or delta.dtype != torch.float32 or delta.device != q.device:
+        raise ValueError(f"delta must be ({b}, {h}, {s}, 1) float32 on {q.device}")
+    lib = build.load("flash_bwd")
+    fn = getattr(lib, f"forde_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * (6 + len(outputs)) + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    lse, delta = lse.contiguous(), delta.contiguous()
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(t.data_ptr() for t in outputs),
+            b, h, s, d, _DTYPE_CODES[q.dtype], scale, *_mask_args(window, causal, kv_len),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    build.check(lib, err, name)
+    kernels.launches[name] += 1
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len) -> torch.Tensor:
+    """The dq kernel's wrapper: dq in the input dtype from (B, H, S, D) q,
+    k, v, do, the forward's lse and delta (B, H, S, 1) fp32. A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel, or raises."""
+    if q.device.type == "cpu":
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    dq = torch.empty_like(q)
+    _bwd_launch("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, window, causal, kv_len):
+    """The dk/dv kernel's wrapper: (dk, dv) in the input dtype; arguments
+    as ``flash_bwd_dq``."""
+    if q.device.type == "cpu":
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale, window, causal,
+                kv_len)
+    return dk, dv
+
+
+def flash_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    scale: float,
+    window: Optional[int],
+    causal: bool,
+    kv_len: Optional[int],
+    dlse: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of ``flash_fwd``: (dq, dk, dv) in the input dtype from
+    q, k, v, the forward's o and lse (B, H, S, 1) fp32, and the output
+    gradient ``do``; ``dlse`` an optional lse cotangent (B, H, S, 1) that
+    folds in as delta - dlse. delta = rowsum(do * o) in fp32, then the dq
+    kernel and the dk/dv kernel (on a CPU tensor their plain versions)."""
+    delta = _delta(o, do, dlse)
+    args = (q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    return (flash_bwd_dq(*args), *flash_bwd_dkv(*args))
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_fwd`` with ``flash_bwd`` as its gradient (the JAX package's
+    ``_flash_attention_padded`` custom_vjp). The forward saves q, k, v, o
+    and the fp32 lse; the static arguments get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, causal, kv_len):
+        o, lse = flash_fwd(q, k, v, scale, window, causal, kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.static = (scale, window, causal, kv_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), *ctx.static)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(
@@ -514,19 +663,15 @@ def flash_attention(
     masking (``0 <= q - k < window_size``).
 
     ``impl``: "reference" runs the plain masked attention
-    (``attention_ref``); "auto" (and "pallas", "interpret") runs
-    ``flash_fwd``: the CUDA kernel for a CUDA tensor, its plain version
-    for a CPU tensor. As in the JAX package, D is padded to a multiple of
-    64 and S to the kernel's tile, and a non-causal padded call masks the
-    padded keys with the static ``kv_len = S``. The JAX package sends S >
-    4096 (causal) to a streaming kernel and shorter S to a resident one,
-    a split that came from VMEM size; the one CUDA kernel streams k tiles
-    at any S, so the call is the same on both sides of 4096.
-
-    The backward kernels (``_bwd_dq_kernel`` / ``_bwd_dkv_kernel`` and
-    their streaming twins) are not ported yet: on CUDA, a call whose
-    inputs require grad raises rather than return an output with no
-    gradient. On the CPU, autograd differentiates the plain version.
+    (``attention_ref``), differentiated by autograd; "auto" (and "pallas",
+    "interpret") runs ``FlashAttention``: the CUDA kernels for a CUDA
+    tensor, their plain versions for a CPU tensor. As in the JAX package,
+    D is padded to a multiple of 64 and S to the kernels' tile, and a
+    non-causal padded call masks the padded keys with the static ``kv_len
+    = S``. The JAX package sends S > 4096 (causal) to streaming kernels and
+    shorter S to resident ones, a split that came from VMEM size; the CUDA
+    kernels read tiles from device memory at any S, so the call is the
+    same on both sides of 4096.
     """
     if impl == "reference":
         if window_size is not None and causal:
@@ -538,18 +683,6 @@ def flash_attention(
         raise ValueError(f"unknown impl {impl!r}")
     b, h, s, d = q.shape
     scale = 1.0 / float(d) ** 0.5 if scale is None else float(scale)
-    if (
-        _on_card(q)
-        and torch.is_grad_enabled()
-        and any(t.requires_grad for t in (q, k, v))
-    ):
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward only: its backward kernels "
-            "(_bwd_dq_kernel / _bwd_dkv_kernel and _bwd_dq_stream_kernel / "
-            "_bwd_dkv_stream_kernel of forde_tpu/ops/flash_attention.py) are "
-            "not ported yet; call it under torch.no_grad() or "
-            "torch.inference_mode()"
-        )
     s_pad = _ceil_to(s, BLOCK)
     d_pad = max(_ceil_to(d, 64), 64)
     if s_pad != s or d_pad != d:
@@ -559,5 +692,5 @@ def flash_attention(
     # Padded keys sit after every real query, so the causal mask already
     # hides them; without it the static bound does.
     kv_len = s if (not causal and s_pad != s) else None
-    o, _ = flash_fwd(q, k, v, scale, window_size, causal, kv_len)
+    o = FlashAttention.apply(q, k, v, scale, window_size, causal, kv_len)
     return o[:, :, :s, :d]

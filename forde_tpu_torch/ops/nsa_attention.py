@@ -10,13 +10,15 @@ outside even that uniform distribution (the ragged prefill hides the
 pools a row does not have this way).
 
 ``small_kv_attention`` is the entry point. With ``impl`` "auto" (and the
-JAX config's "pallas" or "interpret") it runs ``small_kv_fwd``, the
-wrapper of the hand-written kernel ``csrc/small_kv_fwd.cu``, on every CUDA
-tensor, and its plain version ``small_kv_fwd_reference`` on a CPU tensor.
-The JAX package picks its TPU kernel only when S*K >= 2M, a threshold
-measured on a TPU v5e; the port has no threshold. "reference" runs
-``small_kv_attention_ref``. The kernel's backward is not ported yet: on
-CUDA a call whose inputs require grad raises.
+JAX config's "pallas" or "interpret") it runs ``SmallKVAttention`` (the
+JAX package's ``_small_kv_pallas`` custom_vjp): the forward wrapper
+``small_kv_fwd`` launches ``csrc/small_kv_fwd.cu`` and the backward wrapper
+``small_kv_bwd`` launches ``csrc/small_kv_bwd.cu`` on every CUDA tensor;
+on a CPU tensor they run their plain versions ``small_kv_fwd_reference``
+and ``small_kv_bwd_reference``. The JAX package picks its TPU kernels only
+when S*K >= 2M, a threshold measured on a TPU v5e; the port has no
+threshold. "reference" runs ``small_kv_attention_ref``, differentiated by
+autograd.
 """
 
 from __future__ import annotations
@@ -72,6 +74,33 @@ def small_kv_fwd_reference(q, k, v, key_pos, scale: float) -> torch.Tensor:
     return torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
+def _check_kernel_args(name, q, k, v, key_pos, *others):
+    """Raise on what the CUDA kernels do not take; returns q, k, v and
+    ``others`` contiguous and key_pos as contiguous int32."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
+    b, h, s, d = q.shape
+    kk = k.shape[2]
+    if k.shape != (b, h, kk, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be ({b}, {h}, K, {d}), got {tuple(k.shape)}")
+    if key_pos.shape != (b, kk):
+        raise ValueError(f"key_pos must be ({b}, {kk}), got {tuple(key_pos.shape)}")
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in (k, v, *others)):
+        raise TypeError(f"{name} takes float32 or bfloat16 inputs of one dtype")
+    if d not in (64, 128):
+        raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
+    if not 0 < kk <= MAX_KEYS:
+        raise ValueError(f"{name} takes 1 to {MAX_KEYS} keys, got {kk}")
+    for t in (k, v, key_pos, *others):
+        if t.device != q.device:
+            raise ValueError(f"k, v, key_pos and do must be on {q.device}")
+    for t in others:
+        if t.shape != q.shape:
+            raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(t.shape)}")
+    return (*(t.contiguous() for t in (q, k, v, *others)),
+            key_pos.to(torch.int32).contiguous())
+
+
 def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
     """The kernel's wrapper: (B, H, S, D) out in q's dtype.
 
@@ -83,25 +112,9 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
     """
     if q.device.type == "cpu":
         return small_kv_fwd_reference(q, k, v, key_pos, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"small_kv_fwd takes CPU or CUDA tensors, got {q.device}")
+    q, k, v, pos = _check_kernel_args("small_kv_fwd", q, k, v, key_pos)
     b, h, s, d = q.shape
     kk = k.shape[2]
-    if k.shape != (b, h, kk, d) or v.shape != k.shape:
-        raise ValueError(f"k and v must be ({b}, {h}, K, {d}), got {tuple(k.shape)}")
-    if key_pos.shape != (b, kk):
-        raise ValueError(f"key_pos must be ({b}, {kk}), got {tuple(key_pos.shape)}")
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"small_kv_fwd takes float32 or bfloat16 q, k, v of one dtype")
-    if d not in (64, 128):
-        raise ValueError(f"small_kv_fwd takes head_dim 64 or 128, got {d}")
-    if not 0 < kk <= MAX_KEYS:
-        raise ValueError(f"small_kv_fwd takes 1 to {MAX_KEYS} keys, got {kk}")
-    for t in (k, v, key_pos):
-        if t.device != q.device:
-            raise ValueError(f"k, v and key_pos must be on {q.device}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    pos = key_pos.to(torch.int32).contiguous()
     out = torch.empty_like(q)
 
     lib = build.load("small_kv_fwd")
@@ -122,6 +135,84 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
     return out
 
 
+def small_kv_bwd_reference(q, k, v, key_pos, do, scale: float):
+    """Plain version of the backward kernel: the arithmetic of the TPU
+    kernel ``_bwd_kernel``. It recomputes the straight softmax w (fp32);
+    dv = round(w)^T do with w rounded to do's dtype; dw = do v^T, ds = w *
+    (dw - sum(dw * w)) zeroed where the mask was false (a -1e9 entry too:
+    a row with no visible key adds to dv but not to dq or dk; padding
+    keys get nothing), times scale, rounded to the input dtype; dq = ds k
+    in q's dtype; dk = ds^T q and dv summed in fp32 and cast to k's and
+    v's dtype."""
+    s = _masked_scores(q, k, key_pos, scale)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = p / p.sum(dim=-1, keepdim=True)
+    dof = do.float()
+    dv = torch.matmul(w.to(do.dtype).float().transpose(-1, -2), dof)
+    dw = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = w * (dw - torch.sum(dw * w, dim=-1, keepdim=True))
+    q_pos = torch.arange(q.shape[2], device=q.device)[None, None, :, None]
+    k_pos = key_pos.to(torch.int64)[:, None, None, :]
+    mask = (q_pos >= k_pos) & (k_pos < INVALID_KEY_POS)
+    ds = (torch.where(mask, ds, torch.zeros((), device=ds.device)) * scale).to(q.dtype).float()
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def small_kv_bwd(q, k, v, key_pos, do, scale: float):
+    """The backward kernel's wrapper: (dq, dk, dv) in the input dtype from
+    the forward's inputs and the output gradient ``do`` (B, H, S, D).
+    Arguments as ``small_kv_fwd``. A CPU tensor takes the plain version; a
+    CUDA tensor launches the kernel on the current stream, or raises. The
+    kernel sums dk and dv over its q tiles with fp32 atomicAdd into zeroed
+    buffers, cast to the input dtype here (the TPU kernel's fp32 outputs)."""
+    if q.device.type == "cpu":
+        return small_kv_bwd_reference(q, k, v, key_pos, do, scale)
+    q, k, v, do, pos = _check_kernel_args("small_kv_bwd", q, k, v, key_pos, do)
+    b, h, s, d = q.shape
+    kk = k.shape[2]
+    dq = torch.empty_like(q)
+    dk, dv = (torch.zeros(b, h, kk, d, dtype=torch.float32, device=q.device) for _ in range(2))
+
+    lib = build.load("small_kv_bwd")
+    fn = lib.forde_small_kv_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), do.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, s, kk, d, _DTYPE_CODES[q.dtype], scale,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    build.check(lib, err, "small_kv_bwd")
+    kernels.launches["small_kv_bwd"] += 1
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class SmallKVAttention(torch.autograd.Function):
+    """``small_kv_fwd`` with ``small_kv_bwd`` as its gradient (the JAX
+    package's ``_small_kv_pallas`` custom_vjp): the forward saves its
+    inputs, the backward recomputes the softmax. ``key_pos`` and
+    ``scale`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_pos, scale):
+        ctx.save_for_backward(q, k, v, key_pos)
+        ctx.scale = scale
+        return small_kv_fwd(q, k, v, key_pos, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, key_pos = ctx.saved_tensors
+        dq, dk, dv = small_kv_bwd(q, k, v, key_pos, do.contiguous(), ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def small_kv_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -136,25 +227,16 @@ def small_kv_attention(
     is visible to query position p iff p >= key_pos[b, j]. Serves both
     NSA global branches: compressed (key_pos = pool end positions) and
     top-k (key_pos = selected token indices). D is padded to a multiple
-    of 64 for the kernel."""
+    of 64 for the kernels."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     if impl == "reference":
         return small_kv_attention_ref(q, k, v, key_pos, scale=scale)
     if impl not in KERNEL_IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
-    if (
-        q.device.type != "cpu"
-        and torch.is_grad_enabled()
-        and any(t.requires_grad for t in (q, k, v))
-    ):
-        raise NotImplementedError(
-            "small_kv_attention on CUDA is forward only: its backward kernel "
-            "(_bwd_kernel of forde_tpu/ops/nsa_attention.py) is not ported "
-            "yet; call it under torch.no_grad() or torch.inference_mode()"
-        )
     d = q.shape[-1]
     d_pad = max(-(-d // 64) * 64, 64)
     if d_pad != d:
         q, k, v = (F.pad(t, (0, d_pad - d)) for t in (q, k, v))
-    return small_kv_fwd(q, k, v, key_pos, float(scale))[..., :d]
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    return SmallKVAttention.apply(q, k, v, key_pos, float(scale))[..., :d]

@@ -18,8 +18,7 @@ Not ported yet, and refused with the slice they wait for: beam search,
 speculative decoding, int8 quantization, tensor-parallel serving and
 shared prefixes (the generation-extras slice), EMA and LoRA weights (the
 training-extras slice), text prompts (they need a tokenizer in the
-repository), and capacity / expert-parallel MoE dispatch (the decoder
-LM's training slice).
+repository), and expert-parallel MoE dispatch (the multi-device slice).
 """
 
 from __future__ import annotations
@@ -31,7 +30,7 @@ from typing import List, Optional
 import torch
 
 from forde_tpu_torch import resolve_device
-from forde_tpu_torch.core.config import DTypePolicy, LLMConfig
+from forde_tpu_torch.train.loop import config_from_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,33 +89,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
-
-
-def config_from_args(args) -> LLMConfig:
-    """The training CLI's derivation of the model config from the shape
-    flags (forde_tpu/train/loop.py); it moves to the port's train/loop.py
-    with the decoder LM's training slice."""
-    return LLMConfig(
-        vocab_size=50257,
-        d_model=args.d_model,
-        num_layers=args.num_layers,
-        num_heads=args.num_heads,
-        head_dim=args.d_model // args.num_heads,
-        max_seq_len=max(args.seq_len, 1024),
-        use_moe=not args.no_moe,
-        num_experts=args.num_experts,
-        top_k_experts=args.top_k_experts,
-        expert_hidden_dim=4 * args.d_model,
-        use_sparse_attention=not args.no_nsa,
-        window_size=args.window_size,
-        use_hyper_connections=not args.no_mhc,
-        num_streams=args.num_streams,
-        moe_dispatch=args.moe_dispatch,
-        remat=False,
-        scan_layers=False,
-        dropout_rate=0.0,
-        dtypes=DTypePolicy.bf16() if args.bf16 else DTypePolicy.fp32(),
-    )
 
 
 _NOT_PORTED = (

@@ -1,15 +1,23 @@
-"""Learning-rate schedule and optimizer of the training steps (port of
-``make_lr_schedule`` and ``make_optimizer`` in forde_tpu/train/state.py,
-with optax's schedule arithmetic)."""
+"""Train state of the decoder LM, and the learning-rate schedule and
+optimizer of every training step (port of forde_tpu/train/state.py, with
+optax's schedule arithmetic).
+
+The JAX package's ``TrainState`` carries params, the optimizer state and
+the ``stats_buffer`` collection; here the model holds its parameters and
+its MoE stat buffers, and ``TrainState`` adds the optimizer and the step
+count.
+"""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, Optional, Sequence, Union
 
 import torch
 
-from forde_tpu_torch.core.config import dtype_from_name
+from forde_tpu_torch.core.config import LLMConfig, dtype_from_name
+from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
 from forde_tpu_torch.train.optim import AdamW
 
 
@@ -71,3 +79,41 @@ def make_optimizer(
         params, lr, weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
         moment_dtype=dtype_from_name(moment_dtype) if moment_dtype else None,
     )
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The decoder LM (parameters and MoE stat buffers), the optimizer
+    (global-norm clipping -> AdamW over every parameter) and the number of
+    steps taken."""
+
+    model: FORDEDecoderLM
+    optimizer: AdamW
+    step: int = 0
+
+
+def create_train_state(
+    config: LLMConfig,
+    generator: Optional[torch.Generator],
+    learning_rate: float,
+    weight_decay: float,
+    grad_clip_norm: float = 1.0,
+    warmup_steps: int = 0,
+    moment_dtype: Optional[str] = None,
+    lr_schedule: str = "constant",
+    decay_steps: int = 0,
+    min_lr_ratio: float = 0.0,
+    device=None,
+    model: Optional[FORDEDecoderLM] = None,
+) -> TrainState:
+    """A fresh train state: ``model`` if given (e.g. weights loaded from a
+    checkpoint), else a decoder LM of ``config`` initialised from
+    ``generator`` on ``device``."""
+    if model is None:
+        model = FORDEDecoderLM(config, device=device, generator=generator)
+    optimizer = make_optimizer(
+        list(model.parameters()), learning_rate, weight_decay, grad_clip_norm,
+        warmup_steps, moment_dtype=moment_dtype, lr_schedule=lr_schedule,
+        decay_steps=decay_steps, min_lr_ratio=min_lr_ratio,
+    )
+    return TrainState(model=model, optimizer=optimizer)

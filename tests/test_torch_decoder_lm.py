@@ -161,9 +161,22 @@ def test_expert_usage_update_matches_jax():
 
 
 def test_moe_dispatch_capacity_not_ported():
-    cfg = tcfg.config_from_dict(jcfg.config_to_dict(tiny_config(moe_dispatch="capacity")))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        FORDEDecoderLM(cfg)
+    """Capacity dispatch is ported: a model with capacity factor 0.5 (a
+    quarter of the routed choices overflow and drop) gives the JAX
+    package's logits and aux loss."""
+    cfg = tiny_config(moe_dispatch="capacity", moe_capacity_factor=0.5)
+    model, variables = jax_variables(cfg)
+    ids = token_ids(2, 40, seed=5)
+    (want, want_aux), _ = model.apply(variables, jnp.asarray(ids), mutable=["stats_buffer"])
+    with torch.no_grad():
+        got, aux = port_model(cfg, variables)(torch.from_numpy(ids))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    dense = tiny_config()
+    (other, _), _ = JaxLM(config=dense).apply(variables, jnp.asarray(ids), mutable=["stats_buffer"])
+    assert np.abs(np.asarray(other) - np.asarray(want)).max() > 1e-3  # the drops matter
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        FORDEDecoderLM(tcfg.config_from_dict(jcfg.config_to_dict(tiny_config(moe_dispatch="ep"))))
 
 
 def test_random_init_is_seeded_and_finite():

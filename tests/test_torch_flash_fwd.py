@@ -128,16 +128,31 @@ def test_flash_attention_cpu_runs_no_kernel_and_has_grad():
 
 
 def test_flash_attention_on_card_refuses_grad(monkeypatch):
-    """The autograd guard: where the kernel would launch, an input that
-    requires grad raises before any launch (its backward kernels are not
-    ported); under no_grad the call proceeds to the wrapper."""
-    monkeypatch.setattr(fa, "_on_card", lambda t: True)
-    q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 64, 64, seed=6))
-    with pytest.raises(NotImplementedError, match="_bwd_dq_kernel"):
-        fa.flash_attention(q.requires_grad_(True), k, v, causal=True)
-    with torch.no_grad():
-        o = fa.flash_attention(q, k, v, causal=True)
-    assert o.shape == q.shape
+    """Where the kernels launch (here faked: the wrappers are spies that
+    run the plain versions), an input that requires grad goes through the
+    autograd Function: one flash_fwd in the forward, one flash_bwd_dq and
+    one flash_bwd_dkv in the backward, with the plain versions' gradient
+    (the backward kernels are ported; nothing is refused any more)."""
+    calls = []
+
+    def spy(name, fn):
+        def wrapper(*args, **kw):
+            calls.append(name)
+            return fn(*args, **kw)
+        return wrapper
+
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(fa, name, spy(name, getattr(fa, f"{name}_reference")))
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _qkv(1, 1, 64, 64, seed=6))
+    o = fa.flash_attention(q, k, v, causal=True)
+    inner = o.grad_fn.next_functions[0][0]  # under the slice back to S x D
+    assert type(inner).__name__ == "FlashAttentionBackward" and calls == ["flash_fwd"]
+    o.sum().backward()
+    assert calls == ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"]
+    ref = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fa.flash_attention(*ref, causal=True, impl="reference").sum().backward()
+    for got, want in zip((q, k, v), ref):
+        torch.testing.assert_close(got.grad, want.grad, **TOL)
 
 
 def test_flash_fwd_rejects_other_devices():

@@ -68,6 +68,11 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.models.decoder_lm",
         "forde_tpu_torch.models.generate",
         "forde_tpu_torch.serve",
+        "forde_tpu_torch.brain.actuation",
+        "forde_tpu_torch.brain.slow_loop",
+        "forde_tpu_torch.data.lm",
+        "forde_tpu_torch.train.step",
+        "forde_tpu_torch.train.loop",
     ):
         assert name in result["modules"]
 
@@ -76,7 +81,8 @@ def test_every_kernel_source_is_found():
     from forde_tpu_torch.kernels import build
 
     assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == [
-        "flash_fwd", "flash_mha_bwd", "flash_mha_fwd", "moment_sums", "small_kv_fwd"
+        "flash_bwd", "flash_fwd", "flash_mha_bwd", "flash_mha_fwd", "moment_sums",
+        "small_kv_bwd", "small_kv_fwd",
     ]
     path = build.library_path("flash_mha_fwd")
     assert path.parent == REPO / "build" / "forde_tpu_torch"

@@ -115,7 +115,24 @@ def test_serve_needs_a_gpu_by_default(monkeypatch):
         serve.main(["--prompt_ids", "1,2"])
 
 
-def test_serve_moe_capacity_names_training_slice():
-    with pytest.raises(NotImplementedError, match="training slice"):
+def test_serve_moe_capacity_names_training_slice(tmp_path, capsys):
+    """A checkpoint with capacity dispatch is served (its training slice
+    is ported): the same greedy tokens as the JAX package's
+    ``generate_cached``; expert-parallel dispatch names its slice."""
+    ckpt = str(tmp_path / "ckpt")
+    cfg = tiny_config(moe_dispatch="capacity")
+    model, variables = jax_variables(cfg, seed=9)
+    save_model_config(ckpt, cfg, {"step": 3})
+    np.savez(f"{ckpt}/params.npz", **interop.flatten(variables))
+    prompt = np.random.RandomState(4).randint(1, 256, 24).tolist()
+    rows = serve.main([
+        "--checkpoint_dir", ckpt, "--prompt_ids", ",".join(map(str, prompt)),
+        "--max_new_tokens", str(NEW), "--temperature", "0", "--device", "cpu",
+    ])
+    want = jgen.generate_cached(model, variables, jnp.asarray([prompt], jnp.int32),
+                                jax.random.PRNGKey(0), max_new_tokens=NEW, temperature=0.0)
+    assert rows == np.asarray(want).tolist()
+    assert "restored step 3" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="multi-device"):
         serve.main(["--d_model", "32", "--num_layers", "1", "--num_heads", "2",
-                    "--moe_dispatch", "capacity", "--device", "cpu"])
+                    "--moe_dispatch", "ep", "--device", "cpu"])
