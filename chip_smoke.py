@@ -25,7 +25,9 @@ holds every CUDA kernel of them against its plain PyTorch version:
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
   2. build every kernel under forde_tpu_torch/csrc, one nvcc per source,
-     all started together;
+     all started together; ptxas's registers and spills per kernel, and
+     the HMMA (tensor-core) count of the libraries with a bf16
+     tensor-core route (flash_mha_fwd, flash_mha_bwd), which must not be 0;
   3. each kernel against its plain version on the card, fp32 and bf16, at
      the shapes of the paths (the training CLIs' shapes; the serving
      prefill and decode shapes, the streaming S = 8192, an odd S and a
@@ -50,9 +52,11 @@ Phases:
   7. timing at ``vit_b16_hd128``, bf16, batch 128: encode time, sensed and
      unsensed step times, pairs/s at sensing every 8th step, the neuron
      slow loop, one encode and one sensed step under torch.profiler, and
-     per kernel its time, its plain version's, PyTorch's one-call
-     equivalent where there is one (timed as a yardstick only, the port
-     never calls it) and the least time the card could take;
+     per kernel its time (and its device time alone), its plain
+     version's, PyTorch's one-call equivalent where there is one (timed as
+     a yardstick only, the port never calls it) and the least time the
+     card could take; the attention kernels also at ``vit_b16``'s D = 64
+     shapes;
   8. the serving path: ``serve.main`` from the checkpoint, ids in the
      vocabulary, the prompts kept, and exact launches (per prefill 12
      flash_fwd and 24 small_kv_fwd, per decode step 0 and 24);
@@ -102,12 +106,15 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor; fp32 non-tensor
 
-# Phase 3 tolerances on o, per element: |o - plain| <= atol + rtol * |plain|,
-# where the plain version runs in fp32 on the same input values (a bf16
-# input is widened exactly). The kernel multiplies and sums in fp32 too,
-# so fp32 differs by summation order (atol), and in bf16 the kernel's one
-# extra step is rounding o to bf16: at most half a bf16 ulp, 2^-8 of the
-# value (rtol). lse is fp32 in both types.
+# Phase 3 tolerances on o, per element: |o - plain| <= atol + rtol *
+# (|plain| + mag), where the plain version runs in fp32 on the same input
+# values (a bf16 input is widened exactly) and mag = sum_c (p_c / l) |v_c|
+# (fwd_magnitudes). The kernel sums exact products in fp32 too, so fp32
+# differs by summation order (atol). In bf16 the kernel rounds the weights
+# p to bf16 before the product with v, as the TPU kernel does
+# (forde_tpu/ops/flash_attention.py:1024): a relative 2^-9 of each term,
+# at most 2^-9 * mag; and it rounds o: 2^-9 of the value. rtol 2^-8 bounds
+# the sum of the two. lse is fp32 in both types.
 TOL_O = {"float32": (1e-4, 0.0), "bfloat16": (1e-4, 2.0 ** -8)}  # (atol, rtol)
 TOL_LSE = 1e-4
 # Phase 4: least cosine of each embedding against the same weights on the
@@ -219,10 +226,25 @@ def bound(bytes_ms: float, ops_ms: float) -> tuple:
 # Every kernel of the main paths: csrc/<name>.cu.
 KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", "small_kv_fwd",
                   "flash_bwd", "small_kv_bwd")
+# Libraries whose bf16 route runs on the tensor cores: their SASS must hold
+# HMMA instructions.
+TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd")
+
+
+def hmma_count(name: str) -> int:
+    """HMMA instructions in the SASS of lib<name>, by the cuobjdump beside
+    nvcc."""
+    from forde_tpu_torch.kernels import build
+
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
+                         capture_output=True, text=True, check=True).stdout
+    return sum("HMMA" in line for line in out.splitlines())
 
 
 def phase_build():
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; ptxas's registers and
+    spills per kernel, and the HMMA count of the tensor-core libraries."""
     from concurrent.futures import ThreadPoolExecutor
 
     from forde_tpu_torch.kernels import build
@@ -235,14 +257,22 @@ def phase_build():
     for name, (secs, text) in build.build_log.items():
         log(f"[build] nvcc {name}: {secs:.2f} s")
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if ("Function properties for" in line or "registers" in line or "spill" in line
+                    or "error" in line):
                 log(f"[build]   {line.strip()}")
+    for name in TENSOR_CORE_SOURCES:
+        count = hmma_count(name)
+        log(f"[build] lib{name}: {count} HMMA instructions in its SASS")
+        if count == 0:
+            raise AssertionError(f"lib{name} has no tensor-core (HMMA) instruction")
 
 
 # (name, B, S, H, D, kv_lens, causal, window): the vision and text shapes
 # of vit_b16_hd128 and of vit_b16 (the training CLI's preset), the S=197
-# shape that needs kv_bound, the causal + window option, and the training
-# CLI's two shapes at its batch of 128.
+# shape that needs kv_bound, the causal + window option, both presets'
+# shapes at the batch of 128 (vit_b16_hd128's vision S = 197 padded to 200
+# with kv_bound 197, as the path runs it), the shortest S and the longest
+# (MAX_FUSED_SEQ) at D = 128.
 CHECK_CASES = [
     ("vision_s200_h6_d128", 4, 200, 6, 128, None, False, None),
     ("text_s64_h4_d128_lens", 4, 64, 4, 128, [0, 1, 17, 64], False, None),
@@ -252,6 +282,10 @@ CHECK_CASES = [
     ("s200_h2_d128_causal_window32_lens", 3, 200, 2, 128, [200, 0, 5], True, 32),
     ("vision_b128_s200_h12_d64", 128, 200, 12, 64, None, False, None),
     ("text_b128_s64_h8_d64_lens", 128, 64, 8, 64, [0, 1, 17, 64] * 32, False, None),
+    ("vision_b128_s200_h6_d128", 128, 197, 6, 128, None, False, None),
+    ("text_b128_s64_h4_d128_lens", 128, 64, 4, 128, [0, 1, 17, 64] * 32, False, None),
+    ("s8_h2_d128_lens", 3, 8, 2, 128, [8, 0, 3], False, None),
+    ("s512_h2_d128_lens", 2, 512, 2, 128, [512, 300], False, None),
 ]
 # flash_mha on CUDA tensors against the plain attention path: (name, B, S,
 # H, D, kv_lens); S=197 goes through the entry point's padding to 200.
@@ -261,6 +295,25 @@ GRAD_CASES = [
     ("text_s64_h8_d64_lens", 4, 64, 8, 64, [0, 1, 17, 64]),
     ("s197_h12_d64", 2, 197, 12, 64, None),
 ]
+
+
+def fwd_magnitudes(qkv, lens, h, d, scale, window, causal, kv_bound):
+    """(B, S, H*D) fp32: per element of o the sum of the absolute terms
+    it adds up, sum_c (p_c / l) |v_c|, with the plain version's fp32
+    weights. A rounding of p by a relative eps moves o by at most eps
+    times this."""
+    import torch
+
+    from forde_tpu_torch.ops import flash_attention as fa
+
+    b, s, _ = qkv.shape
+    q, k, v = qkv.reshape(b, s, 3, h, d).permute(2, 0, 3, 1, 4)
+    scores = q @ k.transpose(-1, -2) * scale
+    mask = fa._visible(s, qkv.device, causal, window, lens, kv_bound)
+    if mask is not None:
+        scores = scores.masked_fill(~mask, fa.MASK_VALUE)
+    w = torch.softmax(scores, dim=-1)
+    return (w @ v.abs()).transpose(1, 2).reshape(b, s, h * d)
 
 
 def bwd_magnitudes(qkv, lens, lse, do, h, d, scale, window, causal, kv_bound):
@@ -322,16 +375,17 @@ def phase_check_attention(device) -> tuple:
             o, lse = fa.flash_mha_fwd(qkv, lens_t, *args)
             dqkv = fa.flash_mha_bwd(qkv, lens_t, lse, do, *args)
             o_ref, lse_ref = fa.flash_mha_fwd_reference(qkv.float(), lens_t, *args)
+            fwd_mag = fwd_magnitudes(qkv.float(), lens_t, *args)
             dqkv_ref = fa.flash_mha_bwd_reference(qkv.float(), lens_t, lse, do.float(), *args)
             mag = bwd_magnitudes(qkv.float(), lens_t, lse, do.float(), *args)
             torch.cuda.synchronize()
 
             atol, rtol = TOL_O[dtype_name]
-            err, ratio = held_against(o, o_ref, atol, rtol * o_ref.abs())
+            err, ratio = held_against(o, o_ref, atol, rtol * (o_ref.abs() + fwd_mag))
             lse_err = (lse - lse_ref).abs().max().item()
             ok = ratio <= 1.0 and lse_err <= TOL_LSE
             log(f"[check] fwd {name} {dtype_name}: max|o - plain| {err:.3e}, worst "
-                f"|o - plain| / ({atol:g} + {rtol:g}|plain|) {ratio:.3f} (tol 1), "
+                f"|o - plain| / ({atol:g} + {rtol:g}(|plain| + mag)) {ratio:.3f} (tol 1), "
                 f"max|lse - plain| {lse_err:.3e} (tol {TOL_LSE:g}) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash_mha_fwd disagrees with its plain version: {name} {dtype_name}")
@@ -348,7 +402,7 @@ def phase_check_attention(device) -> tuple:
                 raise AssertionError(f"flash_mha_bwd disagrees with its plain version: {name} {dtype_name}")
             worst_bwd = max(worst_bwd, err)
 
-            if lens is not None:
+            if lens is not None and 0 in lens:
                 empty = lens_t == 0
                 if o[empty].abs().max().item() != 0.0 or dqkv[empty].abs().max().item() != 0.0:
                     raise AssertionError(f"{name}: a kv_lens == 0 sample has a non-zero o or gradient")
@@ -577,6 +631,27 @@ def phase_encode_timing(device, model, cfg) -> dict:
     profile_device(lambda: encode(model), "one encode (128 images + 128 texts)")
     return {"encode_ms": kernel_ms, "plain_encode_ms": plain_ms,
             "pairs_per_s": batch / kernel_ms * 1e3}
+
+
+def device_ms(fns, reps: int = 20, spin_cycles: int = 200_000_000) -> float:
+    """Mean device time of one call: ``reps`` calls cycling through ``fns``
+    are queued behind a spin kernel (``torch.cuda._sleep``, ~0.1 s), so the
+    card runs them back to back and CUDA events around them time the card
+    alone. cuda_ms reads the host instead when a call is shorter than its
+    launch path."""
+    import torch
+
+    for fn in fns[:2]:
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for i in range(reps):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def profile_device(run, label: str, top: int = 12) -> dict:
@@ -949,25 +1024,30 @@ def moment_bound(n, f, dtype_name) -> tuple:
 def time_kernel(label, kernel_fns, plain_fns, library_fns, bytes_ms, ops_ms, **shape) -> dict:
     """CUDA-event ms of a kernel, its plain version and PyTorch's one-call
     equivalent (None: there is none), each cycling through its closures,
-    beside the bound."""
+    beside the bound; and the kernel's device time alone (device_ms)."""
     k_ms, p_ms = cuda_ms(kernel_fns), cuda_ms(plain_fns)
     l_ms = None if library_fns is None else cuda_ms(library_fns)
+    k_dev = device_ms(kernel_fns)
     b_ms, b_by = bound(bytes_ms, ops_ms)
-    log(f"[time] {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-        f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
-    return {**shape, "dtype": "bfloat16", "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms, "operations_ms": ops_ms}
+    log(f"[time] {label}: kernel {k_ms:.4f} ms (device {k_dev:.4f}), plain {p_ms:.4f} ms, "
+        f"library {'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
+    return {**shape, "dtype": "bfloat16", "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+            "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
+            "operations_ms": ops_ms}
 
 
 def phase_kernel_timing(device, cfg, encode_ms) -> dict:
     """Per call of each kernel at the training shapes of vit_b16_hd128
     (bf16, batch 128, text lengths 4-64): kernel, plain version, the
     library yardstick (scaled_dot_product_attention's forward and its
-    backward on the same q/k/v; none for the moment sums) and the bound.
-    Inputs cycle through copies that together exceed the 50 MB L2."""
+    backward on the same q/k/v; none for the moment sums) and the bound;
+    the attention kernels also at vit_b16's D = 64 shapes (the training
+    CLI's preset; keys "vision_d64", "text_d64"). Inputs cycle through
+    copies that together exceed the 50 MB L2."""
     import torch
     import torch.nn.functional as F
 
+    from forde_tpu_torch.core.config import vit_b16_config
     from forde_tpu_torch.ops import flash_attention as fa
     from forde_tpu_torch.ops import stat_sums
 
@@ -978,10 +1058,13 @@ def phase_kernel_timing(device, cfg, encode_ms) -> dict:
     pos = torch.arange(cfg.max_text_len, device=device)
     s_vision = (cfg.image_size // cfg.patch_size) ** 2 + 1
     s_vision = -(-s_vision // 8) * 8  # CLS + patches + registers
+    d64 = vit_b16_config()
     out = {"flash_mha_fwd": {}, "flash_mha_bwd": {}, "moment_sums": {}}
     for name, tw, s, shape_lens in (
         ("vision", cfg.vision, s_vision, None),
         ("text", cfg.text, cfg.max_text_len, lens),
+        ("vision_d64", d64.vision, s_vision, None),
+        ("text_d64", d64.text, cfg.max_text_len, lens),
     ):
         h, d = tw.num_heads, tw.head_dim
         scale = d ** -0.5
@@ -1020,6 +1103,8 @@ def phase_kernel_timing(device, cfg, encode_ms) -> dict:
             [lambda i=i: i[4].backward(i[5], retain_graph=True) for i in inputs],
             *attention_bound(batch, s, h, d, "bfloat16", shape_lens, backward=True), **shape)
         del inputs
+        if name.endswith("_d64"):
+            continue
 
         n, f = batch * s, tw.mlp_hidden_dim
         xs = [torch.randn(n, f, device=device, generator=gen).to(torch.bfloat16)

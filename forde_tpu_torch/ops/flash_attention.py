@@ -10,7 +10,12 @@ and dv into one (B, S, 3*H*D) tensor. On a CUDA tensor the two wrappers
 launch the hand-written kernels ``csrc/flash_mha_fwd.cu``
 (``flash_mha_fwd``) and ``csrc/flash_mha_bwd.cu`` (``flash_mha_bwd``); on a
 CPU tensor they run the kernels' plain versions
-(``flash_mha_fwd_reference``, ``flash_mha_bwd_reference``).
+(``flash_mha_fwd_reference``, ``flash_mha_bwd_reference``). The input
+dtype picks the kernels' route: bf16 runs on the tensor cores (``mma.sync``
+with fp32 accumulators), fp32 on the CUDA cores (the tensor cores would
+round it to TF32). The bf16 route copies tiles with 16-byte ``cp.async``,
+so the wrappers refuse a tensor that does not start on a 16-byte
+boundary.
 ``flash_mha_reference`` is the plain masked attention path the JAX package
 runs as ``impl="reference"``, differentiated by autograd.
 
@@ -140,6 +145,7 @@ def _check_kernel_args(
         raise ValueError(f"{name} takes S <= {MAX_FUSED_SEQ}, got {s}")
     if not qkv.is_contiguous():
         raise ValueError(f"{name} needs a contiguous qkv")
+    _check_aligned(name, qkv=qkv)
     if window is not None and window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     if lens is None:
@@ -147,6 +153,15 @@ def _check_kernel_args(
     if lens.shape != (b,) or lens.device != qkv.device:
         raise ValueError(f"lens must be ({b},) on {qkv.device}")
     return lens.to(torch.int32).contiguous()
+
+
+def _check_aligned(name: str, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary: the
+    kernels copy tiles with 16-byte ``cp.async`` and store 16 bytes at a
+    time."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} needs a 16-byte aligned {arg}")
 
 
 def _mask_args(window, causal, kv_bound) -> tuple:
@@ -172,7 +187,8 @@ def flash_mha_fwd(
     (B,) count of visible keys per sample; ``kv_bound`` an optional static
     count of visible keys; ``window`` an optional ``q - k < window`` bound.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, or raises.
+    kernel on the current stream (bf16 on the tensor cores, fp32 on the
+    CUDA cores), or raises.
     """
     if qkv.device.type == "cpu":
         return flash_mha_fwd_reference(
@@ -250,7 +266,8 @@ def flash_mha_bwd(
     dtype, from qkv, the forward's lse (B, H, S, 1) fp32 and the output
     gradient ``do`` (B, S, H*D) in the input dtype. Arguments as
     ``flash_mha_fwd``. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel on the current stream, or raises."""
+    launches the kernels on the current stream (bf16 on the tensor cores,
+    fp32 on the CUDA cores), or raises."""
     if qkv.device.type == "cpu":
         return flash_mha_bwd_reference(
             qkv, lens, lse, do, num_heads, head_dim, scale, window, causal, kv_bound
@@ -265,6 +282,7 @@ def flash_mha_bwd(
         raise ValueError("flash_mha_bwd needs a contiguous do and lse")
     if do.device != qkv.device or lse.device != qkv.device:
         raise ValueError(f"do and lse must be on {qkv.device}")
+    _check_aligned("flash_mha_bwd", do=do, lse=lse)
     dqkv = torch.empty_like(qkv)
     delta = torch.empty(b, num_heads, s, dtype=torch.float32, device=qkv.device)
 
