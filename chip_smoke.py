@@ -27,14 +27,16 @@ Phases:
   2. build every kernel under forde_tpu_torch/csrc, one nvcc per source,
      all started together; ptxas's registers and spills per kernel, and
      the HMMA (tensor-core) count of the libraries with a bf16
-     tensor-core route (flash_mha_fwd, flash_mha_bwd), which must not be 0;
+     tensor-core route (flash_mha_fwd, flash_mha_bwd, small_kv_fwd,
+     small_kv_bwd), which must not be 0;
   3. each kernel against its plain version on the card, fp32 and bf16, at
      the shapes of the paths (the training CLIs' shapes; the serving
      prefill and decode shapes, the streaming S = 8192, an odd S and a
      padded D) and the mask options (kv_lens with 0, kv_bound, causal +
-     window; kv_len; INVALID_KEY_POS keys, keys all in the future; an lse
-     cotangent), each backward kernel's bf16 error against its plain
-     version's, and the output and gradients of ``flash_mha``,
+     window; kv_len; INVALID_KEY_POS keys, keys all in the future, K not a
+     multiple of 64; an lse cotangent), each backward kernel's bf16 error
+     against its plain version's, small_kv_bwd bit-identical across two
+     calls, and the output and gradients of ``flash_mha``,
      ``flash_attention`` and ``small_kv_attention`` on CUDA tensors
      against the kernels or the plain attention path;
   4. the embedding path: finite (N, 512) embeddings, 24 launches of
@@ -228,7 +230,7 @@ KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", 
                   "flash_bwd", "small_kv_bwd")
 # Libraries whose bf16 route runs on the tensor cores: their SASS must hold
 # HMMA instructions.
-TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd")
+TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "small_kv_fwd", "small_kv_bwd")
 
 
 def hmma_count(name: str) -> int:
@@ -1154,7 +1156,7 @@ FLASH_FWD_CASES = [
 # serving prefill (S = 2048: 192 pools, 64 selected) and of a decode step
 # (one query; 256 pools at max_seq_len 2048, 64 kept), pools a row does
 # not have (INVALID_KEY_POS), every key in the future (the uniform quirk),
-# and D = 128.
+# D = 128, and K = 200, not a multiple of the kernels' 64-key tiles.
 SMALL_KV_CASES = [
     ("prefill_pools_s2048_k192", 8, 8, 2048, 192, 64, "pools"),
     ("prefill_topk_s2048_k64", 8, 8, 2048, 64, 64, "topk"),
@@ -1163,6 +1165,7 @@ SMALL_KV_CASES = [
     ("invalid_keys_s512_k96", 4, 8, 512, 96, 64, "invalid"),
     ("all_future_s64_k40", 2, 4, 64, 40, 64, "future"),
     ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
+    ("pools_s2048_k200", 2, 4, 2048, 200, 64, "pools"),
 ]
 POOL_RATIO, WINDOW, MAX_SEQ = 8, 512, 2048
 
@@ -1315,10 +1318,11 @@ def phase_check_serving_kernels(device) -> dict:
 # dq, |ds|ᵀ·|q| for dk, |p|ᵀ·|do| for dv). flash_bwd as flash_mha_bwd
 # (TOL_BWD): fp32 differs by summation order; in bf16 the kernels round p
 # (for dv) and ds (for dq, dk) to bf16, at most 2^-8 of each term, and
-# their output, 2^-8 of the value. small_kv_bwd sums dk and dv over its q
-# tiles with fp32 atomicAdd in an order that changes from run to run: up to
-# S / 32 = 256 partial sums, each addition a rounding of 2^-24 of the
-# running magnitude, so its rtol takes 1e-4 more in both types.
+# their output, 2^-8 of the value. small_kv_bwd sums dk and dv over up to
+# S = 8192 queries, in 64-query tiles and then in chunks of tiles, in
+# another order than the plain version's matmul: each addition a rounding
+# of 2^-24 of the running magnitude, so its rtol takes 1e-4 more in both
+# types.
 TOL_SKV_BWD = {"float32": (1e-4, 1e-4), "bfloat16": (1e-4, 2.0 ** -8 + 1e-4)}
 # And in bf16 each backward kernel's relative L2 error against the exact
 # (fp32) result is at most this much above its plain version's run in bf16:
@@ -1343,7 +1347,8 @@ FLASH_BWD_CASES = [
 # (name, B, H, S, K, D, keys): the compressed and top-k branches of the
 # training step (S = 2048: 192 pools, 64 selected), 960 pools at S = 8192,
 # pools a row does not have (INVALID_KEY_POS), every key in the future (the
-# uniform quirk: dq = dk = 0), and D = 128.
+# uniform quirk: dq = dk = 0), D = 128, and K = 200, not a multiple of the
+# kernels' 64-key tiles.
 SMALL_KV_BWD_CASES = [
     ("train_pools_s2048_k192", 8, 8, 2048, 192, 64, "pools"),
     ("train_topk_s2048_k64", 8, 8, 2048, 64, 64, "topk"),
@@ -1351,6 +1356,7 @@ SMALL_KV_BWD_CASES = [
     ("invalid_keys_s512_k96", 4, 8, 512, 96, 64, "invalid"),
     ("all_future_s64_k40", 2, 4, 64, 40, 64, "future"),
     ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
+    ("pools_s2048_k200", 2, 4, 2048, 200, 64, "pools"),
 ]
 
 
@@ -1467,6 +1473,13 @@ def phase_check_training_kernels(device) -> dict:
             dt = getattr(torch, dtype_name)
             qd, kd, vd, dod = (t.to(dt) for t in (q, k, v, g_out))
             got = nsa.small_kv_bwd(qd, kd, vd, key_pos, dod, scale)
+            again = nsa.small_kv_bwd(qd, kd, vd, key_pos, dod, scale)
+            same = all(torch.equal(a, g) for a, g in zip(again, got))
+            log(f"[check] small_kv_bwd {case} {dtype_name}: dq, dk, dv of two calls "
+                f"bit-identical {same} {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"small_kv_bwd is not deterministic: {case} {dtype_name}")
+            del again
             f32 = [t.float() for t in (qd, kd, vd)]
             want = nsa.small_kv_bwd_reference(*f32, key_pos, dod.float(), scale)
             mags = small_kv_bwd_magnitudes(*f32, key_pos, dod.float(), scale)
@@ -1483,10 +1496,10 @@ def phase_check_training_kernels(device) -> dict:
             if dtype_name == "float32":
                 leaves = [t.clone().requires_grad_(True) for t in (qd, kd, vd)]
                 nsa.small_kv_attention(*leaves, key_pos, scale=scale).backward(dod)
-                # atomics: the same sums in another order, so held, not equal
-                for part, leaf, g, m in zip(("dq", "dk", "dv"), leaves, got, mags):
-                    hold("small_kv_bwd", f"{case} {part} via small_kv_attention", dtype_name,
-                         leaf.grad, g.float(), m, TOL_SKV_BWD)
+                for part, leaf, g in zip(("dq", "dk", "dv"), leaves, got):
+                    if not torch.equal(leaf.grad, g):
+                        raise AssertionError(
+                            f"small_kv_attention's {part} on CUDA is not small_kv_bwd's: {case}")
             del got, want, mags
     return worst
 

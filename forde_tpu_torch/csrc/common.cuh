@@ -1,8 +1,8 @@
 // Pieces shared by the hand-written kernels under csrc/: conversions
 // between the storage types and fp32, the staging of a 64-row fp32 tile in
-// shared memory, the mask contract of the flash kernels, the tile products
-// of the attention backward kernels, and the error-string export every
-// kernel library has.
+// shared memory, the mask contracts of the flash and the small-KV kernels,
+// the tile products of the attention backward kernels, and the
+// error-string export every kernel library has.
 //
 // Each csrc/<name>.cu is compiled on its own into lib<name>.so, so the
 // definitions here land once in each library.
@@ -64,6 +64,27 @@ __device__ __forceinline__ bool visible(int qr, int kc, int kv_len,
   if (causal) v = v && qr >= kc;
   if (window >= 0) v = v && (qr - kc) < window;
   return v;
+}
+
+// The mask contract of the small-KV kernels (TPU kernels of
+// forde_tpu/ops/nsa_attention.py): key c (threshold kpos) is visible to
+// query position p iff p >= kpos; a threshold >= 2^30, or a column c past
+// the K real keys, marks a padding key.
+constexpr int SKV_INVALID_KEY_POS = 1 << 30;
+constexpr float SKV_NEG_BIG = -1e9f;
+
+__device__ __forceinline__ bool skv_visible(int p, int c, int K, int kpos) {
+  return c < K && kpos < SKV_INVALID_KEY_POS && p >= kpos;
+}
+
+// A score x where the key is visible; SKV_NEG_BIG, NOT -inf, where it is
+// masked (a query with no visible key gets the uniform distribution over
+// the real keys: its max is SKV_NEG_BIG and every masked key weighs
+// 2^0 = 1); -inf for a padding key, outside even that. The kernels keep x
+// in log2 units and the constants as they are, so the quirk survives.
+__device__ __forceinline__ float skv_score(float x, int p, int c, int K, int kpos) {
+  if (c >= K || kpos >= SKV_INVALID_KEY_POS) return -INFINITY;
+  return p >= kpos ? x : SKV_NEG_BIG;
 }
 
 // The backward kernels' tile arithmetic, on a 16 x 16 thread grid (tx, ty)

@@ -15,10 +15,13 @@ JAX package's ``_small_kv_pallas`` custom_vjp): the forward wrapper
 ``small_kv_fwd`` launches ``csrc/small_kv_fwd.cu`` and the backward wrapper
 ``small_kv_bwd`` launches ``csrc/small_kv_bwd.cu`` on every CUDA tensor;
 on a CPU tensor they run their plain versions ``small_kv_fwd_reference``
-and ``small_kv_bwd_reference``. The JAX package picks its TPU kernels only
-when S*K >= 2M, a threshold measured on a TPU v5e; the port has no
-threshold. "reference" runs ``small_kv_attention_ref``, differentiated by
-autograd.
+and ``small_kv_bwd_reference``. bf16 runs on the tensor cores, fp32 on
+the CUDA cores. The backward is a dq kernel and a dk/dv kernel over
+chunks of the queries, whose partials are summed in chunk order: dk and
+dv are summed in a fixed order, and the result is the same from run to
+run. The JAX package picks its TPU kernels only when S*K >= 2M, a
+threshold measured on a TPU v5e; the port has no threshold. "reference"
+runs ``small_kv_attention_ref``, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -31,14 +34,20 @@ import torch.nn.functional as F
 
 from forde_tpu_torch import kernels
 from forde_tpu_torch.kernels import build
+from forde_tpu_torch.ops.flash_attention import _check_aligned
 
 NEG_BIG = -1e9
 INVALID_KEY_POS = 2**30
 KERNEL_IMPLS = ("auto", "pallas", "interpret")
-# The kernel keeps the scores of a 32-row q tile against every key in
-# shared memory, which bounds K (the decoder LM's sets are 64 to 256 keys
-# at its 2048 positions; 960 pools at 8192 positions).
+# The CUDA-core forward keeps the scores of a 32-row q tile against every
+# key in shared memory, and every kernel the key thresholds, which bounds K
+# (the decoder LM's sets are 64 to 256 keys at its 2048 positions; 960
+# pools at 8192 positions).
 MAX_KEYS = 1024
+# The dk/dv kernel starts one block per 64 keys of a (sample, head) and
+# per chunk of the queries; chunks are added until about this many blocks
+# (two per SM of an H100) are in flight.
+DKDV_TARGET_BLOCKS = 264
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -97,8 +106,22 @@ def _check_kernel_args(name, q, k, v, key_pos, *others):
     for t in others:
         if t.shape != q.shape:
             raise ValueError(f"do must be {tuple(q.shape)}, got {tuple(t.shape)}")
-    return (*(t.contiguous() for t in (q, k, v, *others)),
-            key_pos.to(torch.int32).contiguous())
+    tensors = [t.contiguous() for t in (q, k, v, *others)]
+    _check_aligned(name, **dict(zip(("q", "k", "v", "do"), tensors)))
+    return (*tensors, key_pos.to(torch.int32).contiguous())
+
+
+def dkdv_chunks(b: int, h: int, s: int, kk: int) -> int:
+    """How many chunks of 64-query tiles the backward's dk/dv kernel cuts
+    S into: a function of the shapes alone, so that the order of the sums
+    (and with it the result) does not change from run to run. Chunks are
+    added until the kernel starts about ``DKDV_TARGET_BLOCKS`` blocks; no
+    chunk is empty."""
+    tiles = -(-s // 64)
+    blocks = -(-kk // 64) * b * h
+    want = min(tiles, max(1, -(-DKDV_TARGET_BLOCKS // blocks)))
+    per = -(-tiles // want)
+    return -(-tiles // per)
 
 
 def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
@@ -107,8 +130,8 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
     q (B, H, S, D), k and v (B, H, K, D) of one dtype (float32 or
     bfloat16), D 64 or 128 on CUDA (``small_kv_attention`` pads), K <=
     ``MAX_KEYS``; key_pos (B, K) integer. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel on the current stream, or
-    raises.
+    version; a CUDA tensor launches the kernel on the current stream (bf16
+    on the tensor cores, fp32 on the CUDA cores), or raises.
     """
     if q.device.type == "cpu":
         return small_kv_fwd_reference(q, k, v, key_pos, scale)
@@ -164,34 +187,43 @@ def small_kv_bwd(q, k, v, key_pos, do, scale: float):
     """The backward kernel's wrapper: (dq, dk, dv) in the input dtype from
     the forward's inputs and the output gradient ``do`` (B, H, S, D).
     Arguments as ``small_kv_fwd``. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernel on the current stream, or raises. The
-    kernel sums dk and dv over its q tiles with fp32 atomicAdd into zeroed
-    buffers, cast to the input dtype here (the TPU kernel's fp32 outputs)."""
+    CUDA tensor launches the kernels on the current stream (bf16 on the
+    tensor cores, fp32 on the CUDA cores), or raises. It allocates their
+    scratch: the dq kernel's row statistics (m, l, delta: 3 * B * H * S
+    fp32) and, with more than one chunk (``dkdv_chunks``), the dk/dv
+    partials (2 * chunks * B * H * K * D fp32), which a last kernel sums in
+    chunk order. The order of every sum is fixed: the result is the same
+    from run to run. One call counts one launch, whatever number of CUDA
+    kernels it runs."""
     if q.device.type == "cpu":
         return small_kv_bwd_reference(q, k, v, key_pos, do, scale)
     q, k, v, do, pos = _check_kernel_args("small_kv_bwd", q, k, v, key_pos, do)
     b, h, s, d = q.shape
     kk = k.shape[2]
-    dq = torch.empty_like(q)
-    dk, dv = (torch.zeros(b, h, kk, d, dtype=torch.float32, device=q.device) for _ in range(2))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    chunks = dkdv_chunks(b, h, s, kk)
+    stats = torch.empty(3, b * h, s, dtype=torch.float32, device=q.device)
+    part = (torch.empty(2, chunks, b * h * kk * d, dtype=torch.float32, device=q.device)
+            if chunks > 1 else None)
 
     lib = build.load("small_kv_bwd")
     fn = lib.forde_small_kv_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
             ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), do.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, s, kk, d, _DTYPE_CODES[q.dtype], scale,
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, h, s, kk, d, _DTYPE_CODES[q.dtype], chunks, scale,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, "small_kv_bwd")
     kernels.launches["small_kv_bwd"] += 1
-    return dq, dk.to(k.dtype), dv.to(v.dtype)
+    return dq, dk, dv
 
 
 class SmallKVAttention(torch.autograd.Function):

@@ -22,7 +22,8 @@ visible it raises.
       --slow_loop_interval 2 --log_interval 2
 
 Flags whose code is not ported raise ``NotImplementedError`` and name the
-slice they wait for (ROADMAP.md). ``--plots_dir`` takes no effect.
+slice they wait for (ROADMAP.md); ``--plots_dir`` is one of them and
+defaults to None, so the loop writes no plots.
 """
 
 from __future__ import annotations
@@ -115,9 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pp_microbatches", type=int, default=0)
     p.add_argument("--tensor_parallelism", type=int, default=1, help="(not ported beyond 1)")
     p.add_argument("--profile_dir", type=str, default=None, help="(not ported)")
-    p.add_argument("--plots_dir", type=str, default="plots",
-                   help="takes no effect: the brain-map plots are not ported "
-                        "(matplotlib is not on the GPU machine)")
+    p.add_argument("--plots_dir", type=str, default=None,
+                   help="(not ported: the brain-map plots of obs/plots.py)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
@@ -163,6 +163,7 @@ _NOT_PORTED = (
     (lambda a: a.remat, "--remat", EXTRAS),
     (lambda a: a.scan_layers, "--scan_layers", EXTRAS),
     (lambda a: a.profile_dir, "--profile_dir", EXTRAS),
+    (lambda a: a.plots_dir, "--plots_dir", EXTRAS),
     (lambda a: a.moe_dispatch == "ep", "--moe_dispatch ep", MULTI),
     (lambda a: a.expert_parallelism > 1, "--expert_parallelism > 1", MULTI),
     (lambda a: a.context_parallelism > 1, "--context_parallelism > 1", MULTI),

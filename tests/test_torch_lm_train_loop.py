@@ -261,6 +261,7 @@ def test_config_from_args_matches_jax():
     (["--remat"], "slice 6"),
     (["--scan_layers"], "slice 6"),
     (["--profile_dir", "p"], "slice 6"),
+    (["--plots_dir", "p"], "slice 6"),
     (["--moe_dispatch", "ep"], "slice 7"),
     (["--expert_parallelism", "2"], "slice 7"),
     (["--context_parallelism", "2"], "slice 7"),
@@ -272,6 +273,11 @@ def test_config_from_args_matches_jax():
 def test_unported_flags_name_their_slice(flags, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         loop.main(TINY + ["--use_dummy_data", "--device", "cpu"] + flags)
+
+
+def test_plots_dir_defaults_to_none():
+    """The loop writes no plots unless asked, and refuses to be asked."""
+    assert loop.build_parser().parse_args(TINY).plots_dir is None
 
 
 def test_streamed_corpus_is_refused():
