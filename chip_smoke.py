@@ -25,18 +25,21 @@ holds every CUDA kernel of them against its plain PyTorch version:
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
   2. build every kernel under forde_tpu_torch/csrc, one nvcc per source,
-     all started together; ptxas's registers and spills per kernel, and
-     the HMMA (tensor-core) count of the libraries with a bf16
-     tensor-core route (flash_mha_fwd, flash_mha_bwd, small_kv_fwd,
-     small_kv_bwd), which must not be 0;
+     all started together; ptxas's registers and spills per kernel, 0
+     spill bytes in every tensor-core kernel, and the HMMA (tensor-core)
+     count of the libraries with a bf16 tensor-core route (flash_mha_fwd,
+     flash_mha_bwd, flash_fwd, flash_bwd, small_kv_fwd, small_kv_bwd),
+     which must not be 0;
   3. each kernel against its plain version on the card, fp32 and bf16, at
      the shapes of the paths (the training CLIs' shapes; the serving
      prefill and decode shapes, the streaming S = 8192, an odd S and a
      padded D) and the mask options (kv_lens with 0, kv_bound, causal +
      window; kv_len; INVALID_KEY_POS keys, keys all in the future, K not a
-     multiple of 64; an lse cotangent), each backward kernel's bf16 error
-     against its plain version's, small_kv_bwd bit-identical across two
-     calls, and the output and gradients of ``flash_mha``,
+     multiple of 64; an lse cotangent; a window that is not a multiple of
+     the tile), each backward kernel's bf16 error against its plain
+     version's, flash_fwd, flash_bwd_dkv and small_kv_bwd bit-identical
+     across two calls, a misaligned bf16 tensor refused by the 4-D
+     wrappers, and the output and gradients of ``flash_mha``,
      ``flash_attention`` and ``small_kv_attention`` on CUDA tensors
      against the kernels or the plain attention path;
   4. the embedding path: finite (N, 512) embeddings, 24 launches of
@@ -96,6 +99,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -229,8 +233,11 @@ def bound(bytes_ms: float, ops_ms: float) -> tuple:
 KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", "small_kv_fwd",
                   "flash_bwd", "small_kv_bwd")
 # Libraries whose bf16 route runs on the tensor cores: their SASS must hold
-# HMMA instructions.
-TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "small_kv_fwd", "small_kv_bwd")
+# HMMA instructions, and their tensor-core kernels (*_tc_kernel) must not
+# spill. flash_bwd's dq kernel stays on the CUDA cores; its dk/dv kernel
+# has the bf16 route.
+TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "flash_fwd", "flash_bwd",
+                       "small_kv_fwd", "small_kv_bwd")
 
 
 def hmma_count(name: str) -> int:
@@ -244,13 +251,40 @@ def hmma_count(name: str) -> int:
     return sum("HMMA" in line for line in out.splitlines())
 
 
+def tc_kernel_resources(ptxas_log: str) -> list:
+    """(kernel, registers, spill bytes) of each tensor-core kernel
+    (``*_tc_kernel``) in an ``nvcc -Xptxas -v`` log."""
+    out, current = [], None
+    for line in ptxas_log.splitlines():
+        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_tc_kernel)(?:ILi(\d+)E)?", line)
+        if m:
+            current = [m[1] + (f"<{m[2]}>" if m[2] else ""), None, 0]
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current[2] = int(m[1]) + int(m[2])
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current[1] = int(m[1])
+            out.append(tuple(current))
+            current = None
+    return out
+
+
 def phase_build():
     """One nvcc per source, all started together; ptxas's registers and
-    spills per kernel, and the HMMA count of the tensor-core libraries."""
+    spills per kernel, 0 spill bytes in the tensor-core kernels, and the
+    HMMA count of the tensor-core libraries."""
     from concurrent.futures import ThreadPoolExecutor
 
     from forde_tpu_torch.kernels import build
 
+    # A tensor-core library built before this run left no ptxas log to
+    # read: build it anew.
+    for name in TENSOR_CORE_SOURCES:
+        build.library_path(name).unlink(missing_ok=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
         list(pool.map(build.load, KERNEL_SOURCES))
@@ -267,6 +301,12 @@ def phase_build():
         log(f"[build] lib{name}: {count} HMMA instructions in its SASS")
         if count == 0:
             raise AssertionError(f"lib{name} has no tensor-core (HMMA) instruction")
+        if name not in build.build_log:
+            raise AssertionError(f"lib{name} was not built in this run: no ptxas log to read")
+        for kernel, regs, spilled in tc_kernel_resources(build.build_log[name][1]):
+            log(f"[build] {name} {kernel}: {regs} registers, {spilled} spill bytes")
+            if spilled:
+                raise AssertionError(f"{kernel} of lib{name} spills {spilled} bytes")
 
 
 # (name, B, S, H, D, kv_lens, causal, window): the vision and text shapes
@@ -1142,7 +1182,9 @@ TOL_ATTN = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 2.0 ** -8)}
 # flash_attention pads S to 64 and D to 64 (an odd S non-causal gets the
 # static kv_len bound). The serving prefill (the ragged batch pads to its
 # longest prompt; 2048 is the configuration's longest), the streaming side
-# of the JAX package's split (S = 8192), an odd S and a padded D, D = 128.
+# of the JAX package's split (S = 8192), an odd S and a padded D, D = 128,
+# and a window that is not a multiple of the tile (the interior boundary
+# mid-tile).
 FLASH_FWD_CASES = [
     ("serve_b8_s2048_window512", 8, 8, 2048, 64, True, 512),
     ("serve_b8_s2048_causal", 8, 8, 2048, 64, True, None),
@@ -1151,6 +1193,7 @@ FLASH_FWD_CASES = [
     ("odd_s1000_d48_causal", 2, 4, 1000, 48, True, None),
     ("odd_s1000_d48_noncausal_kv_len", 2, 4, 1000, 48, False, None),
     ("s512_d128_window128", 2, 4, 512, 128, True, 128),
+    ("s1024_window100", 2, 4, 1024, 64, True, 100),
 ]
 # (name, B, H, S, K, D, keys): the compressed and top-k branches of the
 # serving prefill (S = 2048: 192 pools, 64 selected) and of a decode step
@@ -1233,6 +1276,25 @@ def small_kv_magnitude(q, k, v, key_pos, scale):
     return torch.matmul(weights, v.abs())
 
 
+def check_misaligned_refused(name, call, device) -> None:
+    """A bf16 tensor that starts off a 16-byte boundary makes the 4-D
+    wrapper ``name`` raise before any launch: ``call(x, lse)`` gets x
+    (1, 1, 64, 64) bf16 one element past an aligned start."""
+    import torch
+
+    buf = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16, device=device)
+    x = buf[1:1 + 64 * 64].view(1, 1, 64, 64)
+    lse = torch.zeros(1, 1, 64, 1, device=device)
+    try:
+        call(x, lse)
+    except ValueError as err:
+        if "16-byte aligned" not in str(err):
+            raise
+        log(f"[check] {name}: a misaligned bf16 tensor is refused ({err}) ok")
+        return
+    raise AssertionError(f"{name} launched on a misaligned bf16 tensor")
+
+
 def phase_check_serving_kernels(device) -> dict:
     """flash_fwd and small_kv_fwd against their plain versions run in fp32
     on the same values, FLASH_FWD_CASES and SMALL_KV_CASES in fp32 and
@@ -1266,6 +1328,13 @@ def phase_check_serving_kernels(device) -> dict:
             dt = getattr(torch, dtype_name)
             qd, kd, vd = (t.to(dt) for t in (q, k, v))
             o, lse = fa.flash_fwd(qd, kd, vd, scale, window, causal, kv_len)
+            again = fa.flash_fwd(qd, kd, vd, scale, window, causal, kv_len)
+            same = torch.equal(again[0], o) and torch.equal(again[1], lse)
+            log(f"[check] flash_fwd {case} {dtype_name}: o, lse of two calls bit-identical "
+                f"{same} {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"flash_fwd is not deterministic: {case} {dtype_name}")
+            del again
             qf, kf, vf = (t.float() for t in (qd, kd, vd))
             o_ref, lse_ref = fa.flash_fwd_reference(qf, kf, vf, scale, window, causal, kv_len)
             mag = flash_fwd_magnitude(qf, kf, vf, scale, window, causal, kv_len)
@@ -1282,6 +1351,8 @@ def phase_check_serving_kernels(device) -> dict:
             del o, lse, o_ref, lse_ref, mag, whole
         del x, q, k, v
         torch.cuda.empty_cache()
+    check_misaligned_refused(
+        "flash_fwd", lambda x, lse: fa.flash_fwd(x, x, x, 0.125, None, True, None), device)
 
     for case, b, h, s, kk, d, kind in SMALL_KV_CASES:
         q = torch.randn(b, h, s, d, device=device, generator=gen)
@@ -1333,8 +1404,9 @@ BF16_AS_PRECISE = 1.05
 # (name, B, H, S, D, causal, window, dlse): the training step's shape (the
 # NSA local branch), the --no_nsa dense causal one, the streaming side of
 # the JAX package's split (S = 8192), an odd S with a padded D (S to the
-# tile, D to 64), non-causal with padded keys (kv_len), D = 128, and a
-# nonzero lse cotangent (the ring-attention route).
+# tile, D to 64), non-causal with padded keys (kv_len), D = 128, a
+# nonzero lse cotangent (the ring-attention route), and a window that is
+# not a multiple of the tile.
 FLASH_BWD_CASES = [
     ("train_b8_s2048_window512", 8, 8, 2048, 64, True, 512, False),
     ("train_b8_s2048_causal", 8, 8, 2048, 64, True, None, False),
@@ -1343,6 +1415,7 @@ FLASH_BWD_CASES = [
     ("odd_s1000_d48_noncausal_kv_len", 2, 4, 1000, 48, False, None, False),
     ("s512_d128_window128", 2, 4, 512, 128, True, 128, False),
     ("s512_d64_window128_dlse", 2, 4, 512, 64, True, 128, True),
+    ("s1024_window100", 2, 4, 1024, 64, True, 100, False),
 ]
 # (name, B, H, S, K, D, keys): the compressed and top-k branches of the
 # training step (S = 2048: 192 pools, 64 selected), 960 pools at S = 8192,
@@ -1436,10 +1509,17 @@ def phase_check_training_kernels(device) -> dict:
             dlse = (torch.randn(b, h, o.shape[2], 1, device=device, generator=gen)
                     if with_dlse else None)
             got = fa.flash_bwd(qd, kd, vd, o, lse, do, scale, window, causal, kv_len, dlse)
+            delta = fa._delta(o, do, dlse)
+            again = fa.flash_bwd_dkv(qd, kd, vd, do, lse, delta, scale, window, causal, kv_len)
+            same = all(torch.equal(a, g) for a, g in zip(again, got[1:]))
+            log(f"[check] flash_bwd_dkv {case} {dtype_name}: dk, dv of two calls bit-identical "
+                f"{same} {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"flash_bwd_dkv is not deterministic: {case} {dtype_name}")
+            del again
             f32 = [t.float() for t in (qd, kd, vd, o)]
             want = fa.flash_bwd_reference(*f32, lse, do.float(), scale, window, causal, kv_len,
                                           dlse)
-            delta = fa._delta(o, do, dlse)
             mags = flash_bwd_magnitudes(f32[0], f32[1], f32[2], lse, do.float(), delta, scale,
                                         window, causal, kv_len)
             torch.cuda.synchronize()
@@ -1463,6 +1543,9 @@ def phase_check_training_kernels(device) -> dict:
             del o, lse, do, got, want, mags, f32
         del x, q, k, v
         torch.cuda.empty_cache()
+    check_misaligned_refused(
+        "flash_bwd_dkv",
+        lambda x, lse: fa.flash_bwd_dkv(x, x, x, x, lse, lse, 0.125, None, True, None), device)
 
     for case, b, h, s, kk, d, kind in SMALL_KV_BWD_CASES:
         q, g_out = (torch.randn(b, h, s, d, device=device, generator=gen) for _ in range(2))

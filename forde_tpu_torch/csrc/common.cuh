@@ -54,6 +54,12 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
+// a / b rounded towards -inf (b > 0), as jnp.floor_divide: the interior
+// bounds of a tile walk divide quantities that may be negative.
+__device__ __forceinline__ int floor_div(int a, int b) {
+  return a >= 0 ? a / b : -((b - 1 - a) / b);
+}
+
 // The attention mask of the flash kernels: key `kc` is visible to query row
 // `qr` iff kc < kv_len (per-sample length and static bound, both folded
 // into kv_len <= S), qr >= kc when causal, and qr - kc < window when

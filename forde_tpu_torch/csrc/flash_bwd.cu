@@ -26,49 +26,124 @@
 //   summed in fp32, and dq, dk, dv are written in the input type.
 //
 // Bound on the H100 at the training shape (B=8, H=8, S=2048, D=64, bf16,
-// causal, window 512): q, k, v, do read once and dq, dk, dv written once,
-// with lse and delta: ~126 MB, ~38 us at 3.35 TB/s; the products are
-// 8 * D operations per visible (query, key) pair over ~0.92M pairs per head
-// (q k^T, do v^T, ds k, ds^T q, p^T do): ~30 GFLOP, ~31 us at 989 TFLOP/s.
-// So bytes and products are close. These simple kernels run the products
-// in fp32 on the CUDA cores (67 TFLOP/s) and recompute p and dp in both
-// kernels (7 tile products per tile pair where 5 are needed), so they are
-// bound by their arithmetic; bf16 tensor cores (mma.sync, then wgmma with
-// TMA) are the next step.
+// causal, window 512): the dk/dv kernel reads q, k, v, do, lse and delta
+// once and writes dk and dv once: ~101 MB, ~30 us at 3.35 TB/s; its four
+// products are 8 * D operations per visible (query, key) pair over ~0.92M
+// pairs per head: ~30 GFLOP, ~30 us at 989 TFLOP/s. So bytes and products
+// are close. The dq kernel moves ~84 MB and does three products.
 //
-// Design (right and simple first), FA-2's split, both kernels with one
-// block of 16 x 16 threads per (tile of 64, head, sample):
+// FA-2's split, each kernel with one block per (tile of 64, head, sample):
 //   * dq: the block owns 64 query rows and walks the key tiles inside the
 //     causal / window / kv_len span (as `_loop_bounds` bounds them);
 //   * dk/dv: the block owns 64 keys and walks the query tiles from the
 //     diagonal (causal) to the one holding k_start + 63 + window - 1, as
 //     `_bwd_dkv_kernel` bounds them.
 // Each output tile has one owner, so no sum crosses blocks: no atomics, and
-// the result is deterministic. Tiles sit in shared memory as fp32 with row
-// pitch D + 1 (conflict-free column reads).
+// the result is deterministic.
+//
+// dk/dv, bf16 route (flash_bwd_dkv_tc_kernel): the tensor cores
+// (mma.sync.m16n8k16 with fp32 accumulators: exact bf16 products, only
+// the order of summation changes), flash_mha_bwd.cu's dk/dv design on this
+// layout. 4 warps, each owning 16 of the block's keys. s^T = k q^T puts
+// p^T in the accumulator layout that is the A operand of dv += round(p^T)
+// do; dp^T = v do^T, ds^T = round(p^T (dp^T - delta) scale) is formed in
+// registers and is the A operand of dk += ds^T q: 4 products per tile pair,
+// and p and ds never touch shared memory. Q and dO tiles, with their lse
+// and delta, come through a cp.async ring (three stages at D = 64, two at
+// D = 128) into XOR-swizzled shared memory, read with ldmatrix both ways
+// round; lse and delta are broadcast per column from shared memory. At
+// D = 64 the K and V A fragments stay in registers for the whole walk (32
+// registers); at D = 128, where the dk and dv accumulators alone take 128
+// registers a thread, they come from shared memory by ldmatrix. A 64-query
+// tile goes in two chunks of 32 queries, one after the other. p = exp()
+// runs as 2^x on the special-function unit, in log2 units. The select runs
+// only on the edge tiles: the interior split of `_bwd_dkv_kernel`
+// (forde_tpu/ops/flash_attention.py:272-287), taken per warp (16 keys),
+// gives the query tiles in which every (query, key) pair of the warp is
+// visible. dk and dv leave through shared memory in 16-byte stores.
+//   Registers (ptxas): 167 at D = 64 (3 blocks an SM, 66 KB of shared
+// memory each), 242 at D = 128 (2 blocks an SM, 97 KB); no spills. What
+// bounds it now (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 0.159 ms of
+// device time at the training shape, 5.2x its bound; 0.22x SDPA's whole
+// backward; useful products at ~189 TFLOP/s, bytes at ~19% of the HBM
+// rate. As in the forward, mma.sync from 12 warps an SM is latency-bound.
+//
+// dq (both dtypes) and dk/dv in fp32: the CUDA cores, with one block of
+// 16 x 16 threads; tiles sit in shared memory as fp32 with row pitch D + 1
+// (conflict-free column reads), and p and ds go through shared memory
+// (`probs`, `tile_dot`, `tile_mac` of common.cuh). fp32 stays there since
+// the tensor cores would round it to TF32; the dq kernel's bf16 route is
+// the next to move to the tensor cores.
 
 #include <math.h>
+#include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using forde::floor_div;
 using forde::from_float;
 using forde::load_tile;
 using forde::probs;
 using forde::round_to;
 using forde::tile_dot;
 using forde::tile_mac;
+using forde::visible;
 
 constexpr int BQ = 64;        // query rows per tile
 constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid
+constexpr int THREADS = 256;  // 16 x 16 thread grid (CUDA-core kernels)
+constexpr int TC_THREADS = 128;  // 4 warps of 16 keys (bf16 dk/dv)
 constexpr int LP = BK + 1;    // pitch of a 64 x 64 tile of p or ds
 
-// Both kernels: four 64 x (D + 1) tiles, one 64 x 65 tile, lse and delta.
+// Both CUDA-core kernels: four 64 x (D + 1) tiles, one 64 x 65 tile, lse
+// and delta.
 template <int D>
 constexpr size_t smem_bytes() {
   return (4 * 64 * (D + 1) + 64 * LP + 2 * 64) * sizeof(float);
+}
+
+// The bf16 dk/dv kernel: stages of its ring, and its shared memory (the K
+// and V tiles, then per stage a Q and a dO tile and their lse and delta).
+template <int D>
+__host__ __device__ constexpr int tc_stages() {
+  return D == 128 ? 2 : 3;
+}
+
+template <int D>
+constexpr size_t tc_dkv_smem_bytes() {
+  return (2 + 2 * tc_stages<D>()) * BK * D * sizeof(__nv_bfloat16) +
+         tc_stages<D>() * 2 * BQ * sizeof(float);
+}
+
+// Query tiles [i_begin, i_end) hold every row that sees some key of the
+// key tile at k0 (`_bwd_dkv_kernel`'s bounds); with none (all keys past
+// kv_len), dk and dv are 0.
+__device__ __forceinline__ void query_tiles(int k0, int S, int keys,
+                                            int causal, int window,
+                                            int& i_begin, int& i_end) {
+  i_begin = causal ? k0 / BQ : 0;
+  i_end = k0 < keys ? S / BQ : 0;
+  if (window >= 0) i_end = min(i_end, (k0 + BK - 1 + window - 1) / BQ + 1);
+}
+
+// `_bwd_dkv_kernel`'s interior split: of the walked query tiles
+// [i_begin, i_end), those in [fs, fe) have every (query, key) pair of keys
+// [c0, c0 + cols) visible.
+__device__ __forceinline__ void interior_query_tiles(int c0, int cols,
+                                                     int i_begin, int i_end,
+                                                     int keys, int causal,
+                                                     int window, int& fs,
+                                                     int& fe) {
+  fs = i_begin;
+  fe = i_end;
+  if (causal) fs = max(fs, -floor_div(-(c0 + cols - 1), BQ));
+  if (window >= 0) fe = min(fe, floor_div(c0 + window - BQ, BQ) + 1);
+  if (c0 + cols > keys) fe = fs;
+  fs = min(max(fs, i_begin), i_end);
+  fe = min(max(fe, fs), i_end);
 }
 
 template <typename T, int D>
@@ -146,13 +221,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, float scale, int causal,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, float scale, int causal,
                      int window, int kv_len) {
   constexpr int LD = D + 1;
   constexpr int DJ = D / 16;
@@ -172,15 +248,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = tid % 16, ty = tid / 16;
   const long long base = bh * S * D;
 
-  // Query tiles [i_begin, i_end) hold every row that sees some key of this
-  // tile; with none (all keys past kv_len), dk and dv are 0.
   const int keys = kv_len >= 0 ? min(kv_len, S) : S;
-  const int i_begin = causal ? k0 / BQ : 0;
-  int i_end = k0 < keys ? S / BQ : 0;
-  if (window >= 0) i_end = min(i_end, (k0 + BK - 1 + window - 1) / BQ + 1);
+  int i_begin, i_end;
+  query_tiles(k0, S, keys, causal, window, i_begin, i_end);
 
-  load_tile<T, D, THREADS>(k_s, k + base, k0, S, D);
-  load_tile<T, D, THREADS>(v_s, v + base, k0, S, D);
+  load_tile<float, D, THREADS>(k_s, k + base, k0, S, D);
+  load_tile<float, D, THREADS>(v_s, v + base, k0, S, D);
 
   // dk and dv of keys ty + 16i, columns tx + 16j.
   float acc_dk[4][DJ], acc_dv[4][DJ];
@@ -193,8 +266,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int it = i_begin; it < i_end; ++it) {
     const int q0 = it * BQ;
     __syncthreads();  // the last tile is done with q_s, do_s and p_s
-    load_tile<T, D, THREADS>(q_s, q + base, q0, S, D);
-    load_tile<T, D, THREADS>(do_s, dout + base, q0, S, D);
+    load_tile<float, D, THREADS>(q_s, q + base, q0, S, D);
+    load_tile<float, D, THREADS>(do_s, dout + base, q0, S, D);
     if (tid < BQ) {
       lse_s[tid] = lse[bh * S + q0 + tid];
       delta_s[tid] = delta[bh * S + q0 + tid];
@@ -209,8 +282,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = ty + 16 * i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        ds[i][j] = round_to<T>(p[i][j] * (ds[i][j] - delta_s[r]) * scale);
-        p_s[r * LP + tx + 16 * j] = round_to<T>(p[i][j]);
+        ds[i][j] = p[i][j] * (ds[i][j] - delta_s[r]) * scale;
+        p_s[r * LP + tx + 16 * j] = p[i][j];
       }
     }
     __syncthreads();
@@ -229,10 +302,225 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long row = base + (long long)(k0 + ty + 16 * i) * D;
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
-      dk[row + tx + 16 * j] = from_float<T>(acc_dk[i][j]);
-      dv[row + tx + 16 * j] = from_float<T>(acc_dv[i][j]);
+      dk[row + tx + 16 * j] = acc_dk[i][j];
+      dv[row + tx + 16 * j] = acc_dv[i][j];
     }
   }
+}
+
+// Q and dO of the query tile at q0, with its lse and delta, into stage st
+// of the bf16 dk/dv kernel's ring, as one commit group.
+template <int D>
+__device__ __forceinline__ void load_query_stage(
+    __nv_bfloat16* ring, float* stat, int st, const __nv_bfloat16* q_g,
+    const __nv_bfloat16* do_g, const float* lse_bh, const float* delta_bh,
+    int q0, int S) {
+  using namespace forde::mma;
+  bf16* const q_t = ring + st * 2 * BQ * D;
+  load_tile_async<D, TC_THREADS>(q_t, q_g, q0, S, D);
+  load_tile_async<D, TC_THREADS>(q_t + BQ * D, do_g, q0, S, D);
+  float* const stat_t = stat + st * 2 * BQ;
+  const int r = threadIdx.x;
+  if (r < BQ) {
+    cp_async_4(stat_t + r, lse_bh + q0 + r, true);
+    cp_async_4(stat_t + BQ + r, delta_bh + q0 + r, true);
+  }
+  cp_async_commit();
+}
+
+// The bf16 route's dk/dv kernel. Warp w owns keys k0 + 16w .. k0 + 16w +
+// 15; lane (g, t) holds keys kr0 = k0 + 16w + g and kr1 = kr0 + 8 and, of
+// each n8 tile j of a transposed product, query cols 8j + 2t, 8j + 2t + 1.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int S, float scale,
+                        int causal, int window, int kv_len) {
+  using namespace forde::mma;
+  constexpr int KD = D / 16;  // k-steps over the head dim
+  constexpr int ND = D / 8;   // n8 tiles of dk and dv
+  constexpr int QC = 32;      // queries per chunk of a tile
+  constexpr int NJ = QC / 8;  // n8 tiles of a chunk's s^T and dp^T
+  constexpr int STAGES = tc_stages<D>();
+  // K and V A fragments in registers for the whole walk (D = 64), or
+  // read from shared memory at every k-step (D = 128).
+  constexpr bool KV_IN_REGS = D == 64;
+  // Stage st of the ring: its Q tile at ring + st * STAGE, its dO tile
+  // BQ * D after it; their lse at stat + st * 2 * BQ, delta BQ after it.
+  constexpr int STAGE = 2 * BQ * D;
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* const k_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* const v_s = k_s + BK * D;
+  bf16* const ring = v_s + BK * D;
+  float* const stat = reinterpret_cast<float*>(ring + STAGES * STAGE);
+
+  const int k0 = blockIdx.x * BK;
+  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const long long base = bh * S * D;
+  const bf16* q_g = q + base;
+  const bf16* do_g = dout + base;
+  const float* lse_bh = lse + bh * S;
+  const float* delta_bh = delta + bh * S;
+
+  const int keys = kv_len >= 0 ? min(kv_len, S) : S;
+  int i_begin, i_end;
+  query_tiles(k0, S, keys, causal, window, i_begin, i_end);
+  const int n = max(0, i_end - i_begin);
+
+  const int wrow = 16 * warp;
+  // Query tiles [fs, fe) need no select for this warp's keys.
+  int fs, fe;
+  interior_query_tiles(k0 + wrow, 16, i_begin, i_end, keys, causal, window, fs,
+                       fe);
+
+  load_tile_async<D, TC_THREADS>(k_s, k + base, k0, S, D);
+  load_tile_async<D, TC_THREADS>(v_s, v + base, k0, S, D);
+  if (n == 0) cp_async_commit();  // else with query tile 0
+  for (int i = 0; i < STAGES - 1 && i < n; ++i)
+    load_query_stage<D>(ring, stat, i, q_g, do_g, lse_bh, delta_bh,
+                        (i_begin + i) * BQ, S);
+
+  const int kr0 = k0 + wrow + g, kr1 = kr0 + 8;
+  const float scale_log2 = scale * LOG2E;
+  uint32_t kf[KD][4], vf[KD][4];  // unused at D = 128
+  float dkacc[ND][4], dvacc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    dkacc[j][0] = dkacc[j][1] = dkacc[j][2] = dkacc[j][3] = 0.f;
+    dvacc[j][0] = dvacc[j][1] = dvacc[j][2] = dvacc[j][3] = 0.f;
+  }
+
+  for (int i = 0; i < n; ++i) {
+    // Query tile i (and, with tile 0, K and V) has landed once at most the
+    // later tiles are in flight; after the barrier every thread's copies
+    // have, and every warp is done with tile i - 1, whose stage takes tile
+    // i + STAGES - 1.
+    if (i + 1 < n)
+      cp_async_wait<STAGES - 2>();
+    else
+      cp_async_wait<0>();
+    __syncthreads();
+    if constexpr (KV_IN_REGS) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk) {
+          load_a<D>(kf[kk], k_s, wrow, kk, lane);
+          load_a<D>(vf[kk], v_s, wrow, kk, lane);
+        }
+      }
+    }
+    if (i + STAGES - 1 < n)
+      load_query_stage<D>(ring, stat, (i + STAGES - 1) % STAGES, q_g, do_g,
+                          lse_bh, delta_bh, (i_begin + i + STAGES - 1) * BQ,
+                          S);
+
+    const int it = i_begin + i;
+    const int q0 = it * BQ;
+    const int st = i % STAGES;
+    const bf16* const q_t = ring + st * STAGE;
+    const bf16* const do_t = q_t + BQ * D;
+    const float* const lse_t = stat + st * 2 * BQ;
+    const float* const dl_t = lse_t + BQ;
+    const bool edge = it < fs || it >= fe;
+    // Not unrolled: two chunks in flight at once would take more than 255
+    // registers beside the dk and dv accumulators at D = 128.
+#pragma unroll 1
+    for (int c = 0; c < BQ / QC; ++c) {  // chunks of QC queries
+      const int qc0 = QC * c;
+      float s[NJ][4], dp[NJ][4];  // s^T and dp^T: keys x queries
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t a[4];
+        if constexpr (KV_IN_REGS) {
+          a[0] = kf[kk][0], a[1] = kf[kk][1], a[2] = kf[kk][2], a[3] = kf[kk][3];
+        } else {
+          load_a<D>(a, k_s, wrow, kk, lane);
+        }
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t bb[4];
+          load_b<D>(bb, q_t, qc0 + 16 * np, kk, lane);
+          mma_bf16(s[2 * np], a, bb[0], bb[1]);
+          mma_bf16(s[2 * np + 1], a, bb[2], bb[3]);
+        }
+        if constexpr (KV_IN_REGS) {
+          a[0] = vf[kk][0], a[1] = vf[kk][1], a[2] = vf[kk][2], a[3] = vf[kk][3];
+        } else {
+          load_a<D>(a, v_s, wrow, kk, lane);
+        }
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t bb[4];
+          load_b<D>(bb, do_t, qc0 + 16 * np, kk, lane);
+          mma_bf16(dp[2 * np], a, bb[0], bb[1]);
+          mma_bf16(dp[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+      // p^T = exp(s^T * scale - lse), SELECTED to 0 where masked, and
+      // ds^T = p^T (dp^T - delta) scale; both rounded to bf16 as the A
+      // operands of p^T do and ds^T q.
+      uint32_t pf[NJ / 2][4], dsf[NJ / 2][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = qc0 + 8 * j + 2 * t + e;  // query within the tile
+          const int qr = q0 + cl;
+          const float lq = lse_t[cl] * LOG2E, dq = dl_t[cl];
+          p[e] = exp2_approx(fmaf(s[j][e], scale_log2, -lq));
+          p[2 + e] = exp2_approx(fmaf(s[j][2 + e], scale_log2, -lq));
+          if (edge) {
+            if (!visible(qr, kr0, keys, causal, window)) p[e] = 0.f;
+            if (!visible(qr, kr1, keys, causal, window)) p[2 + e] = 0.f;
+          }
+          ds[e] = p[e] * (dp[j][e] - dq) * scale;
+          ds[2 + e] = p[2 + e] * (dp[j][2 + e] - dq) * scale;
+        }
+        pf[j >> 1][(j & 1) * 2] = pack_bf16x2(p[0], p[1]);
+        pf[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(p[2], p[3]);
+        dsf[j >> 1][(j & 1) * 2] = pack_bf16x2(ds[0], ds[1]);
+        dsf[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < NJ / 2; ++kk) {
+#pragma unroll
+        for (int np = 0; np < KD; ++np) {
+          uint32_t bb[4];
+          load_bt<D>(bb, do_t, qc0 + 16 * kk, np, lane);
+          mma_bf16(dvacc[2 * np], pf[kk], bb[0], bb[1]);
+          mma_bf16(dvacc[2 * np + 1], pf[kk], bb[2], bb[3]);
+          load_bt<D>(bb, q_t, qc0 + 16 * kk, np, lane);
+          mma_bf16(dkacc[2 * np], dsf[kk], bb[0], bb[1]);
+          mma_bf16(dkacc[2 * np + 1], dsf[kk], bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  cp_async_wait<0>();  // K and V when no query tile sees this block
+  __syncthreads();     // every warp is done with the ring
+  // Stage 0 takes this warp's rows of dk and dv.
+  stage_rows<D>(ring, dkacc, wrow, 1.f, 1.f, lane);
+  stage_rows<D>(ring + BQ * D, dvacc, wrow, 1.f, 1.f, lane);
+  __syncwarp();
+  store_rows<D>(dk + base, D, ring, wrow, k0 + wrow, S, lane);
+  store_rows<D>(dv + base, D, ring + BQ * D, wrow, k0 + wrow, S, lane);
 }
 
 struct Args {
@@ -259,20 +547,38 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.seq / BK, a.heads, a.batch);
-  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), a.seq, a.scale, a.causal,
-      a.window, a.kv_len);
+      static_cast<float*>(dk), static_cast<float*>(dv), a.seq, a.scale,
+      a.causal, a.window, a.kv_len);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_tc(const Args& a, void* dk, void* dv) {
+  using bf16 = __nv_bfloat16;
+  constexpr size_t smem = tc_dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.seq / BK, a.heads, a.batch);
+  flash_bwd_dkv_tc_kernel<D><<<grid, TC_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.seq, a.scale,
+      a.causal, a.window, a.kv_len);
   return cudaGetLastError();
 }
 
@@ -282,8 +588,9 @@ extern "C" {
 
 // Both entry points: q, k, v, do (B, H, S, D) of one dtype (0 = float32,
 // 1 = bfloat16), head_dim 64 or 128, seq a multiple of 64; lse and delta
-// (B, H, S) fp32; window < 0 and kv_len < 0 mean none. Each returns the
-// CUDA error code of its launch (0 on success).
+// (B, H, S) fp32; window < 0 and kv_len < 0 mean none. The bf16 dk/dv
+// kernel (tensor cores) needs q, k, v, do, dk and dv 16-byte aligned. Each
+// returns the CUDA error code of its launch (0 on success).
 
 int forde_flash_bwd_dq(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
@@ -308,12 +615,10 @@ int forde_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (seq % BK != 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, delta, batch, heads, seq, scale, causal,
                window, kv_len, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0 && head_dim == 64) return launch_dkv<float, 64>(a, dk, dv);
-  if (dtype == 0 && head_dim == 128) return launch_dkv<float, 128>(a, dk, dv);
-  if (dtype == 1 && head_dim == 64)
-    return launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
-  if (dtype == 1 && head_dim == 128)
-    return launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
+  if (dtype == 0 && head_dim == 64) return launch_dkv<64>(a, dk, dv);
+  if (dtype == 0 && head_dim == 128) return launch_dkv<128>(a, dk, dv);
+  if (dtype == 1 && head_dim == 64) return launch_dkv_tc<64>(a, dk, dv);
+  if (dtype == 1 && head_dim == 128) return launch_dkv_tc<128>(a, dk, dv);
   return (int)cudaErrorInvalidValue;
 }
 

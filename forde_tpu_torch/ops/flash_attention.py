@@ -29,7 +29,11 @@ launches ``csrc/flash_fwd.cu`` and saves q, k, v, o and the fp32 lse;
 ``csrc/flash_bwd.cu``, ``flash_bwd_dq`` and ``flash_bwd_dkv``. On a CPU
 tensor every wrapper runs its kernel's plain version
 (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
-``flash_bwd_dkv_reference``).
+``flash_bwd_dkv_reference``). The input dtype picks the route here too:
+bf16 ``flash_fwd`` and ``flash_bwd_dkv`` run on the tensor cores
+(``mma.sync``, 16-byte ``cp.async``, so their wrappers refuse a tensor off
+a 16-byte boundary), fp32 on the CUDA cores; ``flash_bwd_dq`` runs on the
+CUDA cores in both dtypes.
 """
 
 from __future__ import annotations
@@ -493,7 +497,8 @@ def flash_fwd(
     q, k and v are (B, H, S, D), float32 or bfloat16, with S a multiple of
     ``BLOCK`` and D 64 or 128 on CUDA (``flash_attention`` pads). A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel on
-    the current stream, or raises.
+    the current stream (bf16 on the tensor cores, fp32 on the CUDA
+    cores), or raises.
     """
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale, window, causal, kv_len)
@@ -503,6 +508,8 @@ def flash_fwd(
     b, h, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, s, 1, dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:  # lse is written 4 bytes at a time
+        _check_aligned("flash_fwd", q=q, k=k, v=v, o=o)
 
     lib = build.load("flash_fwd")
     fn = lib.forde_flash_fwd
@@ -620,6 +627,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, window, causal, kv_len):
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.dtype == torch.bfloat16:  # lse and delta are read 4 bytes at a time
+        _check_aligned("flash_bwd_dkv", q=q, k=k, v=v, do=do, dk=dk, dv=dv)
     _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale, window, causal,
                 kv_len)
     return dk, dv
