@@ -37,9 +37,11 @@ Phases:
      window; kv_len; INVALID_KEY_POS keys, keys all in the future, K not a
      multiple of 64; an lse cotangent; a window that is not a multiple of
      the tile), each backward kernel's bf16 error against its plain
-     version's, flash_fwd, flash_bwd_dkv and small_kv_bwd bit-identical
-     across two calls, a misaligned bf16 tensor refused by the 4-D
-     wrappers, and the output and gradients of ``flash_mha``,
+     version's, flash_fwd, flash_bwd_dq, flash_bwd_dkv, small_kv_bwd and
+     moment_sums bit-identical across two calls, a misaligned tensor
+     refused by the 4-D wrappers (bf16) and by moment_sums, an F of
+     moment_sums that is not a multiple of its 8-column vector, and the
+     output and gradients of ``flash_mha``,
      ``flash_attention`` and ``small_kv_attention`` on CUDA tensors
      against the kernels or the plain attention path;
   4. the embedding path: finite (N, 512) embeddings, 24 launches of
@@ -142,9 +144,11 @@ TOL_BWD = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 2.0 ** -8)}
 # Gradients of flash_mha through the kernels against the plain path's
 # autograd, fp32: summation order only.
 TOL_GRAD = 1e-4
-# moment_sums: fp32 sums in another order. The kernel adds a chunk of at
-# most a few hundred rows in sequence, then ~100 chunk sums: each adds at
-# most (rows + chunks) * 2^-24 ~ 3e-5 of m.
+# moment_sums: fp32 sums in another order. Each thread of the kernel adds
+# every 8th row of its chunk in sequence (at most 148 rows at the shapes
+# below), then the 8 warps' sums are added in order, then the 22-32 chunk
+# sums: each addition a rounding of at most 2^-24 of m, (148 + 8 + 32) *
+# 2^-24 ~ 1.1e-5 of m.
 TOL_MOMENT_REL = 1e-4
 # Phase 6: one sensed step of vit_b16_hd128 at this batch, kernel path vs
 # all-plain path from the same weights; per quantity the relative L2
@@ -234,8 +238,7 @@ KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", 
                   "flash_bwd", "small_kv_bwd")
 # Libraries whose bf16 route runs on the tensor cores: their SASS must hold
 # HMMA instructions, and their tensor-core kernels (*_tc_kernel) must not
-# spill. flash_bwd's dq kernel stays on the CUDA cores; its dk/dv kernel
-# has the bf16 route.
+# spill. flash_bwd has two: the dq kernel and the dk/dv kernel.
 TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "flash_fwd", "flash_bwd",
                        "small_kv_fwd", "small_kv_bwd")
 
@@ -478,19 +481,23 @@ def phase_check_attention(device) -> tuple:
 
 
 # (name, N, F, dtype): the vision and text z of vit_b16_hd128 at batch 128,
-# fp32, and an N that is not a multiple of the row chunk.
+# fp32, an N that is not a multiple of the row chunk, and F not a multiple
+# of the kernel's vector (8 bf16 or 4 fp32 columns: the scalar loads).
 MOMENT_CASES = [
     ("vision_z", 25600, 3072, "bfloat16"),
     ("text_z", 8192, 2048, "bfloat16"),
     ("text_z_fp32", 8192, 2048, "float32"),
     ("odd_n", 12345, 3072, "bfloat16"),
+    ("odd_f", 8192, 2051, "bfloat16"),
+    ("odd_f_fp32", 1000, 1001, "float32"),
 ]
 
 
 def phase_check_moments(device) -> float:
     """moment_sums against its plain version (fp32 sums of the same
     values). Per element |Δ| <= TOL_MOMENT_REL * m, m the sum of the
-    absolute terms (Σ|x| for Σ|x| and Σx, Σx² for Σx²)."""
+    absolute terms (Σ|x| for Σ|x| and Σx, Σx² for Σx²); two calls
+    bit-identical; a misaligned x refused."""
     import torch
 
     from forde_tpu_torch.ops import stat_sums
@@ -500,6 +507,11 @@ def phase_check_moments(device) -> float:
     for name, n, f, dtype_name in MOMENT_CASES:
         x = (torch.randn(n, f, device=device, generator=gen) + 0.25).to(getattr(torch, dtype_name))
         got = stat_sums.moment_sums(x)
+        same = torch.equal(stat_sums.moment_sums(x), got)
+        log(f"[check] moment_sums {name} {dtype_name}: two calls bit-identical {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"moment_sums is not deterministic: {name}")
         want = stat_sums.moment_sums_reference(x)
         torch.cuda.synchronize()
         mag = want[[0, 1, 0]]
@@ -512,6 +524,7 @@ def phase_check_moments(device) -> float:
         if not ok:
             raise AssertionError(f"moment_sums disagrees with its plain version: {name}")
         worst = max(worst, err)
+    check_misaligned_refused("moment_sums", lambda x, lse: stat_sums.moment_sums(x), device)
     return worst
 
 
@@ -1277,9 +1290,9 @@ def small_kv_magnitude(q, k, v, key_pos, scale):
 
 
 def check_misaligned_refused(name, call, device) -> None:
-    """A bf16 tensor that starts off a 16-byte boundary makes the 4-D
-    wrapper ``name`` raise before any launch: ``call(x, lse)`` gets x
-    (1, 1, 64, 64) bf16 one element past an aligned start."""
+    """A bf16 tensor that starts off a 16-byte boundary makes the wrapper
+    ``name`` raise before any launch: ``call(x, lse)`` gets x (1, 1, 64,
+    64) bf16 one element past an aligned start."""
     import torch
 
     buf = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16, device=device)
@@ -1510,12 +1523,15 @@ def phase_check_training_kernels(device) -> dict:
                     if with_dlse else None)
             got = fa.flash_bwd(qd, kd, vd, o, lse, do, scale, window, causal, kv_len, dlse)
             delta = fa._delta(o, do, dlse)
-            again = fa.flash_bwd_dkv(qd, kd, vd, do, lse, delta, scale, window, causal, kv_len)
-            same = all(torch.equal(a, g) for a, g in zip(again, got[1:]))
-            log(f"[check] flash_bwd_dkv {case} {dtype_name}: dk, dv of two calls bit-identical "
-                f"{same} {'ok' if same else 'FAIL'}")
-            if not same:
-                raise AssertionError(f"flash_bwd_dkv is not deterministic: {case} {dtype_name}")
+            args = (qd, kd, vd, do, lse, delta, scale, window, causal, kv_len)
+            again = (fa.flash_bwd_dq(*args), *fa.flash_bwd_dkv(*args))
+            for name, parts, a, g in (("flash_bwd_dq", "dq", again[:1], got[:1]),
+                                      ("flash_bwd_dkv", "dk, dv", again[1:], got[1:])):
+                same = all(torch.equal(x1, x2) for x1, x2 in zip(a, g))
+                log(f"[check] {name} {case} {dtype_name}: {parts} of two calls bit-identical "
+                    f"{same} {'ok' if same else 'FAIL'}")
+                if not same:
+                    raise AssertionError(f"{name} is not deterministic: {case} {dtype_name}")
             del again
             f32 = [t.float() for t in (qd, kd, vd, o)]
             want = fa.flash_bwd_reference(*f32, lse, do.float(), scale, window, causal, kv_len,
@@ -1543,6 +1559,9 @@ def phase_check_training_kernels(device) -> dict:
             del o, lse, do, got, want, mags, f32
         del x, q, k, v
         torch.cuda.empty_cache()
+    check_misaligned_refused(
+        "flash_bwd_dq",
+        lambda x, lse: fa.flash_bwd_dq(x, x, x, x, lse, lse, 0.125, None, True, None), device)
     check_misaligned_refused(
         "flash_bwd_dkv",
         lambda x, lse: fa.flash_bwd_dkv(x, x, x, x, lse, lse, 0.125, None, True, None), device)

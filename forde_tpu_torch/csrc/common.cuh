@@ -1,8 +1,9 @@
 // Pieces shared by the hand-written kernels under csrc/: conversions
 // between the storage types and fp32, the staging of a 64-row fp32 tile in
 // shared memory, the mask contracts of the flash and the small-KV kernels,
-// the tile products of the attention backward kernels, and the
-// error-string export every kernel library has.
+// the key-tile walk of the 4-D flash kernels, the tile products of the
+// attention backward kernels, and the error-string export every kernel
+// library has.
 //
 // Each csrc/<name>.cu is compiled on its own into lib<name>.so, so the
 // definitions here land once in each library.
@@ -70,6 +71,38 @@ __device__ __forceinline__ bool visible(int qr, int kc, int kv_len,
   if (causal) v = v && qr >= kc;
   if (window >= 0) v = v && (qr - kc) < window;
   return v;
+}
+
+// Keys per tile of the 4-D flash kernels (flash_fwd.cu, flash_bwd.cu).
+constexpr int FLASH_BK = 64;
+
+// Key tiles [j_begin, j_end) hold every key some row of the block of `rows`
+// query rows at q0 may see (`_loop_bounds` of
+// forde_tpu/ops/flash_attention.py); at least one, as on the TPU. The
+// forward and the dq kernel walk them.
+__device__ __forceinline__ void key_tiles(int q0, int rows, int S, int causal,
+                                          int window, int kv_len,
+                                          int& j_begin, int& j_end) {
+  j_end = kv_len >= 0 ? (kv_len + FLASH_BK - 1) / FLASH_BK : S / FLASH_BK;
+  if (causal) j_end = min(j_end, (q0 + rows - 1) / FLASH_BK + 1);
+  j_begin = window >= 0 ? max(0, q0 - window + 1) / FLASH_BK : 0;
+  if (j_end <= j_begin) j_end = j_begin + 1;
+}
+
+// `_loop_bounds`' interior split: of the walked tiles [j_begin, j_end),
+// those in [fs, fe) have every (row, key) pair of rows [r0, r0 + rows)
+// visible, so they need no mask.
+__device__ __forceinline__ void interior_tiles(int r0, int rows, int j_begin,
+                                               int j_end, int causal,
+                                               int window, int kv_len,
+                                               int& fs, int& fe) {
+  fs = j_begin;
+  fe = j_end;
+  if (window >= 0) fs = max(fs, -floor_div(window - r0 - rows, FLASH_BK));
+  if (causal) fe = min(fe, floor_div(r0 - FLASH_BK + 1, FLASH_BK) + 1);
+  if (kv_len >= 0) fe = min(fe, kv_len / FLASH_BK);
+  fs = min(max(fs, j_begin), j_end);
+  fe = min(max(fe, fs), j_end);
 }
 
 // The mask contract of the small-KV kernels (TPU kernels of

@@ -88,11 +88,12 @@
 
 namespace {
 
-using forde::floor_div;
+using forde::interior_tiles;
+using forde::key_tiles;
 using forde::load_tile;
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
+constexpr int BQ = 64;               // query rows per block
+constexpr int BK = forde::FLASH_BK;  // keys per tile
 constexpr int THREADS = 256;  // 16 x 16 thread grid (fp32 route)
 constexpr float MASK_VALUE = -1e30f;
 
@@ -117,33 +118,6 @@ constexpr size_t tc_smem_bytes() {
 template <int D>
 constexpr size_t smem_bytes() {
   return ((BQ + BK) * (D + 1) + BQ * (BK + 1) + 3 * BQ) * sizeof(float);
-}
-
-// Key tiles [j_begin, j_end) hold every key some row of the block of `rows`
-// query rows at q0 may see; at least one, as on the TPU.
-__device__ __forceinline__ void key_tiles(int q0, int rows, int S, int causal,
-                                          int window, int kv_len,
-                                          int& j_begin, int& j_end) {
-  j_end = kv_len >= 0 ? (kv_len + BK - 1) / BK : S / BK;
-  if (causal) j_end = min(j_end, (q0 + rows - 1) / BK + 1);
-  j_begin = window >= 0 ? max(0, q0 - window + 1) / BK : 0;
-  if (j_end <= j_begin) j_end = j_begin + 1;
-}
-
-// `_loop_bounds`' interior split: of the walked tiles [j_begin, j_end),
-// those in [fs, fe) have every (row, key) pair of rows [r0, r0 + rows)
-// visible.
-__device__ __forceinline__ void interior_tiles(int r0, int rows, int j_begin,
-                                               int j_end, int causal,
-                                               int window, int kv_len,
-                                               int& fs, int& fe) {
-  fs = j_begin;
-  fe = j_end;
-  if (window >= 0) fs = max(fs, -floor_div(window - r0 - rows, BK));
-  if (causal) fe = min(fe, floor_div(r0 - BK + 1, BK) + 1);
-  if (kv_len >= 0) fe = min(fe, kv_len / BK);
-  fs = min(max(fs, j_begin), j_end);
-  fe = min(max(fe, fs), j_end);
 }
 
 template <int D>

@@ -30,10 +30,9 @@ launches ``csrc/flash_fwd.cu`` and saves q, k, v, o and the fp32 lse;
 tensor every wrapper runs its kernel's plain version
 (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
 ``flash_bwd_dkv_reference``). The input dtype picks the route here too:
-bf16 ``flash_fwd`` and ``flash_bwd_dkv`` run on the tensor cores
-(``mma.sync``, 16-byte ``cp.async``, so their wrappers refuse a tensor off
-a 16-byte boundary), fp32 on the CUDA cores; ``flash_bwd_dq`` runs on the
-CUDA cores in both dtypes.
+bf16 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` run on the
+tensor cores (``mma.sync``, 16-byte ``cp.async``, so their wrappers refuse
+a tensor off a 16-byte boundary), fp32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -617,6 +616,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len) -> torc
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len)
     dq = torch.empty_like(q)
+    if q.dtype == torch.bfloat16:  # lse and delta are read 4 bytes at a time
+        _check_aligned("flash_bwd_dq", q=q, k=k, v=v, do=do, dq=dq)
     _bwd_launch("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale, window, causal, kv_len)
     return dq
 

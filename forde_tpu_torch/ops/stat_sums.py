@@ -14,6 +14,13 @@ own reduction fusions overlap with. Eager PyTorch has no such program to
 break: there the plain version is three passes over x plus an fp32 copy
 of it, so the kernel is the default and the only CUDA route. On a CPU
 tensor the wrapper runs the plain version, ``moment_sums_reference``.
+
+The kernel reads x in 16-byte loads, so the wrapper refuses an x whose
+base is off a 16-byte boundary. Its blocks each sum one column group of
+one chunk of rows (``chunking``: about two blocks per SM), and a second
+launch adds the chunks' fp32 partials in chunk order, so the result is
+the same bit for bit from call to call. Its time on an H100 against its
+bound is in PERF.md (row #11) and the kernel's header.
 """
 
 from __future__ import annotations
@@ -26,9 +33,9 @@ from forde_tpu_torch import kernels
 from forde_tpu_torch.kernels import build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_BLOCK_COLUMNS = 256  # columns per block of the partial-sum pass
-_TARGET_BLOCKS = 1056  # 8 blocks on each of the H100's 132 SMs
-_MIN_CHUNK_ROWS = 64
+_GROUP_BYTES = 512  # bytes of a row one block reads: 32 threads x 16 bytes
+_TARGET_BLOCKS = 264  # two blocks on each of the H100's 132 SMs
+_STEP_ROWS = 32  # rows a block loads at once: 8 warps x 4 rows
 
 
 def moment_sums_reference(x: torch.Tensor) -> torch.Tensor:
@@ -38,12 +45,15 @@ def moment_sums_reference(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.abs().sum(0), (xf * xf).sum(0), xf.sum(0)])
 
 
-def chunking(n: int, f: int) -> tuple:
-    """(chunks, rows_per_chunk) of the kernel's partial-sum pass: enough
-    row chunks for ~8 blocks per SM, at least 64 rows each."""
-    col_blocks = -(-f // _BLOCK_COLUMNS)
-    chunks = max(1, min(-(-n // _MIN_CHUNK_ROWS), -(-_TARGET_BLOCKS // col_blocks)))
+def chunking(n: int, f: int, itemsize: int) -> tuple:
+    """(chunks, rows_per_chunk) of the kernel's partial-sum pass over an
+    (n, f) x of ``itemsize`` bytes a value: about two blocks per SM over
+    the column groups, each chunk a multiple of the 32 rows a block loads at
+    once (the last chunk short)."""
+    col_groups = -(-f * itemsize // _GROUP_BYTES)
+    chunks = max(1, min(-(-n // _STEP_ROWS), -(-_TARGET_BLOCKS // col_groups)))
     rows = -(-n // chunks)
+    rows = -(-rows // _STEP_ROWS) * _STEP_ROWS
     return -(-n // rows), rows
 
 
@@ -63,7 +73,9 @@ def moment_sums(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(3, f, dtype=torch.float32, device=x.device)
     if n == 0 or f == 0:
         return out.zero_()
-    chunks, rows = chunking(n, f)
+    if x2d.data_ptr() % 16:  # the kernel reads 16 bytes at a time
+        raise ValueError("moment_sums needs a 16-byte aligned x")
+    chunks, rows = chunking(n, f, x2d.element_size())
     part = torch.empty(chunks, 3, f, dtype=torch.float32, device=x.device)
 
     lib = build.load("moment_sums")

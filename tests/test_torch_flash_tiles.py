@@ -1,11 +1,12 @@
 """The index arithmetic and the rounding points of the bf16 tensor-core
-routes of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (its dk/dv
-kernel), held to the bars that chip_smoke.py holds the kernels to on the
+routes of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` (its dq and dk/dv
+kernels), held to the bars that chip_smoke.py holds the kernels to on the
 card.
 
 Tile walks. ``_fwd_walk`` and ``_dkv_walk`` mirror the kernels' bounds in
-plain Python: the key tiles a block of query rows walks (``key_tiles``) and,
-per warp of 16 rows, the interior tiles that skip the mask
+plain Python: the key tiles a block of query rows walks (``key_tiles`` of
+``common.cuh``, which the forward and the dq kernel share) and, per warp of
+16 rows, the interior tiles that skip the mask or the select
 (``interior_tiles``, the JAX package's ``_loop_bounds`` split); the query
 tiles a block of 64 keys walks (``query_tiles``) and, per warp of 16 keys,
 the interior tiles that skip the select (``interior_query_tiles``). Over
@@ -21,10 +22,14 @@ rounded to bf16 at the end. ``_tile_dkv`` is the dk/dv route's: per key
 block, the walked query tiles in order, each in two chunks of 32 queries,
 p = 2^(s log2(e) scale - lse log2(e)) selected to 0 where masked,
 dv += round(p)^T do and dk += round(p (dp - delta) scale)^T q in fp32.
+``_tile_dq`` is the dq route's: per 64-row block, the walked key tiles in
+order, p as for dk/dv, dq += round(p (dp - delta) scale) k in fp32, then
+rounded to bf16.
 
 On bf16 inputs from a numpy seed they are held against the port's plain
 versions run in fp32 on the same values (``flash_fwd_reference``,
-``flash_bwd_dkv_reference``) and against the JAX package's Pallas kernels
+``flash_bwd_dq_reference``, ``flash_bwd_dkv_reference``) and against the
+JAX package's Pallas kernels
 in interpret mode (``flash_attention(impl="interpret")`` for the forward,
 ``_bwd_pallas(interpret=True)`` on the same q, k, v, o, lse and do for the
 backward), per element at |Δ| <= 1e-4 + 2^-8 (|plain| + mag): chip_smoke's
@@ -32,7 +37,7 @@ TOL_ATTN and TOL_BWD in bf16. mag is the sum of the absolute terms the
 element adds up (softmax weights times |v| for o; |ds|^T |q| for dk,
 p^T |do| for dv): rounding p or ds to bf16 moves each term by at most 2^-9
 of it, rounding the output its value by 2^-9, and the two sides sum in
-other orders. lse within 1e-4 (TOL_LSE): fp32 on both sides.
+other orders. For dq, mag is |ds| |k|. lse within 1e-4 (TOL_LSE): fp32 on both sides.
 """
 
 import jax.numpy as jnp
@@ -122,7 +127,8 @@ def _visible(s, causal, window, kv_len):
 
 def _fwd_walk(s, causal, window, kv_len, rows):
     """(walked, interior): (S, S) masks of the (query, key) pairs in a tile
-    the forward walks, and in a tile it walks without the mask."""
+    the forward (or the dq kernel, at 64 rows) walks, and in a tile it walks
+    without the mask."""
     walked = np.zeros((s, s), bool)
     interior = np.zeros((s, s), bool)
     for q0 in range(0, s, rows):
@@ -157,13 +163,14 @@ WALK_WINDOWS = (None, 1, 63, 64, 65, 66, 100, 128, 512, 513)
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "noncausal"])
 @pytest.mark.parametrize("window", WALK_WINDOWS, ids=lambda w: f"window{w}")
 @pytest.mark.parametrize("s", WALK_S, ids=lambda s: f"s{s}")
-@pytest.mark.parametrize("kernel", ["fwd", "dkv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkv"])
 def test_tile_walk_covers_visible_pairs_and_interior_is_visible(
         kernel, s, window, causal, with_kv_len):
     kv_len = max(1, s - 37) if with_kv_len else None
     vis = _visible(s, causal, window, kv_len)
-    walks = ([_fwd_walk(s, causal, window, kv_len, rows) for rows in (64, 128)]
-             if kernel == "fwd" else [_dkv_walk(s, causal, window, kv_len)])
+    walks = {"fwd": lambda: [_fwd_walk(s, causal, window, kv_len, rows) for rows in (64, 128)],
+             "dq": lambda: [_fwd_walk(s, causal, window, kv_len, BLOCK)],
+             "dkv": lambda: [_dkv_walk(s, causal, window, kv_len)]}[kernel]()
     for walked, interior in walks:
         assert not (vis & ~walked).any(), "a visible pair lies outside the walked tiles"
         assert not (interior & ~vis).any(), "an interior tile holds a masked pair"
@@ -331,13 +338,14 @@ def _bwd_inputs(case, seed):
     return q, k, v, do, o, lse, fa._delta(o, do, None), kv_len, scale
 
 
-def _dkv_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len):
-    """|ds|^T |q| and p^T |do| (fp32), from the plain version's p and ds."""
+def _bwd_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len):
+    """|ds| |k|, |ds|^T |q| and p^T |do| (fp32), from the plain version's p
+    and ds."""
     q, k, v, do = (t.float() for t in (q, k, v, do))
     p = torch.exp(q @ k.transpose(-1, -2) * scale - lse)
     p = torch.where(_mask(q.shape[2], causal, window, kv_len), p, torch.zeros(()))
     ds = (p * (do @ v.transpose(-1, -2) - delta) * scale).abs()
-    return ds.transpose(-1, -2) @ q.abs(), p.transpose(-1, -2) @ do.abs()
+    return ds @ k.abs(), ds.transpose(-1, -2) @ q.abs(), p.transpose(-1, -2) @ do.abs()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -347,7 +355,7 @@ def test_tile_dkv_matches_plain_fp32(case):
     got = _tile_dkv(q, k, v, do, lse, delta, scale, window, causal, kv_len)
     want = fa.flash_bwd_dkv_reference(*(t.float() for t in (q, k, v, do)), lse, delta, scale,
                                       window, causal, kv_len)
-    mags = _dkv_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    mags = _bwd_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len)[1:]
     for g, w, m in zip(got, want, mags):
         _assert_within_bar(g, w, w, m)
 
@@ -367,6 +375,56 @@ def test_tile_dkv_matches_jax_kernel_bf16(case):
     got = _tile_dkv(q, k, v, do, lse, delta, scale, window, causal, kv_len)
     plain = fa.flash_bwd_dkv_reference(*(t.float() for t in (q, k, v, do)), lse, delta, scale,
                                        window, causal, kv_len)
-    mags = _dkv_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    mags = _bwd_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len)[1:]
     for g, w, p, m in zip(got, want, plain, mags):
         _assert_within_bar(g, w, p, m)
+
+
+def _tile_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len):
+    """The bf16 dq route in plain torch: dq bf16."""
+    b, h, s, d = q.shape
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    vis = _mask(s, causal, window, kv_len)
+    dq = torch.zeros(b, h, s, d)
+    for q0 in range(0, s, BLOCK):
+        rows = slice(q0, q0 + BLOCK)
+        lq = lse[:, :, rows] * LOG2E
+        j_begin, j_end = _key_tiles(q0, BLOCK, s, causal, window, kv_len)
+        for j in range(j_begin, j_end):
+            cols = slice(j * BLOCK, (j + 1) * BLOCK)
+            x = qf[:, :, rows] @ kf[:, :, cols].transpose(-1, -2)
+            p = torch.exp2(x * (scale * LOG2E) - lq)
+            p = torch.where(vis[rows, cols], p, torch.zeros(()))
+            dp = dof[:, :, rows] @ vf[:, :, cols].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, rows]) * scale
+            dq[:, :, rows] += ds.to(torch.bfloat16).float() @ kf[:, :, cols]
+    return dq.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tile_dq_matches_plain_fp32(case):
+    q, k, v, do, o, lse, delta, kv_len, scale = _bwd_inputs(case, seed=4)
+    _, _, _, _, causal, window = CASES[case]
+    got = _tile_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    want = fa.flash_bwd_dq_reference(*(t.float() for t in (q, k, v, do)), lse, delta, scale,
+                                     window, causal, kv_len)
+    mag = _bwd_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len)[0]
+    _assert_within_bar(got, want, want, mag)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tile_dq_matches_jax_kernel_bf16(case):
+    """The same bf16 q, k, v, o, lse and do through the JAX package's
+    backward kernels in interpret mode (``_bwd_pallas``): its dq."""
+    q, k, v, do, o, lse, delta, kv_len, scale = _bwd_inputs(case, seed=5)
+    _, _, _, _, causal, window = CASES[case]
+    bf = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (q, k, v, o)]
+    jdq, _, _ = jfa._bwd_pallas(*bf, jnp.asarray(lse.numpy()),
+                                jnp.asarray(do.float().numpy()).astype(jnp.bfloat16),
+                                scale, window, causal, BLOCK, BLOCK, True, kv_len)
+    want = torch.from_numpy(np.array(jdq.astype(jnp.float32)))
+    got = _tile_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    plain = fa.flash_bwd_dq_reference(*(t.float() for t in (q, k, v, do)), lse, delta, scale,
+                                      window, causal, kv_len)
+    mag = _bwd_magnitudes(q, k, v, do, lse, delta, scale, window, causal, kv_len)[0]
+    _assert_within_bar(got, want, plain, mag)

@@ -7,7 +7,8 @@ the sum of the absolute terms (fp32 sums in other orders).
 
 The CUDA kernel is held against its plain version on the card by
 chip_smoke.py; ``chunking`` (the kernel's split of the rows) is checked
-here.
+here, and an F that is not a multiple of the kernel's 8-column vector
+(``odd_f``) goes through the plain version against JAX.
 """
 
 import jax.numpy as jnp
@@ -21,7 +22,8 @@ from forde_tpu_torch.ops import stat_sums
 
 torch.set_num_threads(1)
 
-SHAPES = {"odd_n_1001x384": (1001, 384), "3d_3x67x256": (3, 67, 256), "n1_1x128": (1, 128)}
+SHAPES = {"odd_n_1001x384": (1001, 384), "3d_3x67x256": (3, 67, 256), "n1_1x128": (1, 128),
+          "odd_f_77x1001": (77, 1001)}
 
 
 def _x(shape, seed=0):
@@ -51,12 +53,18 @@ def test_moment_sums_is_three_plain_sums():
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("n,f", [(25600, 3072), (8192, 2048), (12345, 3072), (1, 5), (63, 2048)])
-def test_chunking_covers_every_row(n, f):
-    chunks, rows = stat_sums.chunking(n, f)
+@pytest.mark.parametrize("itemsize", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n,f", [(25600, 3072), (8192, 2048), (12345, 3072), (1, 5), (63, 2048),
+                                 (8192, 2051)])
+def test_chunking_covers_every_row(n, f, itemsize):
+    """Every row lies in one chunk, each chunk but the last is a whole
+    number of the 32-row steps a block walks, and the grid holds about two
+    blocks per SM (264) over the column groups of 512 bytes."""
+    chunks, rows = stat_sums.chunking(n, f, itemsize)
     assert chunks * rows >= n > (chunks - 1) * rows
-    assert rows >= min(n, 64)
-    assert chunks * -(-f // 256) <= 1056 + -(-f // 256)
+    assert rows % 32 == 0
+    groups = -(-f * itemsize // 512)
+    assert chunks * groups <= 264 + groups
 
 
 def test_moment_sums_cpu_runs_no_kernel():
