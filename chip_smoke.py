@@ -20,11 +20,18 @@ holds every CUDA kernel of them against its plain PyTorch version:
     at the same width on batches of 8 x 2,048 seeded Markov tokens: 6
     steps, the MoE slow loop every 3rd, a checkpoint that ``serve.main``
     then decodes from; and one step at 2 layers, batch 1, 8,192 tokens
-    (the JAX package's streaming side, 960 NSA pools).
+    (the JAX package's streaming side, 960 NSA pools);
+  * the compiled steps: serving's decode steps replayed from a CUDA graph
+    (the default of generate_cached / generate_ragged, and so of serve.main
+    above) against eager decode, serving at --seq_len 8192 (2 layers, one
+    prompt of 6,000 tokens), the NSA prefill's top-k replay on the device
+    (csrc/topk_replay.cu), and the dual encoder's fused k steps
+    (make_fused_step: one CUDA graph of 8 steps; the training CLI with
+    --fuse_steps 4).
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
-  2. build every kernel under forde_tpu_torch/csrc, one nvcc per source,
+  2. build every kernel under forde_tpu_torch/csrc (topk_replay included), one nvcc per source,
      all started together; ptxas's registers and spills per kernel, 0
      spill bytes in every tensor-core kernel, and the HMMA (tensor-core)
      count of the libraries with a bf16 tensor-core route (flash_mha_fwd,
@@ -66,7 +73,8 @@ Phases:
      shapes;
   8. the serving path: ``serve.main`` from the checkpoint, ids in the
      vocabulary, the prompts kept, and exact launches (per prefill 12
-     flash_fwd and 24 small_kv_fwd, per decode step 0 and 24);
+     flash_fwd, 24 small_kv_fwd and 1 topk_replay, per decode step 0, 24
+     and 0; the decode steps replayed from a CUDA graph);
   9. serving parity: the greedy batch on the kernel path and on the
      all-plain path from the same weights, identical tokens in fp32, and
      in bf16 the relative L2 of the prefill's last logits beside the
@@ -86,11 +94,29 @@ Phases:
  13. LM training time (bf16, 8 x 2,048): step time, tokens/s, the MoE slow
      loop, one step under torch.profiler, and per backward kernel its
      time, its plain version's, SDPA's backward with the same mask, and the
-     bound.
+     bound;
+ 14. topk_replay against its plain version, exactly (scores and positions,
+     slot order included): the serving prefill's 96 rows x 2,048 positions
+     with the prompts' -inf pads, P = 1, every score tied, and 6,000
+     positions; its time beside the plain version's and its bound (bytes,
+     and the chain of accepted insertions);
+ 15. the training CLI with --fuse_steps 4 (vit_b16, bf16, batch 128):
+     exact launches, two brain updates between fused calls;
+ 16. fused steps at vit_b16_hd128 (bf16, batch 128, k = 8, sensing every
+     8th): a replayed call against the same 8 steps run eagerly from the
+     same state (bit-identical, or within phase 6's bars), exact step
+     counts and launches, pairs/s fused and unfused, its idle share;
+ 17. the decode graph against eager decode (cuda_graph=False), fp32 and
+     bf16, the greedy serving batch: identical tokens, bit-identical last
+     logits, exact launches with replays counted, for the call that
+     captures and for one that only replays; serving time (phase 10) is
+     taken graphed and eager, and a replayed decode step profiled;
+ 18. serving at --seq_len 8192 (2 layers, a 6,000-token prompt): graphed
+     tokens identical to eager, exact launches.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (about 3 minutes):
+Run with no arguments on a machine with one GPU (about 4-5 minutes):
 
   python3 chip_smoke.py
 """
@@ -235,7 +261,7 @@ def bound(bytes_ms: float, ops_ms: float) -> tuple:
 
 # Every kernel of the main paths: csrc/<name>.cu.
 KERNEL_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums", "flash_fwd", "small_kv_fwd",
-                  "flash_bwd", "small_kv_bwd")
+                  "flash_bwd", "small_kv_bwd", "topk_replay")
 # Libraries whose bf16 route runs on the tensor cores: their SASS must hold
 # HMMA instructions, and their tensor-core kernels (*_tc_kernel) must not
 # spill. flash_bwd has two: the dq kernel and the dk/dv kernel.
@@ -1648,10 +1674,11 @@ def serve_batch(prompts, device):
 def serve_launches(cfg, new_tokens: int) -> dict:
     """Kernel launches of one cached generation: the prefill runs the NSA
     forward (flash_fwd for the local branch, small_kv_fwd for the
-    compressed and top-k branches, per layer), each later token one decode
-    step (small_kv_fwd twice per layer; the local ring is plain)."""
+    compressed and top-k branches, per layer) and one top-k replay for
+    every layer and row, each later token one decode step (small_kv_fwd
+    twice per layer; the local ring is plain), eager or replayed."""
     n = cfg.num_layers
-    return {"flash_fwd": n, "small_kv_fwd": 2 * n + (new_tokens - 1) * 2 * n}
+    return {"flash_fwd": n, "small_kv_fwd": 2 * n + (new_tokens - 1) * 2 * n, "topk_replay": 1}
 
 
 def phase_serve_path(device, workdir) -> dict:
@@ -1838,9 +1865,12 @@ def small_kv_bound(q, k, key_pos, dtype_name) -> tuple:
 def phase_serve_timing(device, state) -> dict:
     """The 8-prompt batch in bf16: time to first token (generate_ragged
     with one new token: the prefill and its sample) and the whole
-    generation of SERVE_NEW_TOKENS, kernel path vs all-plain path in turns;
-    ms per output token = (whole - first) / (new - 1); output tokens/s.
-    One prefill and one decode step under the profiler."""
+    generation of SERVE_NEW_TOKENS, kernel path vs all-plain path, each
+    with its decode steps replayed from a CUDA graph (plain, kernel,
+    kernel, plain) and eager (cuda_graph=False, the control: kernel,
+    plain); ms per output token = (whole - first) / (new - 1); output
+    tokens/s. One prefill, one replayed decode step and one eager decode
+    step under the profiler."""
     import torch
 
     from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
@@ -1854,34 +1884,43 @@ def phase_serve_timing(device, state) -> dict:
         m.load_state_dict(state)
         models[impl] = m.eval()
 
-    def gen_ms(m, new):
+    def gen_ms(m, new, graph):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        generate_ragged(m, padded, lens, None, max_new_tokens=new, temperature=0.0)
+        generate_ragged(m, padded, lens, None, max_new_tokens=new, temperature=0.0,
+                        cuda_graph=graph)
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    def measure(m, reps=3):
-        gen_ms(m, 2)  # warm-up
-        first = float(np.median([gen_ms(m, 1) for _ in range(reps)]))
-        whole = float(np.median([gen_ms(m, SERVE_NEW_TOKENS) for _ in range(reps)]))
+    def measure(impl, graph, reps=3):
+        m = models[impl]
+        gen_ms(m, 2, graph)  # warm-up (and the graph's capture)
+        first = float(np.median([gen_ms(m, 1, graph) for _ in range(reps)]))
+        whole = float(np.median([gen_ms(m, SERVE_NEW_TOKENS, graph) for _ in range(reps)]))
         return first, whole
 
     # plain, kernel, kernel, plain: the two paths share the card in turns.
-    p1, k1, k2, p2 = (measure(models[i]) for i in ("reference", "auto", "auto", "reference"))
-    (ttft, whole), (plain_ttft, plain_whole) = min(k1, k2), min(p1, p2)
-    per_token = (whole - ttft) / (SERVE_NEW_TOKENS - 1)
-    plain_per_token = (plain_whole - plain_ttft) / (SERVE_NEW_TOKENS - 1)
-    out_tok_s = len(SERVE_PROMPT_LENS) * SERVE_NEW_TOKENS / whole * 1e3
+    g_p1, g_k1, g_k2, g_p2 = (measure(i, True) for i in ("reference", "auto", "auto", "reference"))
+    e_k, e_p = measure("auto", False), measure("reference", False)
+    n_out = len(SERVE_PROMPT_LENS) * SERVE_NEW_TOKENS
+
+    def summary(first_whole):
+        first, whole = first_whole
+        return {"ttft_ms": first, "ms_per_output_token": (whole - first) / (SERVE_NEW_TOKENS - 1),
+                "out_tokens_per_s": n_out / whole * 1e3, "whole_ms": whole}
+
+    out = {"graph": summary(min(g_k1, g_k2)), "plain_graph": summary(min(g_p1, g_p2)),
+           "eager": summary(e_k), "plain_eager": summary(e_p)}
     log(f"[time] serving, {len(SERVE_PROMPT_LENS)} prompts of {SERVE_PROMPT_LENS[0]}-"
-        f"{SERVE_PROMPT_LENS[-1]} tokens "
-        f"(bf16): time to first token kernel path {k1[0]:.2f} / {k2[0]:.2f} ms, plain path "
-        f"{p1[0]:.2f} / {p2[0]:.2f} ms; {SERVE_NEW_TOKENS} new tokens kernel path "
-        f"{k1[1]:.2f} / {k2[1]:.2f} ms, plain path {p1[1]:.2f} / {p2[1]:.2f} ms (median of 3)")
-    log(f"[time] serving: ms per output token (decode step, batch {len(SERVE_PROMPT_LENS)}) kernel path "
-        f"{per_token:.3f}, plain path {plain_per_token:.3f}; output tokens/s kernel path "
-        f"{out_tok_s:.1f}, plain path "
-        f"{len(SERVE_PROMPT_LENS) * SERVE_NEW_TOKENS / plain_whole * 1e3:.1f}")
+        f"{SERVE_PROMPT_LENS[-1]} tokens (bf16), median of 3: time to first token kernel path "
+        f"{g_k1[0]:.2f} / {g_k2[0]:.2f} / {e_k[0]:.2f} ms, plain path {g_p1[0]:.2f} / "
+        f"{g_p2[0]:.2f} / {e_p[0]:.2f} ms; {SERVE_NEW_TOKENS} new tokens, decode graphed: kernel "
+        f"path {g_k1[1]:.2f} / {g_k2[1]:.2f} ms, plain path {g_p1[1]:.2f} / {g_p2[1]:.2f} ms; "
+        f"eager: kernel path {e_k[1]:.2f} ms, plain path {e_p[1]:.2f} ms")
+    for name, r in out.items():
+        log(f"[time] serving {name}: TTFT {r['ttft_ms']:.2f} ms, ms per output token (decode "
+            f"step, batch {len(SERVE_PROMPT_LENS)}) {r['ms_per_output_token']:.3f}, output "
+            f"tokens/s {r['out_tokens_per_s']:.1f}")
 
     model = models["auto"]
     del models["reference"]
@@ -1889,15 +1928,20 @@ def phase_serve_timing(device, state) -> dict:
     prefill = profile_device(
         lambda: generate_ragged(model, padded, lens, None, max_new_tokens=1, temperature=0.0),
         f"one prefill ({len(SERVE_PROMPT_LENS)} prompts, generate_ragged with 1 new token)")
+    (graph, _, _), = model._decode_graphs.values()
+    replayed = profile_device(graph.replay, f"one replayed decode step (batch {len(SERVE_PROMPT_LENS)})")
     with torch.inference_mode():
         cache, last = nsa_prefill(model, padded, lens)
         token = last.argmax(-1)
         decode = profile_device(lambda: model(token[:, None], cache=cache, positions=lens),
-                                f"one decode step (batch {len(SERVE_PROMPT_LENS)})")
-    return {"ttft_ms": ttft, "ms_per_output_token": per_token, "out_tokens_per_s": out_tok_s,
-            "plain_ttft_ms": plain_ttft, "plain_ms_per_output_token": plain_per_token,
-            "prefill_idle_share": prefill["idle_share"],
-            "decode_step_idle_share": decode["idle_share"]}
+                                f"one eager decode step (batch {len(SERVE_PROMPT_LENS)})")
+    out.update({"prefill_idle_share": prefill["idle_share"], "prefill_busy_ms": prefill["busy_ms"],
+                "graph_decode_step_idle_share": replayed["idle_share"],
+                "graph_decode_step_busy_ms": replayed["busy_ms"],
+                "graph_decode_step_wall_ms": replayed["wall_ms"],
+                "eager_decode_step_idle_share": decode["idle_share"],
+                "eager_decode_step_busy_ms": decode["busy_ms"]})
+    return out
 
 
 # Timed shapes: (name, B, H, S, D, window) of flash_fwd, the serving
@@ -2433,6 +2477,490 @@ def phase_training_kernel_timing(device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Compiled steps: the NSA prefill's top-k replay on the device, the decode
+# step replayed from a CUDA graph, the dual encoder's fused k steps
+# ---------------------------------------------------------------------------
+
+TOPK_K = 64  # k_sel of the reference-default decoder (top_k_global)
+# (name, rows, P, kind, empty index): the serving prefill's 12 layers x 8
+# rows with the prompts' -inf pads, one position, every score tied, and the
+# 8,192-token serving's 2 layers x 1 row of 6,000 positions.
+TOPK_CASES = [
+    ("serve_prefill_n96_p2048_ragged", 96, 2048, "ragged", 2048),
+    ("p1_n96", 96, 1, "random", 2048),
+    ("all_tied_n96_p2048", 96, 2048, "tied", 2048),
+    ("long_n2_p6000", 2, 6000, "random", 8192),
+]
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def topk_scores(kind, n, p, device, gen):
+    import torch
+
+    if kind == "tied":
+        return torch.zeros(n, p, device=device)
+    s = torch.randn(n, p, device=device, generator=gen)
+    if kind == "ragged":
+        lens = torch.tensor(SERVE_PROMPT_LENS * (n // len(SERVE_PROMPT_LENS)), device=device)
+        s = torch.where(torch.arange(p, device=device)[None, :] < lens[:, None], s,
+                        -float("inf"))
+    return s
+
+
+def topk_accepts(scores, k: int) -> np.ndarray:
+    """Accepted insertions of each row's replay (numpy, on the host)."""
+    s = scores.float().cpu().numpy()
+    n, p = s.shape
+    kept = np.full((n, k), -np.inf, np.float32)
+    count = np.zeros(n, np.int64)
+    rows = np.arange(n)
+    for t in range(p):
+        slot = kept.argmin(axis=1)
+        accept = s[:, t] > kept[rows, slot]
+        kept[rows[accept], slot[accept]] = s[accept, t]
+        count += accept
+    return count
+
+
+def topk_replay_bound(scores, k: int, clock_hz: float) -> tuple:
+    """(ms by bytes, ms by operations, longest row's accepted insertions)
+    of one topk_replay. Bytes: the scores read once, the kept scores and
+    positions written once. Operations: the insertion order makes a row a
+    chain, each accepted insertion a first-minimum reduction over K slots,
+    at least log2(K) dependent steps; the longest row's chain at one step a
+    cycle of the SM clock, or the N * P comparisons at the fp32 peak,
+    whichever is longer."""
+    import math
+
+    n, p = scores.shape
+    moved = n * p * 4 + n * k * 8
+    accepts = int(topk_accepts(scores, k).max())
+    chain_ms = accepts * math.ceil(math.log2(max(k, 2))) / clock_hz * 1e3
+    compare_ms = n * p / PEAK_OPS_PER_S["float32"] * 1e3
+    return moved / HBM_BYTES_PER_S * 1e3, max(chain_ms, compare_ms), accepts
+
+
+def phase_topk_replay(device) -> dict:
+    """topk_replay against its plain version on the card, exactly (kept
+    scores and positions, slot order included), at TOPK_CASES; then its
+    time at the serving prefill's shape beside the plain version's and the
+    bound (no one PyTorch call computes this insertion-ordered set)."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.ops.topk_replay import topk_replay, topk_replay_reference
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 40)
+    out, max_err, index_mismatches = {}, 0.0, 0
+    for name, n, p, kind, empty in TOPK_CASES:
+        scores = topk_scores(kind, n, p, device, gen)
+        kept, idx = topk_replay(scores, TOPK_K, empty)
+        want_kept, want_idx = topk_replay_reference(scores, TOPK_K, empty)
+        torch.cuda.synchronize()
+        # Equal slots (two empty ones included) differ by 0, a filled slot
+        # against an empty one by inf.
+        err = float(torch.where(kept == want_kept, 0.0, (kept - want_kept).abs()).max())
+        wrong_idx = int((idx != want_idx).sum())
+        max_err, index_mismatches = max(max_err, err), index_mismatches + wrong_idx
+        same = bool(torch.equal(kept, want_kept) and wrong_idx == 0)
+        filled = int((idx != empty).sum())
+        log(f"[topk_replay] {name} (N={n}, P={p}, K={TOPK_K}): kernel vs plain identical {same} "
+            f"(max |kept - plain| {err}, {wrong_idx} positions differ); {filled} of "
+            f"{n * TOPK_K} slots filled")
+        if not same:
+            bad = (idx != want_idx) | (kept != want_kept)
+            raise AssertionError(f"topk_replay {name}: {int(bad.sum())} slots differ, first at "
+                                 f"{bad.nonzero()[:4].tolist()}")
+        if name.startswith("serve_prefill"):
+            clock = sm_clock_hz()
+            bytes_ms, ops_ms, accepts = topk_replay_bound(scores, TOPK_K, clock)
+            copies = [scores.clone() for _ in range(4)]
+            kern = [lambda c=c: topk_replay(c, TOPK_K, empty) for c in copies]
+            plain = [lambda c=c: topk_replay_reference(c, TOPK_K, empty) for c in copies[:2]]
+            ms = cuda_ms(kern)
+            dev_ms = device_ms(kern)
+            plain_ms = cuda_ms(plain, reps=3, warmup=1)
+            bound_ms, bound_by = bound(bytes_ms, ops_ms)
+            log(f"[topk_replay] {name}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.5f} "
+                f"ms; chain of {accepts} accepted insertions x log2 K at {clock / 1e9:.2f} GHz "
+                f"{ops_ms:.5f} ms)")
+            out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
+                         "bytes_ms": bytes_ms, "operations_ms": ops_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "longest_chain_accepts": accepts, "N": n, "P": p,
+                         "K": TOPK_K}
+            del copies
+    kernels.reset_launches()
+    return {"max_abs_err": max_err, "index_mismatches": index_mismatches, "shapes": out}
+
+
+DECODE_GRAPH_NEW = 16
+
+
+def phase_decode_graph(device, state, serve_parity) -> dict:
+    """The serving batch, greedy, fp32 and bf16: the decode replayed from
+    its CUDA graph (the first call captures it, the second only replays)
+    against eager decode (cuda_graph=False) from the same weights: the
+    tokens identical, the last step's logits bit-identical (every kernel of
+    a decode step is deterministic; were they not, the relative L2 would be
+    held to phase 9's bar, SERVE_PARITY_OF_CONTROL x its control), and the
+    launches of each call exact, replays counted."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.models.generate import _generate
+
+    cfg = serve_config()
+    padded, lens = serve_batch(serve_prompts(cfg.vocab_size), device)
+    want = serve_launches(cfg, DECODE_GRAPH_NEW)
+    bar = SERVE_PARITY_OF_CONTROL * serve_parity["control_plain_bf16_vs_fp32"]
+    out = {}
+    for name, dtypes in (("fp32", DTypePolicy.fp32()), ("bf16", DTypePolicy.bf16())):
+        m = FORDEDecoderLM(cfg.replace(dtypes=dtypes), device=device)
+        m.load_state_dict(state)
+        m.eval()
+        runs = {}
+        for label, graph in (("capture", True), ("replay", True), ("eager", False)):
+            kernels.reset_launches()
+            with torch.no_grad():
+                ids, last = _generate(m, padded, lens, None, DECODE_GRAPH_NEW, 0.0, None, None,
+                                      None, 0, graph)
+            torch.cuda.synchronize()
+            runs[label] = (ids, last, dict(kernels.launches))
+        (graph_obj, _, _), = m._decode_graphs.values()
+        eager_ids, eager_last, _ = runs["eager"]
+        readings = {}
+        for label in ("capture", "replay"):
+            ids, last, launches = runs[label]
+            if not torch.equal(ids, eager_ids):
+                raise AssertionError(f"decode graph {name} ({label}): tokens differ from eager at "
+                                     f"{(ids != eager_ids).nonzero()[:4].tolist()}")
+            identical = bool(torch.equal(last, eager_last))
+            rel = float((last - eager_last).norm() / eager_last.norm())
+            readings[label] = {"logits_bit_identical": identical, "logits_rel_l2": rel}
+            if not identical and not rel < bar:
+                raise AssertionError(f"decode graph {name} ({label}): last logits relative L2 "
+                                     f"{rel:.3e} >= {bar:.3e}")
+        for label, (_, _, launches) in runs.items():
+            if launches != want:
+                raise AssertionError(f"decode graph {name} ({label}): launches {launches}, "
+                                     f"expected {want}")
+        log(f"[decode graph] {name}: tokens ({DECODE_GRAPH_NEW} new x {len(SERVE_PROMPT_LENS)} "
+            f"rows) identical to eager; last logits {readings}; launches per call {want}, per "
+            f"replayed step {graph_obj.launches}")
+        out[name] = readings
+        out[f"{name}_launches_per_replay"] = dict(graph_obj.launches)
+        out[f"{name}_sampled"] = decode_graph_sampled(m, name, padded, lens, want)
+        del m, graph_obj
+        torch.cuda.empty_cache()
+    return out
+
+
+# Sampled decoding in phase_decode_graph: serve's sampling flags.
+DECODE_SAMPLING = dict(temperature=0.8, top_k=50, top_p=0.95)
+
+
+def decode_graph_sampled(m, name, padded, lens, want) -> dict:
+    """Sampled decoding (DECODE_SAMPLING) through the graph against eager,
+    from two generators seeded alike, over two calls (the first captures,
+    the second only replays): the tokens identical and each generator's
+    state after the call equal. A replay that drew the same numbers on
+    every step, or did not hand the advanced Philox state back to the
+    caller's generator, fails."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.models.generate import _generate
+
+    s = DECODE_SAMPLING
+    gens = {label: torch.Generator(device=padded.device).manual_seed(SEED + 50)
+            for label in ("graph", "eager")}
+    start = gens["eager"].get_state()
+    for call in ("capture", "replay"):
+        ids = {}
+        for label, graph in (("graph", True), ("eager", False)):
+            kernels.reset_launches()
+            with torch.no_grad():
+                ids[label], _ = _generate(m, padded, lens, gens[label], DECODE_GRAPH_NEW,
+                                          s["temperature"], s["top_k"], s["top_p"], None, 0, graph)
+            torch.cuda.synchronize()
+            if dict(kernels.launches) != want:
+                raise AssertionError(f"decode graph {name} sampled ({call}, {label}): launches "
+                                     f"{dict(kernels.launches)}, expected {want}")
+        if not torch.equal(ids["graph"], ids["eager"]):
+            raise AssertionError(f"decode graph {name} sampled ({call}): tokens differ from eager "
+                                 f"at {(ids['graph'] != ids['eager']).nonzero()[:4].tolist()}")
+        states = [g.get_state() for g in gens.values()]
+        if not torch.equal(*states) or torch.equal(states[0], start):
+            raise AssertionError(f"decode graph {name} sampled ({call}): generator state after "
+                                 f"the graphed call differs from eager's, or did not advance")
+    log(f"[decode graph] {name} sampled {s}: tokens identical to eager and generator states "
+        f"equal after a capturing and a replaying call")
+    return {"tokens_identical": True, "generator_state_equal": True}
+
+
+# Serving at --seq_len 8192: 2 layers, one prompt of 6,000 tokens (the
+# prefill's 4-D attention at S > 2,048, 750 complete pools), a few tokens.
+SERVE_LONG_FLAGS = [
+    "--d_model", "512", "--num_layers", "2", "--num_heads", "8", "--num_experts", "8",
+    "--top_k_experts", "2", "--window_size", "512", "--num_streams", "4",
+    "--seq_len", "8192", "--bf16",
+]
+SERVE_LONG_PROMPT = 6000
+SERVE_LONG_NEW = 8
+
+
+def phase_serve_long(device) -> dict:
+    """generate_cached at SERVE_LONG_FLAGS with seeded random weights: the
+    graphed decode's tokens identical to eager decode's, exact launches."""
+    import torch
+
+    from forde_tpu_torch import kernels, serve
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.models.generate import generate_cached
+
+    cfg = serve.config_from_args(serve.build_parser().parse_args(SERVE_LONG_FLAGS))
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    model = FORDEDecoderLM(cfg, device=device, generator=gen).eval()
+    prompt = np.random.RandomState(SEED + 14).randint(1, cfg.vocab_size, SERVE_LONG_PROMPT)
+    ids = torch.tensor(prompt[None], device=device)
+    want = serve_launches(cfg, SERVE_LONG_NEW)
+    rows, secs = {}, {}
+    for label, graph in (("graph", True), ("eager", False)):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows[label] = generate_cached(model, ids, None, max_new_tokens=SERVE_LONG_NEW,
+                                      temperature=0.0, cuda_graph=graph)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+        if launches != want:
+            raise AssertionError(f"serving at S 8192 ({label}): launches {launches}, "
+                                 f"expected {want}")
+    new = rows["graph"][0, SERVE_LONG_PROMPT:].tolist()
+    if not torch.equal(rows["graph"], rows["eager"]) or not all(
+            0 <= t < cfg.vocab_size for t in new):
+        raise AssertionError(f"serving at S 8192: graphed {new}, eager "
+                             f"{rows['eager'][0, SERVE_LONG_PROMPT:].tolist()}")
+    pools = SERVE_LONG_PROMPT // cfg.compression_ratio
+    log(f"[serve long] --seq_len 8192, {cfg.num_layers} layers, one prompt of "
+        f"{SERVE_LONG_PROMPT} tokens ({pools} pools), {SERVE_LONG_NEW} new: graphed tokens "
+        f"{new} identical to eager; {secs['graph']:.2f} s graphed (capture included), "
+        f"{secs['eager']:.2f} s eager; launches {want}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": want, "seconds_graph": secs["graph"], "seconds_eager": secs["eager"],
+            "new_tokens": new}
+
+
+FUSE_K = 8
+FUSE_BATCH = 128
+
+
+def copy_train_state_(dst, src) -> None:
+    """Everything a dual-encoder train step reads and writes, copied from
+    ``src`` into ``dst`` in place."""
+    import torch
+
+    with torch.no_grad():
+        for d, s in zip(dst.model.state_dict().values(), src.model.state_dict().values()):
+            d.copy_(s)
+        torch._foreach_copy_(dst.optimizer.mu, src.optimizer.mu)
+        torch._foreach_copy_(dst.optimizer.nu, src.optimizer.nu)
+        dst.optimizer.count.copy_(src.optimizer.count)
+        for k in dst.grad_stats:
+            dst.grad_stats[k].copy_(src.grad_stats[k])
+        dst.grad_step_count.copy_(src.grad_step_count)
+    dst.step = src.step
+
+
+def phase_fused_steps(device) -> dict:
+    """make_fused_step at vit_b16_hd128, bf16, batch 128, k = FUSE_K with
+    sensing every FUSE_K-th step: the first call runs the k steps (the
+    graph's warm-up) and captures them; a second state takes the first's
+    values in place, and then one replayed call on another super-batch is
+    held against the same k steps run eagerly from there. Params, both Adam
+    moments, act_stats, grad_stats and the last step's loss and grad_norm
+    bit-identical, or within phase 6's bf16 bars; the step counts and the
+    launches exact. Then pairs/s fused against unfused, and one replayed
+    call under the profiler."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.nn.stateful import stateful_layers
+    from forde_tpu_torch.train.clip_step import (
+        clip_train_step,
+        make_fused_step,
+        make_nosense_step,
+        stack_batches,
+    )
+
+    torch.cuda.empty_cache()
+    cfg = main_path_config().replace(sense=True)
+    weights = build_model(cfg, device).state_dict()
+    batches = []
+    for i in range(FUSE_K):
+        b = training_batch(cfg, FUSE_BATCH, device, SEED + 30 + i)
+        b["image"] = b["image"].to(cfg.dtypes.compute)
+        batches.append(b)
+    rolled = batches[1:] + batches[:1]
+    fused = make_fused_step(cfg, FUSE_K, FUSE_K)
+    first = fused.prepare(next(stack_batches(iter(batches), FUSE_K)))
+    second = fused.prepare(next(stack_batches(iter(rolled), FUSE_K)))
+    nosense = make_nosense_step(cfg)
+
+    def eager_steps(state, seq):
+        m = None
+        for i, b in enumerate(seq):
+            state, m = (clip_train_step if i % FUSE_K == 0 else nosense)(state, b)
+        return m
+
+    fused_state = train_state(cfg, weights, device)
+    eager_state = train_state(cfg, weights, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused(fused_state, first)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    copy_train_state_(eager_state, fused_state)
+
+    kernels.reset_launches()
+    fused_state, fm = fused(fused_state, second)
+    torch.cuda.synchronize()
+    fused_launches = dict(kernels.launches)
+    kernels.reset_launches()
+    em = eager_steps(eager_state, rolled)
+    torch.cuda.synchronize()
+    eager_launches = dict(kernels.launches)
+    sensed, unsensed = launches_per_step(cfg, True), launches_per_step(cfg, False)
+    want = {k: sensed[k] + (FUSE_K - 1) * unsensed[k] for k in sensed}
+    for label, got in (("fused", fused_launches), ("eager", eager_launches)):
+        if got != want:
+            raise AssertionError(f"fused steps: {label} launches {got}, expected {want}")
+    if (fused_state.step, int(fused_state.grad_step_count), int(fused_state.optimizer.count)) != (
+            eager_state.step, int(eager_state.grad_step_count), int(eager_state.optimizer.count)):
+        raise AssertionError("fused steps: step counts differ from the eager steps'")
+
+    def gather(state, m):
+        layers = stateful_layers(state.model).values()
+        return {
+            "loss": m["loss/contrastive"].reshape(1), "grad_norm": m["training/grad_norm"].reshape(1),
+            "act_stats": torch.cat([layer.act_stats.flatten() for layer in layers]),
+            "step_count": torch.stack([layer.step_count for layer in layers]).float(),
+            "grad_stats": torch.cat([g.flatten() for g in state.grad_stats.values()]),
+            "grads": torch.cat([x.float().flatten() for x in state.optimizer.mu]),
+            "nu": torch.cat([x.float().flatten() for x in state.optimizer.nu]),
+            "params": torch.cat([p.detach().float().flatten() for p in state.optimizer.params]),
+        }
+
+    got, ref = gather(fused_state, fm), gather(eager_state, em)
+    readings = {}
+    for k in ref:
+        identical = bool(torch.equal(got[k], ref[k]))
+        rel = float((got[k] - ref[k]).norm() / ref[k].norm().clamp_min(1e-30))
+        readings[k] = {"bit_identical": identical, "rel_l2": rel}
+        tol = PARITY_TOL["bf16"].get("grads" if k == "nu" else k, 0.0)
+        if not identical and not rel <= tol:
+            raise AssertionError(f"fused vs eager steps {k}: relative L2 {rel:.3e} > {tol:g}")
+    shown = ", ".join(f"{k} " + ("identical" if r["bit_identical"] else f"{r['rel_l2']:.3e}")
+                      for k, r in readings.items())
+    log(f"[fused] {FUSE_K} steps, sensing every {FUSE_K}th (vit_b16_hd128, bf16, batch 128): "
+        f"first call (warm-up + capture) {capture_s:.2f} s; a replayed call against the same "
+        f"steps run eagerly: {shown}; launches per call {want}; step {fused_state.step}, sensed "
+        f"{int(fused_state.grad_step_count)}")
+
+    def call_ms(run, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    unfused = lambda: eager_steps(eager_state, rolled)  # noqa: E731
+    graphed = lambda: fused(fused_state, second)  # noqa: E731
+    u1, f1, f2, u2 = (call_ms(r) for r in (unfused, graphed, graphed, unfused))
+    fused_ms, unfused_ms = min(f1, f2), min(u1, u2)
+    pairs = FUSE_BATCH * FUSE_K / fused_ms * 1e3
+    unfused_pairs = FUSE_BATCH * FUSE_K / unfused_ms * 1e3
+    log(f"[time] {FUSE_K} steps at batch 128 (sensing every {FUSE_K}th): fused (one graph) "
+        f"{f1:.2f} / {f2:.2f} ms, unfused {u1:.2f} / {u2:.2f} ms; pairs/s fused {pairs:.1f}, "
+        f"unfused {unfused_pairs:.1f}")
+    prof = profile_device(graphed, f"one replayed fused call ({FUSE_K} steps, batch 128)")
+    del fused, graphed, unfused, fused_state, eager_state
+    torch.cuda.empty_cache()
+    return {"readings": readings, "launches_per_call": want, "first_call_s": capture_s,
+            "fused_ms": fused_ms, "unfused_ms": unfused_ms, "pairs_per_s_fused": pairs,
+            "pairs_per_s_unfused": unfused_pairs, "fused_idle_share": prof["idle_share"],
+            "fused_busy_ms": prof["busy_ms"]}
+
+
+# The training CLI with --fuse_steps 4: vit_b16 (the CLI's preset), bf16,
+# batch 128, sensing every 4th step, the GMM slow loop every 4 steps.
+TRAIN_FUSED_ARGV = [
+    "--preset", "vit_b16", "--bf16", "--use_dummy_data", "--dummy_pool", "4",
+    "--batch_size", "128", "--num_steps", "8", "--sense_interval", "4",
+    "--slow_loop_interval", "4", "--moment_dtype", "bfloat16", "--warmup_steps", "4",
+    "--log_interval", "4", "--fuse_steps", "4",
+]
+
+
+def phase_train_fused_cli(workdir) -> dict:
+    """clip_loop.main at TRAIN_FUSED_ARGV: finite loss, exact launches (two
+    fused calls of 1 sensed + 3 unsensed steps), two brain updates between
+    the calls that were not skipped."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.train import clip_loop
+
+    args = clip_loop.build_parser().parse_args(TRAIN_FUSED_ARGV)
+    cfg = clip_loop.config_from_args(args)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = clip_loop.main(TRAIN_FUSED_ARGV + ["--seed", str(SEED)])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(kernels.launches)
+    finally:
+        os.chdir(cwd)
+    loss = out["final_metrics"]["loss/contrastive"]
+    sensed, unsensed = launches_per_step(cfg, True), launches_per_step(cfg, False)
+    n_sensed = args.num_steps // args.sense_interval
+    want = {k: n_sensed * sensed[k] + (args.num_steps - n_sensed) * unsensed[k] for k in sensed}
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    updates = out["brain_updates"]
+    log(f"[train fused] clip_loop.main ({' '.join(TRAIN_FUSED_ARGV)}) took {secs:.2f} s; final "
+        f"loss {loss:.4f}, launches {launches}, brain updates at "
+        f"{[u['step'] for u in updates]}")
+    if not np.isfinite(loss) or out["step"] != args.num_steps or launches != want:
+        raise AssertionError(f"fused training CLI: loss {loss}, steps {out['step']}, launches "
+                             f"{launches}, expected {want}")
+    if [u["step"] for u in updates] != [4, 8] or any(
+        u["skipped"] or u["sensed_steps_before"] != layers or u["grad_stats_abs_sum_after"] != 0
+        for u in updates
+    ):
+        raise AssertionError(f"brain updates of the fused training CLI: {updates}")
+    return {"launches": launches, "seconds": secs, "final_loss": loss,
+            "pairs_per_s": out["pairs_per_sec"]}
+
+
 def main() -> int:
     import torch
 
@@ -2457,10 +2985,13 @@ def main() -> int:
     max_err["moment_sums"] = phase_check_moments(device)
     max_err.update(phase_check_serving_kernels(device))
     max_err.update(phase_check_training_kernels(device))
+    topk = phase_topk_replay(device)
+    max_err["topk_replay"] = topk["max_abs_err"]
 
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         main_run = phase_main_path(device, workdir)
         train_run = phase_train_path(workdir)
+        fused_run = phase_train_fused_cli(workdir)
         serve_run = phase_serve_path(device, workdir)
         lm_run = phase_train_lm_path(device, workdir)
         long_run = phase_long_lm_path(workdir)
@@ -2469,9 +3000,13 @@ def main() -> int:
     timing = phase_encode_timing(device, main_run["model"], main_run["cfg"])
     shapes = phase_kernel_timing(device, main_run["cfg"], timing["encode_ms"])
     train_timing = phase_train_timing(device)
+    fused_steps = phase_fused_steps(device)
     serve_parity = phase_serve_parity(device, serve_run["state"])
+    decode_graph = phase_decode_graph(device, serve_run["state"], serve_parity)
     serve_timing = phase_serve_timing(device, serve_run["state"])
+    serve_long = phase_serve_long(device)
     shapes.update(phase_serving_kernel_timing(device))
+    shapes["topk_replay"] = topk["shapes"]
     lm_parity = phase_lm_step_parity(device)
     lm_timing = phase_lm_train_timing(device)
     shapes.update(phase_training_kernel_timing(device))
@@ -2479,7 +3014,9 @@ def main() -> int:
     def by_path(name):
         return {"embed": main_run["launches"].get(name, 0),
                 "train": train_run["launches"].get(name, 0),
+                "train_fused": fused_run["launches"].get(name, 0),
                 "serve": serve_run["launches"].get(name, 0),
+                "serve_s8192": serve_long["launches"].get(name, 0),
                 "train_lm": lm_run["launches"].get(name, 0),
                 "train_lm_s8192": long_run["launches"].get(name, 0)}
 
@@ -2573,6 +3110,25 @@ def main() -> int:
             "library_ms": sum(t["library_ms"] for t in ts),
             "shapes": shapes[name],
         })
+    # The prefill's top-k replay (the port of a lax.scan, not of a Pallas
+    # kernel): one launch per prefill, at the serving prefill's shape.
+    t = shapes["topk_replay"]["serve_prefill_n96_p2048_ragged"]
+    entries.append({
+        "name": "topk_replay",
+        "route": "cuda",
+        "source": "forde_tpu_torch/csrc/topk_replay.cu",
+        "replaces": "forde_tpu/models/generate.py:566",
+        "launches": serve_run["launches"].get("topk_replay", 0),
+        "launches_by_path": by_path("topk_replay"),
+        "max_abs_err": max_err["topk_replay"],
+        "index_mismatches": topk["index_mismatches"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "shapes": shapes["topk_replay"],
+    })
     result = {
         "kernels": entries,
         "encode_ms_batch128": timing["encode_ms"],
@@ -2593,6 +3149,10 @@ def main() -> int:
         "train_lm_s8192": {k: long_run[k] for k in ("seconds", "loss", "peak_gib")},
         "train_lm_step_8x2048": lm_timing,
         "train_lm_step_parity": lm_parity,
+        "train_fused_path": {k: fused_run[k] for k in ("seconds", "final_loss")},
+        "fused_steps_batch128": fused_steps,
+        "decode_graph": decode_graph,
+        "serve_s8192": {k: serve_long[k] for k in ("seconds_graph", "seconds_eager")},
         "card": smi,
     }
     print(smi)

@@ -18,16 +18,29 @@ nucleus (top-p) filtering and a draw from ``generator`` (a
 ``torch.Generator`` on the logits' device). The JAX package's
 ``jax.random`` draws cannot be reproduced, so its greedy tokens are the
 point of comparison. Every function runs under ``torch.no_grad``.
+
+The decode step (``_decode_step``) reads and writes a ``DecodeState`` in
+place, its step counter included, so that on the card it is captured once
+into a CUDA graph (``core.graphs.StepGraph``) and replayed: the JAX
+package's ``lax.scan`` of the step under ``jit``. The graph, its static
+``DecodeState`` and the generator it draws from are kept on the model,
+one per (batch, ragged or not, sampling settings, generator or none,
+weights' storage), and each call copies its prefill's state into the
+static one before the replays. ``cuda_graph=False`` runs the same step
+eagerly (the control); on the CPU the step always runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import weakref
+from typing import Optional, Tuple
 
 import torch
 
+from forde_tpu_torch.core import graphs
 from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
-from forde_tpu_torch.nn.attention import replay_topk_inserts
+from forde_tpu_torch.ops.topk_replay import topk_replay
 
 
 def _filter_logits(scaled: torch.Tensor, top_k: Optional[int], top_p: Optional[float]) -> torch.Tensor:
@@ -37,7 +50,7 @@ def _filter_logits(scaled: torch.Tensor, top_k: Optional[int], top_p: Optional[f
     whose mass reaches top_p (the crossing token included)."""
     if top_p is not None and not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p} (0 would mask every token)")
-    neg_inf = torch.tensor(-float("inf"), dtype=scaled.dtype, device=scaled.device)
+    neg_inf = -float("inf")
     if top_k is not None:
         kth = torch.topk(scaled, top_k, dim=-1).values[..., -1:]
         scaled = torch.where(scaled < kth, neg_inf, scaled)
@@ -51,9 +64,14 @@ def _filter_logits(scaled: torch.Tensor, top_k: Optional[int], top_p: Optional[f
 
 
 def _categorical(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """One draw per row from softmax(logits) (-inf entries never drawn)."""
+    """One draw per row from softmax(logits) (-inf entries never drawn),
+    by an exponential race: the argmax of p / E with E ~ Exp(1) per entry
+    is drawn with probability p. Every op of it can be captured in a CUDA
+    graph."""
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    race.clamp_(min=torch.finfo(race.dtype).tiny)  # p = 0 stays 0, never 0 / 0
+    return torch.argmax(probs / race, dim=-1)
 
 
 def _sample(next_logits, generator, temperature, top_k=None, top_p=None) -> torch.Tensor:
@@ -68,7 +86,7 @@ def sample_rows(next_logits, generator, temps, top_ks=None, top_ps=None) -> torc
     with equal settings the masks are ``_filter_logits``'s."""
     greedy = torch.argmax(next_logits, dim=-1)
     scaled = next_logits / torch.clamp(temps, min=1e-6)[:, None]
-    neg_inf = torch.tensor(-float("inf"), dtype=scaled.dtype, device=scaled.device)
+    neg_inf = -float("inf")
     if top_ks is not None or top_ps is not None:
         v = scaled.shape[-1]
         sorted_desc = torch.sort(scaled, dim=-1, descending=True).values
@@ -88,32 +106,146 @@ def sample_rows(next_logits, generator, temps, top_ks=None, top_ps=None) -> torc
     return torch.where(temps == 0.0, greedy, sampled)
 
 
-def _decode_loop(model, cache, ids, token, done, generator, max_new_tokens, temperature,
-                 top_k, top_p, eos_id, pad_id, write_pos, positions=None):
-    """``max_new_tokens - 1`` cached steps after the prefill's token:
-    step t feeds ``token`` (at ``positions + t`` when given) and writes
-    the sampled token at column ``write_pos + t`` of each row."""
-    bidx = torch.arange(ids.shape[0], device=ids.device)
-    for t in range(max_new_tokens - 1):
-        logits, _ = model(
-            token[:, None], cache=cache,
-            positions=None if positions is None else positions + t,
-        )
-        nxt = _sample(logits[:, 0, :], generator, temperature, top_k, top_p)
-        nxt = torch.where(done, torch.full_like(nxt, pad_id), nxt)
-        if eos_id is not None:
-            done = done | (nxt == eos_id)
-        ids[bidx, write_pos + t] = nxt
-        token = nxt
-    return ids
+@dataclasses.dataclass
+class DecodeState:
+    """What one decode step reads and writes, all in place: the model's
+    ``cache``; ``token`` (B,) the token each row feeds next; ``done`` (B,)
+    rows that emitted the EOS; ``positions`` (B,) each row's position at
+    step 0 (the ragged batch) or None (the cache's own counters); ``t`` the
+    steps taken (a device int64 scalar); ``out`` (B, max_seq_len) whose
+    column t receives the token sampled at step t."""
+
+    cache: dict
+    token: torch.Tensor
+    done: torch.Tensor
+    positions: Optional[torch.Tensor]
+    t: torch.Tensor
+    out: torch.Tensor
 
 
-def _first_token(last_logits, generator, temperature, top_k, top_p, eos_id):
+def _decode_step(model, st: DecodeState, generator, sampling) -> torch.Tensor:
+    """One cached step: feed ``st.token`` (at ``positions + t`` when
+    given), sample, write the token at column t of ``st.out``, advance t.
+    Returns the step's logits (B, V)."""
+    temperature, top_k, top_p, eos_id, pad_id = sampling
+    positions = None if st.positions is None else st.positions + st.t
+    logits, _ = model(st.token[:, None], cache=st.cache, positions=positions)
+    last = logits[:, 0, :]
+    nxt = _sample(last, generator, temperature, top_k, top_p)
+    nxt = torch.where(st.done, pad_id, nxt)
+    if eos_id is not None:
+        st.done.logical_or_(nxt == eos_id)
+    st.out.index_copy_(1, st.t.reshape(1), nxt[:, None])
+    st.token.copy_(nxt)
+    st.t.add_(1)
+    return last
+
+
+def _fields(st: DecodeState) -> tuple:
+    return tuple(getattr(st, f.name) for f in dataclasses.fields(st))
+
+
+def _graph_key(model, st: DecodeState, sampling, generator) -> tuple:
+    return (tuple(st.token.shape), st.token.device, st.positions is None, sampling,
+            generator is None, graphs.tensor_ptrs(model))
+
+
+def _decode(model, st: DecodeState, steps: int, generator, sampling,
+            cuda_graph: bool) -> Tuple[Optional[torch.Tensor], DecodeState]:
+    """``steps`` decode steps from ``st``: (the last step's logits, the
+    state they leave). On CUDA with ``cuda_graph`` the steps replay the
+    model's captured graph for these settings (captured on first use,
+    whose warm-up is the first step), and the state returned is the
+    graph's static one; otherwise they run eagerly on ``st``."""
+    if steps <= 0:
+        return None, st
+    if steps > st.out.shape[1]:
+        raise ValueError(f"{steps} decode steps exceed the token buffer ({st.out.shape[1]})")
+    if not (cuda_graph and graphs.on_card(st.token)):
+        for _ in range(steps):
+            last = _decode_step(model, st, generator, sampling)
+        return last, st
+
+    cached = model.__dict__.setdefault("_decode_graphs", {})
+    key = _graph_key(model, st, sampling, generator)
+    entry = cached.get(key)
+    if entry is None:
+        static = DecodeState(*(graphs.clone_tree(f) for f in _fields(st)))
+        own = None
+        if generator is not None:
+            # The graph draws from a generator of its own, which takes the
+            # caller's state before the replays and hands it back after.
+            own = torch.Generator(device=st.token.device)
+            own.set_state(generator.get_state())
+        # A weak reference: the graph, kept on the model, must not keep the
+        # model alive (a replay does not call the function again).
+        ref = weakref.ref(model)
+        graph = graphs.StepGraph(lambda: _decode_step(ref(), static, own, sampling),
+                                 generators=() if own is None else (own,))
+        cached[key] = (graph, static, own)
+        last, done_steps = graph.warmup_outputs, 1  # the warm-up was step 1
+    else:
+        graph, static, own = entry
+        graphs.copy_tree_(_fields(static), _fields(st))
+        if own is not None:
+            own.set_state(generator.get_state())
+        done_steps = 0
+    for _ in range(steps - done_steps):
+        last = graph.replay()
+    if own is not None:
+        generator.set_state(own.get_state())
+    return last.clone(), static  # the graph's output buffer is rewritten by its next replay
+
+
+def _first_state(model, cache, last_logits, generator, sampling, positions) -> DecodeState:
+    temperature, top_k, top_p, eos_id, _ = sampling
     token = _sample(last_logits.float(), generator, temperature, top_k, top_p)
     done = torch.zeros_like(token, dtype=torch.bool)
     if eos_id is not None:
         done = token == eos_id
-    return token, done
+    dev = token.device
+    return DecodeState(
+        cache=cache, token=token, done=done, positions=positions,
+        t=torch.zeros((), dtype=torch.int64, device=dev),
+        out=torch.zeros(token.shape[0], model.config.max_seq_len, dtype=torch.int64, device=dev),
+    )
+
+
+def _generate(model, prompt_ids, lens, generator, max_new_tokens, temperature, top_k, top_p,
+              eos_id, pad_id, cuda_graph) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``generate_cached`` (``lens`` None) or ``generate_ragged``: (ids,
+    the last decode step's logits (B, V), or None with one new token)."""
+    b, p = prompt_ids.shape
+    dev = prompt_ids.device
+    sampling = (temperature, top_k, top_p, eos_id, pad_id)
+    bidx = torch.arange(b, device=dev)
+    if model.config.use_sparse_attention:
+        cache, last = nsa_prefill(model, prompt_ids, lens)
+    else:
+        # A ragged buffer prefills as one; a pad row's k/v in the cache is
+        # overwritten by the row's own token before any query sees it.
+        cache = model.init_cache(b, dev)
+        logits, _ = model(prompt_ids, cache=cache)
+        last = logits[:, -1, :] if lens is None else logits[bidx, lens - 1]
+    st = _first_state(model, cache, last, generator, sampling, lens)
+    total = p + max_new_tokens
+    if lens is None:
+        ids = torch.zeros(b, total, dtype=torch.int64, device=dev)
+        ids[:, :p] = prompt_ids
+        first_col = torch.full((b,), p, dtype=torch.int64, device=dev)
+    else:
+        ids = torch.full((b, total), pad_id, dtype=torch.int64, device=dev)
+        cols = torch.arange(total, device=dev)
+        ids[:, :p] = torch.where(cols[None, :p] < lens[:, None], prompt_ids.to(torch.int64),
+                                 ids[:, :p])
+        first_col = lens
+    ids[bidx, first_col] = st.token
+    steps = max_new_tokens - 1
+    last, st = _decode(model, st, steps, generator, sampling, cuda_graph)
+    if steps > 0:
+        cols = first_col[:, None] + 1 + torch.arange(steps, device=dev)[None, :]
+        ids.scatter_(1, cols, st.out[:, :steps])
+    return ids, last
 
 
 @torch.no_grad()
@@ -127,24 +259,15 @@ def generate_cached(
     top_p: Optional[float] = None,
     eos_id: Optional[int] = None,
     pad_id: int = 0,
+    cuda_graph: bool = True,
 ) -> torch.Tensor:
     """Sample ``max_new_tokens`` continuations of ``prompt_ids`` (B, P)
     with the KV caches: (B, P + max_new_tokens), the prompt then the new
-    tokens; a row that emitted ``eos_id`` continues with ``pad_id``."""
-    b, p = prompt_ids.shape
-    if model.config.use_sparse_attention:
-        cache, last = nsa_prefill(model, prompt_ids)
-    else:
-        cache = model.init_cache(b, prompt_ids.device)
-        logits, _ = model(prompt_ids, cache=cache)
-        last = logits[:, -1, :]
-    token, done = _first_token(last, generator, temperature, top_k, top_p, eos_id)
-    ids = torch.zeros(b, p + max_new_tokens, dtype=torch.int64, device=prompt_ids.device)
-    ids[:, :p] = prompt_ids
-    ids[:, p] = token
-    write_pos = torch.full((b,), p + 1, dtype=torch.int64, device=ids.device)
-    return _decode_loop(model, cache, ids, token, done, generator, max_new_tokens, temperature,
-                        top_k, top_p, eos_id, pad_id, write_pos)
+    tokens; a row that emitted ``eos_id`` continues with ``pad_id``. On
+    CUDA the decode steps replay a CUDA graph unless ``cuda_graph`` is
+    False."""
+    return _generate(model, prompt_ids, None, generator, max_new_tokens, temperature, top_k,
+                     top_p, eos_id, pad_id, cuda_graph)[0]
 
 
 @torch.no_grad()
@@ -159,31 +282,16 @@ def generate_ragged(
     top_p: Optional[float] = None,
     eos_id: Optional[int] = None,
     pad_id: int = 0,
+    cuda_graph: bool = True,
 ) -> torch.Tensor:
     """Mixed-length prompts in one batch: ``prompt_ids`` (B, P_max)
     right-padded, ``prompt_lens`` (B,) true lengths (>= 1). Every row
     prefills at its length and decodes at its own position. Row i's result
     is ``out[i, :prompt_lens[i] + max_new_tokens]``; the slack up to the
-    buffer's end (B, P_max + max_new_tokens) is ``pad_id``."""
-    b, p = prompt_ids.shape
-    lens = prompt_lens.to(torch.int64)
-    bidx = torch.arange(b, device=prompt_ids.device)
-    if model.config.use_sparse_attention:
-        cache, last = nsa_prefill(model, prompt_ids, lens)
-    else:
-        # The padded buffer prefills as one; a pad row's k/v in the cache
-        # is overwritten by the row's own token before any query sees it.
-        cache = model.init_cache(b, prompt_ids.device)
-        logits, _ = model(prompt_ids, cache=cache)
-        last = logits[bidx, lens - 1]
-    token, done = _first_token(last, generator, temperature, top_k, top_p, eos_id)
-    total = p + max_new_tokens
-    ids = torch.full((b, total), pad_id, dtype=torch.int64, device=prompt_ids.device)
-    cols = torch.arange(total, device=ids.device)
-    ids[:, :p] = torch.where(cols[None, :p] < lens[:, None], prompt_ids.to(torch.int64), ids[:, :p])
-    ids[bidx, lens] = token
-    return _decode_loop(model, cache, ids, token, done, generator, max_new_tokens, temperature,
-                        top_k, top_p, eos_id, pad_id, lens + 1, positions=lens)
+    buffer's end (B, P_max + max_new_tokens) is ``pad_id``. On CUDA the
+    decode steps replay a CUDA graph unless ``cuda_graph`` is False."""
+    return _generate(model, prompt_ids, prompt_lens.to(torch.int64), generator, max_new_tokens,
+                     temperature, top_k, top_p, eos_id, pad_id, cuda_graph)[0]
 
 
 @torch.no_grad()
@@ -196,7 +304,9 @@ def nsa_prefill(model: FORDEDecoderLM, prompt_ids: torch.Tensor,
     holds the last ``w`` k/v rows, the pools the k/v projections of the
     complete chunk means, ``comp_chunk_sum`` the fp32 sum of the
     incomplete chunk, and the top-k set is the replay of ``topk_insert``
-    over the prompt's importance scores.
+    over the prompt's importance scores (``ops.topk_replay``, every layer
+    and row in one call, on the device). The cache is new storage; a
+    graphed decode copies it into its static cache.
 
     ``lengths`` (B,): the ragged path over a right-padded ``prompt_ids``.
     The forward masks per row, and the caches are built per row (gathered
@@ -280,8 +390,7 @@ def nsa_prefill(model: FORDEDecoderLM, prompt_ids: torch.Tensor,
         topk_rows.append((nsa._heads(nsa.topk_k_proj(x)), nsa._heads(nsa.topk_v_proj(x))))
 
     k_sel = cache["layer_0"]["sparse_attention"]["topk_scores"].shape[1]
-    kept, kept_idx = replay_topk_inserts(torch.stack(topk_scores).reshape(-1, p), k_sel,
-                                         cfg.max_seq_len)
+    kept, kept_idx = topk_replay(torch.stack(topk_scores).reshape(-1, p), k_sel, cfg.max_seq_len)
     kept, kept_idx = kept.reshape(-1, b, k_sel), kept_idx.reshape(-1, b, k_sel)
     for i, (tk, tv) in enumerate(topk_rows):
         lc = cache[f"layer_{i}"]["sparse_attention"]

@@ -6,7 +6,9 @@ Each module has a ``forward`` (the teacher-forced pass; NSA also takes
 ``lengths`` for right-padded rows), a ``decode`` step that reads and
 updates an explicit cache, and ``init_cache``. A cache is a dict of
 tensors with the JAX package's leaf names, updated IN PLACE by
-``decode`` (the decode loop owns it; nothing else holds a reference).
+``decode``: every leaf keeps its storage from step to step, which a decode
+step captured in a CUDA graph needs (the decode loop owns the cache;
+nothing else holds a reference).
 
 Reference quirks kept: NSA's top-k selection is global per sequence
 (stable: ties keep the lower index, as ``lax.top_k``); the compressed
@@ -20,9 +22,8 @@ by 0.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from forde_tpu_torch.nn.layers import Dense
@@ -376,7 +377,7 @@ class NativeSparseAttention(torch.nn.Module):
         for name, new in (("comp_k", new_k), ("comp_v", new_v)):
             buf = cache[name]
             buf[bidx, :, pool_idx] = torch.where(sel, new.to(buf.dtype), buf[bidx, :, pool_idx])
-        cache["comp_chunk_sum"] = torch.where(completes[:, None], torch.zeros_like(new_sum), new_sum)
+        cache["comp_chunk_sum"].copy_(torch.where(completes[:, None], 0.0, new_sum))
         # Pool p joins once seq_len - window >= (p + 1) * ratio; the one
         # query sits at position 0, so the thresholds shift by -cur.
         pool = torch.arange(self.max_pools(), device=x.device)
@@ -389,41 +390,14 @@ class NativeSparseAttention(torch.nn.Module):
         importance = self.importance_scorer(x)[:, 0, 0].float()
         new_k = self._heads(self.topk_k_proj(x))
         new_v = self._heads(self.topk_v_proj(x))
-        sc, ix, kk, vv = topk_insert(
-            (cache["topk_scores"], cache["topk_idx"], cache["topk_k"], cache["topk_v"]),
-            importance, new_k, new_v, cur,
-        )
-        cache["topk_scores"], cache["topk_idx"] = sc, ix
-        cache["topk_k"], cache["topk_v"] = kk, vv
+        names = ("topk_scores", "topk_idx", "topk_k", "topk_v")
+        new_state = topk_insert(tuple(cache[n] for n in names), importance, new_k, new_v, cur)
+        for name, t in zip(names, new_state):
+            cache[name].copy_(t)
+        _, ix, kk, vv = (cache[n] for n in names)
         # Kept row j is visible iff cur >= its source index (thresholds
         # shifted by -cur); empty slots sit at max_decode_len and stay masked.
         q = self._heads(self.topk_q_proj(x))
         out = small_kv_attention(q, kk, vv, ix.to(torch.int64) - cur[:, None], impl=self.impl)
         return self.topk_out_proj(_merge_heads(out).to(x.dtype))
 
-
-def replay_topk_inserts(
-    scores: torch.Tensor, k_sel: int, empty_idx: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The running top-k set after inserting ``scores[:, t]`` at position
-    t for t = 0 .. P-1 into an empty set (``topk_insert``'s rule: replace
-    the first minimum iff strictly greater), for every row of ``scores``
-    (N, P) at once. Returns (kept scores (N, K) fp32, source indices
-    (N, K) int32; empty slots -inf / ``empty_idx``) on the scores' device.
-
-    The insertion order decides the slot order, so the replay is
-    sequential; it runs on the host over P steps of (N, K) numpy work
-    (the k/v rows are gathered afterwards by index)."""
-    s = scores.detach().float().cpu().numpy()
-    n, p = s.shape
-    kept = np.full((n, k_sel), -np.inf, np.float32)
-    idx = np.full((n, k_sel), empty_idx, np.int32)
-    rows = np.arange(n)
-    for t in range(p):
-        slot = np.argmin(kept, axis=1)
-        new = s[:, t]
-        accept = new > kept[rows, slot]
-        kept[rows[accept], slot[accept]] = new[accept]
-        idx[rows[accept], slot[accept]] = t
-    return (torch.from_numpy(kept).to(scores.device),
-            torch.from_numpy(idx).to(scores.device))

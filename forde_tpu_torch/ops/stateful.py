@@ -34,11 +34,10 @@ GENERALIST, POOLING, SPECIALIST = 0, 1, 2
 
 
 def _gate(a: torch.Tensor, specialist_gate: float, dt: torch.dtype) -> torch.Tensor:
-    return torch.where(
-        a == SPECIALIST,
-        torch.tensor(specialist_gate, dtype=dt, device=a.device),
-        torch.tensor(1.0, dtype=dt, device=a.device),
-    )
+    # Filled on the device (no host-to-device copy, which a CUDA graph
+    # cannot capture); the gate is rounded to dt as before.
+    gate = torch.full(a.shape, specialist_gate, dtype=dt, device=a.device)
+    return torch.where(a == SPECIALIST, gate, 1.0)
 
 
 class _Multiplex(torch.autograd.Function):

@@ -17,7 +17,10 @@ with no GPU visible it raises.
   python -m forde_tpu_torch.train.clip_loop --device cpu --preset tiny \\
       --use_dummy_data --batch_size 2 --num_steps 4 --slow_loop_interval 2
 
-Not ported yet (and not accepted): ``--fuse_steps``, ``--ema_decay``,
+``--fuse_steps k`` runs k steps per call of ``make_fused_step``: on the
+card one CUDA graph of the k steps over a stacked super-batch.
+
+Not ported yet (and not accepted): ``--ema_decay``,
 ``--tensor_parallelism``, ``--param_sharding``, ``--use_aligned_data``,
 the retrieval eval, plots, ``--profile_dir`` and ``--resume``.
 """
@@ -70,6 +73,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sense_interval", type=int, default=1,
                    help="run FORDE sensing every k-th step (1 = every step); "
                         "the slow loop reads time-averaged stats")
+    p.add_argument("--fuse_steps", type=int, default=1,
+                   help="run k optimizer steps per dispatch as ONE "
+                        "captured CUDA graph over a stacked batch "
+                        "(train/clip_step.make_fused_step) — removes "
+                        "the per-step host dispatch from the step "
+                        "cadence; identical math and step order to k "
+                        "unfused steps (tests/test_torch_fuse_steps.py). "
+                        "Must be a multiple of --sense_interval; "
+                        "log/slow-loop cadences round up to fuse "
+                        "boundaries.")
     p.add_argument("--forde_lite", action="store_true",
                    help="rule-based assignments instead of the GMM")
     p.add_argument("--gmm", action="store_true",
@@ -153,7 +166,9 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     from forde_tpu_torch.train.clip_step import (
         clip_train_step,
         create_clip_train_state,
+        make_fused_step,
         make_nosense_step,
+        stack_batches,
     )
 
     if args is None:
@@ -182,6 +197,26 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     print(f"state created in {time.perf_counter() - t_init:.1f}s "
           f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
 
+    nosense_step = make_nosense_step(cfg) if args.sense_interval > 1 else None
+    fuse = max(1, args.fuse_steps)
+    fused_step = None
+    if fuse > 1:
+        if args.sense_interval > 1 and fuse % args.sense_interval:
+            raise SystemExit(
+                f"--fuse_steps ({fuse}) must be a multiple of "
+                f"--sense_interval ({args.sense_interval})"
+            )
+        # Host-side cadences fire on `step % interval == 0` and step now
+        # advances by `fuse` per dispatch — round them up to boundaries.
+        for name in ("log_interval", "slow_loop_interval"):
+            v = getattr(args, name)
+            if v > 0 and v % fuse:
+                rounded = ((v + fuse - 1) // fuse) * fuse
+                print(f"--{name} {v} -> {rounded} (rounded to a "
+                      f"--fuse_steps boundary)")
+                setattr(args, name, rounded)
+        fused_step = make_fused_step(cfg, fuse, args.sense_interval, nosense_step=nosense_step)
+
     writer = MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
     dataset = SyntheticVLDataset(
         args.batch_size, args.num_steps, image_size=cfg.image_size,
@@ -190,27 +225,36 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     )
     if args.dummy_pool:
         # Device-resident pool: each distinct batch is copied once, its
-        # images in the compute dtype (the model's first op casts them).
+        # images in the compute dtype (the model's first op casts them);
+        # with --fuse_steps, pre-stacked super-batches.
         pool = []
-        for b in itertools.islice(iter(dataset), args.dummy_pool):
+        for b in itertools.islice(iter(dataset), max(args.dummy_pool, fuse)):
             db = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
             db["image"] = db["image"].to(cfg.dtypes.compute)
             pool.append(db)
-        batches = (pool[i % len(pool)] for i in range(args.num_steps))
+        if fused_step is not None:
+            pool = [fused_step.prepare(sb) for sb in stack_batches(iter(pool), fuse)]
+        batches = (pool[i % len(pool)] for i in range(args.num_steps // fuse))
     else:
         batches = prefetch_to_device(iter(dataset), device)
+        if fused_step is not None:
+            batches = (fused_step.prepare(sb) for sb in stack_batches(batches, fuse))
 
-    nosense_step = make_nosense_step(cfg) if args.sense_interval > 1 else None
-    meter = ThroughputMeter(items_per_step=args.batch_size)
+    meter = ThroughputMeter(items_per_step=args.batch_size * fuse)
     step, last, brain_updates = 0, {}, []
     metrics = None
     try:
         for batch in batches:
-            if nosense_step is not None and step % args.sense_interval:
+            if fused_step is not None:
+                # the slow loop below runs only between fused calls
+                state, metrics = fused_step(state, batch)
+                step += fuse
+            elif nosense_step is not None and step % args.sense_interval:
                 state, metrics = nosense_step(state, batch)
+                step += 1
             else:
                 state, metrics = clip_train_step(state, batch)
-            step += 1
+                step += 1
             meter.step()
 
             if step % args.log_interval == 0:

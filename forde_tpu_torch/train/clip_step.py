@@ -15,16 +15,22 @@ Both steps update ``state`` in place and return ``(state, metrics)``:
 ``loss/contrastive``, ``training/grad_norm`` (the global norm of the
 parameter gradients before clipping) and the contrastive accuracies and
 scale, as 0-d tensors on the model's device (no host synchronisation).
+
+``make_fused_step`` runs k such steps per call over a stacked super-batch
+(``stack_batches``): on the card as one CUDA graph of the k steps,
+forward, backward and optimizer included (the JAX package's scanned
+program); on the CPU as the same k eager steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import torch
 
+from forde_tpu_torch.core import graphs
 from forde_tpu_torch.core.config import DualEncoderConfig
 from forde_tpu_torch.models.dual_encoder import FORDEDualEncoder, clip_contrastive_loss
 from forde_tpu_torch.nn.stateful import stateful_layers
@@ -133,3 +139,113 @@ def make_nosense_step(config: DualEncoderConfig):
     module called with ``sense=False``."""
     del config  # one module serves both steps
     return functools.partial(_step, sense=False)
+
+
+def _state_ptrs(state: CLIPTrainState) -> tuple:
+    """The storage the steps read and write: a graph captured over a state
+    stays valid while all of it stays where it is."""
+    opt = state.optimizer
+    return (graphs.tensor_ptrs(state.model), tuple(t.data_ptr() for t in (*opt.mu, *opt.nu)),
+            opt.count.data_ptr(), tuple(g.data_ptr() for g in state.grad_stats.values()),
+            state.grad_step_count.data_ptr())
+
+
+def make_fused_step(
+    config: DualEncoderConfig,
+    n_steps: int,
+    sense_interval: int = 1,
+    sensed_step=None,
+    nosense_step=None,
+    *,
+    cuda_graph: bool = True,
+):
+    """``n_steps`` optimizer steps per call over a stacked super-batch, in
+    the unfused loop's order: sensed at offsets 0, g, 2g, ... (g =
+    ``sense_interval``), unsensed between, the same math step for step.
+    ``n_steps`` must be a positive multiple of g, so that every call runs
+    whole groups. ``sensed_step`` / ``nosense_step`` default to
+    ``clip_train_step`` / ``make_nosense_step(config)``.
+
+    Usage: ``fused(state, fused.prepare(stacked))`` where ``stacked`` has
+    a leading (n_steps,) axis (``stack_batches``). ``prepare`` gives each
+    leaf as one contiguous (n_steps, ...) tensor and may be applied ahead
+    of time (e.g. once per pooled super-batch). ``fused`` updates
+    ``state`` in place and returns ``(state, metrics of the last step)``.
+
+    On CUDA (unless ``cuda_graph`` is False) the k steps, forward,
+    backward and optimizer, are one CUDA graph per train state. The first
+    call runs them for real (the graph's warm-up) and captures them; each
+    later call copies its super-batch into the graph's static batch and
+    replays. The graph reads the state where it is: whatever runs between
+    calls (the neuron slow loop, a checkpoint load) writes it in place. On
+    the CPU, or with ``cuda_graph`` False, the same k steps run eagerly.
+    """
+    sensed = sensed_step if sensed_step is not None else clip_train_step
+    group = int(sense_interval) if sense_interval > 1 else 1
+    if n_steps <= 0 or n_steps % group:
+        raise ValueError(
+            f"n_steps ({n_steps}) must be a positive multiple of "
+            f"sense_interval ({group})"
+        )
+    nosense = None
+    if group > 1:
+        nosense = nosense_step if nosense_step is not None else make_nosense_step(config)
+    captured: Dict[tuple, tuple] = {}
+
+    def run(state: CLIPTrainState, stacked: Batch) -> Dict:
+        metrics = None
+        for i in range(n_steps):
+            batch = {k: v[i] for k, v in stacked.items()}
+            step = sensed if i % group == 0 else nosense
+            state, metrics = step(state, batch)
+        return metrics
+
+    def prepare(stacked: Batch) -> Batch:
+        """The (n_steps, ...) super-batch as the call reads it: each leaf
+        one contiguous tensor."""
+        for k, v in stacked.items():
+            if v.shape[0] != n_steps:
+                raise ValueError(f"{k}: leading axis {v.shape[0]}, expected {n_steps}")
+        return {k: v.contiguous() for k, v in stacked.items()}
+
+    def fused(state: CLIPTrainState, prepared: Batch) -> Tuple[CLIPTrainState, Dict]:
+        if not (cuda_graph and graphs.on_card(state.model.logit_scale)):
+            return state, run(state, prepared)
+        key = (id(state), _state_ptrs(state),
+               tuple((k, v.shape, v.dtype) for k, v in prepared.items()))
+        first = state.step
+        entry = captured.get(key)
+        if entry is None:
+            static = {k: v.clone() for k, v in prepared.items()}
+            graph = graphs.StepGraph(lambda: run(state, static))
+            captured[key] = (graph, static)
+            metrics = graph.warmup_outputs
+        else:
+            graph, static = entry
+            graphs.copy_tree_(static, prepared)
+            metrics = graph.replay()
+        # the host-side step count: the warm-up's k steps (the capture ran
+        # the host side again), or the replay's, which ran none of it
+        state.step = first + n_steps
+        return state, {k: v.clone() for k, v in metrics.items()}
+
+    fused.prepare = prepare
+    return fused
+
+
+def stack_batches(batch_iter: Iterable[Batch], n: int, sharding=None) -> Iterator[Batch]:
+    """Group a device-batch iterator into stacked (n, ...) super-batches
+    for ``make_fused_step``. Drops a final partial group (an epoch tail
+    shorter than ``n``). ``sharding`` (a multi-device layout) is not
+    ported."""
+    if sharding is not None:
+        raise NotImplementedError(
+            "stack_batches(sharding=...) is not ported to forde_tpu_torch yet (it waits "
+            "for the multi-device slice; see ROADMAP.md)"
+        )
+    buf = []
+    for b in batch_iter:
+        buf.append(b)
+        if len(buf) == n:
+            yield {k: torch.stack([x[k] for x in buf]) for k in buf[0]}
+            buf = []

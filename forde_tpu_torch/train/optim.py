@@ -19,17 +19,20 @@ or the stat buffers, which are not parameters:
 both moments are stored in bf16 and widened for the update, whose math
 stays fp32; ``None`` stores them in the parameter dtype (``optax.adamw``).
 The update is written with ``torch._foreach_*`` ops and runs in place, on
-the parameters' device, with no host synchronisation.
+the parameters' device, with no host synchronisation. The step count is an
+int32 tensor on that device, as optax keeps it, and the bias corrections
+and a scheduled LR are computed from it there in fp32: a step captured in
+a CUDA graph reads them anew on every replay.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+from typing import TYPE_CHECKING, List, Optional, Sequence, Union
 
-import numpy as np
 import torch
 
-Schedule = Callable[[int], float]
+if TYPE_CHECKING:
+    from forde_tpu_torch.train.state import LRSchedule
 
 
 class AdamW:
@@ -39,7 +42,7 @@ class AdamW:
     def __init__(
         self,
         params: Sequence[torch.Tensor],
-        learning_rate: Union[float, Schedule],
+        learning_rate: Union[float, "LRSchedule"],
         weight_decay: float = 0.0,
         grad_clip_norm: Optional[float] = 1.0,
         moment_dtype: Optional[torch.dtype] = None,
@@ -51,11 +54,8 @@ class AdamW:
         self.moment_dtype = moment_dtype
         self.mu = [torch.zeros_like(p, dtype=moment_dtype or p.dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=moment_dtype or p.dtype) for p in self.params]
-        self.count = 0  # steps taken; optax keeps it as an int32 on device
-
-    def lr(self, count: int) -> float:
-        lr = self.learning_rate
-        return float(lr(count)) if callable(lr) else float(lr)
+        device = self.params[0].device if self.params else None
+        self.count = torch.zeros((), dtype=torch.int32, device=device)  # steps taken
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -71,10 +71,12 @@ class AdamW:
                 self.grad_clip_norm / norm,
             )
             grads = torch._foreach_mul(grads, scale)
-        count = self.count + 1
-        # Bias corrections in fp32, as optax computes them from its int32 count.
-        c1 = float(np.float32(1.0) - np.float32(self.b1) ** np.float32(count))
-        c2 = float(np.float32(1.0) - np.float32(self.b2) ** np.float32(count))
+        lr = self.learning_rate
+        lr = float(lr) if isinstance(lr, (int, float)) else lr.at(self.count)  # before the increment
+        self.count.add_(1)
+        # Bias corrections in fp32 from the int32 count, as optax computes them.
+        t = self.count.to(torch.float32)
+        c1, c2 = 1.0 - torch.pow(self.b1, t), 1.0 - torch.pow(self.b2, t)
         lowp = self.moment_dtype is not None
         mu = [m.float() for m in self.mu] if lowp else self.mu
         nu = [v.float() for v in self.nu] if lowp else self.nu
@@ -89,9 +91,12 @@ class AdamW:
         torch._foreach_div_(updates, denom)
         if self.weight_decay:
             torch._foreach_add_(updates, self.params, alpha=self.weight_decay)
-        torch._foreach_add_(self.params, updates, alpha=-self.lr(self.count))
+        if isinstance(lr, float):
+            torch._foreach_add_(self.params, updates, alpha=-lr)
+        else:
+            torch._foreach_mul_(updates, lr)
+            torch._foreach_sub_(self.params, updates)
         if lowp:
             torch._foreach_copy_(self.mu, mu)
             torch._foreach_copy_(self.nu, nu)
-        self.count = count
         return norm

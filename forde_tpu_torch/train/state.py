@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -21,40 +21,60 @@ from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
 from forde_tpu_torch.train.optim import AdamW
 
 
+class LRSchedule:
+    """LR as a function of the step count: linear warmup (0 -> peak over
+    ``warmup_steps``) into a constant or a cosine decay (peak ->
+    ``min_lr_ratio`` * peak over ``decay_steps``, counted after warmup; the
+    tail holds at the floor).
+
+    ``at(count)`` takes the count as an int32 tensor and gives the LR as
+    an fp32 tensor on its device, with optax's fp32 arithmetic
+    (``linear_schedule``, ``cosine_decay_schedule``, ``join_schedules``):
+    the optimizer reads it there, so that a step captured in a CUDA graph
+    follows the schedule on every replay. Called with a Python int it gives
+    the same value as a float."""
+
+    def __init__(self, learning_rate: float, warmup_steps: int, lr_schedule: str,
+                 decay_steps: int, min_lr_ratio: float):
+        self.learning_rate, self.warmup_steps = learning_rate, warmup_steps
+        self.cosine, self.decay_steps, self.min_lr_ratio = (
+            lr_schedule == "cosine", decay_steps, min_lr_ratio)
+
+    def __call__(self, step: int) -> float:
+        return float(self.at(torch.tensor(step, dtype=torch.int32)))
+
+    def at(self, count: torch.Tensor) -> torch.Tensor:
+        lr = self.learning_rate
+        tail_count = count - self.warmup_steps if self.warmup_steps > 0 else count
+        if self.cosine:
+            c = torch.clamp(tail_count.to(torch.float32), max=float(self.decay_steps))
+            cosine = 0.5 * (1.0 + torch.cos(math.pi * c / float(self.decay_steps)))
+            tail = lr * ((1.0 - self.min_lr_ratio) * cosine + self.min_lr_ratio)
+        else:
+            tail = torch.full((), lr, dtype=torch.float32, device=count.device)
+        if self.warmup_steps <= 0:
+            return tail
+        frac = 1.0 - torch.clamp(count, 0, self.warmup_steps).to(torch.float32) / self.warmup_steps
+        warm = (0.0 - lr) * frac + lr
+        return torch.where(count < self.warmup_steps, warm, tail)
+
+
 def make_lr_schedule(
     learning_rate: float,
     warmup_steps: int = 0,
     lr_schedule: str = "constant",
     decay_steps: int = 0,
     min_lr_ratio: float = 0.0,
-) -> Union[float, Callable[[int], float]]:
-    """LR as a function of the step count: linear warmup (0 -> peak over
-    ``warmup_steps``) into a constant or a cosine decay (peak ->
-    ``min_lr_ratio`` * peak over ``decay_steps``, counted after warmup; the
-    tail holds at the floor). A plain float when the whole schedule is
-    constant."""
+) -> Union[float, LRSchedule]:
+    """The LR schedule (``LRSchedule``), or a plain float when the whole
+    schedule is constant."""
     if lr_schedule not in ("constant", "cosine"):
         raise ValueError(f"unknown lr_schedule {lr_schedule!r}")
     if lr_schedule == "cosine" and decay_steps <= 0:
         raise ValueError("lr_schedule='cosine' needs decay_steps > 0")
     if warmup_steps <= 0 and lr_schedule == "constant":
         return learning_rate
-
-    def tail(step: int) -> float:
-        if lr_schedule == "constant":
-            return learning_rate
-        # optax.cosine_decay_schedule(learning_rate, decay_steps, alpha)
-        frac = min(step, decay_steps) / decay_steps
-        cosine = 0.5 * (1.0 + math.cos(math.pi * frac))
-        return learning_rate * ((1.0 - min_lr_ratio) * cosine + min_lr_ratio)
-
-    def schedule(step: int) -> float:
-        if step < warmup_steps:
-            # optax.linear_schedule(0, learning_rate, warmup_steps)
-            return learning_rate * step / warmup_steps
-        return tail(step - warmup_steps)
-
-    return schedule
+    return LRSchedule(learning_rate, warmup_steps, lr_schedule, decay_steps, min_lr_ratio)
 
 
 def make_optimizer(

@@ -73,6 +73,8 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.data.lm",
         "forde_tpu_torch.train.step",
         "forde_tpu_torch.train.loop",
+        "forde_tpu_torch.core.graphs",
+        "forde_tpu_torch.ops.topk_replay",
     ):
         assert name in result["modules"]
 
@@ -82,7 +84,7 @@ def test_every_kernel_source_is_found():
 
     assert sorted(p.stem for p in build.CSRC_DIR.glob("*.cu")) == [
         "flash_bwd", "flash_fwd", "flash_mha_bwd", "flash_mha_fwd", "moment_sums",
-        "small_kv_bwd", "small_kv_fwd",
+        "small_kv_bwd", "small_kv_fwd", "topk_replay",
     ]
     path = build.library_path("flash_mha_fwd")
     assert path.parent == REPO / "build" / "forde_tpu_torch"
