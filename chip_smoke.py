@@ -28,6 +28,11 @@ holds every CUDA kernel of them against its plain PyTorch version:
     (csrc/topk_replay.cu), and the dual encoder's fused k steps
     (make_fused_step: one CUDA graph of 8 steps; the training CLI with
     --fuse_steps 4).
+  * the generation extras at the serving width: prefix caching (the
+    dense variant, --no_nsa), beam search and full-recompute generation
+    (NSA), speculative decoding (dense target, drafts from checkpoints),
+    int8 weights (the NSA serving batch), and serve's --prefix_ids,
+    --beam_size, --draft_checkpoint_dir and --quantize on the card.
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
@@ -113,6 +118,29 @@ Phases:
      taken graphed and eager, and a replayed decode step profiled;
  18. serving at --seq_len 8192 (2 layers, a 6,000-token prompt): graphed
      tokens identical to eager, exact launches.
+ 19. prefix caching (dense variant, a 1,024-token prefix, 8 suffixes of
+     64-512, 32 new, greedy): fp32 tokens identical to the concatenated
+     prompt's, bf16 last logits within PREFIX_BF16_OF_CONTROL x control,
+     the prefix cache unchanged, no csrc kernel launched; TTFT with and
+     without the prefix;
+ 20. beam search (NSA, prompts of 1,100 and 1,500, beam 4, 32 new, length
+     penalty 0.6, an EOS): fp32 kernel path = plain path, the 4-beam score
+     >= the greedy one, beam 1 = generate_cached, exact launches; bf16 ms
+     per step;
+ 21. full-recompute generate (NSA, fp32, 2 x 256, 16 new): tokens =
+     generate_cached's, 16 x 12 launches of flash_fwd and of each
+     small_kv_fwd branch, MoE stat buffers kept; bf16 agreement;
+ 22. speculative decoding (dense target, 512-token prompt, 64 new, gamma
+     4): fp32 tokens = generate_cached's with the target as its own draft
+     (every proposal accepted) and with a 2-layer draft, both loaded from
+     checkpoints; bf16 tokens/forward and ms per output token beside
+     generate_cached graphed and eager;
+ 23. int8 weights (quantize_params of the bf16 serving model): last logits
+     within INT8_OF_CONTROL x phase 9's control, exact launches, TTFT, ms per output token,
+     tokens/s, weight bytes against bf16;
+ 24. one `python -m forde_tpu_torch.serve` process each for --prefix_ids,
+     --beam_size 4, --draft_checkpoint_dir and --quantize int8 (2 layers),
+     all four together.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
@@ -132,6 +160,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -2961,6 +2990,729 @@ def phase_train_fused_cli(workdir) -> dict:
             "pairs_per_s": out["pairs_per_sec"]}
 
 
+# ---- generation extras (prefix caching, beam search, full recompute,
+# speculative decoding, int8 weights) and their serve flags -------------
+
+def build_lm(cfg, state, device, dtypes=None, impl="auto"):
+    """The decoder LM of ``cfg`` (with ``dtypes``/``impl`` if given) holding
+    ``state``, in eval mode."""
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+
+    cfg = cfg.replace(attention_impl=impl, **({} if dtypes is None else {"dtypes": dtypes}))
+    m = FORDEDecoderLM(cfg, device=device)
+    m.load_state_dict(state)
+    return m.eval()
+
+
+def wall_ms(fn) -> float:
+    """Host clock around ``fn()``, between two synchronizes."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def counted(fn) -> tuple:
+    """(fn(), the kernel launches it made): counts set to 0 just before,
+    read just after."""
+    import torch
+
+    from forde_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kernels.launches)
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def dense_serve_config():
+    """SERVE_FLAGS + --no_nsa: the reference-default decoder with dense
+    causal attention (the configs prefix caching and speculative decoding
+    serve)."""
+    from forde_tpu_torch import serve
+
+    return serve.config_from_args(serve.build_parser().parse_args(SERVE_FLAGS + ["--no_nsa"]))
+
+
+def seeded_state(cfg, device, seed: int) -> dict:
+    import torch
+
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    m = FORDEDecoderLM(cfg, device=device, generator=gen)
+    return {k: v.detach().clone() for k, v in m.state_dict().items()}
+
+
+# Prefix caching: one shared prefix of 1,024 tokens (a system prompt), 8
+# ragged suffixes of 64-512 tokens, 32 new tokens, greedy.
+PREFIX_LEN = 1024
+PREFIX_SUFFIX_LENS = (64, 128, 192, 256, 320, 384, 448, 512)
+PREFIX_NEW = 32
+# bf16 bar: the relative L2 of the prefill's last logits (those that pick
+# the first new token), prefix path vs the concatenated prompt's prefill,
+# both bf16, under this share of the control (the concatenated prefill in
+# bf16 vs in fp32). Both round every activation to bf16, at other GEMM
+# shapes (a 1,024-row prefix, then the suffix rows, vs one prefill of
+# both), so they differ by bf16 roundings and the routing flips these
+# cause; a path less precise than bf16 allows reads at or above the
+# control. The same reasoning as phase 9's SERVE_PARITY_OF_CONTROL.
+PREFIX_BF16_OF_CONTROL = 0.75
+
+
+def phase_prefix(device) -> dict:
+    """Prefix caching on the dense variant: greedy tokens of
+    generate_ragged continuing from prefill_prefix's cache, identical in
+    fp32 to generate_ragged over prefix + suffix; in bf16 the prefill's
+    last logits within PREFIX_BF16_OF_CONTROL x the control, the tokens'
+    agreement printed; the prefix cache unchanged by the calls; no kernel
+    of csrc launched (dense attention is plain); TTFT with and without the
+    prefix (bf16)."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import generate as G
+
+    cfg = dense_serve_config()
+    state = seeded_state(cfg, device, SEED + 60)
+    rng = np.random.RandomState(SEED + 61)
+    prefix = torch.tensor(rng.randint(1, cfg.vocab_size, (1, PREFIX_LEN)), device=device)
+    sufs = [rng.randint(1, cfg.vocab_size, n).tolist() for n in PREFIX_SUFFIX_LENS]
+    padded, lens = serve_batch(sufs, device)
+    whole, whole_lens = serve_batch([prefix[0].tolist() + s for s in sufs], device)
+    bidx = torch.arange(len(sufs), device=device)
+    out, last, cover, path_launches = {}, {}, {}, Counter()
+    for name, dtypes in (("fp32", DTypePolicy.fp32()), ("bf16", DTypePolicy.bf16())):
+        m = build_lm(cfg, state, device, dtypes)
+        with torch.no_grad():
+            pc, launches = counted(lambda: G.prefill_prefix(m, prefix))
+            before = {k: v.clone() for k, v in pc["layer_0"]["causal_attention"].items()}
+            (ids_p, _), l1 = counted(lambda: G._generate(
+                m, padded, lens, None, PREFIX_NEW, 0.0, None, None, None, 0, True, pc))
+            (ids_w, _), l2 = counted(lambda: G._generate(
+                m, whole, whole_lens, None, PREFIX_NEW, 0.0, None, None, None, 0, True))
+            path_launches.update(launches)
+            path_launches.update(l1)
+            if launches or l1 or l2:
+                raise AssertionError(f"prefix ({name}): the dense path launched {launches} "
+                                     f"{l1} {l2}")
+            if not all(torch.equal(pc["layer_0"]["causal_attention"][k], v)
+                       for k, v in before.items()) or int(G.prefix_length(pc)) != PREFIX_LEN:
+                raise AssertionError(f"prefix ({name}): the prefix cache changed")
+            rows_p = [ids_p[i, : n + PREFIX_NEW] for i, n in enumerate(PREFIX_SUFFIX_LENS)]
+            rows_w = [ids_w[i, PREFIX_LEN: PREFIX_LEN + n + PREFIX_NEW]
+                      for i, n in enumerate(PREFIX_SUFFIX_LENS)]
+            out[name] = (rows_p, rows_w)
+            cache = G.tile_prefix_cache(pc, len(sufs))
+            logits, _ = m(padded, cache=cache)
+            last[f"{name}_prefix"] = logits[bidx, lens - 1]
+            cache = m.init_cache(len(sufs), device)
+            logits, _ = m(whole, cache=cache)
+            last[f"{name}_whole"] = logits[bidx, whole_lens - 1]
+            del cache, logits
+        if name == "bf16":
+            def gen(with_prefix, new):
+                if with_prefix:
+                    return G.generate_ragged(m, padded, lens, None, max_new_tokens=new,
+                                             temperature=0.0, prefix_cache=pc)
+                return G.generate_ragged(m, whole, whole_lens, None, max_new_tokens=new,
+                                         temperature=0.0)
+            for label, flag in (("prefix", True), ("whole", False)):
+                gen(flag, 2)  # warm-up (and the decode graph's capture)
+                cover[f"ttft_ms_{label}"] = float(np.median(
+                    [wall_ms(lambda: gen(flag, 1)) for _ in range(3)]))
+            cover["prefill_prefix_ms"] = float(np.median(
+                [wall_ms(lambda: G.prefill_prefix(m, prefix)) for _ in range(3)]))
+        del m
+        torch.cuda.empty_cache()
+    same32 = all(torch.equal(a, b) for a, b in zip(*out["fp32"]))
+    agree16 = float(np.mean([float((a == b).float().mean()) for a, b in zip(*out["bf16"])]))
+    readings = {"fp32_last_logits": rel_l2(last["fp32_prefix"], last["fp32_whole"]),
+                "bf16_last_logits": rel_l2(last["bf16_prefix"], last["bf16_whole"]),
+                "control_bf16_vs_fp32": rel_l2(last["bf16_whole"], last["fp32_whole"]),
+                "bf16_token_agreement": agree16}
+    bar = PREFIX_BF16_OF_CONTROL * readings["control_bf16_vs_fp32"]
+    log(f"[prefix] dense variant, a prefix of {PREFIX_LEN} tokens, {len(sufs)} suffixes of "
+        f"{PREFIX_SUFFIX_LENS[0]}-{PREFIX_SUFFIX_LENS[-1]}, {PREFIX_NEW} new, greedy: fp32 "
+        f"tokens identical to the concatenated prompt's {same32}; readings {readings}; bf16 "
+        f"bar {bar:.3e}; no csrc kernel launched; the prefix cache unchanged")
+    log(f"[prefix] TTFT (bf16, median of 3): with the prefix cache {cover['ttft_ms_prefix']:.2f} "
+        f"ms, the whole prompt {cover['ttft_ms_whole']:.2f} ms; prefill_prefix "
+        f"{cover['prefill_prefix_ms']:.2f} ms once")
+    if not same32:
+        raise AssertionError("prefix: fp32 tokens differ from the concatenated prompt's")
+    if not readings["bf16_last_logits"] < bar:
+        raise AssertionError(f"prefix: bf16 last logits {readings['bf16_last_logits']:.3e} "
+                             f">= {bar:.3e}")
+    # launches: prefill_prefix and the generation from its cache, both dtypes
+    return {**readings, **cover, "launches": dict(path_launches)}
+
+
+# Beam search on the NSA config: 2 prompts of 1,100 and 1,500 tokens, beam
+# 4, 32 new, length penalty 0.6, an EOS that the greedy path emits.
+BEAM_PROMPT_LENS = (1100, 1500)
+BEAM_SIZE = 4
+BEAM_NEW = 32
+BEAM_PENALTY = 0.6
+BEAM_EOS_AT = 8  # the EOS is the greedy path's token at this new position
+
+
+def beam_scores(model, prompt, new, eos_id, length_penalty):
+    """(1, P) prompt, (R, N) continuations -> (R,) beam scores, rescored by
+    ``model``'s own cached decode (nsa_prefill, then one decode step per
+    token), apart from generate_beam's scoring: the summed fp32 logprobs
+    up to and including the first EOS, over gen_len ** length_penalty."""
+    import torch
+
+    from forde_tpu_torch.models import generate as G
+
+    r = new.shape[0]
+    with torch.no_grad():
+        cache, last = G.nsa_prefill(model, prompt.expand(r, -1).contiguous())
+        total = torch.zeros(r, dtype=torch.float64, device=new.device)
+        length = torch.zeros(r, dtype=torch.float64, device=new.device)
+        live = torch.ones(r, dtype=torch.bool, device=new.device)
+        for i in range(new.shape[1]):
+            tok = new[:, i]
+            lp = torch.log_softmax(last.float(), dim=-1).gather(1, tok[:, None])[:, 0]
+            total += torch.where(live, lp.double(), 0.0)
+            length += live.double()
+            live &= tok != eos_id
+            if i + 1 < new.shape[1]:
+                logits, _ = model(tok[:, None], cache=cache)
+                last = logits[:, 0, :]
+    return (total / length ** length_penalty).tolist()
+
+
+def phase_beam(device, state) -> dict:
+    """generate_beam per prompt (batch 1, 4 beams) on the serving config's
+    weights, in fp32: exact launches (flash_fwd, small_kv_fwd and
+    topk_replay per call, the serving counts); on the first prompt the
+    kernel path equal to the plain path token for token; on each prompt the
+    best beam's score at least the greedy continuation's (generate_cached
+    with the EOS), both rescored by the plain model's cached decode
+    (beam_scores); bf16 ms per decode step and the tokens' agreement with
+    fp32."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import generate as G
+
+    cfg = serve_config()
+    rng = np.random.RandomState(SEED + 70)
+    prompts = [torch.tensor(rng.randint(1, cfg.vocab_size, (1, n)), device=device)
+               for n in BEAM_PROMPT_LENS]
+    want = serve_launches(cfg, BEAM_NEW)
+    kern = build_lm(cfg, state, device, DTypePolicy.fp32())
+    greedy = G.generate_cached(kern, prompts[0], None, max_new_tokens=BEAM_NEW,
+                               temperature=0.0)
+    eos = int(greedy[0, BEAM_PROMPT_LENS[0] + BEAM_EOS_AT])
+    beam = dict(max_new_tokens=BEAM_NEW, beam_size=BEAM_SIZE, length_penalty=BEAM_PENALTY,
+                eos_id=eos)
+    res, launches, new = {}, [], {}
+    for i, prompt in enumerate(prompts):
+        ids4, l4 = counted(lambda: G.generate_beam(kern, prompt, **beam))
+        cached = G.generate_cached(kern, prompt, None, max_new_tokens=BEAM_NEW,
+                                   temperature=0.0, eos_id=eos)
+        p = prompt.shape[1]
+        new[i] = torch.cat([ids4[:, p:], cached[:, p:]])
+        res[i] = {"ids": ids4, "beam_is_greedy": bool(torch.equal(ids4, cached))}
+        launches.append(l4)
+    del kern
+    plain = build_lm(cfg, state, device, DTypePolicy.fp32(), impl="reference")
+    res[0]["kernel_equals_plain"] = bool(torch.equal(
+        G.generate_beam(plain, prompts[0], **beam), res[0]["ids"]))
+    for i, prompt in enumerate(prompts):
+        rows = new[i][:1] if res[i]["beam_is_greedy"] else new[i]
+        scores = beam_scores(plain, prompt, rows, eos, BEAM_PENALTY)
+        # The same tokens have the same score: one rescoring serves both.
+        res[i]["score_beam"], res[i]["score_greedy"] = scores[0], scores[-1]
+    del plain
+    torch.cuda.empty_cache()
+    m = build_lm(cfg, state, device, DTypePolicy.bf16())
+    ids = [None]
+
+    def run(n):
+        ids[0] = G.generate_beam(m, prompts[0], **{**beam, "max_new_tokens": n})
+    first = wall_ms(lambda: run(1))
+    step_ms = (wall_ms(lambda: run(BEAM_NEW)) - first) / (BEAM_NEW - 1)
+    agree = float((ids[0] == res[0]["ids"]).float().mean())
+    del m
+    torch.cuda.empty_cache()
+    summary = {f"prompt_{n}": {k: v for k, v in res[i].items() if k != "ids"}
+               for i, n in enumerate(BEAM_PROMPT_LENS)}
+    log(f"[beam] NSA config, beam {BEAM_SIZE}, {BEAM_NEW} new, length penalty {BEAM_PENALTY}, "
+        f"eos {eos}, scores rescored by the plain fp32 model's cached decode: {summary}; "
+        f"launches per call {launches} (expected {want} each); bf16 ms per decode step (batch "
+        f"{BEAM_SIZE}) {step_ms:.3f}, bf16 tokens agreeing with fp32 {agree}")
+    if not res[0]["kernel_equals_plain"]:
+        raise AssertionError("beam: fp32 kernel path differs from the plain path")
+    for i, r in res.items():
+        if not r["score_beam"] >= r["score_greedy"]:
+            raise AssertionError(f"beam prompt {i}: best beam's score {r['score_beam']} < the "
+                                 f"greedy continuation's {r['score_greedy']}")
+    if any(l != want for l in launches):
+        raise AssertionError(f"beam launches {launches}, expected {want} per call")
+    return {"prompts": summary, "launches": launches[0], "bf16_ms_per_step": step_ms,
+            "bf16_token_agreement": agree}
+
+
+# Full-recompute generate: NSA config, batch 2, 256-token prompts (below
+# the window, where it coincides with generate_cached), 16 new, greedy.
+FULL_BATCH = 2
+FULL_PROMPT = 256
+FULL_NEW = 16
+
+
+def phase_full_recompute(device, state) -> dict:
+    """generate (one forward over the whole buffer per new token): fp32
+    tokens identical to generate_cached's, launches exactly FULL_NEW
+    forwards' (flash_fwd and each small_kv_fwd branch once per layer and
+    token), the MoE stat buffers as loaded; bf16 tokens' agreement."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import generate as G
+
+    cfg = serve_config()
+    ids = torch.tensor(np.random.RandomState(SEED + 80).randint(
+        1, cfg.vocab_size, (FULL_BATCH, FULL_PROMPT)), device=device)
+    n = cfg.num_layers
+    want = {"flash_fwd": FULL_NEW * n, "small_kv_fwd": 2 * FULL_NEW * n}
+    out = {}
+    for name, dtypes in (("fp32", DTypePolicy.fp32()), ("bf16", DTypePolicy.bf16())):
+        m = build_lm(cfg, state, device, dtypes)
+        usage = m.layers[0].moe.expert_usage.clone()
+        full, launches = counted(lambda: G.generate(m, ids, None, max_new_tokens=FULL_NEW,
+                                                    temperature=0.0))
+        secs = wall_ms(lambda: G.generate(m, ids, None, max_new_tokens=FULL_NEW,
+                                          temperature=0.0)) / 1e3
+        cached = G.generate_cached(m, ids, None, max_new_tokens=FULL_NEW, temperature=0.0)
+        out[name] = {"identical": bool(torch.equal(full, cached)),
+                     "agreement": float((full == cached).float().mean()),
+                     "launches": launches, "seconds": secs,
+                     "usage_kept": bool(torch.equal(m.layers[0].moe.expert_usage, usage))}
+        del m
+        torch.cuda.empty_cache()
+    log(f"[full recompute] NSA config, batch {FULL_BATCH}, prompt {FULL_PROMPT}, {FULL_NEW} new, "
+        f"greedy: {out}; expected launches {want}")
+    if not out["fp32"]["identical"]:
+        raise AssertionError("full recompute: fp32 tokens differ from generate_cached's")
+    for name, r in out.items():
+        if r["launches"] != want or not r["usage_kept"]:
+            raise AssertionError(f"full recompute ({name}): launches {r['launches']}, expected "
+                                 f"{want}; expert usage kept {r['usage_kept']}")
+    return {**out, "launches": out["fp32"]["launches"]}
+
+
+# Speculative decoding: the dense variant as the target, a 512-token
+# prompt, 64 new, gamma 4, greedy; drafts: (i) the target's own weights,
+# (ii) a seeded 2-layer dense draft, each from a checkpoint.
+SPEC_PROMPT = 512
+SPEC_NEW = 64
+SPEC_GAMMA = 4
+SPEC_DRAFT_LAYERS = 2
+
+
+def phase_speculative(device) -> dict:
+    """generate_speculative with the two drafts loaded from checkpoints
+    (train.checkpoint.load_lm_params, as serve loads them): in fp32 the
+    tokens identical to the target's generate_cached for both, and the
+    draft that is the target accepts every proposal (rounds =
+    ceil(64 / (gamma + 1))); no csrc kernel launched; bf16 with the target
+    as its own draft: tokens' agreement, tokens/forward and ms per output
+    token beside generate_cached's, graphed and eager."""
+    import torch
+
+    from forde_tpu_torch import interop
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import generate as G
+    from forde_tpu_torch.models.speculative import generate_speculative
+    from forde_tpu_torch.train.checkpoint import load_lm_params, save_params
+
+    cfg = dense_serve_config()
+    state = seeded_state(cfg, device, SEED + 90)
+    dcfg = cfg.replace(num_layers=SPEC_DRAFT_LAYERS)
+    dstate = seeded_state(dcfg, device, SEED + 91)
+    prompt = torch.tensor(np.random.RandomState(SEED + 92).randint(
+        1, cfg.vocab_size, (1, SPEC_PROMPT)), device=device)
+    rounds_all = -(-SPEC_NEW // (SPEC_GAMMA + 1))
+    out, path_launches = {}, Counter()
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as tmp:
+        drafts = {}
+        for label, c, s in (("self", cfg, state), ("draft2", dcfg, dstate)):
+            save_params(os.path.join(tmp, label), c,
+                        interop.flatten(interop.state_dict_to_flax(s)), {"step": 0})
+            dc, loaded = load_lm_params(os.path.join(tmp, label), device)
+            drafts[label] = (dc, loaded.state_dict())
+            del loaded
+        for name, dtypes in (("fp32", DTypePolicy.fp32()), ("bf16", DTypePolicy.bf16())):
+            target = build_lm(cfg, state, device, dtypes)
+            ref, _ = counted(lambda: G.generate_cached(target, prompt, None,
+                                                       max_new_tokens=SPEC_NEW,
+                                                       temperature=0.0))
+            res = {}
+            for label in ("self", "draft2") if name == "fp32" else ("self",):
+                draft = build_lm(*drafts[label], device, dtypes)
+                run = (lambda: generate_speculative(target, draft, prompt, None,
+                                                    max_new_tokens=SPEC_NEW, gamma=SPEC_GAMMA,
+                                                    temperature=0.0, with_stats=True))
+                t0 = time.perf_counter()
+                (ids, stats), launches = counted(run)
+                path_launches.update(launches)
+                res[label] = {"identical": bool(torch.equal(ids, ref)),
+                              "agreement": float((ids == ref).float().mean()),
+                              "tokens_per_forward": stats["generated"] / stats["rounds"],
+                              "rounds": stats["rounds"], "launches": launches,
+                              "ms_per_output_token":
+                                  (time.perf_counter() - t0) * 1e3 / SPEC_NEW}
+                del draft
+            if name == "bf16":
+                for label, graph in (("cached_graph", True), ("cached_eager", False)):
+                    def cached():
+                        G.generate_cached(target, prompt, None, max_new_tokens=SPEC_NEW,
+                                          temperature=0.0, cuda_graph=graph)
+                    if graph:
+                        cached()  # warm-up (and the graph's capture)
+                    res[label] = {"ms_per_output_token": wall_ms(cached) / SPEC_NEW}
+            out[name] = res
+            del target
+            torch.cuda.empty_cache()
+    log(f"[speculative] dense target, prompt {SPEC_PROMPT}, {SPEC_NEW} new, gamma {SPEC_GAMMA}, "
+        f"greedy; drafts: the target itself, a {SPEC_DRAFT_LAYERS}-layer seeded draft; ms per "
+        f"output token = the whole call / {SPEC_NEW}: {out}")
+    for label, r in out["fp32"].items():
+        if not r["identical"]:
+            raise AssertionError(f"speculative ({label}): fp32 tokens differ from "
+                                 "generate_cached's")
+    if path_launches:
+        raise AssertionError(f"speculative: the dense path launched {dict(path_launches)}")
+    if out["fp32"]["self"]["rounds"] != rounds_all:
+        raise AssertionError(f"speculative: the target as its own draft took "
+                             f"{out['fp32']['self']['rounds']} rounds, expected {rounds_all}")
+    return {**out, "launches": dict(path_launches)}
+
+
+# int8 weights: the NSA serving batch (8 prompts of 640-1,920 tokens, 32
+# new, greedy) with quantize_params applied to the bf16 model. Three
+# exact gates hold the int8 path itself:
+# * the int8 weights and scales equal a plain quantization of the bf16
+#   model's weights (int8_weights_plain);
+# * int8_matmul equals the integer product, computed in fp64 (exact: every
+#   partial sum is an integer below 2^53), at each shape the serving path
+#   gives it (recorded from one eager prefill and decode step) and at the
+#   shapes of the other quantized paths (INT8_MM_EXTRA_SHAPES);
+# * the quantized model's last logits against the same model with every
+#   int8 product (QDense and the expert bank) computed by
+#   plain_int8_product, which quantizes the activations by the same recipe
+#   and rescales in the same fp32 order: every other op of the forward is
+#   deterministic, so a right int8 path reads 0; the bar,
+#   INT8_PLAIN_REL_L2, is a few fp32 roundings of the whole.
+# Beside them a coarse bound on the quantization error: the relative L2 of
+# the last logits, int8 vs the bf16 model it was quantized from, under
+# INT8_OF_CONTROL x phase 9's control (the plain path in bf16 vs fp32, same
+# weights and batch); both are dominated by the MoE routing flips that a
+# rounding causes, which twelve layers of random weights carry far, so it
+# catches only a gross fault (read 0.434 against a control of 0.543 on an
+# NVIDIA H100 80GB HBM3 at 700 W).
+INT8_OF_CONTROL = 1.0
+INT8_PLAIN_REL_L2 = 1e-6
+# (rows, K, N) of int8 products on quantized paths that the NSA serving
+# batch does not take: the dense variant's qkv_proj/out_proj at a decode
+# step (8 rows), beam search's batch of 4 beams, speculative
+# verification's gamma + 1 = 5 rows, and the lm_head at those rows.
+INT8_MM_EXTRA_SHAPES = ((8, 512, 1536), (8, 512, 512), (5, 512, 1536), (5, 512, 512),
+                        (4, 512, 1536), (4, 512, 50257), (5, 512, 50257))
+
+
+def weight_bytes(model, serving_dtype_bytes: int = 2) -> int:
+    """Bytes of the weights the products read when serving: int8 leaves
+    1 byte, their fp32 scales 4, every other floating-point parameter in
+    the compute dtype (2 bytes in bf16)."""
+    import torch
+
+    total = 0
+    for name, p in model.named_parameters():
+        if p.dtype == torch.int8:
+            total += p.numel()
+        elif name.endswith("scale"):
+            total += 4 * p.numel()
+        else:
+            total += serving_dtype_bytes * p.numel()
+    return total
+
+
+def plain_int8_product(x, w_q, w_scale):
+    """x (..., din) float, w_q (din, dout) int8, w_scale (dout,) -> (...,
+    dout) fp32: x quantized per row (s = max|x| / 127, round half to even),
+    the integer product in fp64, rescaled by both scales in fp32."""
+    import torch
+
+    xf = x.float()
+    s = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(xf / s), -127, 127)
+    return (xq.double() @ w_q.double()).float() * s * w_scale
+
+
+@contextlib.contextmanager
+def plain_int8_products():
+    """QDense and the expert bank computing their int8 products by
+    plain_int8_product."""
+    from unittest import mock
+
+    import torch
+
+    from forde_tpu_torch.nn.moe import ExpertsFFN
+    from forde_tpu_torch.ops.quant import QDense
+
+    def dense(self, x):
+        out = plain_int8_product(x, self.weight_q.t(), self.scale)
+        if self.bias is not None:
+            out = out + self.bias.float()
+        return out.to(self.compute_dtype)
+
+    def experts(x, w_q, w_scale):
+        return torch.stack([plain_int8_product(x if x.ndim == 2 else x[e], w_q[e], w_scale[e])
+                            for e in range(w_q.shape[0])])
+
+    with mock.patch.object(QDense, "forward", dense), \
+            mock.patch.object(ExpertsFFN, "_q_products", staticmethod(experts)):
+        yield
+
+
+def int8_weights_plain(q, fp) -> list:
+    """Names of q's int8 leaves that differ from a plain quantization of
+    fp's weights (per output channel: s = max|w| / 127 over the input
+    axis, q = round(w / s))."""
+    import torch
+
+    from forde_tpu_torch.nn.moe import ExpertsFFN
+    from forde_tpu_torch.ops.quant import QDense
+
+    def plain(w, axis):
+        w = w.float()
+        scale = torch.clamp(w.abs().amax(dim=axis, keepdim=True) / 127.0, min=1e-12)
+        return torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8), scale
+
+    bad = []
+    for name, mod in q.named_modules():
+        src = fp.get_submodule(name)
+        if isinstance(mod, QDense):
+            pairs = [(mod.weight_q, mod.scale, *plain(src.weight, 1))]
+        elif isinstance(mod, ExpertsFFN) and mod.quantized:
+            pairs = [(getattr(mod, f"w_{p}_q"), getattr(mod, f"w_{p}_scale"),
+                      *plain(getattr(src, f"w_{p}"), 1)) for p in ("up", "down")]
+        else:
+            continue
+        for got_q, got_s, want_q, want_s in pairs:
+            if not (torch.equal(got_q, want_q) and torch.equal(got_s.flatten(),
+                                                                want_s.flatten())):
+                bad.append(name)
+    return bad
+
+
+def int8_matmul_exact(q, padded, lens, device) -> dict:
+    """int8_matmul against the fp64 integer product at every shape one
+    eager prefill and decode step of ``q`` give it (their own operands,
+    the first call of each shape) and at INT8_MM_EXTRA_SHAPES (seeded
+    int8 operands, the largest sums included): {shape: max |difference|}."""
+    from unittest import mock
+
+    import torch
+
+    from forde_tpu_torch.models import generate as G
+    from forde_tpu_torch.nn import moe
+    from forde_tpu_torch.ops import quant
+
+    real, seen = quant.int8_matmul, {}
+
+    def record(xq, wq):
+        if (xq.shape[0], *wq.shape) not in seen:
+            seen[(xq.shape[0], *wq.shape)] = (xq.clone(), wq.clone())
+        return real(xq, wq)
+
+    with mock.patch.object(quant, "int8_matmul", record), \
+            mock.patch.object(moe, "int8_matmul", record):
+        G.generate_ragged(q, padded, lens, None, max_new_tokens=2, temperature=0.0,
+                          cuda_graph=False)
+    gen = torch.Generator(device=device).manual_seed(SEED + 110)
+    for m, k, n in INT8_MM_EXTRA_SHAPES:
+        xq = torch.randint(-127, 128, (m, k), generator=gen, device=device, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (n, k), generator=gen, device=device, dtype=torch.int8)
+        xq[0], wq[0] = 127, -127
+        seen.setdefault((m, k, n), (xq, wq.t()))
+    err = {}
+    for (m, k, n), (xq, wq) in seen.items():
+        got = real(xq, wq)
+        if got.dtype != torch.int32 or got.shape != (m, n):
+            err[f"{m}x{k}x{n}"] = float("inf")
+            continue
+        worst = 0.0
+        for i in range(0, m, 2048):  # the prefill's lm_head: 16,384 x 50,257
+            want = xq[i: i + 2048].double() @ wq.double()
+            worst = max(worst, float((got[i: i + 2048].double() - want).abs().max()))
+        err[f"{m}x{k}x{n}"] = worst
+        del got
+    return err
+
+
+def phase_int8(device, state, serve_parity) -> dict:
+    """The serving batch on the bf16 model and on quantize_params of it:
+    the int8 weights equal a plain quantization; int8_matmul exact at the
+    path's shapes; the int8 model's prefill last logits within
+    INT8_PLAIN_REL_L2 of the same model with plain int8 products, and
+    within INT8_OF_CONTROL x phase 9's control (relative L2) of the bf16
+    model's; its greedy tokens' agreement printed, exact launches (the
+    int8 products are library calls); TTFT, ms per output token and output
+    tokens/s (decode graphed), weight bytes against bf16."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import generate as G
+    from forde_tpu_torch.ops.quant import quantize_params
+
+    cfg = serve_config()
+    padded, lens = serve_batch(serve_prompts(cfg.vocab_size), device)
+    bf16 = build_lm(cfg, state, device, DTypePolicy.bf16())
+    q = quantize_params(bf16)
+    want = serve_launches(cfg, SERVE_NEW_TOKENS)
+    bad_weights = int8_weights_plain(q, bf16)
+    mm_err = int8_matmul_exact(q, padded, lens, device)
+    with torch.no_grad():
+        _, last16 = G.nsa_prefill(bf16, padded, lens)
+        _, last8 = G.nsa_prefill(q, padded, lens)
+        with plain_int8_products():
+            _, last8_plain = G.nsa_prefill(q, padded, lens)
+    ids16 = G.generate_ragged(bf16, padded, lens, None, max_new_tokens=SERVE_NEW_TOKENS,
+                              temperature=0.0)
+    ids8, launches = counted(lambda: G.generate_ragged(
+        q, padded, lens, None, max_new_tokens=SERVE_NEW_TOKENS, temperature=0.0))
+    n_out = len(SERVE_PROMPT_LENS) * SERVE_NEW_TOKENS
+
+    def gen(new):
+        G.generate_ragged(q, padded, lens, None, max_new_tokens=new, temperature=0.0)
+
+    ttft = float(np.median([wall_ms(lambda: gen(1)) for _ in range(3)]))
+    whole = float(np.median([wall_ms(lambda: gen(SERVE_NEW_TOKENS)) for _ in range(3)]))
+    new8, new16 = ([ids[i, n: n + SERVE_NEW_TOKENS] for i, n in enumerate(SERVE_PROMPT_LENS)]
+                   for ids in (ids8, ids16))
+    r = {"int8_weights_differing_from_plain": bad_weights,
+         "int8_matmul_max_abs_err": mm_err,
+         "last_logits_vs_plain_int8_rel_l2": rel_l2(last8, last8_plain),
+         "last_logits_vs_plain_int8_max_abs": float((last8 - last8_plain).abs().max()),
+         "last_logits_rel_l2": rel_l2(last8, last16),
+         "last_argmax_agreement": float((last8.argmax(-1) == last16.argmax(-1)).float().mean()),
+         "token_agreement": float(np.mean([float((a == b).float().mean())
+                                           for a, b in zip(new8, new16)])),
+         "ttft_ms": ttft, "ms_per_output_token": (whole - ttft) / (SERVE_NEW_TOKENS - 1),
+         "out_tokens_per_s": n_out / whole * 1e3,
+         "weight_bytes_int8": weight_bytes(q), "weight_bytes_bf16": weight_bytes(bf16),
+         "launches": launches}
+    bar = INT8_OF_CONTROL * serve_parity["control_plain_bf16_vs_fp32"]
+    log(f"[int8] serving batch ({len(SERVE_PROMPT_LENS)} prompts, {SERVE_NEW_TOKENS} new, "
+        f"greedy, decode graphed), int8 weights from the bf16 model: {r}; bars: int8 leaves "
+        f"and int8_matmul exact, last logits vs plain int8 products {INT8_PLAIN_REL_L2:g}, vs "
+        f"bf16 {bar:.3e} ({INT8_OF_CONTROL:g} x phase 9's control)")
+    del bf16, q
+    torch.cuda.empty_cache()
+    if bad_weights:
+        raise AssertionError(f"int8: weights differ from a plain quantization: {bad_weights}")
+    if any(e != 0.0 for e in mm_err.values()):
+        raise AssertionError(f"int8: int8_matmul differs from the integer product: {mm_err}")
+    if not r["last_logits_vs_plain_int8_rel_l2"] <= INT8_PLAIN_REL_L2:
+        raise AssertionError(f"int8: last logits {r['last_logits_vs_plain_int8_rel_l2']:.3e} "
+                             f"from the plain int8 products' > {INT8_PLAIN_REL_L2:g}")
+    if not torch.isfinite(last8).all() or not r["last_logits_rel_l2"] < bar:
+        raise AssertionError(f"int8: last logits relative L2 {r['last_logits_rel_l2']:.3e} "
+                             f">= {bar:.3e}")
+    if launches != want:
+        raise AssertionError(f"int8 launches {launches}, expected {want}")
+    return r
+
+
+# serve's new flags on the card, each one `python -m forde_tpu_torch.serve`
+# at 2 layers of the reference-default width (seeded random weights; the
+# draft a 1-layer checkpoint), all four started together.
+CLI_EXTRAS_FLAGS = [
+    "--d_model", "512", "--num_layers", "2", "--num_heads", "8", "--num_experts", "8",
+    "--top_k_experts", "2", "--window_size", "512", "--num_streams", "4",
+    "--seq_len", "2048", "--bf16", "--max_new_tokens", "8", "--temperature", "0",
+]
+CLI_PROMPT_LEN = 600  # past the window: every NSA branch live
+CLI_NEW = 8
+
+
+def phase_cli_extras(device, workdir) -> dict:
+    """One serve process each for --prefix_ids, --beam_size 4,
+    --draft_checkpoint_dir and --quantize int8: exit 0, the [serve] line of
+    the feature, the prompt kept and the new tokens in the vocabulary."""
+    from forde_tpu_torch import interop, serve
+    from forde_tpu_torch.train.checkpoint import save_params
+
+    dense = serve.config_from_args(serve.build_parser().parse_args(
+        CLI_EXTRAS_FLAGS + ["--no_nsa"]))
+    draft_dir = os.path.join(workdir, "cli_draft")
+    dcfg = dense.replace(num_layers=1)
+    save_params(draft_dir, dcfg, interop.flatten(interop.state_dict_to_flax(
+        seeded_state(dcfg, device, SEED + 100))), {"step": 0})
+    prompt = ",".join(map(str, np.random.RandomState(SEED + 101).randint(
+        1, dense.vocab_size, CLI_PROMPT_LEN)))
+    runs = {
+        "prefix_ids": (["--no_nsa", "--prefix_ids", "11,12,13,14,15"],
+                       "shared prefix prefilled once (5 tokens)"),
+        "beam_size": (["--beam_size", "4", "--length_penalty", "0.6"], None),
+        "draft_checkpoint_dir": (["--no_nsa", "--draft_checkpoint_dir", draft_dir],
+                                 "tokens/forward"),
+        "quantize": (["--quantize", "int8"], "int8 weight-only quantization applied"),
+    }
+    procs = {}
+    for name, (flags, _) in runs.items():
+        argv = [sys.executable, "-m", "forde_tpu_torch.serve", *CLI_EXTRAS_FLAGS, *flags,
+                "--prompt_ids", prompt]
+        procs[name] = subprocess.Popen(argv, cwd=REPO, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    out = {}
+    t0 = time.perf_counter()
+    for name, proc in procs.items():
+        try:
+            text, _ = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        ids = [ln for ln in text.splitlines() if ln.startswith("token ids:")]
+        row = json.loads(ids[-1].split(":", 1)[1]) if ids else []
+        expect = runs[name][1]
+        ok = (proc.returncode == 0 and row[:CLI_PROMPT_LEN] == [int(t) for t in prompt.split(",")]
+              and len(row) == CLI_PROMPT_LEN + CLI_NEW and all(0 <= t < dense.vocab_size for t in row)
+              and (expect is None or expect in text))
+        serve_lines = [ln for ln in text.splitlines() if ln.startswith("[serve]")]
+        log(f"[cli] serve {name}: rc {proc.returncode}, new ids {row[CLI_PROMPT_LEN:]}; " + " | ".join(
+            serve_lines))
+        if not ok:
+            log(text[-4000:])
+            raise AssertionError(f"serve {' '.join(runs[name][0])} failed")
+        out[name] = {"rc": proc.returncode, "new_ids": row[CLI_PROMPT_LEN:]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[cli] four serve processes together: {out['seconds']:.1f} s")
+    return out
+
+
+def timed(phase, *args):
+    """phase(*args), its wall time logged."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"[phase] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2989,27 +3741,33 @@ def main() -> int:
     max_err["topk_replay"] = topk["max_abs_err"]
 
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
-        main_run = phase_main_path(device, workdir)
-        train_run = phase_train_path(workdir)
-        fused_run = phase_train_fused_cli(workdir)
-        serve_run = phase_serve_path(device, workdir)
-        lm_run = phase_train_lm_path(device, workdir)
-        long_run = phase_long_lm_path(workdir)
+        main_run = timed(phase_main_path, device, workdir)
+        train_run = timed(phase_train_path, workdir)
+        fused_run = timed(phase_train_fused_cli, workdir)
+        serve_run = timed(phase_serve_path, device, workdir)
+        lm_run = timed(phase_train_lm_path, device, workdir)
+        long_run = timed(phase_long_lm_path, workdir)
+        cli_extras = timed(phase_cli_extras, device, workdir)
     check_prefetch(device)
-    parity = phase_step_parity(device)
-    timing = phase_encode_timing(device, main_run["model"], main_run["cfg"])
-    shapes = phase_kernel_timing(device, main_run["cfg"], timing["encode_ms"])
-    train_timing = phase_train_timing(device)
-    fused_steps = phase_fused_steps(device)
-    serve_parity = phase_serve_parity(device, serve_run["state"])
-    decode_graph = phase_decode_graph(device, serve_run["state"], serve_parity)
-    serve_timing = phase_serve_timing(device, serve_run["state"])
-    serve_long = phase_serve_long(device)
-    shapes.update(phase_serving_kernel_timing(device))
+    parity = timed(phase_step_parity, device)
+    timing = timed(phase_encode_timing, device, main_run["model"], main_run["cfg"])
+    shapes = timed(phase_kernel_timing, device, main_run["cfg"], timing["encode_ms"])
+    train_timing = timed(phase_train_timing, device)
+    fused_steps = timed(phase_fused_steps, device)
+    serve_parity = timed(phase_serve_parity, device, serve_run["state"])
+    decode_graph = timed(phase_decode_graph, device, serve_run["state"], serve_parity)
+    serve_timing = timed(phase_serve_timing, device, serve_run["state"])
+    serve_long = timed(phase_serve_long, device)
+    prefix = timed(phase_prefix, device)
+    beam = timed(phase_beam, device, serve_run["state"])
+    full = timed(phase_full_recompute, device, serve_run["state"])
+    speculative = timed(phase_speculative, device)
+    int8 = timed(phase_int8, device, serve_run["state"], serve_parity)
+    shapes.update(timed(phase_serving_kernel_timing, device))
     shapes["topk_replay"] = topk["shapes"]
-    lm_parity = phase_lm_step_parity(device)
-    lm_timing = phase_lm_train_timing(device)
-    shapes.update(phase_training_kernel_timing(device))
+    lm_parity = timed(phase_lm_step_parity, device)
+    lm_timing = timed(phase_lm_train_timing, device)
+    shapes.update(timed(phase_training_kernel_timing, device))
 
     def by_path(name):
         return {"embed": main_run["launches"].get(name, 0),
@@ -3018,7 +3776,12 @@ def main() -> int:
                 "serve": serve_run["launches"].get(name, 0),
                 "serve_s8192": serve_long["launches"].get(name, 0),
                 "train_lm": lm_run["launches"].get(name, 0),
-                "train_lm_s8192": long_run["launches"].get(name, 0)}
+                "train_lm_s8192": long_run["launches"].get(name, 0),
+                "serve_prefix": prefix["launches"].get(name, 0),
+                "serve_beam": beam["launches"].get(name, 0),
+                "generate_full": full["launches"].get(name, 0),
+                "serve_speculative": speculative["launches"].get(name, 0),
+                "serve_int8": int8["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -3153,6 +3916,12 @@ def main() -> int:
         "fused_steps_batch128": fused_steps,
         "decode_graph": decode_graph,
         "serve_s8192": {k: serve_long[k] for k in ("seconds_graph", "seconds_eager")},
+        "prefix": prefix,
+        "beam": beam,
+        "full_recompute": full,
+        "speculative": speculative,
+        "int8": int8,
+        "cli_extras": cli_extras,
         "card": smi,
     }
     print(smi)

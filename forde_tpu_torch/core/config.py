@@ -59,7 +59,9 @@ class LLMConfig:
     parallelism over a device mesh, comes with the multi-device slice). ``remat`` and ``scan_layers``
     are kept for the checkpoint schema: the port's model is unrolled and
     reads the ``scan_layers`` parameter layout too (``interop``).
-    ``quantized`` is kept for the schema; int8 serving is not ported.
+    ``quantized``: weight-only int8 serving (ops/quant.py): the
+    dense-causal attention's projections, the dense FFN, the lm_head and
+    the MoE expert bank take int8 weights from ``quant.quantize_params``.
     """
 
     vocab_size: int = 32000

@@ -11,6 +11,11 @@ renaming the leaf:
   stacked expert banks ``w_up``, ``w_down``, ``b_up``, ``b_down`` (not
   transposed), ``mixing_logits``, ``stream_weights``
                               -> parameters of the same name
+* int8 serving (ops/quant.py): a QDense's ``kernel_q`` (in, out) ->
+  ``weight_q`` (out, in) int8, transposed as a ``kernel`` is, and its
+  per-output-channel ``scale`` (beside ``kernel_q``, so not a LayerNorm's)
+  -> ``scale``; the expert bank's ``w_up_q``, ``w_up_scale``,
+  ``w_down_q``, ``w_down_scale`` -> parameters of the same name
 * brain ``neuron_assignments`` -> the int32 buffer of the same name
 * stats_buffer ``act_stats``, ``expert_usage`` (fp32), ``step_count``
   (int32)                     -> the buffers of the same name
@@ -55,7 +60,16 @@ _LEAF_TO_TORCH = {
     "b_down": "b_down",
     "mixing_logits": "mixing_logits",
     "stream_weights": "stream_weights",
+    "kernel_q": "weight_q",
+    "w_up_q": "w_up_q",
+    "w_up_scale": "w_up_scale",
+    "w_down_q": "w_down_q",
+    "w_down_scale": "w_down_scale",
 }
+# Leaves transposed between Flax's (in, out) and torch's (out, in).
+_TRANSPOSED = ("kernel", "kernel_q")
+# A QDense's scale keeps its name (a LayerNorm's becomes ``weight``).
+_QDENSE_LEAVES = {**_LEAF_TO_TORCH, "scale": "scale"}
 _BRAIN_LEAVES = ("neuron_assignments",)
 _STATS_LEAVES = {"act_stats": np.float32, "expert_usage": np.float32, "step_count": np.int32}
 _TAP_LEAF = "z_tap"
@@ -145,10 +159,13 @@ def flax_to_state_dict(
     not know always raise.
     """
     out: Dict[str, torch.Tensor] = {}
-    for path, value in flatten(params).items():
-        key = _torch_key(path, _LEAF_TO_TORCH)
+    flat = flatten(params)
+    for path, value in flat.items():
+        parent, _, leaf = path.rpartition("/")
+        qdense = f"{parent}/kernel_q" in flat
+        key = _torch_key(path, _QDENSE_LEAVES if qdense else _LEAF_TO_TORCH)
         t = torch.from_numpy(np.array(value))
-        if path.endswith("/kernel"):
+        if leaf in _TRANSPOSED:
             t = t.T.contiguous()
         out[key] = t
     for path, value in flatten(brain).items():
@@ -205,7 +222,10 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict
         if leaf in _STATS_LEAVES:
             stats["/".join(names + [leaf])] = value.numpy().astype(_STATS_LEAVES[leaf])
             continue
-        value = value.float().numpy()
+        if leaf == "weight_q":
+            params["/".join(names + ["kernel_q"])] = value.numpy().T.copy()
+            continue
+        value = value.numpy() if value.dtype == torch.int8 else value.float().numpy()
         if leaf == "weight":
             owner = names[-1] if names else ""
             if owner not in _WEIGHT_OWNERS:

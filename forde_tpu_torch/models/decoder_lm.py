@@ -11,6 +11,12 @@ checkpoint is split per layer when it is loaded (``interop``).
 rows) or, given a ``cache`` from ``init_cache``, the cached pass: a
 prefill at the cache's position counter or one token per row at
 ``positions``. The cache is updated in place. Logits are fp32.
+
+With ``config.quantized`` (int8 serving, ops/quant.py) the dense-causal
+attention's ``qkv_proj``/``out_proj``, the dense FFN's ``ffn_up``/
+``ffn_down``, the ``lm_head`` and the MoE expert bank hold int8 weights;
+the NSA branches stay fp. Such a model takes its weights from
+``ops.quant.quantize_params``.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from forde_tpu_torch.nn.hyper_connections import (
 )
 from forde_tpu_torch.nn.layers import Dense, LayerNorm
 from forde_tpu_torch.nn.moe import MoEStatefulLayer
+from forde_tpu_torch.ops.quant import QDense
 
 
 class DecoderBlock(torch.nn.Module):
@@ -48,7 +55,7 @@ class DecoderBlock(torch.nn.Module):
         else:
             self.causal_attention = CausalSelfAttention(
                 cfg.d_model, cfg.num_heads, cfg.head_dim, impl=cfg.attention_impl,
-                max_decode_len=cfg.max_seq_len, **kw,
+                max_decode_len=cfg.max_seq_len, quantized=cfg.quantized, **kw,
             )
         mhc = dict(param_dtype=cfg.dtypes.param, device=device)
         if cfg.use_hyper_connections:
@@ -58,7 +65,13 @@ class DecoderBlock(torch.nn.Module):
             self.moe = MoEStatefulLayer(
                 cfg.num_experts, cfg.top_k_experts, cfg.expert_hidden_dim, cfg.d_model,
                 cfg.moe_aux_loss_weight, cfg.moe_dispatch, cfg.moe_capacity_factor, **kw,
+                quantized=cfg.quantized,
             )
+        elif cfg.quantized:
+            self.ffn_up = QDense(cfg.d_model, cfg.expert_hidden_dim, dtype=kw["dtype"],
+                                 device=device)
+            self.ffn_down = QDense(cfg.expert_hidden_dim, cfg.d_model, dtype=kw["dtype"],
+                                   device=device)
         else:
             self.ffn_up = Dense(cfg.d_model, cfg.expert_hidden_dim, **kw)
             self.ffn_down = Dense(cfg.expert_hidden_dim, cfg.d_model, **kw)
@@ -133,7 +146,10 @@ class FORDEDecoderLM(torch.nn.Module):
         if cfg.use_hyper_connections:
             self.stream_collapser = StreamCollapser(cfg.d_model, cfg.num_streams, **kw)
         self.final_norm = LayerNorm(cfg.d_model, **kw)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab_size, **kw)
+        if cfg.quantized:
+            self.lm_head = QDense(cfg.d_model, cfg.vocab_size, dtype=dt, device=device)
+        else:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab_size, **kw)
         if generator is not None:
             self.init_params(generator)
 
@@ -144,6 +160,9 @@ class FORDEDecoderLM(torch.nn.Module):
         N(0, 1/fan_in) (lm_head, router and stream expansion N(0, 0.02)),
         expert banks N(0, 1/fan_in), mixing logits N(0, 0.1); biases 0,
         norms 1, stream weights 1."""
+        if self.config.quantized:
+            raise ValueError("a quantized model takes its weights from "
+                             "ops.quant.quantize_params, not from a random init")
         # Children before their parents, so that a module's own
         # initialiser (stream expansion, router) overrides its Dense's.
         for module in reversed(list(self.modules())):
@@ -158,7 +177,7 @@ class FORDEDecoderLM(torch.nn.Module):
     def init_cache(self, batch: int, device=None) -> dict:
         """An empty decode cache, the JAX package's tree: ``pos_index`` and
         one ``layer_{i}`` entry per block."""
-        device = self.lm_head.weight.device if device is None else device
+        device = self.token_embed.weight.device if device is None else device
         cache = {"pos_index": torch.zeros((), dtype=torch.int32, device=device)}
         name = "sparse_attention" if self.config.use_sparse_attention else "causal_attention"
         for i, layer in enumerate(self.layers):

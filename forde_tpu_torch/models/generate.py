@@ -1,6 +1,9 @@
-"""Autoregressive sampling for the decoder LM (port of the cached paths of
+"""Autoregressive sampling for the decoder LM (port of
 forde_tpu/models/generate.py).
 
+* ``generate``: full recompute, one forward over the whole (B, P + N)
+  buffer per new token. NSA's global top-k may pick positions not yet
+  generated (its causal mask keeps them invisible), as in the reference.
 * ``generate_cached``: one prefill over the prompt, then one cached decode
   step per new token (O(1) attention work each), for dense-causal and NSA
   configs. NSA prefills through ``nsa_prefill``.
@@ -12,6 +15,13 @@ forde_tpu/models/generate.py).
 * ``generate_ragged``: a right-padded batch of mixed-length prompts in one
   pass: each row prefills at its true length and decodes at its own
   position.
+* ``prefill_prefix``: the cache of a shared prompt prefix (dense-causal
+  configs), which ``generate_cached`` and ``generate_ragged`` continue
+  from (``prefix_cache=``), tiled across their batch by
+  ``tile_prefix_cache``, a copy: the decode writes its cache in place.
+* ``generate_beam``: beam search over the cached decoder; each step
+  gathers the surviving beams' cache rows into a new cache (eager), so
+  every beam owns its rows.
 
 Sampling: temperature 0 is greedy argmax; otherwise top-k and then
 nucleus (top-p) filtering and a draw from ``generator`` (a
@@ -40,6 +50,7 @@ import torch
 
 from forde_tpu_torch.core import graphs
 from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+from forde_tpu_torch.ops.moe_dispatch import top_k_desc
 from forde_tpu_torch.ops.topk_replay import topk_replay
 
 
@@ -212,7 +223,8 @@ def _first_state(model, cache, last_logits, generator, sampling, positions) -> D
 
 
 def _generate(model, prompt_ids, lens, generator, max_new_tokens, temperature, top_k, top_p,
-              eos_id, pad_id, cuda_graph) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+              eos_id, pad_id, cuda_graph,
+              prefix_cache=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """``generate_cached`` (``lens`` None) or ``generate_ragged``: (ids,
     the last decode step's logits (B, V), or None with one new token)."""
     b, p = prompt_ids.shape
@@ -220,14 +232,23 @@ def _generate(model, prompt_ids, lens, generator, max_new_tokens, temperature, t
     sampling = (temperature, top_k, top_p, eos_id, pad_id)
     bidx = torch.arange(b, device=dev)
     if model.config.use_sparse_attention:
+        if prefix_cache is not None:
+            raise ValueError(_PREFIX_DENSE_ONLY)
         cache, last = nsa_prefill(model, prompt_ids, lens)
+        positions = lens
     else:
         # A ragged buffer prefills as one; a pad row's k/v in the cache is
         # overwritten by the row's own token before any query sees it.
-        cache = model.init_cache(b, dev)
+        if prefix_cache is None:
+            cache = model.init_cache(b, dev)
+        else:
+            cache = tile_prefix_cache(prefix_cache, b)
+        # A row's decode positions count the prefix (a device tensor, so
+        # that a graphed decode reads it from its copied state).
+        positions = None if lens is None else lens + cache["pos_index"].to(torch.int64)
         logits, _ = model(prompt_ids, cache=cache)
         last = logits[:, -1, :] if lens is None else logits[bidx, lens - 1]
-    st = _first_state(model, cache, last, generator, sampling, lens)
+    st = _first_state(model, cache, last, generator, sampling, positions)
     total = p + max_new_tokens
     if lens is None:
         ids = torch.zeros(b, total, dtype=torch.int64, device=dev)
@@ -260,14 +281,21 @@ def generate_cached(
     eos_id: Optional[int] = None,
     pad_id: int = 0,
     cuda_graph: bool = True,
+    prefix_cache: Optional[dict] = None,
 ) -> torch.Tensor:
     """Sample ``max_new_tokens`` continuations of ``prompt_ids`` (B, P)
     with the KV caches: (B, P + max_new_tokens), the prompt then the new
     tokens; a row that emitted ``eos_id`` continues with ``pad_id``. On
     CUDA the decode steps replay a CUDA graph unless ``cuda_graph`` is
-    False."""
+    False.
+
+    ``prefix_cache`` (dense-causal configs): a shared prefix's cache from
+    ``prefill_prefix``. The prompt is the suffix, prefilled at the
+    prefix's offset; the result holds suffix + continuation only, token
+    for token what the concatenated prompt gives. The prefix cache itself
+    is left as it was."""
     return _generate(model, prompt_ids, None, generator, max_new_tokens, temperature, top_k,
-                     top_p, eos_id, pad_id, cuda_graph)[0]
+                     top_p, eos_id, pad_id, cuda_graph, prefix_cache)[0]
 
 
 @torch.no_grad()
@@ -283,15 +311,18 @@ def generate_ragged(
     eos_id: Optional[int] = None,
     pad_id: int = 0,
     cuda_graph: bool = True,
+    prefix_cache: Optional[dict] = None,
 ) -> torch.Tensor:
     """Mixed-length prompts in one batch: ``prompt_ids`` (B, P_max)
     right-padded, ``prompt_lens`` (B,) true lengths (>= 1). Every row
     prefills at its length and decodes at its own position. Row i's result
     is ``out[i, :prompt_lens[i] + max_new_tokens]``; the slack up to the
     buffer's end (B, P_max + max_new_tokens) is ``pad_id``. On CUDA the
-    decode steps replay a CUDA graph unless ``cuda_graph`` is False."""
+    decode steps replay a CUDA graph unless ``cuda_graph`` is False.
+    ``prefix_cache``: as in ``generate_cached``, every row a suffix of the
+    shared prefix (dense-causal configs)."""
     return _generate(model, prompt_ids, prompt_lens.to(torch.int64), generator, max_new_tokens,
-                     temperature, top_k, top_p, eos_id, pad_id, cuda_graph)[0]
+                     temperature, top_k, top_p, eos_id, pad_id, cuda_graph, prefix_cache)[0]
 
 
 @torch.no_grad()
@@ -405,3 +436,147 @@ def nsa_prefill(model: FORDEDecoderLM, prompt_ids: torch.Tensor,
     if lengths is None:
         return cache, logits[:, -1, :]
     return cache, logits[torch.arange(b, device=dev), lengths - 1]
+
+
+_PREFIX_DENSE_ONLY = ("prefix caching supports dense-causal configs only (NSA streaming "
+                      "caches depend on what follows the prefix)")
+
+
+@torch.no_grad()
+def prefill_prefix(model: FORDEDecoderLM, prefix_ids: torch.Tensor) -> dict:
+    """The cache of a shared prompt prefix (1, L), reusable by every
+    request: its position counters stand at L. ``generate_cached`` and
+    ``generate_ragged`` continue from it (``prefix_cache=``), copying it
+    across their batch. Dense-causal configs only: NSA's pools and top-k
+    set depend on what follows the prefix."""
+    if model.config.use_sparse_attention:
+        raise ValueError(_PREFIX_DENSE_ONLY)
+    if prefix_ids.shape[0] != 1:
+        raise ValueError(f"a prefix is one sequence, got batch {prefix_ids.shape[0]}")
+    cache = model.init_cache(1, prefix_ids.device)
+    model(prefix_ids, cache=cache)
+    return cache
+
+
+def _map_cache_batch(cache: dict, fn) -> dict:
+    """A new cache tree: ``fn(leaf)`` of every leaf with a batch axis (axis
+    0), a copy of every position counter (0-d)."""
+    return {k: _map_cache_batch(v, fn) if isinstance(v, dict)
+            else (fn(v) if v.ndim else v.clone()) for k, v in cache.items()}
+
+
+def tile_prefix_cache(prefix_cache: dict, b: int) -> dict:
+    """A batch-1 prefix cache repeated across ``b`` rows, in new storage
+    (counters copied too): the decode writes the cache it is given in
+    place, and the prefix must stay as it was for the next request."""
+    return _map_cache_batch(prefix_cache, lambda x: x.repeat_interleave(b, dim=0))
+
+
+def prefix_length(prefix_cache: dict) -> torch.Tensor:
+    """Token length of a prefix cache (its model-level position counter)."""
+    return prefix_cache["pos_index"]
+
+
+@torch.no_grad()
+def generate_beam(
+    model: FORDEDecoderLM,
+    prompt_ids: torch.Tensor,
+    max_new_tokens: int = 32,
+    beam_size: int = 4,
+    length_penalty: float = 0.0,
+    eos_id: Optional[int] = None,
+    pad_id: int = 0,
+):
+    """Beam search over the cached decoder: the prompt is prefilled once per
+    row (NSA through ``nsa_prefill``), its cache repeated beam-major; each
+    step expands every beam by the vocabulary, keeps each row's
+    ``beam_size`` best continuations (ties to the lower index, as
+    ``lax.top_k``), and gathers the surviving beams' cache rows into a new
+    cache, so that each beam owns its rows. Returns the best beam (B, P +
+    max_new_tokens).
+
+    ``eos_id``: a beam that emits it is finished: it extends only with
+    ``pad_id`` at logprob 0, so its score stays. Final scores are the
+    summed logprobs over ``gen_len ** length_penalty`` (gen_len counts a
+    finished beam's tokens up to its EOS; 0 = the plain sum).
+    """
+    b, p = prompt_ids.shape
+    k = beam_size
+    dev = prompt_ids.device
+    if model.config.use_sparse_attention:
+        cache, last = nsa_prefill(model, prompt_ids)
+    else:
+        cache = model.init_cache(b, dev)
+        logits, _ = model(prompt_ids, cache=cache)
+        last = logits[:, -1, :]
+    cache = _map_cache_batch(cache, lambda x: x.repeat_interleave(k, dim=0))
+    logprobs0 = torch.log_softmax(last.float(), dim=-1)
+    vocab = logprobs0.shape[-1]
+    top_lp, top_tok = top_k_desc(logprobs0, k)  # (B, k)
+    scores = top_lp.reshape(b * k)
+    token = top_tok.reshape(b * k)
+    ids = torch.zeros(b * k, p + max_new_tokens, dtype=torch.int64, device=dev)
+    ids[:, :p] = prompt_ids.repeat_interleave(k, dim=0)
+    ids[:, p] = token
+    done = torch.zeros(b * k, dtype=torch.bool, device=dev)
+    gen_len = torch.ones(b * k, dtype=torch.int64, device=dev)
+    if eos_id is not None:
+        done = token == eos_id
+    pad_only = torch.full((vocab,), -float("inf"), device=dev)
+    pad_only[pad_id] = 0.0
+    row_base = (torch.arange(b, device=dev) * k)[:, None]
+
+    for cur in range(p + 1, p + max_new_tokens):
+        logits, _ = model(token[:, None], cache=cache)
+        lp = torch.log_softmax(logits[:, 0, :].float(), dim=-1)
+        if eos_id is not None:
+            lp = torch.where(done[:, None], pad_only[None, :], lp)
+        cand = (scores[:, None] + lp).reshape(b, k * vocab)
+        new_scores, flat = top_k_desc(cand, k)  # (B, k)
+        rows = (row_base + torch.div(flat, vocab, rounding_mode="floor")).reshape(b * k)
+        token = torch.remainder(flat, vocab).reshape(b * k)
+        ids = ids[rows]
+        ids[:, cur] = token
+        cache = _map_cache_batch(cache, lambda x: x.index_select(0, rows))
+        done = done[rows]
+        gen_len = gen_len[rows] + (~done).to(torch.int64)
+        if eos_id is not None:
+            done = done | (token == eos_id)
+        scores = new_scores.reshape(b * k)
+    if length_penalty:
+        scores = scores / gen_len.float() ** length_penalty
+    best = torch.argmax(scores.reshape(b, k), dim=-1)  # the first maximum
+    return ids.reshape(b, k, -1)[torch.arange(b, device=dev), best]
+
+
+@torch.no_grad()
+def generate(
+    model: FORDEDecoderLM,
+    prompt_ids: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    max_new_tokens: int = 32,
+    temperature: float = 1.0,
+    top_k: Optional[int] = None,
+    top_p: Optional[float] = None,
+    eos_id: Optional[int] = None,
+    pad_id: int = 0,
+) -> torch.Tensor:
+    """Full-recompute sampling: every new token runs one forward over the
+    whole (B, P + max_new_tokens) buffer (not-yet-generated positions
+    hold 0) and samples from the logits at the last filled position.
+    Correct for every config; an NSA config's top-k may pick the unfilled
+    positions, which its causal mask keeps invisible. The MoE stat buffers
+    stay as loaded. Returns (B, P + max_new_tokens)."""
+    b, p = prompt_ids.shape
+    dev = prompt_ids.device
+    ids = torch.zeros(b, p + max_new_tokens, dtype=torch.int64, device=dev)
+    ids[:, :p] = prompt_ids
+    done = torch.zeros(b, dtype=torch.bool, device=dev)
+    for cur in range(p, p + max_new_tokens):
+        logits, _ = model(ids)
+        nxt = _sample(logits[:, cur - 1, :], generator, temperature, top_k, top_p)
+        nxt = torch.where(done, pad_id, nxt)
+        if eos_id is not None:
+            done = done | (nxt == eos_id)
+        ids[:, cur] = nxt
+    return ids

@@ -31,6 +31,7 @@ from forde_tpu_torch.ops import attention_ref
 from forde_tpu_torch.ops.flash_attention import flash_attention
 from forde_tpu_torch.ops.moe_dispatch import top_k_desc
 from forde_tpu_torch.ops.nsa_attention import INVALID_KEY_POS, small_kv_attention
+from forde_tpu_torch.ops.quant import QDense
 
 Cache = Dict[str, torch.Tensor]
 
@@ -148,17 +149,22 @@ class SlidingWindowAttention(torch.nn.Module):
 
 class CausalSelfAttention(torch.nn.Module):
     """Dense causal attention; its decode cache holds ``max_decode_len``
-    k/v rows."""
+    k/v rows. ``quantized``: int8 ``qkv_proj``/``out_proj`` (serving)."""
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int, impl: str = "auto",
                  dtype=torch.float32, max_decode_len: int = 2048,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, quantized: bool = False):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
         self.impl, self.dtype, self.max_decode_len = impl, dtype, max_decode_len
-        kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.qkv_proj = Dense(d_model, 3 * num_heads * head_dim, **kw)
-        self.out_proj = Dense(num_heads * head_dim, d_model, **kw)
+        hd = num_heads * head_dim
+        if quantized:
+            self.qkv_proj = QDense(d_model, 3 * hd, dtype=dtype, device=device)
+            self.out_proj = QDense(hd, d_model, dtype=dtype, device=device)
+        else:
+            kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
+            self.qkv_proj = Dense(d_model, 3 * hd, **kw)
+            self.out_proj = Dense(hd, d_model, **kw)
 
     def _qkv(self, x):
         return _qkv_heads(self.qkv_proj(x), self.num_heads, self.head_dim)

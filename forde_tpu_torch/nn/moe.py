@@ -7,7 +7,10 @@ the reference's math) or over per-expert buffers of ``capacity`` tokens
 ("capacity" dispatch, capacity = max(int(factor * T * k / E), k)).
 ``MoEStatefulLayer`` adds the FORDE sensing buffers ``expert_usage`` (the
 summed mean router probability of each expert) and ``step_count``, which
-the MoE slow loop reads.
+the MoE slow loop reads. With ``quantized`` (int8 serving, ops/quant.py)
+the bank holds int8 weights with per-(expert, output channel) scales and
+both products run int8 over dynamically quantized activations, one
+``int8_matmul`` per expert.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from forde_tpu_torch.nn.layers import Dense
 from forde_tpu_torch.ops import moe_dispatch
+from forde_tpu_torch.ops.quant import int8_matmul, quantize_activations
 
 
 DISPATCHES = ("dense", "capacity")
@@ -37,16 +41,28 @@ def _dispatch_check(dispatch: str) -> None:
 
 class ExpertsFFN(torch.nn.Module):
     """The expert bank: (E, d, h) up, tanh-approximated gelu, (E, h, d)
-    down, each expert a Dense -> gelu -> Dense."""
+    down, each expert a Dense -> gelu -> Dense. ``quantized``: ``w_up_q``,
+    ``w_down_q`` int8 and ``w_up_scale`` (E, h), ``w_down_scale`` (E, d)
+    fp32 in place of ``w_up``, ``w_down`` (the JAX package's leaves)."""
 
     def __init__(self, num_experts: int, hidden_dim: int, d_model: int,
-                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+                 dtype=torch.float32, param_dtype=torch.float32, device=None,
+                 quantized: bool = False):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.quantized = dtype, quantized
         e, d, h = num_experts, d_model, hidden_dim
         kw = dict(dtype=param_dtype, device=device)
-        self.w_up = torch.nn.Parameter(torch.zeros(e, d, h, **kw))
-        self.w_down = torch.nn.Parameter(torch.zeros(e, h, d, **kw))
+        if quantized:
+            frozen = dict(requires_grad=False)
+            int8 = dict(dtype=torch.int8, device=device)
+            self.w_up_q = torch.nn.Parameter(torch.zeros(e, d, h, **int8), **frozen)
+            self.w_up_scale = torch.nn.Parameter(torch.ones(e, h, device=device), **frozen)
+            self.w_down_q = torch.nn.Parameter(torch.zeros(e, h, d, **int8), **frozen)
+            self.w_down_scale = torch.nn.Parameter(torch.ones(e, d, device=device), **frozen)
+            kw = dict(dtype=torch.float32, device=device)
+        else:
+            self.w_up = torch.nn.Parameter(torch.zeros(e, d, h, **kw))
+            self.w_down = torch.nn.Parameter(torch.zeros(e, h, d, **kw))
         self.b_up = torch.nn.Parameter(torch.zeros(e, h, **kw))
         self.b_down = torch.nn.Parameter(torch.zeros(e, d, **kw))
 
@@ -58,8 +74,28 @@ class ExpertsFFN(torch.nn.Module):
         self.b_up.zero_()
         self.b_down.zero_()
 
+    @staticmethod
+    def _q_products(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+        """Expert e's rows of ``x`` (E, N, din) or one (N, din) for every
+        expert, times ``w_q[e]`` in int8 over activations quantized per
+        row: (E, N, dout) fp32 (the JAX package's ``_q_einsum``)."""
+        xq, x_scale = quantize_activations(x)
+        acc = torch.stack([int8_matmul(xq if xq.ndim == 2 else xq[e], w_q[e])
+                           for e in range(w_q.shape[0])])
+        return acc.float() * x_scale * w_scale[:, None, :]
+
+    def _quantized(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, D) or (E, N, D) -> (E, N, D) through the int8 bank."""
+        hid = self._q_products(x, self.w_up_q, self.w_up_scale) + self.b_up[:, None, :]
+        hid = F.gelu(hid, approximate="tanh")
+        out = self._q_products(hid, self.w_down_q, self.w_down_scale) + self.b_down[:, None, :]
+        return out.to(self.dtype)
+
     def all_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Every expert on every token: x (B, S, D) -> (E, B, S, D)."""
+        if self.quantized:
+            b, s, d = x.shape
+            return self._quantized(x.reshape(b * s, d)).reshape(-1, b, s, d)
         dt = self.dtype
         h = torch.einsum("bsd,edh->ebsh", x.to(dt), self.w_up.to(dt))
         h = F.gelu(h + self.b_up.to(dt)[:, None, None, :], approximate="tanh")
@@ -68,6 +104,8 @@ class ExpertsFFN(torch.nn.Module):
 
     def dispatched(self, expert_inputs: torch.Tensor) -> torch.Tensor:
         """Each expert on its own buffer: (E, C, D) -> (E, C, D)."""
+        if self.quantized:
+            return self._quantized(expert_inputs)
         dt = self.dtype
         h = torch.einsum("ecd,edh->ech", expert_inputs.to(dt), self.w_up.to(dt))
         h = F.gelu(h + self.b_up.to(dt)[:, None, :], approximate="tanh")
@@ -100,7 +138,7 @@ class MoELayer(torch.nn.Module):
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
                  capacity_factor: float = 2.0, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, quantized: bool = False):
         super().__init__()
         _dispatch_check(dispatch)
         self.num_experts = num_experts
@@ -110,7 +148,8 @@ class MoELayer(torch.nn.Module):
         self.capacity_factor = capacity_factor
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.router = MoERouter(d_model, num_experts, **kw)
-        self.experts = ExpertsFFN(num_experts, expert_hidden_dim, d_model, **kw)
+        self.experts = ExpertsFFN(num_experts, expert_hidden_dim, d_model, **kw,
+                                  quantized=quantized)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         router_logits = self.router(x).float()
@@ -146,11 +185,12 @@ class MoEStatefulLayer(torch.nn.Module):
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
                  capacity_factor: float = 2.0, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, quantized: bool = False):
         super().__init__()
         self.moe_layer = MoELayer(
             num_experts, top_k, expert_hidden_dim, d_model, aux_loss_weight, dispatch,
             capacity_factor, dtype=dtype, param_dtype=param_dtype, device=device,
+            quantized=quantized,
         )
         self.register_buffer(
             "expert_usage", torch.zeros(num_experts, dtype=torch.float32, device=device)

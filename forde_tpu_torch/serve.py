@@ -9,22 +9,26 @@ random weights at the shape the flags give. Prompts are token ids:
   python -m forde_tpu_torch.serve --checkpoint_dir ckpt \\
       --prompts_file prompts.txt --output_file out.jsonl --temperature 0
 
-``--prompt_ids`` decodes one prompt with ``generate_cached``;
-``--prompts_file`` (one comma-separated prompt per line) decodes the whole
-mixed-length batch with ``generate_ragged``. Runs on CUDA unless
+``--prompt_ids`` decodes one prompt with ``generate_cached`` (or
+``generate_beam`` with ``--beam_size`` > 1, or ``generate_speculative``
+with ``--draft_checkpoint_dir``); ``--prompts_file`` (one comma-separated
+prompt per line) decodes the whole mixed-length batch with
+``generate_ragged``. ``--prefix_ids`` prefills a shared prefix once and
+continues every prompt from it (dense-causal configs); ``--quantize int8``
+serves int8 weights (ops/quant.py; the draft's too). Runs on CUDA unless
 ``--device cpu``; with no GPU visible it raises.
 
-Not ported yet, and refused with the slice they wait for: beam search,
-speculative decoding, int8 quantization, tensor-parallel serving and
-shared prefixes (the generation-extras slice), EMA and LoRA weights (the
-training-extras slice), text prompts (they need a tokenizer in the
-repository), and expert-parallel MoE dispatch (the multi-device slice).
+Not ported yet, and refused with the slice they wait for: tensor-parallel
+serving and expert-parallel MoE dispatch (the multi-device slice), EMA and
+LoRA weights (the training-extras slice), and text prompts (they need a
+tokenizer in the repository).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 from typing import List, Optional
 
 import torch
@@ -58,7 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--prompt_ids", type=str, default=None,
                    help="comma-separated token ids")
     p.add_argument("--prefix_ids", type=str, default=None,
-                   help="shared prompt prefix (not ported yet)")
+                   help="shared prompt prefix (comma-separated token ids; e.g. a system "
+                        "prompt): prefilled once and reused by every prompt this run "
+                        "decodes; outputs hold prompt + continuation only. Dense configs; "
+                        "not with --beam_size/--draft_checkpoint_dir")
     p.add_argument("--prompts_file", type=str, default=None,
                    help="batch serving: one prompt of comma-separated token ids "
                         "per line, decoded ragged in one batch; results print in "
@@ -74,31 +81,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top_p", type=float, default=None,
                    help="nucleus sampling: smallest probability mass >= top_p "
                         "(composable with --top_k)")
-    p.add_argument("--beam_size", type=int, default=0, help="> 1: beam search (not ported)")
+    p.add_argument("--beam_size", type=int, default=0,
+                   help="> 1 switches to beam search (overrides sampling)")
     p.add_argument("--eos_id", type=int, default=None,
                    help="stop a row once it emits this token (the rest is --pad_id)")
     p.add_argument("--pad_id", type=int, default=0)
-    p.add_argument("--length_penalty", type=float, default=0.0)
+    p.add_argument("--length_penalty", type=float, default=0.0,
+                   help="beam search: scores / generated_len**penalty (only meaningful "
+                        "with --eos_id)")
     p.add_argument("--tensor_parallelism", type=int, default=1, help="(not ported)")
     p.add_argument("--use_ema", action="store_true", help="(not ported)")
     p.add_argument("--lora_base_dir", type=str, default=None, help="(not ported)")
     p.add_argument("--draft_checkpoint_dir", type=str, default=None,
-                   help="speculative decoding (not ported)")
-    p.add_argument("--gamma", type=int, default=4)
-    p.add_argument("--quantize", choices=["int8"], default=None, help="(not ported)")
+                   help="speculative decoding: a (smaller) draft model checkpoint with "
+                        "model_config.json; both models dense-causal (--no_nsa) with one "
+                        "vocabulary (models/speculative.py)")
+    p.add_argument("--gamma", type=int, default=4,
+                   help="speculative decoding: draft proposals per round")
+    p.add_argument("--quantize", choices=["int8"], default=None,
+                   help="weight-only int8 serving: attention/FFN/lm_head weights and the "
+                        "MoE expert bank quantized per channel at load, products in int8; "
+                        "NSA branch projections stay fp (ops/quant.py)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
 
 
 _NOT_PORTED = (
-    (lambda a: a.beam_size > 1, "--beam_size > 1", "generation extras"),
-    (lambda a: a.draft_checkpoint_dir, "--draft_checkpoint_dir",
-     "generation extras"),
-    (lambda a: a.quantize, "--quantize", "generation extras"),
     (lambda a: a.tensor_parallelism > 1, "--tensor_parallelism > 1",
-     "generation extras"),
-    (lambda a: a.prefix_ids, "--prefix_ids", "generation extras"),
+     "the multi-device slice"),
     (lambda a: a.use_ema, "--use_ema", "training extras"),
     (lambda a: a.lora_base_dir, "--lora_base_dir", "training extras"),
     (lambda a: a.prompt is not None, "--prompt",
@@ -119,8 +130,9 @@ def _refuse_unported(args) -> None:
 
 def load_serving_model(args, device):
     """(config, model in eval mode): the checkpoint, or seeded random
-    weights at the flags' shape."""
+    weights at the flags' shape; int8 with ``--quantize``."""
     from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.ops.quant import quantize_params
     from forde_tpu_torch.train.checkpoint import load_lm_params, load_meta
 
     if args.checkpoint_dir:
@@ -128,12 +140,31 @@ def load_serving_model(args, device):
         step = int(load_meta(args.checkpoint_dir)[1].get("step", 0))
         print(f"[serve] model config loaded from {args.checkpoint_dir}/model_config.json")
         print(f"[serve] restored step {step} from {args.checkpoint_dir}")
-        return config, model
-    config = config_from_args(args)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = FORDEDecoderLM(config, device=device, generator=gen)
-    print("[serve] no --checkpoint_dir: random init (smoke mode)")
-    return config, model.eval()
+    else:
+        config = config_from_args(args)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        model = FORDEDecoderLM(config, device=device, generator=gen).eval()
+        print("[serve] no --checkpoint_dir: random init (smoke mode)")
+    if args.quantize:
+        model = quantize_params(model)
+        config = model.config
+        print("[serve] int8 weight-only quantization applied (attention/FFN/lm_head kernels "
+              "+ MoE expert bank; NSA branch projections stay fp)")
+    return config, model
+
+
+def _load_draft(args, device):
+    """The draft model of speculative decoding (int8 too under --quantize)."""
+    from forde_tpu_torch.ops.quant import quantize_params
+    from forde_tpu_torch.train.checkpoint import load_lm_params, load_meta
+
+    _, draft = load_lm_params(args.draft_checkpoint_dir, device)
+    step = int(load_meta(args.draft_checkpoint_dir)[1].get("step", 0))
+    print(f"[serve] speculative decoding: draft restored step {step} (gamma={args.gamma})")
+    if args.quantize:
+        draft = quantize_params(draft)
+        print("[serve] draft quantized int8 too")
+    return draft
 
 
 def _parse_ids(text: str) -> List[int]:
@@ -146,7 +177,7 @@ def main(argv: Optional[list] = None) -> List[List[int]]:
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
     device = resolve_device(args.device)
-    from forde_tpu_torch.models.generate import generate_cached, generate_ragged
+    from forde_tpu_torch.models import generate as G
 
     config, model = load_serving_model(args, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
@@ -155,20 +186,37 @@ def main(argv: Optional[list] = None) -> List[List[int]]:
         top_k=args.top_k, top_p=args.top_p, eos_id=args.eos_id, pad_id=args.pad_id,
     )
 
+    prefix_cache, prefix_len = None, 0
+    if args.prefix_ids:
+        if config.use_sparse_attention:
+            sys.exit("--prefix_ids requires a dense-causal config (NSA streaming caches depend "
+                     "on what follows the prefix)")
+        if args.beam_size > 1 or args.draft_checkpoint_dir:
+            sys.exit("--prefix_ids composes with greedy/sampled cached decode only")
+        prefix = _parse_ids(args.prefix_ids)
+        prefix_len = len(prefix)
+        prefix_cache = G.prefill_prefix(model, torch.tensor([prefix], device=device))
+        print(f"[serve] shared prefix prefilled once ({prefix_len} tokens); outputs hold "
+              "prompt + continuation only")
+
     if args.prompts_file:
+        if args.beam_size > 1 or args.draft_checkpoint_dir:
+            sys.exit("--prompts_file composes with greedy/sampled cached decode only (not "
+                     "--beam_size/--draft_checkpoint_dir)")
         with open(args.prompts_file) as f:
             prompts = [_parse_ids(ln) for ln in f if ln.strip()]
         for i, pr in enumerate(prompts):
-            if len(pr) + args.max_new_tokens > config.max_seq_len:
+            if prefix_len + len(pr) + args.max_new_tokens > config.max_seq_len:
                 raise ValueError(
-                    f"prompt {i}: {len(pr)} + {args.max_new_tokens} tokens exceeds "
-                    f"max_seq_len {config.max_seq_len}"
+                    f"prompt {i}: {prefix_len} (prefix) + {len(pr)} + {args.max_new_tokens} "
+                    f"tokens exceeds max_seq_len {config.max_seq_len}"
                 )
         lens = torch.tensor([len(pr) for pr in prompts], dtype=torch.int64)
         padded = torch.full((len(prompts), int(lens.max())), args.pad_id, dtype=torch.int64)
         for i, pr in enumerate(prompts):
             padded[i, : len(pr)] = torch.tensor(pr)
-        out = generate_ragged(model, padded.to(device), lens.to(device), gen, **sampling)
+        out = G.generate_ragged(model, padded.to(device), lens.to(device), gen, **sampling,
+                                prefix_cache=prefix_cache)
         out = out.cpu()
         results = [out[i, : int(n) + args.max_new_tokens].tolist() for i, n in enumerate(lens)]
         for i, row in enumerate(results):
@@ -187,12 +235,27 @@ def main(argv: Optional[list] = None) -> List[List[int]]:
     else:
         ids = [0]
         print("[serve] no prompt given; starting from token 0")
-    if len(ids) + args.max_new_tokens > config.max_seq_len:
+    if prefix_len + len(ids) + args.max_new_tokens > config.max_seq_len:
         raise ValueError(
-            f"prompt + max_new_tokens exceeds max_seq_len ({len(ids)} + "
+            f"prefix + prompt + max_new_tokens exceeds max_seq_len ({prefix_len} + {len(ids)} + "
             f"{args.max_new_tokens} > {config.max_seq_len})"
         )
-    out = generate_cached(model, torch.tensor([ids], device=device), gen, **sampling)
+    prompt = torch.tensor([ids], device=device)
+    if args.draft_checkpoint_dir:
+        from forde_tpu_torch.models.speculative import generate_speculative
+
+        draft = _load_draft(args, device)
+        out, stats = generate_speculative(model, draft, prompt, gen, gamma=args.gamma,
+                                          **sampling, with_stats=True)
+        r, g = stats["rounds"], stats["generated"]
+        print(f"[serve] speculative: {g} tokens in {r} target forwards "
+              f"({g / max(r, 1):.2f} tokens/forward)")
+    elif args.beam_size > 1:
+        out = G.generate_beam(model, prompt, max_new_tokens=args.max_new_tokens,
+                              beam_size=args.beam_size, length_penalty=args.length_penalty,
+                              eos_id=args.eos_id, pad_id=args.pad_id)
+    else:
+        out = G.generate_cached(model, prompt, gen, **sampling, prefix_cache=prefix_cache)
     row = out[0].cpu().tolist()
     print("token ids:", row)
     return [row]

@@ -13,6 +13,9 @@ max_seq_len 64).
   cannot be reproduced, so sampling is checked by its masks:
   ``_filter_logits`` and ``sample_rows`` on the same logits as JAX's, the
   -inf pattern exactly.
+* Full-recompute ``generate`` (one forward over the whole buffer per new
+  token), greedy, dense and NSA, past the window: exactly JAX's
+  ``generate``'s tokens; the MoE stat buffers stay as loaded.
 """
 
 import jax
@@ -178,3 +181,17 @@ def test_sample_rows_masks_and_greedy():
             p = float(top_ps[i]) if float(top_ps[i]) < 1.0 else None
             allowed = tgen._filter_logits(logits[i:i + 1] / temps[i], k, p)[0]
             assert torch.isfinite(allowed[out[i]])
+
+
+@pytest.mark.parametrize("variant", ["nsa", "dense"])
+def test_generate_full_recompute_greedy_matches_jax(nsa_setup, variant):
+    cfg, model, variables, port = _setup(nsa_setup, variant)
+    _, padded = _prompts(seed=7)
+    ids = padded[:2, :20]  # 20 + 8 positions: past the window and window + ratio
+    want = jgen.generate(model, variables, jnp.asarray(ids), jax.random.PRNGKey(0),
+                         max_new_tokens=NEW, temperature=0.0)
+    usage = port.layers[0].moe.expert_usage.clone()
+    got = tgen.generate(port, torch.from_numpy(ids).long(), None, max_new_tokens=NEW,
+                        temperature=0.0)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert torch.equal(port.layers[0].moe.expert_usage, usage)

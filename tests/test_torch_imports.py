@@ -75,6 +75,8 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.train.loop",
         "forde_tpu_torch.core.graphs",
         "forde_tpu_torch.ops.topk_replay",
+        "forde_tpu_torch.ops.quant",
+        "forde_tpu_torch.models.speculative",
     ):
         assert name in result["modules"]
 
