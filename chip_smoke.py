@@ -33,6 +33,9 @@ holds every CUDA kernel of them against its plain PyTorch version:
     (NSA), speculative decoding (dense target, drafts from checkpoints),
     int8 weights (the NSA serving batch), and serve's --prefix_ids,
     --beam_size, --draft_checkpoint_dir and --quantize on the card.
+  * continuous batching (``models/decode_pool.DecodePool``, an 8-row pool
+    at the serving width, requests arriving staggered) and the HTTP daemon
+    (``serve_http``, in-process on 127.0.0.1, batch and continuous mode).
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
@@ -141,10 +144,33 @@ Phases:
  24. one `python -m forde_tpu_torch.serve` process each for --prefix_ids,
      --beam_size 4, --draft_checkpoint_dir and --quantize int8 (2 layers),
      all four together.
+ 25. continuous batching (NSA, 8 rows; 8 requests before the first tick,
+     then one every 2 pooled steps): fp32 greedy tokens of 12 requests of
+     640-1,920 tokens (8-16 new) identical to each one's generate_cached
+     on the plain model, which launches no kernel (the top-2 logit margin
+     printed at a mismatch); the graphed pool
+     identical to the eager pool in fp32 and bf16; decode_fuse 4 identical
+     to decode_fuse 1 on the 24-request trace (8-48 new); exact launches
+     (per admission 12 flash_fwd, 24 small_kv_fwd, 1 topk_replay; per
+     pooled step 24 small_kv_fwd; replays counted); the dense variant's
+     chunked prefill (256) and 1,024-token registered prefix identical to
+     the one-shot prefill and to generate_cached, no csrc kernel launched.
+     Readings, bf16: the trace's output tokens/s, TTFT p50/p90 and ms per
+     output token at decode_fuse 1 and 4, a pooled step graphed and eager
+     (and its idle share in the scheduler), a one-row admission, and the
+     same 24 requests as closed batches of 8 through generate_ragged (an
+     illustrative trace: arrivals paced in pooled steps, and the closed
+     batches see every request at the start);
+ 26. serve_http in-process (fp32): 16 concurrent greedy clients of 8 new
+     tokens in batch mode and in --continuous --decode_fuse 4 mode (4 over
+     SSE, one of which disconnects after its first token): every output
+     identical to the plain model's generate_cached, no error field, /stats counting the
+     tokens served, the dropped request's slot freed, exact launches;
+     requests/s and output tokens/s.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (about 4-5 minutes):
+Run with no arguments on a machine with one GPU (about 5-6 minutes):
 
   python3 chip_smoke.py
 """
@@ -3705,6 +3731,505 @@ def phase_cli_extras(device, workdir) -> dict:
     return out
 
 
+# ---- continuous batching (models/decode_pool.py) and the HTTP daemon
+# (serve_http.py) --------------------------------------------------------
+
+# Phase 25: an 8-row pool at the serving width. Requests arrive staggered:
+# POOL_FIRST before the first tick, then one every POOL_EVERY pooled steps
+# (every second tick at decode_fuse 1). The gate: 12 greedy requests of
+# 640-1,920 tokens, 8-16 new each; the trace: 24 requests, 8-48 new.
+POOL_ROWS = 8
+POOL_FIRST = 8
+POOL_EVERY = 2
+POOL_FUSE = 4
+POOL_PROMPT_LENS = (640, 1920)
+POOL_GATE = (12, (8, 16))  # (requests, new tokens: least, most)
+POOL_TRACE = (24, (8, 48))
+# The dense variant: 4 requests, a 1,024-token prefix, suffixes of 128-512,
+# chunked prefill in chunks of 256.
+POOL_DENSE_PREFIX = 1024
+POOL_DENSE_SUFFIXES = (128, 256, 384, 512)
+POOL_DENSE_NEW = 8
+POOL_DENSE_CHUNK = 256
+
+
+def pool_requests(count, new_range, vocab, seed):
+    """(prompts, new-token budgets), from ``seed``."""
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(POOL_PROMPT_LENS[0], POOL_PROMPT_LENS[1] + 1, count)
+    news = rng.randint(new_range[0], new_range[1] + 1, count)
+    return [rng.randint(1, vocab, n).tolist() for n in lens], [int(n) for n in news]
+
+
+def pool_launches(cfg, admissions: int, steps: int) -> dict:
+    """Kernel launches of a pool run on the NSA config: per admission the
+    one-row nsa_prefill (flash_fwd and two small_kv_fwd per layer, one
+    top-k replay), per pooled step two small_kv_fwd per layer (replays
+    counted)."""
+    n = cfg.num_layers
+    return {"flash_fwd": n * admissions, "small_kv_fwd": 2 * n * (admissions + steps),
+            "topk_replay": admissions}
+
+
+def drive_pool(pool, prompts, budgets, **submit) -> tuple:
+    """The staggered arrivals through ``pool``: POOL_FIRST requests before
+    the first tick, then one every POOL_EVERY pooled steps (at once when
+    the pool is idle); tick until every request finished. Returns (outputs
+    in request order, host times (submitted, first token, last token) per
+    request, seconds, the host time of each tick that admitted no
+    request)."""
+    import torch
+
+    n = len(prompts)
+    times = [[0.0, None, None] for _ in range(n)]
+
+    def on_token(i):
+        def record(rid, tok):
+            now = time.perf_counter()
+            times[i][1] = times[i][1] or now
+            times[i][2] = now
+        return record
+
+    index, out, base, steady = {}, {}, pool._steps, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while len(out) < n:
+        due = min(n, POOL_FIRST + (pool._steps - base) // POOL_EVERY)
+        if not pool.pending():
+            due = max(due, len(index) + 1)
+        while len(index) < due:
+            i = len(index)
+            times[i][0] = time.perf_counter()
+            index[pool.submit(prompts[i], budgets[i], on_token=on_token(i), **submit)] = i
+        started = sum(t[1] is not None for t in times)
+        tick0 = time.perf_counter()
+        for rid, ids in pool.tick():
+            out[index[rid]] = ids
+        if sum(t[1] is not None for t in times) == started:
+            steady.append((time.perf_counter() - tick0) * 1e3)
+    secs = time.perf_counter() - t0
+    return [out[i] for i in range(n)], times, secs, steady
+
+
+def trace_readings(times, budgets, secs, steady, fuse) -> dict:
+    """Output tokens/s of the trace, TTFT (submission to the first token)
+    p50/p90, ms per output token per request p50, and the median host time
+    of a pooled step in the ticks that admitted no request."""
+    ttft = [(f - s) * 1e3 for s, f, _ in times]
+    tpot = [(last - f) * 1e3 / (b - 1) for (_, f, last), b in zip(times, budgets)]
+    return {"out_tokens_per_s": sum(budgets) / secs, "seconds": secs,
+            "ttft_ms_p50": float(np.percentile(ttft, 50)),
+            "ttft_ms_p90": float(np.percentile(ttft, 90)),
+            "ms_per_output_token_p50": float(np.percentile(tpot, 50)),
+            "ms_per_step_without_admission_p50": (float(np.median(steady)) / fuse
+                                                  if steady else None),
+            "ticks_without_admission": len(steady)}
+
+
+def top2_margin(m, prompt, got, want) -> tuple:
+    """(first new position where ``got`` and ``want`` differ, the top-2
+    logit margin there, from a teacher-forced forward over the prompt and
+    the tokens both agree on)."""
+    import torch
+
+    p = len(prompt)
+    j = next(k for k in range(len(want) - p) if p + k >= len(got) or got[p + k] != want[p + k])
+    with torch.no_grad():
+        logits, _ = m(torch.tensor([want[: p + j]], device=m.lm_head.weight.device))
+    top = logits[0, -1].topk(2).values
+    return j, float(top[0] - top[1])
+
+
+def plain_greedy(m, prompts, news) -> list:
+    """Each prompt's greedy continuation (generate_cached, batch 1) on the
+    plain model ``m`` (impl="reference"), its NSA prefill's top-k replay
+    the plain version too: a reference that runs no kernel of csrc, which
+    the run checks."""
+    import torch
+
+    from forde_tpu_torch.models import generate as G
+    from forde_tpu_torch.ops import topk_replay as T
+
+    dev = m.lm_head.weight.device
+    kernel, G.topk_replay = G.topk_replay, T.topk_replay_reference
+    try:
+        refs, got = counted(lambda: [G.generate_cached(
+            m, torch.tensor([p], device=dev), None, max_new_tokens=n,
+            temperature=0.0)[0].tolist() for p, n in zip(prompts, news)])
+    finally:
+        G.topk_replay = kernel
+    if got:
+        raise AssertionError(f"the plain reference launched {got}")
+    return refs
+
+
+def phase_pool(device, state) -> dict:
+    """Continuous batching on the reference-default decoder (NSA, 12
+    layers), an 8-row pool. Gates: fp32 greedy tokens of 12 staggered
+    requests equal each one's generate_cached continuation on the plain
+    model (plain_greedy; the top-2 margin printed at a mismatch), so the
+    kernels are held at the pool's own shapes; the graphed pool equals the eager pool
+    (cuda_graph=False) in fp32 and bf16; decode_fuse 4 equals decode_fuse 1
+    on the 24-request trace; the dense variant's chunked prefill (chunks
+    of 256) and 1,024-token registered prefix equal the one-shot prefill of
+    the concatenated prompt; exact launches per admission and per pooled
+    step, replays counted. Readings (bf16): the trace's output tokens/s,
+    TTFT p50/p90 and ms per output token at decode_fuse 1 and 4, a pooled
+    step graphed and eager with its idle share, a one-row admission, and
+    the same 24 requests as closed batches of 8 (generate_ragged), all
+    present at the start. The trace is illustrative: its arrivals are
+    paced in the pool's own steps and the closed batches see other
+    arrivals, so the two are not a like-for-like comparison."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import decode_pool as DP
+    from forde_tpu_torch.models import generate as G
+
+    cfg = serve_config()
+    gate_prompts, gate_new = pool_requests(*POOL_GATE, cfg.vocab_size, SEED + 110)
+    prompts, budgets = pool_requests(*POOL_TRACE, cfg.vocab_size, SEED + 111)
+    out, launches = {}, Counter()
+
+    def run_pool(m, prompts, budgets, label, warm=False, **kw):
+        pool = DP.DecodePool(m, rows=POOL_ROWS, temperature=0.0, **kw)
+        if warm:  # capture the step's graph before the clock starts
+            pool.submit(prompts[0], 2)
+            while pool.pending():
+                pool.tick()
+        steps = pool._steps
+        (ids, times, secs, steady), got = counted(lambda: drive_pool(pool, prompts, budgets))
+        want = pool_launches(cfg, len(prompts), pool._steps - steps)
+        if got != want:
+            raise AssertionError(f"pool {label}: launches {got}, expected {want}")
+        launches.update(got)
+        log(f"[pool] {label}: {len(prompts)} requests, {pool._steps - steps} pooled steps, "
+            f"{secs:.2f} s; launches {got}")
+        return pool, ids, (times, secs, steady)
+
+    # fp32: every request's tokens = its own generate_cached continuation on
+    # the plain model
+    m = build_lm(cfg, state, device, DTypePolicy.fp32())
+    _, graphed, _ = run_pool(m, gate_prompts, gate_new, "fp32 graphed")
+    _, eager, _ = run_pool(m, gate_prompts, gate_new, "fp32 eager", cuda_graph=False)
+    del m
+    torch.cuda.empty_cache()
+    plain = build_lm(cfg, state, device, DTypePolicy.fp32(), impl="reference")
+    refs = plain_greedy(plain, gate_prompts, gate_new)
+    for i, (p, want) in enumerate(zip(gate_prompts, refs)):
+        if graphed[i] != want:
+            j, margin = top2_margin(plain, p, graphed[i], want)
+            raise AssertionError(f"pool fp32 request {i} (prompt {len(p)}): new token {j} "
+                                 f"differs from the plain model's generate_cached; top-2 logit "
+                                 f"margin there {margin:.3e}")
+    if graphed != eager:
+        raise AssertionError("pool fp32: graphed tokens differ from eager")
+    log(f"[pool] fp32, {len(gate_prompts)} requests of {min(map(len, gate_prompts))}-"
+        f"{max(map(len, gate_prompts))} tokens, {min(gate_new)}-{max(gate_new)} new, {POOL_FIRST} "
+        f"at tick 0 then one every {POOL_EVERY} steps, {POOL_ROWS} rows: tokens identical to "
+        f"each one's generate_cached on the plain model, graphed = eager")
+    del plain
+    torch.cuda.empty_cache()
+
+    m = build_lm(cfg, state, device, DTypePolicy.bf16())
+    _, g16, _ = run_pool(m, gate_prompts, gate_new, "bf16 graphed")
+    _, e16, _ = run_pool(m, gate_prompts, gate_new, "bf16 eager", cuda_graph=False)
+    if g16 != e16:
+        raise AssertionError("pool bf16: graphed tokens differ from eager")
+    traces = {}
+    for fuse in (1, POOL_FUSE):
+        pool, ids, timing = run_pool(m, prompts, budgets, f"bf16 trace fuse {fuse}",
+                                     warm=True, decode_fuse=fuse)
+        traces[fuse] = (pool, ids)
+        times, secs, steady = timing
+        out[f"trace_fuse{fuse}"] = {**trace_readings(times, budgets, secs, steady, fuse),
+                                    "pooled_steps": pool._steps}
+    if traces[1][1] != traces[POOL_FUSE][1]:
+        raise AssertionError(f"pool: decode_fuse {POOL_FUSE} tokens differ from decode_fuse 1")
+    log(f"[pool] bf16: graphed = eager on the {len(gate_prompts)} requests; decode_fuse "
+        f"{POOL_FUSE} = decode_fuse 1 on the {len(prompts)}-request trace")
+
+    pool = traces[1][0]
+    st, graph = pool.static, pool._graphs[(False, 1)]
+    with torch.no_grad():
+        def eager_step():
+            DP._step_pool(m, st, pool._gen, False)
+        step = {"graph_ms": cuda_ms([graph.replay], reps=20),
+                "eager_ms": cuda_ms([eager_step], reps=10, warmup=1)}
+        prof_g = profile_device(graph.replay, f"one replayed pooled step ({POOL_ROWS} rows)")
+        prof_e = profile_device(eager_step, f"one eager pooled step ({POOL_ROWS} rows)")
+        mid = torch.tensor([prompts[0]], device=device)
+        admit_ms = float(np.median([wall_ms(lambda: DP._prefill_one_nsa(
+            m, mid, pool._gen, 0.0, 0, 1.0)) for _ in range(3)]))
+    step.update(graph_idle_share=prof_g["idle_share"], graph_busy_ms=prof_g["busy_ms"],
+                eager_idle_share=prof_e["idle_share"], eager_busy_ms=prof_e["busy_ms"])
+    # a tick's host time with no admission, against one step's device busy
+    for fuse in (1, POOL_FUSE):
+        per_step = out[f"trace_fuse{fuse}"]["ms_per_step_without_admission_p50"]
+        step[f"scheduler_idle_share_fuse{fuse}"] = (
+            None if per_step is None else 1 - prof_g["busy_ms"] / per_step)
+    out.update(pooled_step=step, admission_ms=admit_ms, admission_prompt=len(prompts[0]))
+
+    # the control: closed batches of 8 in arrival order, every request present at the start
+    def closed(new, rows):
+        padded, lens = serve_batch([prompts[i] for i in rows], device)
+        return G.generate_ragged(m, padded, lens, None, max_new_tokens=new, temperature=0.0)
+    batches = [range(k, min(k + POOL_ROWS, len(prompts))) for k in range(0, len(prompts), POOL_ROWS)]
+    closed(2, batches[0])  # warm-up (and the decode graph's capture)
+    first = [wall_ms(lambda: closed(1, rows)) for rows in batches]
+    whole = [wall_ms(lambda: closed(max(budgets[i] for i in rows), rows)) for rows in batches]
+    ttft = [sum(whole[:k]) + first[k] for k, rows in enumerate(batches) for _ in rows]
+    out["closed_batches"] = {"out_tokens_per_s": sum(budgets) / sum(whole) * 1e3,
+                             "seconds": sum(whole) / 1e3,
+                             "ttft_ms_p50": float(np.percentile(ttft, 50)),
+                             "ttft_ms_p90": float(np.percentile(ttft, 90))}
+    for name in ("trace_fuse1", f"trace_fuse{POOL_FUSE}", "closed_batches"):
+        log(f"[pool] bf16 {name}, {len(prompts)} requests of {min(map(len, prompts))}-"
+            f"{max(map(len, prompts))} tokens, {min(budgets)}-{max(budgets)} new: {out[name]}")
+    log(f"[pool] bf16 pooled step ({POOL_ROWS} rows): {step}; one-row admission of "
+        f"{len(prompts[0])} tokens {admit_ms:.2f} ms")
+    del m, pool, traces, graph, st
+    torch.cuda.empty_cache()
+    out["dense"] = pool_dense(device)
+    out["launches"] = dict(launches)
+    return out
+
+
+def pool_dense(device) -> dict:
+    """The dense variant (--no_nsa), fp32: requests of a 1,024-token prefix
+    and a suffix, through the one-shot pool with the concatenated prompts,
+    the chunked pool (chunks of 256) with the same prompts, and both pools
+    with the prefix registered and the suffixes as prompts: every run's
+    tokens identical to the first's (continuation only), and to each
+    concatenated prompt's generate_cached; no csrc kernel launched (dense
+    attention is plain)."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models import decode_pool as DP
+    from forde_tpu_torch.models import generate as G
+
+    cfg = dense_serve_config()
+    m = build_lm(cfg, seeded_state(cfg, device, SEED + 112), device, DTypePolicy.fp32())
+    rng = np.random.RandomState(SEED + 113)
+    prefix = rng.randint(1, cfg.vocab_size, POOL_DENSE_PREFIX).tolist()
+    sufs = [rng.randint(1, cfg.vocab_size, n).tolist() for n in POOL_DENSE_SUFFIXES]
+    budgets = [POOL_DENSE_NEW] * len(sufs)
+    runs, secs = {}, {}
+    for label, chunk, with_prefix in (("one_shot", None, False), ("chunked", POOL_DENSE_CHUNK, False),
+                                      ("prefix", None, True), ("prefix_chunked", POOL_DENSE_CHUNK, True)):
+        pool = DP.DecodePool(m, rows=POOL_ROWS, temperature=0.0, prefill_chunk=chunk)
+        t0 = time.perf_counter()
+        if with_prefix:
+            pid = pool.register_prefix(prefix)
+            cache = pool._prefixes[pid][0]["layer_0"]["causal_attention"]
+            before = {k: v.clone() for k, v in cache.items()}
+            (ids, _, _, _), got = counted(lambda: drive_pool(pool, sufs, budgets, prefix_id=pid))
+            if not all(torch.equal(cache[k], v) for k, v in before.items()):
+                raise AssertionError(f"pool dense {label}: the prefix cache changed")
+        else:
+            (ids, _, _, _), got = counted(lambda: drive_pool(pool, [prefix + s for s in sufs],
+                                                             budgets))
+            ids = [row[len(prefix):] for row in ids]
+        secs[label] = time.perf_counter() - t0
+        if got:
+            raise AssertionError(f"pool dense {label}: the dense path launched {got}")
+        runs[label] = ids
+        del pool
+    for label, ids in runs.items():
+        if ids != runs["one_shot"]:
+            raise AssertionError(f"pool dense: {label} tokens differ from the one-shot prefill's")
+    for s, row in zip(sufs, runs["one_shot"]):
+        want = G.generate_cached(m, torch.tensor([prefix + s], device=device), None,
+                                 max_new_tokens=POOL_DENSE_NEW, temperature=0.0)[0]
+        if row != want[len(prefix):].tolist():
+            raise AssertionError("pool dense: tokens differ from generate_cached's")
+    log(f"[pool] dense variant fp32, a {POOL_DENSE_PREFIX}-token prefix + suffixes of "
+        f"{POOL_DENSE_SUFFIXES[0]}-{POOL_DENSE_SUFFIXES[-1]}, {POOL_DENSE_NEW} new: chunked "
+        f"({POOL_DENSE_CHUNK}), registered prefix and both together identical to the one-shot "
+        f"prefill and to generate_cached; no csrc kernel launched; seconds {secs}")
+    del m
+    torch.cuda.empty_cache()
+    return {"tokens_identical": True, "seconds": secs}
+
+
+# Phase 26: serve_http in-process on 127.0.0.1 at the serving width in
+# fp32, 16 concurrent clients of 8 new tokens; in continuous mode 4 stream
+# over SSE and one of those drops its connection after the first token (it
+# asks for the server's maximum, so that it is still decoding then).
+HTTP_REQUESTS = 16
+HTTP_NEW = 8
+HTTP_SERVER_NEW = 48
+HTTP_STREAMS = 4
+
+
+def http_argv(*extra) -> list:
+    flags = [f for f in SERVE_FLAGS if f != "--bf16"]
+    return [*flags, "--device", "cuda", "--port", "0", "--max_batch", str(POOL_ROWS),
+            "--max_new_tokens", str(HTTP_SERVER_NEW), "--temperature", "0",
+            "--seed", str(SEED + 120), *extra]
+
+
+def http_post(url, payload, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(url + "/generate", json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def http_sse(url, payload, timeout=300) -> dict:
+    """The final event of a streamed request, with the streamed tokens."""
+    import urllib.request
+
+    req = urllib.request.Request(url + "/generate", json.dumps({**payload, "stream": True})
+                                 .encode(), {"Content-Type": "application/json"})
+    events = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for raw in r:
+            line = raw.decode().strip()
+            if line.startswith("data: "):
+                events.append(json.loads(line[len("data: "):]))
+    return {**events[-1], "streamed": [e["token"] for e in events[:-1]]}
+
+
+def http_drop(host, port, payload) -> dict:
+    """A streamed request whose client closes the connection after the
+    first token event."""
+    import socket
+
+    body = json.dumps({**payload, "stream": True})
+    with socket.create_connection((host, port), timeout=300) as s:
+        s.sendall(f"POST /generate HTTP/1.1\r\nHost: {host}\r\nContent-Type: application/json"
+                  f"\r\nContent-Length: {len(body)}\r\n\r\n{body}".encode())
+        buf = b""
+        while b"data: " not in buf:
+            chunk = s.recv(4096)
+            if not chunk:
+                raise AssertionError(f"http: the stream closed before a token: {buf[-300:]}")
+            buf += chunk
+    return {"dropped": True}
+
+
+def phase_http(device) -> dict:
+    """serve_http in-process (fp32, seeded weights at the serving width): 16
+    concurrent greedy clients of 8 new tokens in batch mode, then with
+    --continuous --decode_fuse 4, where 4 of them stream over SSE and one
+    of these disconnects after its first token. Every completed output
+    equals its prompt's generate_cached continuation on the plain model
+    (plain_greedy, the servers' weights), no response carries
+    an error, /stats counts the tokens served (the disconnected request
+    not among them), its slot is freed, and the continuous server's
+    launches are exact. Prints requests/s and output tokens/s."""
+    import threading
+
+    import torch
+
+    from forde_tpu_torch import kernels, serve, serve_http
+    from forde_tpu_torch.core.config import DTypePolicy
+
+    cfg = serve_config()
+    rng = np.random.RandomState(SEED + 121)
+    lens = rng.randint(POOL_PROMPT_LENS[0], POOL_PROMPT_LENS[1] + 1, HTTP_REQUESTS)
+    prompts = [rng.randint(1, cfg.vocab_size, n).tolist() for n in lens]
+    drop = HTTP_REQUESTS - 1
+    out, refs, weights = {}, None, None
+    for mode, extra in (("batch", ["--batch_window_ms", "200"]),
+                        ("continuous", ["--continuous", "--decode_fuse", str(POOL_FUSE)])):
+        args = serve_http.add_server_args(serve.build_parser()).parse_args(http_argv(*extra))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            srv, batcher = serve_http.make_server(args)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        host, port = srv.server_address[:2]
+        url = f"http://{host}:{port}"
+        streams = range(HTTP_REQUESTS - HTTP_STREAMS, HTTP_REQUESTS) if mode == "continuous" else ()
+        results = [None] * HTTP_REQUESTS
+
+        def client(i):
+            payload = {"prompt_ids": prompts[i], "max_new_tokens": HTTP_NEW}
+            try:
+                if i == drop and mode == "continuous":
+                    results[i] = http_drop(host, port, {**payload,
+                                                        "max_new_tokens": HTTP_SERVER_NEW})
+                elif i in streams:
+                    results[i] = http_sse(url, payload)
+                else:
+                    results[i] = http_post(url, payload)
+            except Exception as e:  # reported below, with the request's index
+                results[i] = {"error": f"{type(e).__name__}: {e}"}
+
+        try:
+            threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_REQUESTS)]
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            secs = time.perf_counter() - t0
+            if any(t.is_alive() for t in threads):
+                raise AssertionError(f"http {mode}: a client did not finish in 300 s")
+            deadline = time.monotonic() + 30
+            while mode == "continuous" and batcher._inflight and time.monotonic() < deadline:
+                time.sleep(0.05)
+            with batcher._lock:
+                stats = dict(batcher.stats)
+            torch.cuda.synchronize()
+            launches = dict(kernels.launches)
+            if mode == "continuous":
+                pool = batcher.pool
+                freed = not batcher._inflight and pool.active_rows() == 0 and not pool.pending()
+                want_launches = pool_launches(cfg, HTTP_REQUESTS, pool._steps)
+            else:
+                freed = True
+                b = stats["batches"]
+                want_launches = {"flash_fwd": cfg.num_layers * b, "topk_replay": b,
+                                 "small_kv_fwd": 2 * cfg.num_layers * b * HTTP_SERVER_NEW}
+        finally:
+            srv.shutdown()
+            batcher.stop()
+            srv.server_close()
+        model = batcher.model
+        if refs is None:
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+            plain = build_lm(cfg, weights, device, DTypePolicy.fp32(), impl="reference")
+            refs = plain_greedy(plain, prompts, [HTTP_NEW] * HTTP_REQUESTS)
+            del plain
+        elif not all(torch.equal(v, weights[k]) for k, v in model.state_dict().items()):
+            raise AssertionError("http: the two servers' seeded weights differ")
+        done = [i for i in range(HTTP_REQUESTS) if not (mode == "continuous" and i == drop)]
+        errors = {i: r["error"] for i, r in enumerate(results) if "error" in r}
+        if errors:
+            raise AssertionError(f"http {mode}: responses with an error: {errors}")
+        for i in done:
+            r = results[i]
+            if r["output_ids"] != refs[i] or ("streamed" in r
+                                              and r["streamed"] != refs[i][len(prompts[i]):]):
+                raise AssertionError(f"http {mode}: request {i} differs from the plain "
+                                     f"model's generate_cached")
+        served = HTTP_NEW * len(done)
+        if stats["tokens_generated"] != served or stats["requests"] != HTTP_REQUESTS:
+            raise AssertionError(f"http {mode}: /stats {stats}, expected {served} tokens of "
+                                 f"{HTTP_REQUESTS} requests")
+        if not freed:
+            raise AssertionError("http continuous: the disconnected client's slot was not freed")
+        if launches != want_launches:
+            raise AssertionError(f"http {mode}: launches {launches}, expected {want_launches}")
+        out[mode] = {"requests_per_s": len(done) / secs, "out_tokens_per_s": served / secs,
+                     "seconds": secs, "stats": stats, "launches": launches}
+        log(f"[http] {mode}: {len(done)} requests of {min(lens)}-{max(lens)} tokens served in "
+            f"{secs:.2f} s ({len(done) / secs:.2f} requests/s, {served / secs:.1f} output "
+            f"tokens/s), every output = the plain model's generate_cached, no error; /stats "
+            f"{stats}"
+            + ("; the dropped stream cancelled, its slot freed" if mode == "continuous" else ""))
+        del model, batcher, srv
+        torch.cuda.empty_cache()
+    out["launches"] = dict(Counter(out["batch"]["launches"]) + Counter(out["continuous"]["launches"]))
+    return out
+
+
 def timed(phase, *args):
     """phase(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -3763,6 +4288,8 @@ def main() -> int:
     full = timed(phase_full_recompute, device, serve_run["state"])
     speculative = timed(phase_speculative, device)
     int8 = timed(phase_int8, device, serve_run["state"], serve_parity)
+    pool = timed(phase_pool, device, serve_run["state"])
+    http = timed(phase_http, device)
     shapes.update(timed(phase_serving_kernel_timing, device))
     shapes["topk_replay"] = topk["shapes"]
     lm_parity = timed(phase_lm_step_parity, device)
@@ -3781,7 +4308,9 @@ def main() -> int:
                 "serve_beam": beam["launches"].get(name, 0),
                 "generate_full": full["launches"].get(name, 0),
                 "serve_speculative": speculative["launches"].get(name, 0),
-                "serve_int8": int8["launches"].get(name, 0)}
+                "serve_int8": int8["launches"].get(name, 0),
+                "pool": pool["launches"].get(name, 0),
+                "http": http["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -3922,6 +4451,8 @@ def main() -> int:
         "speculative": speculative,
         "int8": int8,
         "cli_extras": cli_extras,
+        "pool": pool,
+        "http": {k: v for k, v in http.items() if k != "launches"},
         "card": smi,
     }
     print(smi)

@@ -77,6 +77,8 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.ops.topk_replay",
         "forde_tpu_torch.ops.quant",
         "forde_tpu_torch.models.speculative",
+        "forde_tpu_torch.models.decode_pool",
+        "forde_tpu_torch.serve_http",
     ):
         assert name in result["modules"]
 

@@ -10,8 +10,15 @@ concatenated prompt. The prefix cache is left exactly as it was after two
 calls (the decode writes its cache in place, so the tiling must copy).
 NSA configs are refused, as in the reference. ``serve --prefix_ids``
 gives the JAX package's tokens, and refuses beam search, speculative
-decoding and NSA configs with it.
+decoding and NSA configs with it. The decode pool's registered prefixes
+(slots reused, tokens streamed, the budget guard) and the daemon's system
+prefix (batch and continuous mode) and SSE stream give the JAX package's
+greedy tokens of the concatenated prompt, the prefix cache left as it was.
 """
+
+import json
+import urllib.error
+import urllib.request
 
 import jax
 import jax.numpy as jnp
@@ -22,8 +29,11 @@ import torch
 from forde_tpu.models import generate as jgen
 from forde_tpu_torch import serve
 from forde_tpu_torch.models import generate as tgen
+from forde_tpu_torch.models.decode_pool import DecodePool
 
+from test_torch_decode_pool import add_refs, drain, want
 from test_torch_decoder_lm import jax_variables, port_model, tiny_config
+from test_torch_serve_http import checkpoint, post, start_server, stop_server
 
 torch.set_num_threads(1)
 
@@ -153,3 +163,101 @@ def test_serve_prefix_ids(tmp_path, capsys):
 def test_serve_prefix_ids_refusals(flags, match):
     with pytest.raises(SystemExit, match=match):
         serve.main([*SHAPE, *flags, "--prompt_ids", "5,17", "--prefix_ids", "8,1"])
+
+
+# The decode pool and the daemon (the pool and HTTP cases of
+# tests/test_prefix.py): held to the JAX package's greedy tokens of the
+# concatenated prompt.
+_RNG = np.random.RandomState(2)
+POOL_PREFIX = _RNG.randint(1, 256, 6).tolist()
+POOL_SUFFIXES = [_RNG.randint(1, 256, n).tolist() for n in (3, 5, 2, 4, 7)]
+POOL_BUDGETS = [4, 2, 5, 3, 4]
+LONG_PREFIX = list(range(1, 40))  # 39 tokens of 64
+SYSTEM = [8, 1, 9]
+
+
+@pytest.fixture(scope="module")
+def pool_dense(tmp_path_factory):
+    v = checkpoint(tmp_path_factory, "dense",
+                   [POOL_PREFIX + s for s in POOL_SUFFIXES] + [SYSTEM + [5, 17, 20], [5, 17, 20]],
+                   5)
+    return add_refs(v, [LONG_PREFIX + [1] * 20], 5)
+
+
+def test_decode_pool_prefix_and_streaming_exact(pool_dense):
+    """Requests from a registered prefix through a 2-slot pool (slots
+    reused) equal the concatenated prompt's tokens; on_token streams the
+    continuation in order; the prefix cache is left exactly as it was."""
+    pool = DecodePool(pool_dense.port, rows=2, temperature=0.0)
+    pid = pool.register_prefix(POOL_PREFIX)
+    before = {k: v.clone() for k, v in _flat(pool._prefixes[pid][0]).items()}
+    streamed = {}
+    rids = [pool.submit(s, max_new_tokens=b, prefix_id=pid,
+                        on_token=lambda r, t: streamed.setdefault(r, []).append(t))
+            for s, b in zip(POOL_SUFFIXES, POOL_BUDGETS)]
+    results = drain(pool)
+    n = len(POOL_PREFIX)
+    for rid, s, b in zip(rids, POOL_SUFFIXES, POOL_BUDGETS):
+        w = want(pool_dense, POOL_PREFIX + s, b)[n:]
+        assert results[rid] == w, rid
+        assert streamed[rid] == w[len(s):], rid
+    after = _flat(pool._prefixes[pid][0])
+    assert all(torch.equal(after[k], v) for k, v in before.items())
+
+
+def test_decode_pool_prefix_budget_guard(pool_dense):
+    """prefix + prompt + budget past max_seq_len is refused; a suffix that
+    ends at the cache's last rows decodes exactly."""
+    pool = DecodePool(pool_dense.port, rows=1, temperature=0.0)
+    pid = pool.register_prefix(LONG_PREFIX)
+    with pytest.raises(ValueError, match="max_seq_len"):
+        pool.submit([1] * 20, max_new_tokens=10, prefix_id=pid)
+    with pytest.raises(IndexError):
+        pool.submit([1], max_new_tokens=1, prefix_id=pid + 1)
+    rid = pool.submit([1] * 20, max_new_tokens=5, prefix_id=pid)
+    assert drain(pool)[rid] == want(pool_dense, LONG_PREFIX + [1] * 20, 5)[39:]
+
+
+def test_http_system_prefix_both_modes(pool_dense):
+    """--prefix_ids on the daemon: the ragged batch and the pool give the
+    same tokens, the JAX greedy tokens of the concatenated prompt."""
+    outs = {}
+    for extra in ([], ["--continuous"]):
+        srv, batcher, url = start_server(pool_dense.ckpt, "--prefix_ids", "8,1,9", *extra,
+                                         max_new=4)
+        try:
+            assert batcher.prefix_len == 3
+            outs[bool(extra)] = post(url, {"prompt_ids": [5, 17, 20]})["output_ids"]
+        finally:
+            stop_server(srv, batcher)
+    assert outs[False] == outs[True] == want(pool_dense, SYSTEM + [5, 17, 20], 4)[3:]
+
+
+def test_http_sse_streaming(pool_dense):
+    """{"stream": true}: SSE events whose tokens reassemble the final
+    output, the greedy tokens; batch mode refuses streaming."""
+    srv, batcher, url = start_server(pool_dense.ckpt, "--continuous", max_new=4)
+    try:
+        req = urllib.request.Request(
+            url + "/generate", json.dumps({"prompt_ids": [5, 17, 20], "stream": True}).encode(),
+            {"Content-Type": "application/json"})
+        events = []
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.headers["Content-Type"] == "text/event-stream"
+            for raw in r:
+                line = raw.decode().strip()
+                if line.startswith("data: "):
+                    events.append(json.loads(line[len("data: "):]))
+        assert events[-1]["done"] is True
+        toks = [e["token"] for e in events[:-1]]
+        assert events[-1]["output_ids"] == [5, 17, 20] + toks
+        assert toks == want(pool_dense, [5, 17, 20], 4)[3:]
+    finally:
+        stop_server(srv, batcher)
+    srv, batcher, url = start_server(pool_dense.ckpt)
+    try:
+        with pytest.raises(urllib.error.HTTPError) as e:
+            post(url, {"prompt_ids": [5, 17], "stream": True})
+        assert e.value.code == 400
+    finally:
+        stop_server(srv, batcher)
