@@ -36,6 +36,11 @@ holds every CUDA kernel of them against its plain PyTorch version:
   * continuous batching (``models/decode_pool.DecodePool``, an 8-row pool
     at the serving width, requests arriving staggered) and the HTTP daemon
     (``serve_http``, in-process on 127.0.0.1, batch and continuous mode).
+  * the training extras: the decoder LM's EMA, gradient accumulation,
+    resume, preemption, LoRA, distillation and ``eval_lm`` at the
+    reference-default width and depth, and the dual encoder's fused steps
+    with EMA, aligned data rendered on the card and the clip loop's
+    retrieval eval at vit_b16.
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
@@ -167,6 +172,38 @@ Phases:
      identical to the plain model's generate_cached, no error field, /stats counting the
      tokens served, the dropped request's slot freed, exact launches;
      requests/s and output tokens/s.
+ 27. the decoder LM's training extras (the reference-default decoder, full
+     depth): EMA (one fp32 step leaves ema = 0.999 ema0 + 0.001 params bit
+     for bit, over the parameters only; the update's time); gradient
+     accumulation (fp32, aux 0: 4 x 2 rows against one step of 8,
+     gradients within phase 12's fp32 bar, 4x one step's launches, both
+     runs' peak memory); resume (fp32, bf16 moments, EMA: the state after
+     2 steps saved and restored into a fresh state bit for bit, the third
+     step bit-identical to the uninterrupted state's or within phase 12's
+     bars; save and load seconds, bytes on disk); preemption (``python -m
+     forde_tpu_torch.train.loop`` at 2 layers in a subprocess: SIGTERM
+     after its first logged step -> exit 0 and a checkpoint, --resume
+     goes on from its step); LoRA (rank 8, default targets: merged = base
+     at init in fp32, 2 steps of ``--init_from --lora_rank`` with the
+     base bit-identical and every lora_b moved, launches = 2 full steps',
+     the checkpoint through serve's loader within 1e-5 of the in-memory
+     merge, the LoRA step's time beside a full step's); distillation (the
+     12-layer model teaching a 2-layer student, 4 x 2,048, 4 steps: KL
+     and loss finite, the loss falling, launches = the teacher's forward
+     + the student's step, the peak); ``eval_lm`` on the held-out corpus
+     (8 x 2,048, 4 batches): fp32 lm_loss within 1e-4 of the plain model
+     (no launch), --use_ema = the EMA weights' loss, bf16, tokens/s;
+ 28. the dual encoder's training extras (vit_b16, bf16, batch 128): fused
+     steps with EMA against the same steps eager with EMA (bit for bit, or
+     within phase 6's bars), the EMA's storage kept across replays; the
+     aligned data rendered on the card against the numpy dataset (noise 0:
+     ids and masks exact, images within 1e-6) and renders/s; ``clip_loop``
+     with --use_aligned_data --eval_interval 4 --eval_batches 2 --ema_decay
+     --fuse_steps 2 for 8 steps: seen_/unseen_/ema_seen_/ema_unseen_
+     metrics in [0, 1], exact launches, the card's retrieval ranks equal
+     to the CPU's on the same embeddings (moving only within a tie band of
+     1e-5), the checkpoint restoring the step, the EMA and Adam bit for
+     bit; pairs/s with and without the eval, eval ms per batch.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
@@ -2223,14 +2260,14 @@ def lm_weights(cfg, device) -> dict:
     return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
-def lm_train_state(cfg, weights, device, dtypes=None, impl="auto"):
+def lm_train_state(cfg, weights, device, dtypes=None, impl="auto", moment_dtype=None):
     from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
     from forde_tpu_torch.train.state import create_train_state
 
     cfg = cfg.replace(attention_impl=impl, **({} if dtypes is None else {"dtypes": dtypes}))
     model = FORDEDecoderLM(cfg, device=device)
     model.load_state_dict(weights)
-    return create_train_state(cfg, None, 3e-4, 0.01, model=model)
+    return create_train_state(cfg, None, 3e-4, 0.01, moment_dtype=moment_dtype, model=model)
 
 
 class plain_lm_kernels:
@@ -4230,6 +4267,751 @@ def phase_http(device) -> dict:
     return out
 
 
+
+# ---- the training extras: phase 27 (the decoder LM) and phase 28 (the dual
+# encoder) -----------------------------------------------------------------
+
+EMA_DECAY = 0.999
+EXTRAS_ROWS = 2  # rows of the EMA and resume steps (fp32)
+ACCUM = (4, 2)  # microbatches x rows, against one step of 8 rows
+LORA_RANK = 8
+DISTILL_LAYERS, DISTILL_ROWS, DISTILL_STEPS = 2, 4, 4
+EVAL_FLAGS = ["--seq_len", "2048", "--batch_size", "8", "--num_batches", "4"]
+EVAL_REL_TOL = 1e-4  # eval_lm's fp32 lm_loss against the plain model's
+HELDOUT = os.path.join("data_local", "doc_corpus_heldout.txt.gz")
+# The preemption subprocess: the reference-default width at 2 layers (the
+# depth cut bounds its time), bf16, batch 2, bf16 Adam moments.
+PREEMPT_FLAGS = [
+    "--d_model", "512", "--num_layers", "2", "--num_heads", "8", "--num_experts", "8",
+    "--top_k_experts", "2", "--window_size", "512", "--num_streams", "4",
+    "--seq_len", "2048", "--bf16", "--batch_size", "2", "--use_markov_data",
+    "--slow_loop_interval", "0", "--log_interval", "1", "--moment_dtype", "bfloat16",
+]
+PREEMPT_TIMEOUT_S = 240
+
+
+def capture_grads(state) -> list:
+    """Wrap the optimizer's step so that it records the gradients it is
+    given (one list per step)."""
+    seen = []
+    step = state.optimizer.step
+
+    def record(grads):
+        seen.append([g.detach().clone() for g in grads])
+        return step(grads)
+
+    state.optimizer.step = record
+    return seen
+
+
+def flat(tensors):
+    import torch
+
+    return torch.cat([t.detach().float().flatten() for t in tensors])
+
+
+def same_tensors(a: dict, b: dict) -> list:
+    """Keys of ``a`` whose tensor is not bit-identical to ``b``'s."""
+    import torch
+
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"tensor sets differ: {sorted(set(a) ^ set(b))[:8]}")
+    return [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+
+
+def state_tensors(state) -> dict:
+    """Every tensor a train state checkpoints, by its checkpoint key."""
+    from forde_tpu_torch.train.checkpoint import _state_tensors
+
+    params, extra = _state_tensors(state)
+    return {k: t for k, (t, _) in {**params, **extra}.items()}
+
+
+def add_launches(total: Counter, launches: dict) -> dict:
+    total.update(launches)
+    return launches
+
+
+def lm_ema_and_accum(device, cfg, weights, total) -> dict:
+    """EMA: one fp32 step with EMA_DECAY leaves ema = decay * ema0 + (1 -
+    decay) * params (the formula on copies) bit for bit, over the
+    parameters only. Accumulation: fp32, aux 0, ACCUM microbatches against
+    one step of their rows: gradients within phase 12's fp32 bar, launches
+    ACCUM[0] x one step's, and each run's peak memory."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.train.ema import ema_update_, init_ema, with_ema
+    from forde_tpu_torch.train.step import make_accum_train_step, train_step
+
+    cfg32 = cfg.replace(dtypes=DTypePolicy.fp32())
+    per_step = lm_launches_per_step(cfg)
+    state = init_ema(lm_train_state(cfg32, weights, device))
+    ema0 = [e.clone() for e in state.ema]
+    batch = lm_batch(EXTRAS_ROWS, LM_SEQ, cfg.vocab_size, device, SEED + 60)
+    step = with_ema(lambda s, b: train_step(s, b, aux_loss_weight=0.01), EMA_DECAY)
+    (state, m), launches = counted(lambda: step(state, batch))
+    add_launches(total, launches)
+    params = state.optimizer.params
+    with torch.no_grad():
+        want = [e0.mul(EMA_DECAY).add_(p.detach(), alpha=1.0 - EMA_DECAY)
+                for e0, p in zip(ema0, params)]
+    wrong = [i for i, (e, w) in enumerate(zip(state.ema, want)) if not torch.equal(e, w)]
+    buffers = {b.data_ptr() for b in state.model.buffers()}
+    n_params = sum(p.numel() for p in state.model.parameters())
+    covered = (len(state.ema) == len(list(state.model.parameters()))
+               and sum(e.numel() for e in state.ema) == n_params
+               and not buffers & {e.data_ptr() for e in state.ema})
+    if wrong or not covered or launches != per_step or not bool(torch.isfinite(m["loss/total"])):
+        raise AssertionError(f"EMA step: {len(wrong)} tensors off the formula, params only "
+                             f"{covered}, launches {launches}")
+    ema_bytes = 3 * sum(e.numel() * e.element_size() for e in state.ema)
+    ema_ms = cuda_ms([lambda: ema_update_(state.ema, params, EMA_DECAY)], reps=10, warmup=2)
+    log(f"[lm extras] EMA: one fp32 step ({EXTRAS_ROWS} x {LM_SEQ}) left ema = {EMA_DECAY} ema0 "
+        f"+ {1 - EMA_DECAY:.3f} params bit for bit on all {len(state.ema)} parameters "
+        f"({n_params / 1e6:.1f}M values, no stat buffer); the update alone {ema_ms:.3f} ms "
+        f"({ema_bytes / ema_ms / 1e6:.0f} GB/s over {ema_bytes / 1e9:.2f} GB moved; bound "
+        f"{ema_bytes / HBM_BYTES_PER_S * 1e3:.3f} ms)")
+    del state, ema0, want, params
+    torch.cuda.empty_cache()
+
+    mb, rows = ACCUM
+    big = lm_batch(mb * rows, LM_SEQ, cfg.vocab_size, device, SEED + 61)
+    runs = {}
+    for name, make in (("full", lambda: lambda s, b: train_step(s, b, aux_loss_weight=0.0)),
+                       ("accum", lambda: make_accum_train_step(mb, aux_loss_weight=0.0))):
+        state = lm_train_state(cfg32, weights, device)
+        seen = capture_grads(state)
+        step = make()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        (state, m), launches = counted(lambda: step(state, big))
+        secs = time.perf_counter() - t0
+        add_launches(total, launches)
+        runs[name] = {"grads": flat(seen[0]), "loss": m["loss/lm"].reshape(1).float(),
+                      "launches": launches, "ms": secs * 1e3,
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del state, seen, m
+        torch.cuda.empty_cache()
+    rel = {k: rel_l2(runs["accum"][k], runs["full"][k]) for k in ("grads", "loss")}
+    want_launches = {k: mb * v for k, v in per_step.items()}
+    log(f"[lm extras] grad accumulation (fp32, aux 0): {mb} x {rows} rows against one step of "
+        f"{mb * rows}: gradients relative L2 {rel['grads']:.3e}, lm loss {rel['loss']:.3e}; "
+        f"step {runs['accum']['ms']:.1f} ms against {runs['full']['ms']:.1f} ms; peak "
+        f"{runs['accum']['peak_gib']:.2f} GiB against {runs['full']['peak_gib']:.2f} GiB; "
+        f"launches {runs['accum']['launches']}")
+    if (rel["grads"] > LM_PARITY_TOL_FP32["grads"] or rel["loss"] > LM_PARITY_TOL_FP32["loss"]
+            or runs["accum"]["launches"] != want_launches or runs["full"]["launches"] != per_step):
+        raise AssertionError(f"gradient accumulation: {rel}, launches "
+                             f"{runs['accum']['launches']} (expected {want_launches})")
+    return {"ema_update_ms": ema_ms, "accum_rel_l2": rel,
+            "accum_step_ms": runs["accum"]["ms"], "full_step_ms": runs["full"]["ms"],
+            "accum_peak_gib": runs["accum"]["peak_gib"],
+            "full_peak_gib": runs["full"]["peak_gib"]}
+
+
+def lm_resume(device, cfg, weights, workdir, total) -> dict:
+    """fp32 compute, bf16 Adam moments, EMA on: the state after 2 steps
+    saved, restored into a fresh state of other weights (every tensor bit
+    for bit), and the third step of both against each other. Returns the
+    checkpoint directory and the saved weights and EMA too (eval_lm reads
+    them)."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.train.checkpoint import restore_train_state, save_train_state
+    from forde_tpu_torch.train.ema import init_ema, with_ema
+    from forde_tpu_torch.train.step import train_step
+
+    cfg32 = cfg.replace(dtypes=DTypePolicy.fp32())
+    step = with_ema(lambda s, b: train_step(s, b, aux_loss_weight=0.01), EMA_DECAY)
+    batches = [lm_batch(EXTRAS_ROWS, LM_SEQ, cfg.vocab_size, device, SEED + 62 + i)
+               for i in range(3)]
+    a = init_ema(lm_train_state(cfg32, weights, device, moment_dtype="bfloat16"))
+    for b in batches[:2]:
+        (a, _), launches = counted(lambda: step(a, b))
+        add_launches(total, launches)
+    ckpt = os.path.join(workdir, "lm_resume_ckpt")
+    meta = {"moment_dtype": "bfloat16", "ema_decay": EMA_DECAY}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_train_state(ckpt, a, a.step, meta)
+    save_s = time.perf_counter() - t0
+    disk = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    b = init_ema(lm_train_state(cfg32, seeded_state(cfg, device, SEED + 70), device,
+                                moment_dtype="bfloat16"))
+    t0 = time.perf_counter()
+    restore_train_state(ckpt, b)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    off = same_tensors(state_tensors(a), state_tensors(b))
+    if off or b.step != a.step:
+        raise AssertionError(f"restored train state: {len(off)} tensors differ ({off[:4]}), "
+                             f"step {b.step} vs {a.step}")
+    # the saved weights and EMA, which eval_lm's references read from memory
+    saved = {k: v.clone() for k, v in a.model.state_dict().items()}
+    saved_ema = {n: e.clone() for (n, _), e in zip(a.model.named_parameters(), a.ema)}
+    (a, _), la = counted(lambda: step(a, batches[2]))
+    (b, _), lb = counted(lambda: step(b, batches[2]))
+    add_launches(total, la)
+    add_launches(total, lb)
+    ta, tb = state_tensors(a), state_tensors(b)
+    off = same_tensors(ta, tb)
+    worst = {k: rel_l2(tb[k], ta[k]) for k in off}
+    bars = {k: LM_PARITY_TOL_FP32["grads" if k.startswith(("mu/", "nu/")) else "params"]
+            for k in off}
+    log(f"[lm extras] resume: 2 steps (fp32, bf16 moments, EMA), saved in {save_s:.2f} s "
+        f"({disk / 1e9:.2f} GB on disk), restored in {load_s:.2f} s, every tensor and the step "
+        f"bit-identical; the third step "
+        + ("bit-identical to the uninterrupted state's" if not off else
+           f"differs in {len(off)} tensors, worst relative L2 {max(worst.values()):.3e}"))
+    if any(worst[k] > bars[k] for k in off):
+        raise AssertionError(f"resumed step against the uninterrupted one: {worst}")
+    del a, b, ta, tb
+    torch.cuda.empty_cache()
+    return {"ckpt": ckpt, "weights": saved, "ema": saved_ema,
+            "save_s": save_s, "load_s": load_s, "bytes_on_disk": disk,
+            "third_step_bit_identical": not off, "third_step_rel_l2": worst}
+
+
+def run_preemption(workdir) -> dict:
+    """``python -m forde_tpu_torch.train.loop`` (PREEMPT_FLAGS) in a
+    subprocess: SIGTERM after its first logged step gives exit 0 and a
+    checkpoint; ``--resume`` (in this process) goes on from its step."""
+    import queue
+    import signal
+    import threading
+
+    from forde_tpu_torch.train import checkpoint, loop
+
+    ckpt = os.path.join(workdir, "lm_preempt_ckpt")
+    argv = PREEMPT_FLAGS + ["--checkpoint_dir", ckpt, "--seed", str(SEED)]
+    env = dict(os.environ, PYTHONPATH=REPO, PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "forde_tpu_torch.train.loop", *argv, "--steps_per_epoch",
+         "100000"], cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines: "queue.Queue" = queue.Queue()
+
+    def reader():
+        for line in proc.stdout:
+            lines.put(line)
+        lines.put(None)
+
+    threading.Thread(target=reader, daemon=True).start()
+    out = []
+    deadline = time.monotonic() + PREEMPT_TIMEOUT_S
+    try:
+        while True:
+            line = lines.get(timeout=max(deadline - time.monotonic(), 0.1))
+            if line is None:
+                raise AssertionError("the training process ended before a logged step:\n"
+                                     + "".join(out[-20:]))
+            out.append(line)
+            if " step " in line and "loss" in line:
+                break
+        first_step_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    while (line := lines.get(timeout=30)) is not None:
+        out.append(line)
+    text = "".join(out)
+    if rc != 0 or "saving checkpoint" not in text or not checkpoint.has_train_state(ckpt):
+        raise AssertionError(f"preempted training: exit {rc}\n{text[-3000:]}")
+    saved = int(checkpoint.load_meta(ckpt)[1]["step"])
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(printed):
+            res = loop.main(argv + ["--steps_per_epoch", str(saved + 1), "--resume"])
+    finally:
+        os.chdir(cwd)
+    if f"resumed from step {saved}" not in printed.getvalue() or res["step"] != saved + 1:
+        raise AssertionError(f"--resume after preemption: step {res['step']}, saved {saved}")
+    layers = PREEMPT_FLAGS[PREEMPT_FLAGS.index("--num_layers") + 1]
+    log(f"[lm extras] preemption ({layers} layers at full width): SIGTERM after the "
+        f"first logged step ({first_step_s:.1f} s after the start) -> exit 0 with a checkpoint "
+        f"of step {saved}; --resume went on to step {res['step']}")
+    return {"saved_step": saved, "first_step_s": first_step_s,
+            "seconds": time.perf_counter() - t0}
+
+
+def lm_lora(device, cfg, weights, workdir, total) -> dict:
+    """The seeded base written with save_params; at init the merged model's
+    fp32 logits equal the base's exactly; the LM loop with --init_from
+    --lora_rank LORA_RANK (default targets) takes 2 steps: the base
+    bit-identical, the adapters moved, launches = 2 full steps'; its
+    checkpoint through serve's loader gives the in-memory merged model's
+    logits (1e-5); the LoRA step's time beside the full step's."""
+    import torch
+
+    from forde_tpu_torch import interop, serve
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.train import lora as lora_lib
+    from forde_tpu_torch.train.checkpoint import save_params
+    from forde_tpu_torch.train.step import train_step
+
+    base_dir = os.path.join(workdir, "lm_base_ckpt")
+    save_params(base_dir, cfg, interop.flatten(interop.state_dict_to_flax(weights)))
+    ids = lm_batch(1, LM_SEQ, cfg.vocab_size, device, SEED + 64)["input_ids"]
+    m32 = FORDEDecoderLM(cfg.replace(dtypes=DTypePolicy.fp32()), device=device)
+    m32.load_state_dict(weights)
+    adapters = lora_lib.init_lora(m32, LORA_RANK, torch.Generator(device=device).manual_seed(1))
+    scale = lora_lib.lora_scale(LORA_RANK, 16.0)
+    with torch.no_grad():
+        ref, _ = m32(ids)
+        got, _ = torch.func.functional_call(m32, lora_lib.merge_lora(m32, adapters, scale),
+                                            (ids,), strict=False)
+    if not torch.equal(got, ref):
+        raise AssertionError(f"LoRA at init: merged logits off the base's by "
+                             f"{float((got - ref).abs().max()):.3e}")
+    del m32, ref, got
+    torch.cuda.empty_cache()
+
+    lora_dir = os.path.join(workdir, "lm_lora_ckpt")
+    argv = SERVE_FLAGS + ["--batch_size", "2", "--use_markov_data", "--steps_per_epoch", "2",
+                          "--slow_loop_interval", "0", "--log_interval", "1", "--init_from",
+                          base_dir, "--lora_rank", str(LORA_RANK), "--checkpoint_dir", lora_dir,
+                          "--seed", str(SEED)]
+    out, launches, secs, peak = run_train_loop(argv, workdir)
+    add_launches(total, launches)
+    state = out["state"]
+    names = dict(state.model.named_parameters())
+    moved_base = [k for k, p in names.items() if not torch.equal(p, weights[k])]
+    still = [k for k, t in state.lora.tensors.items()
+             if k.endswith("lora_b") and not bool(t.detach().abs().max() > 0)]
+    want = {k: 2 * v for k, v in lm_launches_per_step(cfg).items()}
+    loss = out["final_metrics"]["loss/total"]
+    if moved_base or still or launches != want or not np.isfinite(loss):
+        raise AssertionError(f"LoRA run: base tensors moved {moved_base[:4]}, adapters not "
+                             f"moved {still[:4]}, launches {launches} (expected {want}), "
+                             f"loss {loss}")
+    n_adapt = lora_lib.adapter_param_count(state.lora)
+    args = serve.build_parser().parse_args(["--checkpoint_dir", lora_dir])
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, served = serve.load_serving_model(args, device)
+    batch = lm_batch(1, LM_SEQ, cfg.vocab_size, device, SEED + 65)["input_ids"]
+    with torch.no_grad():
+        mem, _ = torch.func.functional_call(
+            state.model, lora_lib.merge_lora(state.model, state.lora, scale), (batch,),
+            strict=False)
+        srv, _ = served(batch)
+    serve_err = float((srv - mem).abs().max() / mem.abs().max())
+    if not serve_err <= 1e-5:
+        raise AssertionError(f"LoRA checkpoint served: logits {serve_err:.3e} off the merged "
+                             "model's")
+    del served, mem, srv
+    # the LoRA step's time beside a full step's, bf16, 2 rows
+    timing_batch = lm_batch(2, LM_SEQ, cfg.vocab_size, device, SEED + 66)
+    lora_step = lora_lib.make_lora_train_step(scale, aux_loss_weight=0.01)
+    lora_ms = float(np.median([wall_ms(lambda: lora_step(state, timing_batch))
+                               for _ in range(4)][1:]))
+    del state, out
+    torch.cuda.empty_cache()
+    full = lm_train_state(cfg, weights, device)
+    full_ms = float(np.median([wall_ms(lambda: train_step(full, timing_batch, 0.01))
+                               for _ in range(4)][1:]))
+    adam_bytes = sum(2 * m.numel() * m.element_size() for m in full.optimizer.mu)
+    del full
+    torch.cuda.empty_cache()
+    log(f"[lm extras] LoRA rank {LORA_RANK} (default targets): merged = base at init (fp32 "
+        f"logits identical); --init_from --lora_rank: 2 steps in {secs:.2f} s, loss {loss:.4f}, "
+        f"base bit-identical, every lora_b moved, {n_adapt:,} adapter values; launches "
+        f"{launches}; served merge {serve_err:.2e} off the in-memory merge; step (bf16, 2 x "
+        f"{LM_SEQ}) LoRA {lora_ms:.1f} ms, full {full_ms:.1f} ms; peak {peak:.2f} GiB")
+    return {"adapter_values": n_adapt, "serve_rel_err": serve_err,
+            "lora_step_ms": lora_ms, "full_step_ms": full_ms, "full_adam_bytes": adam_bytes,
+            "peak_gib": peak, "loss": loss}
+
+
+def lm_distill(device, cfg, weights, total) -> dict:
+    """The full-depth model (``weights``) teaches a student of the same
+    width and DISTILL_LAYERS layers, DISTILL_ROWS rows, DISTILL_STEPS steps
+    on one batch: KL and loss finite, the loss falls, launches = the
+    teacher's forward + the student's forward and backward per step."""
+    import torch
+
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.train.distill import make_distill_step
+    from forde_tpu_torch.train.state import create_train_state
+
+    teacher = build_lm(cfg, weights, device).requires_grad_(False)
+    s_cfg = cfg.replace(num_layers=DISTILL_LAYERS)
+    student = FORDEDecoderLM(s_cfg, device=device,
+                             generator=torch.Generator(device=device).manual_seed(SEED + 71))
+    state = create_train_state(s_cfg, None, 3e-4, 0.01, model=student)
+    step = make_distill_step(teacher, aux_loss_weight=0.01, alpha=0.5, temperature=2.0)
+    batch = lm_batch(DISTILL_ROWS, LM_SEQ, cfg.vocab_size, device, SEED + 72)
+    t_fwd = {"flash_fwd": cfg.num_layers, "small_kv_fwd": 2 * cfg.num_layers}
+    want = Counter(t_fwd)
+    want.update(lm_launches_per_step(s_cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, kls, times = [], [], []
+    for _ in range(DISTILL_STEPS):
+        t0 = time.perf_counter()
+        (state, m), launches = counted(lambda: step(state, batch))
+        times.append((time.perf_counter() - t0) * 1e3)
+        add_launches(total, launches)
+        if launches != dict(want):
+            raise AssertionError(f"distill step launches {launches}, expected {dict(want)}")
+        losses.append(float(m["loss/total"]))
+        kls.append(float(m["loss/kl"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[lm extras] distillation ({cfg.num_layers}-layer teacher, {DISTILL_LAYERS}-layer "
+        f"student, {DISTILL_ROWS} x {LM_SEQ}, bf16): loss {' -> '.join(f'{x:.4f}' for x in losses)}"
+        f", KL {' -> '.join(f'{x:.4f}' for x in kls)}; step {float(np.median(times[1:])):.1f} ms; "
+        f"peak {peak:.2f} GiB; launches per step {dict(want)}")
+    if not (np.isfinite(losses).all() and np.isfinite(kls).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"distillation: losses {losses}, KL {kls}")
+    del teacher, state, student
+    torch.cuda.empty_cache()
+    return {"losses": losses, "kl": kls, "step_ms": float(np.median(times[1:])),
+            "peak_gib": peak}
+
+
+def lm_eval(device, cfg, resume, workdir, total) -> dict:
+    """eval_lm on the held-out corpus (decompressed into ``workdir``) from
+    the resume checkpoint (fp32; EMA kept) and from the same weights under
+    a bf16 config: the fp32 lm_loss against the plain model's
+    (attention_impl="reference", no launch) within EVAL_REL_TOL relative,
+    --use_ema against the EMA weights' loss (both references built from the
+    weights the resume phase saved, held in memory), and evaluated
+    tokens/s."""
+    import gzip
+    import shutil
+
+    import torch
+
+    from forde_tpu_torch import eval_lm
+    from forde_tpu_torch.core.config import DTypePolicy, config_to_dict
+    from forde_tpu_torch.data.lm import create_text_file_dataset
+    from forde_tpu_torch.train.checkpoint import MODEL_CONFIG_FILENAME, PARAMS_FILENAME, load_meta
+    from forde_tpu_torch.train.state import TrainState
+    from forde_tpu_torch.train.step import eval_step
+
+    corpus = os.path.join(workdir, "heldout.txt")
+    with gzip.open(os.path.join(REPO, HELDOUT), "rb") as src, open(corpus, "wb") as dst:
+        shutil.copyfileobj(src, dst)
+    resume_ckpt = resume["ckpt"]
+    ck16 = os.path.join(workdir, "lm_resume_bf16")
+    os.makedirs(ck16, exist_ok=True)
+    cfg32, meta = load_meta(resume_ckpt)
+    with open(os.path.join(ck16, MODEL_CONFIG_FILENAME), "w") as f:
+        json.dump({"model": config_to_dict(cfg32.replace(dtypes=DTypePolicy.bf16())),
+                   "train": meta}, f)
+    os.symlink(os.path.join(resume_ckpt, PARAMS_FILENAME), os.path.join(ck16, PARAMS_FILENAME))
+    flags = ["--data_file", corpus, "--device", "cuda"] + EVAL_FLAGS
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    with quiet:
+        out32, l32 = counted(lambda: eval_lm.main(["--checkpoint_dir", resume_ckpt] + flags))
+        out16, l16 = counted(lambda: eval_lm.main(["--checkpoint_dir", ck16] + flags))
+        ema32, le = counted(lambda: eval_lm.main(["--checkpoint_dir", resume_ckpt, "--use_ema"]
+                                                 + flags))
+    for launches in (l32, l16, le):
+        add_launches(total, launches)
+    n = int(EVAL_FLAGS[EVAL_FLAGS.index("--num_batches") + 1])
+    rows = int(EVAL_FLAGS[EVAL_FLAGS.index("--batch_size") + 1])
+    seq = int(EVAL_FLAGS[EVAL_FLAGS.index("--seq_len") + 1])
+    want = {"flash_fwd": n * cfg.num_layers, "small_kv_fwd": 2 * n * cfg.num_layers}
+    batches = [{k: torch.from_numpy(v).to(device) for k, v in b.items()}
+               for b in create_text_file_dataset(corpus, rows, seq, num_batches=n, seed=42)]
+
+    def mean_loss(model):
+        state = TrainState(model=model, optimizer=None)
+        return float(np.mean([float(eval_step(state, b)["loss/lm"]) for b in batches]))
+
+    weights = resume["weights"]
+    plain = build_lm(cfg32, weights, device, impl="reference")
+    plain_loss, lp = counted(lambda: mean_loss(plain))
+    del plain
+    ema_model = build_lm(cfg32, {**weights, **resume["ema"]}, device)
+    ema_loss, lk = counted(lambda: mean_loss(ema_model))
+    add_launches(total, lk)
+    del ema_model
+    m16 = build_lm(cfg32, weights, device, dtypes=DTypePolicy.bf16())
+    mean_loss(m16)  # warm-up
+    t0 = time.perf_counter()
+    mean_loss(m16)
+    torch.cuda.synchronize()
+    tokens_per_s = n * rows * (seq - 1) / (time.perf_counter() - t0)
+    del m16
+    torch.cuda.empty_cache()
+    rel = abs(out32["lm_loss"] - plain_loss) / plain_loss
+    rel_ema = abs(ema32["lm_loss"] - ema_loss) / ema_loss
+    log(f"[lm extras] eval_lm ({' '.join(EVAL_FLAGS)}, the held-out corpus): fp32 lm_loss "
+        f"{out32['lm_loss']} (plain model {plain_loss:.6f}, relative {rel:.2e}), bf16 "
+        f"{out16['lm_loss']}, --use_ema {ema32['lm_loss']} (the EMA weights' {ema_loss:.6f}); "
+        f"{out32['tokens']} tokens, {tokens_per_s:,.0f} tokens/s evaluated (bf16); launches "
+        f"{l32}")
+    if (rel > EVAL_REL_TOL or rel_ema > 1e-5 or lp or l32 != want or l16 != want or le != want
+            or not np.isfinite(out16["lm_loss"])):
+        raise AssertionError(f"eval_lm: fp32 {out32} vs plain {plain_loss} ({rel:.2e}), EMA "
+                             f"{ema32} vs {ema_loss}, launches {l32} {l16} {le} plain {lp}")
+    return {"lm_loss_fp32": out32["lm_loss"], "lm_loss_bf16": out16["lm_loss"],
+            "plain_lm_loss": plain_loss, "rel_err": rel, "ema_lm_loss": ema32["lm_loss"],
+            "tokens": out32["tokens"], "tokens_per_s_bf16": tokens_per_s}
+
+
+def phase_lm_extras(device, workdir) -> dict:
+    """The decoder LM's training extras at the reference-default width and
+    depth (phase 27): EMA, gradient accumulation, resume, preemption, LoRA,
+    distillation and eval_lm, each held to its gate; the seconds of each."""
+    import torch
+
+    cfg = serve_config()
+    weights = lm_weights(cfg, device)
+    total: Counter = Counter()
+    out, secs = {}, {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return result
+
+    out.update(part("ema_accum", lm_ema_and_accum, device, cfg, weights, total))
+    resume = part("resume", lm_resume, device, cfg, weights, workdir, total)
+    out["resume"] = {k: v for k, v in resume.items() if k not in ("ckpt", "weights", "ema")}
+    out["preemption"] = part("preemption", run_preemption, workdir)
+    out["lora"] = part("lora", lm_lora, device, cfg, weights, workdir, total)
+    out["distill"] = part("distill", lm_distill, device, cfg, weights, total)
+    out["eval_lm"] = part("eval_lm", lm_eval, device, cfg, resume, workdir, total)
+    del weights, resume
+    torch.cuda.empty_cache()
+    log("[lm extras] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    out["seconds"] = secs
+    out["launches"] = dict(total)
+    return out
+
+
+CLIP_EXTRAS_ARGV = [
+    "--preset", "vit_b16", "--bf16", "--use_aligned_data", "--aligned_classes", "4096",
+    "--batch_size", "128", "--num_steps", "8", "--eval_interval", "4", "--eval_batches", "2",
+    "--ema_decay", str(EMA_DECAY), "--fuse_steps", "2",
+]
+CLIP_FUSE_K = 2
+RANK_TIE_BAND = 1e-5  # fp32 rounding of a 512-wide cosine, with room
+
+
+def clip_extras_config():
+    """vit_b16 (the clip loop's preset), bf16, sensing on."""
+    from forde_tpu_torch.core.config import DTypePolicy, vit_b16_config
+
+    return vit_b16_config().replace(dtypes=DTypePolicy.bf16(), sense=True)
+RENDER_BATCHES = 8
+
+
+def clip_fused_ema(device, cfg, total) -> dict:
+    """make_fused_step over with_ema steps (k = CLIP_FUSE_K, every step
+    sensed): a replayed call against the same steps run eagerly with EMA
+    from the same state, bit for bit (or within phase 6's bars, as phase
+    16 holds fused steps); the EMA tensors keep their storage; launches."""
+    import torch
+
+    from forde_tpu_torch.train.clip_step import clip_train_step, make_fused_step, stack_batches
+    from forde_tpu_torch.train.ema import init_ema, with_ema
+
+    weights = build_model(cfg, device).state_dict()
+    batches = []
+    for i in range(CLIP_FUSE_K):
+        b = training_batch(cfg, FUSE_BATCH, device, SEED + 80 + i)
+        b["image"] = b["image"].to(cfg.dtypes.compute)
+        batches.append(b)
+    rolled = batches[1:] + batches[:1]
+    sensed = with_ema(clip_train_step, EMA_DECAY)
+    fused = make_fused_step(cfg, CLIP_FUSE_K, 1, sensed_step=sensed)
+    first = fused.prepare(next(stack_batches(iter(batches), CLIP_FUSE_K)))
+    second = fused.prepare(next(stack_batches(iter(rolled), CLIP_FUSE_K)))
+    fus = init_ema(train_state(cfg, weights, device))
+    eager = init_ema(train_state(cfg, weights, device))
+    ptrs = [e.data_ptr() for e in fus.ema]
+    fused(fus, first)
+    copy_train_state_(eager, fus)
+    with torch.no_grad():
+        torch._foreach_copy_(eager.ema, fus.ema)
+    (fus, fm), lf = counted(lambda: fused(fus, second))
+    add_launches(total, lf)
+
+    def eager_steps():
+        m = None
+        for b in rolled:
+            _, m = sensed(eager, b)
+        return m
+
+    em, le = counted(eager_steps)
+    add_launches(total, le)
+    want = {k: CLIP_FUSE_K * v for k, v in launches_per_step(cfg, True).items()}
+    if lf != want or le != want or [e.data_ptr() for e in fus.ema] != ptrs:
+        raise AssertionError(f"fused steps with EMA: launches {lf} / {le} (expected {want}), "
+                             "EMA storage kept " + str([e.data_ptr() for e in fus.ema] == ptrs))
+    got = {"ema": flat(fus.ema), "params": flat(fus.optimizer.params),
+           "grads": flat(fus.optimizer.mu), "loss": fm["loss/contrastive"].reshape(1)}
+    ref = {"ema": flat(eager.ema), "params": flat(eager.optimizer.params),
+           "grads": flat(eager.optimizer.mu), "loss": em["loss/contrastive"].reshape(1)}
+    readings = {}
+    for k in ref:
+        identical = bool(torch.equal(got[k], ref[k]))
+        rel = rel_l2(got[k], ref[k])
+        readings[k] = {"bit_identical": identical, "rel_l2": rel}
+        tol = PARITY_TOL["bf16"].get("params" if k == "ema" else k, 0.0)
+        if not identical and not rel <= tol:
+            raise AssertionError(f"fused + EMA vs eager + EMA {k}: relative L2 {rel:.3e} > {tol:g}")
+    log(f"[clip extras] fused {CLIP_FUSE_K} steps with EMA (vit_b16, bf16, batch {FUSE_BATCH}): a "
+        f"replayed call against the same steps run eagerly with EMA: " + ", ".join(
+            f"{k} " + ("identical" if r["bit_identical"] else f"{r['rel_l2']:.3e}")
+            for k, r in readings.items())
+        + f"; the EMA's {len(ptrs)} tensors kept their storage; launches per call {want}")
+    del fus, eager, fused, first, second, batches, rolled
+    torch.cuda.empty_cache()
+    return readings
+
+
+def clip_renderer(device, cfg) -> dict:
+    """AlignedDeviceRenderer with noise 0 against AlignedSyntheticVLDataset
+    at batch 128, 224 px: ids and masks exactly, images within 1e-6; then
+    renders per second with noise."""
+    import torch
+
+    from forde_tpu_torch.data.vl import AlignedDeviceRenderer, AlignedSyntheticVLDataset
+
+    kw = dict(image_size=cfg.image_size, text_len=cfg.max_text_len, vocab_size=cfg.vocab_size,
+              num_classes=4096, seed=SEED)
+    clean = AlignedSyntheticVLDataset(FUSE_BATCH, 1, noise=0.0, **kw)
+    host = next(iter(clean))
+    dev = next(AlignedDeviceRenderer(clean, device).batches())
+    img_err = float((dev["image"].cpu() - torch.from_numpy(host["image"])).abs().max())
+    exact = all(np.array_equal(dev[k].cpu().numpy(), host[k])
+                for k in ("input_ids", "attention_mask"))
+    if not exact or not img_err <= 1e-6:
+        raise AssertionError(f"renderer vs dataset: ids/masks exact {exact}, image {img_err:.3e}")
+    noisy = AlignedDeviceRenderer(AlignedSyntheticVLDataset(FUSE_BATCH, RENDER_BATCHES, **kw),
+                                  device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in noisy.batches():
+        pass
+    torch.cuda.synchronize()
+    per_s = RENDER_BATCHES / (time.perf_counter() - t0)
+    log(f"[clip extras] aligned data on the card: noise 0 against the numpy dataset, ids and "
+        f"masks exact, images within {img_err:.2e}; {per_s:.1f} batches/s rendered "
+        f"({per_s * FUSE_BATCH:,.0f} images/s, batch {FUSE_BATCH}, {cfg.image_size} px, noise)")
+    return {"image_max_abs_err": img_err, "batches_per_s": per_s}
+
+
+def clip_loop_extras(device, workdir, total) -> dict:
+    """clip_loop.main at CLIP_EXTRAS_ARGV with a checkpoint: the seen_,
+    unseen_, ema_seen_ and ema_unseen_ metrics at both evals, in [0, 1];
+    exact launches (8 sensed steps, 2 evals of 4 sets x 2 batches); the
+    card's retrieval ranks equal the CPU's on the same embeddings; the
+    checkpoint restores the step, the EMA and Adam bit for bit."""
+    import torch
+
+    from forde_tpu_torch.models.dual_encoder import l2_normalize
+    from forde_tpu_torch.obs.retrieval import _retrieval_ranks
+    from forde_tpu_torch.train import clip_loop
+    from forde_tpu_torch.train.checkpoint import restore_train_state
+    from forde_tpu_torch.train.clip_step import clip_eval_embeddings, create_clip_train_state
+    from forde_tpu_torch.train.ema import init_ema
+
+    ckpt = os.path.join(workdir, "clip_extras_ckpt")
+    argv = CLIP_EXTRAS_ARGV + ["--checkpoint_dir", ckpt, "--seed", str(SEED)]
+    args = clip_loop.build_parser().parse_args(argv)
+    cfg = clip_loop.config_from_args(args)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            t0 = time.perf_counter()
+            out, launches = counted(lambda: clip_loop.main(argv))
+            secs = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    add_launches(total, launches)
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    prefixes = ("seen_", "unseen_", "ema_seen_", "ema_unseen_")
+    evals = out["retrieval"]
+    n_enc = len(evals) * len(prefixes) * args.eval_batches
+    per = launches_per_step(cfg, True)
+    want = {"flash_mha_fwd": args.num_steps * per["flash_mha_fwd"] + n_enc * layers,
+            "flash_mha_bwd": args.num_steps * per["flash_mha_bwd"],
+            "moment_sums": args.num_steps * per["moment_sums"]}
+    bad = [(r["step"], k) for r in evals for p in prefixes for k in
+           (f"retrieval/{p}{d}_recall@{n}" for d in ("i2t", "t2i") for n in (1, 5, 10))
+           if not 0.0 <= r["metrics"].get(k, -1.0) <= 1.0]
+    loss = out["final_metrics"]["loss/contrastive"]
+    if ([r["step"] for r in evals] != [4, 8] or bad or launches != want
+            or not np.isfinite(loss) or out["step"] != args.num_steps):
+        raise AssertionError(f"clip loop extras: evals at {[r['step'] for r in evals]}, metrics "
+                             f"missing or out of [0, 1] {bad[:4]}, launches {launches} "
+                             f"(expected {want}), loss {loss}")
+    state = out["state"]
+    held = clip_loop._eval_sets(args, cfg, device)["seen_"]
+    with torch.no_grad():
+        embs = [clip_eval_embeddings(state, b) for b in held]
+    img = torch.cat([e[0] for e in embs])
+    txt = torch.cat([e[1] for e in embs])
+    card = [r.cpu() for r in _retrieval_ranks(img, txt)]
+    host = _retrieval_ranks(img.cpu(), txt.cpu())
+    # A rank may move only by candidates whose score lies within fp32
+    # rounding (RANK_TIE_BAND, in float64 on the CPU) of the match's.
+    sims = (l2_normalize(img.cpu().double()) @ l2_normalize(txt.cpu().double()).T)
+    diag = torch.diagonal(sims)
+    bands = ((sims - diag[:, None]).abs() <= RANK_TIE_BAND).sum(1) - 1, \
+        ((sims - diag[None, :]).abs() <= RANK_TIE_BAND).sum(0) - 1
+    moved = [int((a != b).sum()) for a, b in zip(card, host)]
+    ranks_equal = all(bool(((a - b).abs() <= band).all())
+                      for a, b, band in zip(card, host, bands))
+    fresh = init_ema(create_clip_train_state(cfg, None, args.learning_rate, args.weight_decay,
+                                             device=device))
+    restore_train_state(ckpt, fresh)
+    restored = state_tensors(fresh)
+    off = same_tensors(restored, state_tensors(state))
+    if not ranks_equal or off or fresh.step != state.step:
+        raise AssertionError(f"retrieval ranks card = CPU {ranks_equal}; restored state: "
+                             f"{len(off)} tensors differ ({off[:4]}), step {fresh.step}")
+    eval_s = sum(r["seconds"] for r in evals)
+    pairs = args.num_steps * args.batch_size
+    log(f"[clip extras] clip_loop.main ({' '.join(CLIP_EXTRAS_ARGV)}) took {secs:.2f} s, final "
+        f"loss {loss:.4f}; evals at {[r['step'] for r in evals]}: " + "; ".join(
+            f"{p} i2t R@1 {evals[-1]['metrics'][f'retrieval/{p}i2t_recall@1']:.4f}"
+            for p in prefixes)
+        + f"; launches {launches}; ranks on the card = the CPU's ({img.shape[0]} pairs, "
+        f"{sum(moved)} of {2 * img.shape[0]} moved within a tie band of {RANK_TIE_BAND:g}); the "
+        f"checkpoint restored the step ({fresh.step}), the EMA and Adam bit for bit; "
+        f"{pairs / secs:.1f} pairs/s with the eval, {pairs / (secs - eval_s):.1f} without "
+        f"(the run's wall time, set-up and captures included); retrieval eval "
+        f"{eval_s / n_enc * 1e3:.1f} ms per batch of {args.batch_size}")
+    del state, fresh, out
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "eval_seconds": eval_s, "final_loss": loss, "ranks_moved": moved,
+            "pairs_per_s_with_eval": pairs / secs,
+            "pairs_per_s_without_eval": pairs / (secs - eval_s),
+            "eval_ms_per_batch": eval_s / n_enc * 1e3,
+            "last_eval": evals[-1]["metrics"]}
+
+
+def phase_clip_extras(device, workdir) -> dict:
+    """The dual encoder's training extras at vit_b16, bf16, batch 128
+    (phase 28): fused steps with EMA, the aligned data on the card, and
+    the clip loop with the retrieval eval, EMA and a checkpoint."""
+    cfg = clip_extras_config()
+    total: Counter = Counter()
+    out = {"fused_ema": clip_fused_ema(device, cfg, total),
+           "renderer": clip_renderer(device, cfg),
+           "clip_loop": clip_loop_extras(device, workdir, total)}
+    out["launches"] = dict(total)
+    return out
+
+
 def timed(phase, *args):
     """phase(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -4290,6 +5072,9 @@ def main() -> int:
     int8 = timed(phase_int8, device, serve_run["state"], serve_parity)
     pool = timed(phase_pool, device, serve_run["state"])
     http = timed(phase_http, device)
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
+        lm_extras = timed(phase_lm_extras, device, workdir)
+        clip_extras = timed(phase_clip_extras, device, workdir)
     shapes.update(timed(phase_serving_kernel_timing, device))
     shapes["topk_replay"] = topk["shapes"]
     lm_parity = timed(phase_lm_step_parity, device)
@@ -4310,7 +5095,9 @@ def main() -> int:
                 "serve_speculative": speculative["launches"].get(name, 0),
                 "serve_int8": int8["launches"].get(name, 0),
                 "pool": pool["launches"].get(name, 0),
-                "http": http["launches"].get(name, 0)}
+                "http": http["launches"].get(name, 0),
+                "lm_extras": lm_extras["launches"].get(name, 0),
+                "clip_extras": clip_extras["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -4453,6 +5240,8 @@ def main() -> int:
         "cli_extras": cli_extras,
         "pool": pool,
         "http": {k: v for k, v in http.items() if k != "launches"},
+        "lm_extras": {k: v for k, v in lm_extras.items() if k != "launches"},
+        "clip_extras": {k: v for k, v in clip_extras.items() if k != "launches"},
         "card": smi,
     }
     print(smi)

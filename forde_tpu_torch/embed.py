@@ -37,7 +37,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="semicolon-separated token-id sequences, e.g. "
                         '"12,99,407;7,5" (padded/truncated to max_text_len)')
     p.add_argument("--use_ema", action="store_true",
-                   help="embed with the EMA weights (not ported yet)")
+                   help="embed with the EMA weights (a checkpoint trained with --ema_decay)")
     p.add_argument("--out", type=str, default=None,
                    help="prefix: saves <out>_image.npy / <out>_text.npy")
     p.add_argument("--device", type=str, default="cuda",
@@ -84,15 +84,15 @@ def main(argv: Optional[list] = None) -> None:
     args = build_parser().parse_args(argv)
     if not (args.image_npy or args.text_ids):
         raise SystemExit("give --image_npy and/or --text_ids")
-    if args.use_ema:
-        raise NotImplementedError("--use_ema: EMA weights are not ported yet")
     device = resolve_device(args.device)
     from forde_tpu_torch.models.dual_encoder import l2_normalize
     from forde_tpu_torch.train.checkpoint import load_meta, load_clip_params
 
-    cfg, model = load_clip_params(args.checkpoint_dir, device)
+    cfg, model = load_clip_params(args.checkpoint_dir, device, use_ema=args.use_ema)
     step = int(load_meta(args.checkpoint_dir)[1].get("step", 0))
     print(f"[embed] restored step {step} from {args.checkpoint_dir}")
+    if args.use_ema:
+        print("[embed] using EMA weights")
 
     img_emb = txt_emb = None
     with torch.inference_mode():

@@ -40,7 +40,7 @@ a checkpoint's ``params.npz`` (``params/...``, ``brain/...``,
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -210,34 +210,43 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict
     (``brain`` and ``stats_buffer`` empty where the model has none). A
     ``weight`` takes the Flax leaf of its module (``_WEIGHT_OWNERS``);
     one under a module of another name raises."""
-    params: Dict[str, np.ndarray] = {}
-    brain: Dict[str, np.ndarray] = {}
-    stats: Dict[str, np.ndarray] = {}
-    for key, t in state_dict.items():
-        *names, leaf = _flax_names(key)
-        value = t.detach().cpu()
+    trees: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "brain": {}, "stats_buffer": {}}
+    for key, (path, transposed) in flax_keys(state_dict).items():
+        collection, _, flax_path = path.partition("/")
+        value = state_dict[key].detach().cpu()
+        if collection == "brain":
+            value = value.numpy().astype(np.int32)
+        elif collection == "stats_buffer":
+            value = value.numpy().astype(_STATS_LEAVES[flax_path.rsplit("/", 1)[-1]])
+        else:
+            value = value.numpy() if value.dtype == torch.int8 else value.float().numpy()
+            value = np.array(value.T if transposed else value)
+        trees[collection][flax_path] = value
+    return {k: unflatten(v) for k, v in trees.items()}
+
+
+def flax_keys(names) -> Dict[str, Tuple[str, bool]]:
+    """The checkpoint key of each ``state_dict`` key of ``names``
+    ("params/...", "brain/..." or "stats_buffer/...", the Flax path under
+    its collection) and whether the Flax layout transposes the tensor: the
+    naming of ``state_dict_to_flax``, without the values."""
+    out = {}
+    for key in names:
+        *names_, leaf = _flax_names(key)
+        collection = "params"
         if leaf in _BRAIN_LEAVES:
-            brain["/".join(names + [leaf])] = value.numpy().astype(np.int32)
-            continue
-        if leaf in _STATS_LEAVES:
-            stats["/".join(names + [leaf])] = value.numpy().astype(_STATS_LEAVES[leaf])
-            continue
-        if leaf == "weight_q":
-            params["/".join(names + ["kernel_q"])] = value.numpy().T.copy()
-            continue
-        value = value.numpy() if value.dtype == torch.int8 else value.float().numpy()
-        if leaf == "weight":
-            owner = names[-1] if names else ""
+            collection = "brain"
+        elif leaf in _STATS_LEAVES:
+            collection = "stats_buffer"
+        elif leaf == "weight_q":
+            leaf = "kernel_q"
+        elif leaf == "weight":
+            owner = names_[-1] if names_ else ""
             if owner not in _WEIGHT_OWNERS:
                 raise KeyError(f"no Flax leaf known for the weight of module {owner!r} ({key})")
             leaf = _WEIGHT_OWNERS[owner]
-            if leaf == "kernel":
-                value = value.T
-        params["/".join(names + [leaf])] = np.array(value)
-    return {
-        "params": unflatten(params), "brain": unflatten(brain),
-        "stats_buffer": unflatten(stats),
-    }
+        out[key] = ("/".join([collection] + names_ + [leaf]), leaf in _TRANSPOSED)
+    return out
 
 
 def grad_stats_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
@@ -250,11 +259,17 @@ def grad_stats_from_flax(tree: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
+def grad_stats_key(name: str) -> str:
+    """The Flax path of a StatefulLayer's (F, 2) slot in the ``perturbations``
+    and ``grad_stats`` trees ("vision.blocks.0.stateful" ->
+    "vision/block_0/stateful/z_tap")."""
+    return "/".join(_flax_names(name) + [_TAP_LEAF])
+
+
 def grad_stats_to_flax(grad_stats: Mapping[str, torch.Tensor]) -> dict:
     """Inverse of ``grad_stats_from_flax``: the JAX package's tree of
     numpy arrays."""
     return unflatten({
-        "/".join(_flax_names(name) + [_TAP_LEAF]):
-            t.detach().cpu().float().numpy()
+        grad_stats_key(name): t.detach().cpu().float().numpy()
         for name, t in grad_stats.items()
     })

@@ -18,10 +18,13 @@ continues every prompt from it (dense-causal configs); ``--quantize int8``
 serves int8 weights (ops/quant.py; the draft's too). Runs on CUDA unless
 ``--device cpu``; with no GPU visible it raises.
 
+``--use_ema`` serves a checkpoint's EMA weights, and a LoRA checkpoint is
+served with its adapters merged into the base it records (or
+``--lora_base_dir``; train/checkpoint.load_lm_params).
+
 Not ported yet, and refused with the slice they wait for: tensor-parallel
-serving and expert-parallel MoE dispatch (the multi-device slice), EMA and
-LoRA weights (the training-extras slice), and text prompts (they need a
-tokenizer in the repository).
+serving and expert-parallel MoE dispatch (the multi-device slice), and
+text prompts (they need a tokenizer in the repository).
 """
 
 from __future__ import annotations
@@ -90,8 +93,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="beam search: scores / generated_len**penalty (only meaningful "
                         "with --eos_id)")
     p.add_argument("--tensor_parallelism", type=int, default=1, help="(not ported)")
-    p.add_argument("--use_ema", action="store_true", help="(not ported)")
-    p.add_argument("--lora_base_dir", type=str, default=None, help="(not ported)")
+    p.add_argument("--use_ema", action="store_true",
+                   help="serve the EMA weights (a checkpoint trained with --ema_decay)")
+    p.add_argument("--lora_base_dir", type=str, default=None,
+                   help="override a LoRA checkpoint's recorded base path")
     p.add_argument("--draft_checkpoint_dir", type=str, default=None,
                    help="speculative decoding: a (smaller) draft model checkpoint with "
                         "model_config.json; both models dense-causal (--no_nsa) with one "
@@ -110,8 +115,6 @@ def build_parser() -> argparse.ArgumentParser:
 _NOT_PORTED = (
     (lambda a: a.tensor_parallelism > 1, "--tensor_parallelism > 1",
      "the multi-device slice"),
-    (lambda a: a.use_ema, "--use_ema", "training extras"),
-    (lambda a: a.lora_base_dir, "--lora_base_dir", "training extras"),
     (lambda a: a.prompt is not None, "--prompt",
      "a tokenizer in the repository"),
     (lambda a: a.text_prompts, "--text_prompts",
@@ -136,10 +139,17 @@ def load_serving_model(args, device):
     from forde_tpu_torch.train.checkpoint import load_lm_params, load_meta
 
     if args.checkpoint_dir:
-        config, model = load_lm_params(args.checkpoint_dir, device)
-        step = int(load_meta(args.checkpoint_dir)[1].get("step", 0))
+        config, model = load_lm_params(args.checkpoint_dir, device, use_ema=args.use_ema,
+                                       lora_base_dir=args.lora_base_dir)
+        meta = load_meta(args.checkpoint_dir)[1]
         print(f"[serve] model config loaded from {args.checkpoint_dir}/model_config.json")
-        print(f"[serve] restored step {step} from {args.checkpoint_dir}")
+        if meta.get("lora"):
+            print("[serve] LoRA checkpoint: adapters merged into the base weights at load")
+        print(f"[serve] restored step {int(meta.get('step', 0))} from {args.checkpoint_dir}")
+        if args.use_ema:
+            print("[serve] serving EMA weights")
+    elif args.use_ema:
+        raise ValueError("--use_ema needs a --checkpoint_dir trained with --ema_decay")
     else:
         config = config_from_args(args)
         gen = torch.Generator(device=device).manual_seed(args.seed)

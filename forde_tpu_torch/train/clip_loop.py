@@ -4,30 +4,42 @@ forde_tpu/train/clip_loop.py).
 Contrastive steps with FORDE sensing every ``--sense_interval``-th step
 (the other steps run the same update with sensing off), and every
 ``--slow_loop_interval`` steps the neuron slow loop (GMM, or Forde-lite)
-re-specialises the StatefulLayers. Data are the synthetic pairs
-(``--use_dummy_data``); ``--dummy_pool`` keeps that many batches on the
-device and cycles them. With ``--checkpoint_dir`` the final parameters and
-brain map are written in the port's checkpoint format, which
-``forde_tpu_torch.embed`` serves. Runs on CUDA unless ``--device cpu``;
-with no GPU visible it raises.
+re-specialises the StatefulLayers. Data: the synthetic pairs
+(``--use_dummy_data``; ``--dummy_pool`` keeps that many batches on the
+device and cycles them), or the aligned pairs (``--use_aligned_data``,
+rendered on the device from class ids, ``data/vl.AlignedDeviceRenderer``:
+training on classes [0, 0.9 C) of ``--aligned_classes`` C). Every
+``--eval_interval`` steps the retrieval eval (obs/retrieval.py) runs over
+``--eval_batches`` held-out batches: ``seen_`` (new renders of training
+classes) and ``unseen_`` (held-out classes) with aligned data, and with
+``--ema_decay`` the same sets on the EMA weights (``ema_`` tags). With
+``--checkpoint_dir`` the whole train state is saved every
+``max(slow_loop_interval, 100)`` steps and at the end (``embed`` serves
+it), ``--resume`` goes on from it, and SIGTERM/SIGINT stop the run at the
+next step boundary and save. Runs on CUDA unless ``--device cpu``; with no
+GPU visible it raises.
 
   python -m forde_tpu_torch.train.clip_loop --preset vit_b16 --bf16 \\
       --use_dummy_data --dummy_pool 2 --batch_size 128 --num_steps 16 \\
       --sense_interval 8 --slow_loop_interval 8 --moment_dtype bfloat16
   python -m forde_tpu_torch.train.clip_loop --device cpu --preset tiny \\
-      --use_dummy_data --batch_size 2 --num_steps 4 --slow_loop_interval 2
+      --use_aligned_data --aligned_classes 64 --batch_size 4 --num_steps 4 \\
+      --eval_interval 2 --eval_batches 2 --ema_decay 0.99 --slow_loop_interval 2
 
 ``--fuse_steps k`` runs k steps per call of ``make_fused_step``: on the
-card one CUDA graph of the k steps over a stacked super-batch.
+card one CUDA graph of the k steps (the EMA update included) over a
+stacked super-batch.
 
-Not ported yet (and not accepted): ``--ema_decay``,
-``--tensor_parallelism``, ``--param_sharding``, ``--use_aligned_data``,
-the retrieval eval, plots, ``--profile_dir`` and ``--resume``.
+Not ported yet (and not accepted): ``--tensor_parallelism`` and
+``--param_sharding`` (the multi-device slice), ``--plots_dir`` and
+``--profile_dir`` (the training extras' second part), and the streamed
+Conceptual Captions data (a tokenizer and data in the repository).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import itertools
 import time
 from datetime import datetime
@@ -87,19 +99,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="rule-based assignments instead of the GMM")
     p.add_argument("--gmm", action="store_true",
                    help="force GMM clustering (overrides a preset's forde_lite)")
-    p.add_argument("--use_dummy_data", action="store_true",
-                   help="synthetic pairs (the only data source ported)")
+    p.add_argument("--use_dummy_data", action="store_true", help="synthetic random pairs")
     p.add_argument("--dummy_pool", type=int, default=0,
                    help="with --use_dummy_data: keep this many batches on the "
                         "device and cycle them (0 = fresh host batches)")
+    p.add_argument("--use_aligned_data", action="store_true",
+                   help="procedurally aligned (image, caption) pairs rendered on the "
+                        "device; learnable offline, eval on held-out classes")
+    p.add_argument("--aligned_classes", type=int, default=4096)
     p.add_argument("--checkpoint_dir", type=str, default=None,
-                   help="write the final params + brain here (port format)")
+                   help="save the train state here (port format)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the train state in --checkpoint_dir and go on from its step")
     p.add_argument("--experiment_name", type=str, default="forde_tpu_clip",
                    help="metrics go to runs/<name>_<time>/metrics.jsonl")
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--moment_dtype", type=str, default=None,
                    help="Adam moment storage dtype (e.g. bfloat16); update "
                         "math stays fp32")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="> 0 keeps an EMA of the params inside the step (checkpointed; "
+                        "the eval also reports EMA retrieval)")
+    p.add_argument("--eval_interval", type=int, default=0,
+                   help="steps between retrieval evals (0 disables)")
+    p.add_argument("--eval_batches", type=int, default=4)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     # custom-preset model knobs
@@ -151,18 +174,58 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _eval_sets(args, cfg, device) -> dict:
+    """{prefix: held-out eval batches} of the retrieval eval, as the JAX
+    loop builds them: with aligned data new renders of the training
+    classes (``seen_``, sample seed + 2) and the held-out classes
+    (``unseen_``, sample seed + 1), each sampled without replacement, in
+    the training world (the same seed); with dummy data the first
+    ``--eval_batches`` batches of the seed + 1 stream."""
+    from forde_tpu_torch.data.vl import (
+        AlignedDeviceRenderer,
+        AlignedSyntheticVLDataset,
+        SyntheticVLDataset,
+        hold_out_eval,
+    )
+
+    if args.use_aligned_data:
+        split = int(args.aligned_classes * 0.9)
+
+        def rendered(lo, hi, sample_seed):
+            return list(AlignedDeviceRenderer(AlignedSyntheticVLDataset(
+                args.batch_size, args.eval_batches, image_size=cfg.image_size,
+                text_len=args.text_len, vocab_size=cfg.vocab_size,
+                num_classes=args.aligned_classes, class_range=(lo, hi), seed=args.seed,
+                sample_seed=sample_seed, distinct=True,
+            ), device).batches())
+
+        return {"seen_": rendered(0, split, args.seed + 2),
+                "unseen_": rendered(split, args.aligned_classes, args.seed + 1)}
+    held, _ = hold_out_eval(SyntheticVLDataset(
+        args.batch_size, args.eval_batches, image_size=cfg.image_size, text_len=args.text_len,
+        vocab_size=cfg.vocab_size, seed=args.seed + 1,
+    ), args.eval_batches)
+    return {"": held}
+
+
 def train(args: Optional[argparse.Namespace] = None) -> dict:
     """Run the loop; returns {"state", "final_metrics", "step",
-    "pairs_per_sec", "brain_updates"}. Each brain update's
-    record holds its step, latency, ``skipped``, and the sums of |grad_stats|
-    and the sensed step counts just before the update and just after."""
+    "pairs_per_sec", "brain_updates", "retrieval"}. Each brain update's
+    record holds its step, latency, ``skipped``, and the sums of
+    |grad_stats| and the sensed step counts just before the update and
+    just after; ``retrieval`` holds each eval's step, seconds and
+    metrics."""
     from forde_tpu_torch.brain.neuron_slow_loop import neuron_slow_loop_step
     from forde_tpu_torch.data.prefetch import prefetch_to_device
-    from forde_tpu_torch.data.vl import SyntheticVLDataset
-    from forde_tpu_torch.interop import flatten, state_dict_to_flax
+    from forde_tpu_torch.data.vl import (
+        AlignedDeviceRenderer,
+        AlignedSyntheticVLDataset,
+        SyntheticVLDataset,
+    )
     from forde_tpu_torch.nn.stateful import stateful_layers
     from forde_tpu_torch.obs.metrics import MetricsWriter, ThroughputMeter
-    from forde_tpu_torch.train.checkpoint import save_params
+    from forde_tpu_torch.obs.retrieval import evaluate_retrieval
+    from forde_tpu_torch.train import checkpoint as ckpt_lib
     from forde_tpu_torch.train.clip_step import (
         clip_train_step,
         create_clip_train_state,
@@ -170,13 +233,14 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         make_nosense_step,
         stack_batches,
     )
+    from forde_tpu_torch.train.ema import init_ema, swap_in_ema, with_ema
 
     if args is None:
         args = build_parser().parse_args([])
-    if not args.use_dummy_data:
+    if not (args.use_dummy_data or args.use_aligned_data):
         raise NotImplementedError(
-            "only --use_dummy_data is ported; the streamed Conceptual "
-            "Captions pipeline is not"
+            "only --use_dummy_data and --use_aligned_data are ported; the streamed Conceptual "
+            "Captions pipeline is not (it waits for a tokenizer and data in the repository)"
         )
     device = resolve_device(args.device)
     cfg = config_from_args(args)
@@ -193,11 +257,25 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         lr_schedule=args.lr_schedule, decay_steps=args.decay_steps,
         min_lr_ratio=args.min_lr_ratio, device=device,
     )
+    if args.ema_decay > 0:
+        init_ema(state)
     n_params = sum(p.numel() for p in state.optimizer.params)
     print(f"state created in {time.perf_counter() - t_init:.1f}s "
           f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
+    train_meta = {
+        "moment_dtype": args.moment_dtype, "warmup_steps": args.warmup_steps,
+        "ema_decay": args.ema_decay, "lr_schedule": args.lr_schedule,
+        "decay_steps": args.decay_steps, "min_lr_ratio": args.min_lr_ratio,
+    }
+    if args.checkpoint_dir and args.resume:
+        ckpt_lib.resume_train_state(args.checkpoint_dir, state)
 
     nosense_step = make_nosense_step(cfg) if args.sense_interval > 1 else None
+    sensed_step = clip_train_step
+    if args.ema_decay > 0:
+        sensed_step = with_ema(clip_train_step, args.ema_decay)
+        if nosense_step is not None:
+            nosense_step = with_ema(nosense_step, args.ema_decay)
     fuse = max(1, args.fuse_steps)
     fused_step = None
     if fuse > 1:
@@ -208,22 +286,34 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             )
         # Host-side cadences fire on `step % interval == 0` and step now
         # advances by `fuse` per dispatch — round them up to boundaries.
-        for name in ("log_interval", "slow_loop_interval"):
+        for name in ("log_interval", "slow_loop_interval", "eval_interval"):
             v = getattr(args, name)
             if v > 0 and v % fuse:
                 rounded = ((v + fuse - 1) // fuse) * fuse
                 print(f"--{name} {v} -> {rounded} (rounded to a "
                       f"--fuse_steps boundary)")
                 setattr(args, name, rounded)
-        fused_step = make_fused_step(cfg, fuse, args.sense_interval, nosense_step=nosense_step)
+        fused_step = make_fused_step(cfg, fuse, args.sense_interval, sensed_step=sensed_step,
+                                     nosense_step=nosense_step)
 
     writer = MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
-    dataset = SyntheticVLDataset(
-        args.batch_size, args.num_steps, image_size=cfg.image_size,
-        text_len=args.text_len, vocab_size=cfg.vocab_size, seed=args.seed,
-        pool=args.dummy_pool,
-    )
-    if args.dummy_pool:
+    eval_sets = _eval_sets(args, cfg, device) if args.eval_interval > 0 else {}
+    if args.use_aligned_data:
+        # Train on classes [0, 0.9 C); the eval's unseen_ classes are the rest.
+        batches = AlignedDeviceRenderer(AlignedSyntheticVLDataset(
+            args.batch_size, args.num_steps, image_size=cfg.image_size,
+            text_len=args.text_len, vocab_size=cfg.vocab_size,
+            num_classes=args.aligned_classes,
+            class_range=(0, int(args.aligned_classes * 0.9)), seed=args.seed,
+        ), device).batches()
+        if fused_step is not None:
+            batches = (fused_step.prepare(sb) for sb in stack_batches(batches, fuse))
+    elif args.dummy_pool:
+        dataset = SyntheticVLDataset(
+            args.batch_size, args.num_steps, image_size=cfg.image_size,
+            text_len=args.text_len, vocab_size=cfg.vocab_size, seed=args.seed,
+            pool=args.dummy_pool,
+        )
         # Device-resident pool: each distinct batch is copied once, its
         # images in the compute dtype (the model's first op casts them);
         # with --fuse_steps, pre-stacked super-batches.
@@ -236,95 +326,118 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             pool = [fused_step.prepare(sb) for sb in stack_batches(iter(pool), fuse)]
         batches = (pool[i % len(pool)] for i in range(args.num_steps // fuse))
     else:
-        batches = prefetch_to_device(iter(dataset), device)
+        batches = prefetch_to_device(iter(SyntheticVLDataset(
+            args.batch_size, args.num_steps, image_size=cfg.image_size,
+            text_len=args.text_len, vocab_size=cfg.vocab_size, seed=args.seed,
+        )), device)
         if fused_step is not None:
             batches = (fused_step.prepare(sb) for sb in stack_batches(batches, fuse))
 
+    def save(step):
+        ckpt_lib.save_train_state(args.checkpoint_dir, state, step, train_meta)
+
     meter = ThroughputMeter(items_per_step=args.batch_size * fuse)
-    step, last, brain_updates = 0, {}, []
+    step, last, brain_updates, retrieval = state.step, {}, [], []
     metrics = None
+    preempt = ckpt_lib.preemption_requests() if args.checkpoint_dir else contextlib.nullcontext([])
     try:
-        for batch in batches:
-            if fused_step is not None:
-                # the slow loop below runs only between fused calls
-                state, metrics = fused_step(state, batch)
-                step += fuse
-            elif nosense_step is not None and step % args.sense_interval:
-                state, metrics = nosense_step(state, batch)
-                step += 1
-            else:
-                state, metrics = clip_train_step(state, batch)
-                step += 1
-            meter.step()
+        with preempt as stop:
+            for batch in batches:
+                if stop:
+                    break
+                if fused_step is not None:
+                    # the slow loop and the eval below run only between fused calls
+                    state, metrics = fused_step(state, batch)
+                    step += fuse
+                elif nosense_step is not None and step % args.sense_interval:
+                    state, metrics = nosense_step(state, batch)
+                    step += 1
+                else:
+                    state, metrics = sensed_step(state, batch)
+                    step += 1
+                meter.step()
 
-            if step % args.log_interval == 0:
-                last = {k: float(v) for k, v in metrics.items()}
-                if not np.isfinite(last["loss/contrastive"]):
-                    raise FloatingPointError(f"non-finite loss at step {step}: {last}")
-                writer.scalars(last, step)
-                pps = meter.items_per_sec
-                writer.scalar("Throughput/pairs_per_sec_per_chip", pps, step)
-                print(f"step {step}: loss {last['loss/contrastive']:.4f} "
-                      f"acc_i {last['contrastive/acc_img']:.2f} "
-                      f"grad_norm {last['training/grad_norm']:.2f} "
-                      f"{pps:,.0f} pairs/s/device", flush=True)
-                if step <= args.log_interval:
-                    meter.reset()  # the first window holds the warm-up
+                if step % args.log_interval == 0:
+                    last = {k: float(v) for k, v in metrics.items()}
+                    if not np.isfinite(last["loss/contrastive"]):
+                        raise FloatingPointError(f"non-finite loss at step {step}: {last}")
+                    writer.scalars(last, step)
+                    pps = meter.items_per_sec
+                    writer.scalar("Throughput/pairs_per_sec_per_chip", pps, step)
+                    print(f"step {step}: loss {last['loss/contrastive']:.4f} "
+                          f"acc_i {last['contrastive/acc_img']:.2f} "
+                          f"grad_norm {last['training/grad_norm']:.2f} "
+                          f"{pps:,.0f} pairs/s/device", flush=True)
+                    if step <= args.log_interval:
+                        meter.reset()  # the first window holds the warm-up
 
-            if args.slow_loop_interval > 0 and step % args.slow_loop_interval == 0:
-                layers = stateful_layers(state.model).values()
-                before = (
-                    float(sum(g.abs().sum() for g in state.grad_stats.values())),
-                    int(sum(layer.step_count for layer in layers)),
-                )
-                # Drain the queued steps first: the latency is the update's own.
-                _synchronize(device)
-                t0 = time.perf_counter()
-                diag = neuron_slow_loop_step(
-                    state.model, state.grad_stats, state.grad_step_count, generator,
-                    brain=brain, forde_lite=cfg.forde_lite,
-                )
-                _synchronize(device)
-                dt_ms = (time.perf_counter() - t0) * 1000
-                skipped = bool(diag["skipped"])
-                after = (
-                    float(sum(g.abs().sum() for g in state.grad_stats.values())),
-                    int(sum(layer.step_count for layer in layers)),
-                )
-                brain_updates.append({
-                    "step": step, "latency_ms": dt_ms, "skipped": skipped,
-                    "grad_stats_abs_sum_before": before[0], "grad_stats_abs_sum_after": after[0],
-                    "sensed_steps_before": before[1], "sensed_steps_after": after[1],
-                })
-                writer.scalar("SlowLoop/latency_ms", dt_ms, step)
-                mode = "Forde-lite" if cfg.forde_lite else "GMM"
-                print(f"[brain update @ {step}] mode={mode} {dt_ms:.1f}ms"
-                      f"{' (skipped: no sensed step)' if skipped else ''}", flush=True)
+                if args.slow_loop_interval > 0 and step % args.slow_loop_interval == 0:
+                    layers = stateful_layers(state.model).values()
+                    before = (
+                        float(sum(g.abs().sum() for g in state.grad_stats.values())),
+                        int(sum(layer.step_count for layer in layers)),
+                    )
+                    # Drain the queued steps first: the latency is the update's own.
+                    _synchronize(device)
+                    t0 = time.perf_counter()
+                    diag = neuron_slow_loop_step(
+                        state.model, state.grad_stats, state.grad_step_count, generator,
+                        brain=brain, forde_lite=cfg.forde_lite,
+                    )
+                    _synchronize(device)
+                    dt_ms = (time.perf_counter() - t0) * 1000
+                    skipped = bool(diag["skipped"])
+                    after = (
+                        float(sum(g.abs().sum() for g in state.grad_stats.values())),
+                        int(sum(layer.step_count for layer in layers)),
+                    )
+                    brain_updates.append({
+                        "step": step, "latency_ms": dt_ms, "skipped": skipped,
+                        "grad_stats_abs_sum_before": before[0],
+                        "grad_stats_abs_sum_after": after[0],
+                        "sensed_steps_before": before[1], "sensed_steps_after": after[1],
+                    })
+                    writer.scalar("SlowLoop/latency_ms", dt_ms, step)
+                    mode = "Forde-lite" if cfg.forde_lite else "GMM"
+                    print(f"[brain update @ {step}] mode={mode} {dt_ms:.1f}ms"
+                          f"{' (skipped: no sensed step)' if skipped else ''}", flush=True)
 
-            if step >= args.num_steps:
-                break
+                if args.eval_interval > 0 and step % args.eval_interval == 0 and eval_sets:
+                    _synchronize(device)
+                    t0 = time.perf_counter()
+                    rmetrics = {}
+                    for prefix, held in eval_sets.items():
+                        rmetrics.update(evaluate_retrieval(state, held, prefix=prefix))
+                        if args.ema_decay > 0:
+                            with swap_in_ema(state):
+                                rmetrics.update(evaluate_retrieval(state, held,
+                                                                   prefix=f"ema_{prefix}"))
+                        print(f"[retrieval/{prefix or 'eval'} @ {step}] i2t R@1 "
+                              f"{rmetrics[f'retrieval/{prefix}i2t_recall@1']:.3f} t2i R@1 "
+                              f"{rmetrics[f'retrieval/{prefix}t2i_recall@1']:.3f}", flush=True)
+                    _synchronize(device)
+                    retrieval.append({"step": step, "seconds": time.perf_counter() - t0,
+                                      "metrics": rmetrics})
+                    writer.scalars(rmetrics, step)
+
+                if args.checkpoint_dir and step % max(args.slow_loop_interval, 100) == 0:
+                    save(step)
+                if step >= args.num_steps:
+                    break
 
         _synchronize(device)
         if metrics is not None and not last:
             last = {k: float(v) for k, v in metrics.items()}
         if args.checkpoint_dir:
-            tree = state_dict_to_flax(state.model.state_dict())
-            save_params(
-                args.checkpoint_dir, cfg,
-                flatten({"params": tree["params"], "brain": tree["brain"]}),
-                {
-                    "step": step, "moment_dtype": args.moment_dtype,
-                    "warmup_steps": args.warmup_steps, "lr_schedule": args.lr_schedule,
-                    "decay_steps": args.decay_steps, "min_lr_ratio": args.min_lr_ratio,
-                },
-            )
-            print(f"checkpoint (params + brain, step {step}) written to {args.checkpoint_dir}")
+            save(step)
+            print(f"checkpoint (train state, step {step}) written to {args.checkpoint_dir}",
+                  flush=True)
     finally:
         writer.close()
     return {
         "state": state, "final_metrics": last, "step": step,
         "pairs_per_sec": meter.items_per_sec,
-        "brain_updates": brain_updates,
+        "brain_updates": brain_updates, "retrieval": retrieval,
     }
 
 

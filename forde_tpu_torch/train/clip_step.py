@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Iterable, Iterator, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -44,13 +44,15 @@ Batch = Dict[str, torch.Tensor]
 class CLIPTrainState:
     """The model (params, brain map and stat buffers), the optimizer, and
     the gradient-stat accumulator: {StatefulLayer name: (F, 2) fp32 sums}
-    over ``grad_step_count`` sensed steps."""
+    over ``grad_step_count`` sensed steps. ``ema``: the EMA of the
+    optimizer's parameters, in their order (train/ema.py), or None."""
 
     model: FORDEDualEncoder
     optimizer: AdamW
     grad_stats: Dict[str, torch.Tensor]
     grad_step_count: torch.Tensor
     step: int = 0
+    ema: Optional[List[torch.Tensor]] = None
 
 
 def create_clip_train_state(
@@ -147,7 +149,7 @@ def _state_ptrs(state: CLIPTrainState) -> tuple:
     opt = state.optimizer
     return (graphs.tensor_ptrs(state.model), tuple(t.data_ptr() for t in (*opt.mu, *opt.nu)),
             opt.count.data_ptr(), tuple(g.data_ptr() for g in state.grad_stats.values()),
-            state.grad_step_count.data_ptr())
+            state.grad_step_count.data_ptr(), tuple(e.data_ptr() for e in state.ema or ()))
 
 
 def make_fused_step(
@@ -231,6 +233,13 @@ def make_fused_step(
 
     fused.prepare = prepare
     return fused
+
+
+@torch.no_grad()
+def clip_eval_embeddings(state: CLIPTrainState, batch: Batch):
+    """Forward-only (image embeddings, text embeddings, logit scale): no
+    sensing, no gradient taps, no stat update."""
+    return state.model(batch["image"], batch["input_ids"], batch.get("attention_mask"))
 
 
 def stack_batches(batch_iter: Iterable[Batch], n: int, sharding=None) -> Iterator[Batch]:

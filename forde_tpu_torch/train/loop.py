@@ -21,6 +21,23 @@ visible it raises.
       --batch_size 2 --use_dummy_data --steps_per_epoch 4 \\
       --slow_loop_interval 2 --log_interval 2
 
+The training extras: ``--ema_decay`` keeps an EMA of the trained tensors
+(train/ema.py, checkpointed as ``ema_params``); ``--grad_accum N`` takes
+each step from N microbatches; ``--init_from`` warm-starts from a
+checkpoint (its config, a fresh optimizer), and with ``--lora_rank`` trains
+LoRA adapters over that frozen base (train/lora.py); ``--distill_from``
+trains against a teacher checkpoint's logits (train/distill.py). With
+``--checkpoint_dir`` each save holds the whole train state
+(``save_train_state``: params, EMA, stat buffers, Adam, the step);
+``--resume`` restores it and goes on from its step (the data iterator
+starts again from the top, as in the JAX package), and SIGTERM/SIGINT stop
+the run at the next step boundary, save, and exit 0.
+
+  python -m forde_tpu_torch.train.loop --device cpu --d_model 64 \\
+      --num_layers 2 --num_heads 2 --window_size 16 --seq_len 64 \\
+      --batch_size 4 --use_markov_data --steps_per_epoch 4 --grad_accum 2 \\
+      --ema_decay 0.99 --slow_loop_interval 2 --checkpoint_dir ckpt --resume
+
 Flags whose code is not ported raise ``NotImplementedError`` and name the
 slice they wait for (ROADMAP.md); ``--plots_dir`` is one of them and
 defaults to None, so the loop writes no plots.
@@ -29,6 +46,8 @@ defaults to None, so the loop writes no plots.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 from datetime import datetime
 from typing import List, Optional
@@ -61,7 +80,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps_per_epoch", type=int, default=1000)
     p.add_argument("--log_interval", type=int, default=10)
     p.add_argument("--aux_loss_weight", type=float, default=0.01, help="MoE aux loss weight")
-    p.add_argument("--grad_accum", type=int, default=1, help="(not ported beyond 1)")
+    p.add_argument("--grad_accum", type=int, default=1,
+                   help="microbatches per optimizer step (must divide batch_size)")
     # model shape
     p.add_argument("--d_model", type=int, default=256)
     p.add_argument("--num_layers", type=int, default=4)
@@ -90,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_dir", type=str, default=None)
     p.add_argument("--checkpoint_interval", type=int, default=0,
                    help="steps between checkpoints; 0 = final only")
-    p.add_argument("--resume", action="store_true", help="(not ported)")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the train state in --checkpoint_dir and go on from its step")
     p.add_argument("--experiment_name", type=str, default="forde_tpu_llm",
                    help="metrics go to runs/<name>_<time>/metrics.jsonl")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
@@ -98,14 +119,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help='"ep" (expert parallelism over a mesh) is not ported')
     p.add_argument("--moment_dtype", type=str, default=None,
                    help="Adam moment storage dtype (e.g. bfloat16); update math stays fp32")
-    p.add_argument("--ema_decay", type=float, default=0.0, help="(not ported)")
-    p.add_argument("--distill_from", type=str, default=None, help="(not ported)")
+    p.add_argument("--ema_decay", type=float, default=0.0,
+                   help="> 0 keeps an EMA of the trained params (checkpointed as ema_params)")
+    p.add_argument("--distill_from", type=str, default=None,
+                   help="teacher checkpoint: train against its logits (train/distill.py)")
     p.add_argument("--distill_alpha", type=float, default=0.5)
     p.add_argument("--distill_temperature", type=float, default=2.0)
-    p.add_argument("--init_from", type=str, default=None, help="(not ported)")
-    p.add_argument("--lora_rank", type=int, default=0, help="(not ported)")
-    p.add_argument("--lora_alpha", type=float, default=16.0)
-    p.add_argument("--lora_targets", type=str, default=None, help="(not ported)")
+    p.add_argument("--init_from", type=str, default=None,
+                   help="warm start: config and params from this checkpoint, fresh optimizer")
+    p.add_argument("--lora_rank", type=int, default=0,
+                   help="> 0 trains LoRA adapters of this rank over the frozen --init_from base")
+    p.add_argument("--lora_alpha", type=float, default=16.0, help="LoRA scale = alpha / rank")
+    p.add_argument("--lora_targets", type=str, default=None,
+                   help="comma-separated module/param names to adapt (default: "
+                        "qkv_proj,out_proj,q_proj,k_proj,v_proj; add w_up,w_down for the "
+                        "MoE expert banks)")
     p.add_argument("--remat", action="store_true", help="(not ported)")
     p.add_argument("--scan_layers", action="store_true", help="(not ported)")
     p.add_argument("--expert_parallelism", type=int, default=1, help="(not ported beyond 1)")
@@ -150,16 +178,10 @@ def config_from_args(args) -> LLMConfig:
     )
 
 
-EXTRAS = "training extras (slice 6)"
-MULTI = "multi-device (slice 7)"
+EXTRAS = "the training extras' second part (remat, profiling, scan layers, plots)"
+MULTI = "multi-device"
 TOKENIZER = "a tokenizer and data in the repository"
 _NOT_PORTED = (
-    (lambda a: a.ema_decay > 0, "--ema_decay", EXTRAS),
-    (lambda a: a.distill_from, "--distill_from", EXTRAS),
-    (lambda a: a.init_from, "--init_from", EXTRAS),
-    (lambda a: a.lora_rank > 0 or a.lora_targets, "--lora_rank / --lora_targets", EXTRAS),
-    (lambda a: a.grad_accum > 1, "--grad_accum > 1", EXTRAS),
-    (lambda a: a.resume, "--resume", EXTRAS),
     (lambda a: a.remat, "--remat", EXTRAS),
     (lambda a: a.scan_layers, "--scan_layers", EXTRAS),
     (lambda a: a.profile_dir, "--profile_dir", EXTRAS),
@@ -218,17 +240,86 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _save(args, config, state, step: int) -> None:
-    from forde_tpu_torch.interop import flatten, state_dict_to_flax
-    from forde_tpu_torch.train.checkpoint import save_params
+def _train_meta(args) -> dict:
+    """What the checkpoint records of the run (the JAX package's train
+    meta): the optimizer's shape, the EMA and a LoRA run's adapters."""
+    meta = {"moment_dtype": args.moment_dtype, "warmup_steps": args.warmup_steps,
+            "ema_decay": args.ema_decay, "lr_schedule": args.lr_schedule,
+            "decay_steps": args.decay_steps, "min_lr_ratio": args.min_lr_ratio}
+    if args.lora_rank:
+        from forde_tpu_torch.train.lora import parse_targets
 
-    save_params(
-        args.checkpoint_dir, config,
-        flatten(state_dict_to_flax(state.model.state_dict())),
-        {"step": step, "moment_dtype": args.moment_dtype, "warmup_steps": args.warmup_steps,
-         "ema_decay": args.ema_decay, "lr_schedule": args.lr_schedule,
-         "decay_steps": args.decay_steps, "min_lr_ratio": args.min_lr_ratio},
-    )
+        # the saved params ARE the adapters; serving merges them into the
+        # base recorded here (checkpoint.load_lm_params)
+        meta["lora"] = {"rank": args.lora_rank, "alpha": args.lora_alpha,
+                        "targets": list(parse_targets(args.lora_targets)),
+                        "base": os.path.abspath(args.init_from)}
+    return meta
+
+
+def _check_extras(args, config: LLMConfig) -> None:
+    """The JAX loop's refusals of flag combinations it does not compose."""
+    if args.lora_rank:
+        if not args.init_from:
+            raise ValueError("--lora_rank requires --init_from (LoRA fine-tunes a frozen base "
+                             "checkpoint)")
+        for given, name in ((args.distill_from, "--distill_from"),
+                            (args.grad_accum > 1, "--grad_accum")):
+            if given:
+                raise ValueError(f"--lora_rank does not compose with {name} yet (data "
+                                 "parallelism composes)")
+        if args.slow_loop_interval > 0 and config.use_moe:
+            raise ValueError(
+                "--lora_rank needs --slow_loop_interval 0: the brain update actuates router "
+                "biases in the FROZEN base, which would drift it away from the checkpoint the "
+                "serving merge reloads")
+    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
+        raise ValueError(f"--grad_accum {args.grad_accum} must divide --batch_size "
+                         f"{args.batch_size}")
+    if args.distill_from and args.grad_accum > 1:
+        raise ValueError("--distill_from does not compose with --grad_accum yet")
+
+
+def _zero_stats(model: torch.nn.Module) -> None:
+    """The MoE stat buffers of a fresh state (a warm start keeps the base's
+    params only, as the JAX loop does)."""
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith(("expert_usage", "step_count")):
+                buf.zero_()
+
+
+def _step_fn(args, state, device):
+    """The step the flags choose: LoRA, distillation, accumulation or the
+    plain step, wrapped last by the EMA (as the JAX loop orders them)."""
+    from forde_tpu_torch.train.step import make_accum_train_step, train_step
+
+    if args.lora_rank:
+        from forde_tpu_torch.train.lora import lora_scale, make_lora_train_step
+
+        step_fn = make_lora_train_step(lora_scale(args.lora_rank, args.lora_alpha),
+                                       aux_loss_weight=args.aux_loss_weight)
+    elif args.distill_from:
+        from forde_tpu_torch.train.distill import load_teacher, make_distill_step
+
+        teacher = load_teacher(args.distill_from, device)
+        if teacher.config.vocab_size != state.model.config.vocab_size:
+            raise ValueError("teacher/student vocab mismatch")
+        print(f"distilling from {args.distill_from} "
+              f"(alpha={args.distill_alpha}, T={args.distill_temperature})")
+        step_fn = make_distill_step(teacher, aux_loss_weight=args.aux_loss_weight,
+                                    alpha=args.distill_alpha,
+                                    temperature=args.distill_temperature)
+    elif args.grad_accum > 1:
+        step_fn = make_accum_train_step(args.grad_accum, aux_loss_weight=args.aux_loss_weight)
+    else:
+        def step_fn(state, batch):
+            return train_step(state, batch, aux_loss_weight=args.aux_loss_weight)
+    if args.ema_decay > 0:
+        from forde_tpu_torch.train.ema import with_ema
+
+        step_fn = with_ema(step_fn, args.ema_decay)
+    return step_fn
 
 
 def train(args: Optional[argparse.Namespace] = None) -> dict:
@@ -240,14 +331,23 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     from forde_tpu_torch.core.config import BrainConfig
     from forde_tpu_torch.data.prefetch import prefetch_to_device
     from forde_tpu_torch.obs.metrics import REFERENCE_TAGS, MetricsWriter, ThroughputMeter
+    from forde_tpu_torch.train import checkpoint as ckpt_lib
     from forde_tpu_torch.train.state import create_train_state
-    from forde_tpu_torch.train.step import train_step
 
     if args is None:
         args = build_parser().parse_args([])
     _refuse_unported(args)
     device = resolve_device(args.device)
     config = config_from_args(args)
+    base = None
+    if args.init_from:
+        config, base = ckpt_lib.load_lm_params(args.init_from, device)
+        config = config.replace(dropout_rate=0.0)
+        print(f"config loaded from {args.init_from}/model_config.json (CLI shape flags ignored)")
+        if args.seq_len > config.max_seq_len:
+            raise ValueError(f"--seq_len {args.seq_len} exceeds the base model's max_seq_len "
+                             f"{config.max_seq_len}")
+    _check_extras(args, config)
     brain = BrainConfig()
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.lr_schedule == "cosine" and args.decay_steps == 0:
@@ -255,70 +355,104 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         print(f"cosine decay over {args.decay_steps} steps (derived from the run length)")
 
     t_init = time.perf_counter()
+    if base is not None:
+        base.train()
+        _zero_stats(base)
     state = create_train_state(
         config, generator, args.learning_rate, args.weight_decay,
         warmup_steps=args.warmup_steps, moment_dtype=args.moment_dtype,
         lr_schedule=args.lr_schedule, decay_steps=args.decay_steps,
-        min_lr_ratio=args.min_lr_ratio, device=device,
+        min_lr_ratio=args.min_lr_ratio, device=device, model=base,
     )
+    if args.lora_rank:
+        from forde_tpu_torch.train import lora as lora_lib
+
+        state = lora_lib.create_lora_train_state(
+            state, args.lora_rank, generator, targets=lora_lib.parse_targets(args.lora_targets))
+        n_adapt = lora_lib.adapter_param_count(state.lora)
+        n_base = sum(p.numel() for p in state.model.parameters())
+        print(f"LoRA rank {args.lora_rank}: {n_adapt:,} trainable adapter params over a frozen "
+              f"{n_base:,}-param base ({100 * n_adapt / n_base:.2f}%)")
+    elif base is not None:
+        print(f"warm-started params from {args.init_from} (fresh optimizer, step 0)")
+    if args.ema_decay > 0:
+        from forde_tpu_torch.train.ema import init_ema
+
+        init_ema(state)
     n_params = sum(p.numel() for p in state.optimizer.params)
     print(f"state created in {time.perf_counter() - t_init:.1f}s "
           f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
+    train_meta = _train_meta(args)
+    if args.checkpoint_dir and args.resume:
+        ckpt_lib.resume_train_state(args.checkpoint_dir, state)
+    step_fn = _step_fn(args, state, device)
+
+    def save(step):
+        ckpt_lib.save_train_state(args.checkpoint_dir, state, step, train_meta)
+
     dataset = _dataset(args, config)
     writer = MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
     meter = ThroughputMeter(items_per_step=args.batch_size * args.seq_len)
-    step, last, brain_updates = 0, {}, []
+    step, last, brain_updates = state.step, {}, []
     metrics = None
+    preempt = ckpt_lib.preemption_requests() if args.checkpoint_dir else contextlib.nullcontext([])
     try:
-        for epoch in range(args.num_epochs):
-            for batch in prefetch_to_device(iter(dataset), device):
-                state, metrics = train_step(state, batch, aux_loss_weight=args.aux_loss_weight)
-                step += 1
-                meter.step()
-
-                if step % args.log_interval == 0:
-                    last = {k: float(v) for k, v in metrics.items()}
-                    if not np.isfinite(last["loss/total"]):
-                        raise FloatingPointError(f"non-finite loss at step {step}: {last}")
-                    writer.scalars({REFERENCE_TAGS.get(k, k): v for k, v in last.items()}, step)
-                    tps = meter.items_per_sec
-                    writer.scalar("Throughput/tokens_per_sec_per_chip", tps, step)
-                    print(f"epoch {epoch} step {step}: loss {last['loss/total']:.4f} "
-                          f"(lm {last['loss/lm']:.4f} aux {last['loss/aux']:.4f}) "
-                          f"grad_norm {last['training/grad_norm']:.2f} {tps:,.0f} tok/s/chip",
-                          flush=True)
-
-                if config.use_moe and args.slow_loop_interval > 0 and (
-                    step % args.slow_loop_interval == 0
-                ):
-                    _synchronize(device)  # the latency is the update's own
-                    t0 = time.perf_counter()
-                    diag = moe_slow_loop_step(state.model, config, generator, epoch=epoch,
-                                              step=step, brain=brain, verbose=True)
-                    _synchronize(device)
-                    dt_ms = (time.perf_counter() - t0) * 1000
-                    record = {"step": step, "latency_ms": dt_ms,
-                              "skipped": bool(diag["skipped"]),
-                              "load_imbalance": float(diag["load_imbalance"]),
-                              "routing_entropy": float(diag["routing_entropy"]),
-                              "updates_count": int(diag["updates_count"])}
-                    brain_updates.append(record)
-                    writer.scalars({f"SlowLoop/{k}": record[k] for k in
-                                    ("latency_ms", "load_imbalance", "routing_entropy")}, step)
-
-                if args.checkpoint_dir and args.checkpoint_interval > 0 and (
-                    step % args.checkpoint_interval == 0
-                ):
-                    _save(args, config, state, step)
-
-                if step >= args.steps_per_epoch * (epoch + 1):
+        with preempt as stop:
+            for epoch in range(args.num_epochs):
+                if stop:
                     break
+                for batch in prefetch_to_device(iter(dataset), device):
+                    if stop:
+                        break
+                    state, metrics = step_fn(state, batch)
+                    step += 1
+                    meter.step()
+
+                    if step % args.log_interval == 0:
+                        last = {k: float(v) for k, v in metrics.items()}
+                        if not np.isfinite(last["loss/total"]):
+                            raise FloatingPointError(f"non-finite loss at step {step}: {last}")
+                        writer.scalars({REFERENCE_TAGS.get(k, k): v for k, v in last.items()},
+                                       step)
+                        tps = meter.items_per_sec
+                        writer.scalar("Throughput/tokens_per_sec_per_chip", tps, step)
+                        print(f"epoch {epoch} step {step}: loss {last['loss/total']:.4f} "
+                              f"(lm {last['loss/lm']:.4f} aux {last['loss/aux']:.4f}) "
+                              f"grad_norm {last['training/grad_norm']:.2f} {tps:,.0f} "
+                              "tok/s/chip", flush=True)
+
+                    if config.use_moe and args.slow_loop_interval > 0 and (
+                        step % args.slow_loop_interval == 0
+                    ):
+                        _synchronize(device)  # the latency is the update's own
+                        t0 = time.perf_counter()
+                        diag = moe_slow_loop_step(state.model, config, generator, epoch=epoch,
+                                                  step=step, brain=brain, verbose=True)
+                        _synchronize(device)
+                        dt_ms = (time.perf_counter() - t0) * 1000
+                        record = {"step": step, "latency_ms": dt_ms,
+                                  "skipped": bool(diag["skipped"]),
+                                  "load_imbalance": float(diag["load_imbalance"]),
+                                  "routing_entropy": float(diag["routing_entropy"]),
+                                  "updates_count": int(diag["updates_count"])}
+                        brain_updates.append(record)
+                        writer.scalars({f"SlowLoop/{k}": record[k] for k in
+                                        ("latency_ms", "load_imbalance", "routing_entropy")},
+                                       step)
+
+                    if args.checkpoint_dir and args.checkpoint_interval > 0 and (
+                        step % args.checkpoint_interval == 0
+                    ):
+                        save(step)
+
+                    if step >= args.steps_per_epoch * (epoch + 1):
+                        break
         _synchronize(device)
         if metrics is not None and not last:
             last = {k: float(v) for k, v in metrics.items()}
         if args.checkpoint_dir:
-            _save(args, config, state, step)
-            print(f"checkpoint (step {step}) written to {args.checkpoint_dir}")
+            save(step)
+            print(f"checkpoint (step {step}) written to {args.checkpoint_dir}", flush=True)
     finally:
         writer.close()
     return {"state": state, "final_metrics": last, "step": step,

@@ -12,13 +12,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence, Union
+from typing import TYPE_CHECKING, List, Optional, Sequence, Union
 
 import torch
 
 from forde_tpu_torch.core.config import LLMConfig, dtype_from_name
 from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
 from forde_tpu_torch.train.optim import AdamW
+
+if TYPE_CHECKING:
+    from forde_tpu_torch.train.lora import LoRAAdapters
 
 
 class LRSchedule:
@@ -105,11 +108,17 @@ def make_optimizer(
 class TrainState:
     """The decoder LM (parameters and MoE stat buffers), the optimizer
     (global-norm clipping -> AdamW over every parameter) and the number of
-    steps taken."""
+    steps taken.
+
+    ``ema``: the EMA of the optimizer's parameters, one tensor each in the
+    same order (train/ema.py), or None. ``lora``: with LoRA the optimizer
+    trains these adapters over a frozen ``model`` (train/lora.py)."""
 
     model: FORDEDecoderLM
     optimizer: AdamW
     step: int = 0
+    ema: Optional[List[torch.Tensor]] = None
+    lora: Optional["LoRAAdapters"] = None
 
 
 def create_train_state(

@@ -8,6 +8,9 @@ parameter that the loss does not reach (the NSA importance scorer, whose
 output only picks indices) gets a zero gradient, as under ``jax.grad``, so
 AdamW still decays it. The metrics carry the JAX package's keys, as 0-d
 tensors on the model's device (no host synchronisation).
+
+``make_accum_train_step`` takes one optimizer step from several
+microbatches' gradients (gradient accumulation).
 """
 
 from __future__ import annotations
@@ -60,6 +63,49 @@ def train_step(
         "loss/aux": aux.detach(),
         "training/grad_norm": grad_norm,
     }
+
+
+def make_accum_train_step(accum_steps: int, aux_loss_weight: float = 1.0):
+    """Gradient accumulation: one optimizer step from ``accum_steps``
+    sequential microbatch forwards and backwards (port of the JAX
+    package's ``make_accum_train_step``).
+
+    The (B, S) batch splits on axis 0 into ``accum_steps`` equal
+    microbatches (an uneven split raises). Gradients are summed in fp32
+    and scaled by ``1 / accum_steps``, and so are the total, LM and aux
+    losses: the gradients and the LM loss average as the full batch's
+    would, up to fp32 summation order. As in the JAX package, the MoE
+    load-balancing aux loss is averaged per microbatch (it is not linear in
+    the batch's composition), and the stat buffers see ``accum_steps``
+    updates per optimizer step, ``step_count`` advancing with them. Peak
+    activation memory is one microbatch's."""
+
+    def accum_train_step(state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        ids = batch["input_ids"]
+        b = ids.shape[0]
+        if b % accum_steps:
+            raise ValueError(f"batch {b} not divisible by grad_accum {accum_steps}")
+        params = state.optimizer.params
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in params]
+        sums = torch.zeros(3, dtype=torch.float32, device=ids.device)
+        for mb in ids.reshape(accum_steps, b // accum_steps, *ids.shape[1:]):
+            total, lm, aux = loss_fn(state.model, mb, aux_loss_weight)
+            g = torch.autograd.grad(total, params, materialize_grads=True)
+            torch._foreach_add_(grads, [x.float() for x in g])
+            sums += torch.stack([total.detach(), lm.detach(), aux.detach()]).float()
+        inv = 1.0 / accum_steps
+        torch._foreach_mul_(grads, inv)
+        grad_norm = state.optimizer.step(grads)
+        state.step += 1
+        sums *= inv
+        return state, {
+            "loss/total": sums[0],
+            "loss/lm": sums[1],
+            "loss/aux": sums[2],
+            "training/grad_norm": grad_norm,
+        }
+
+    return accum_train_step
 
 
 @torch.no_grad()

@@ -59,7 +59,7 @@ def test_custom_gmm_run_with_bf16_moments(tmp_path, capsys, monkeypatch):
     assert all(m.dtype == torch.bfloat16 for m in out["state"].optimizer.mu)
 
 
-@pytest.mark.parametrize("flag", ["--tensor_parallelism", "--ema_decay", "--resume",
+@pytest.mark.parametrize("flag", ["--tensor_parallelism", "--param_sharding", "--profile_dir",
                                   "--plots_dir"])
 def test_unported_flags_are_not_accepted(flag):
     with pytest.raises(SystemExit):

@@ -123,9 +123,11 @@ def test_embed_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_embed_use_ema_not_ported(tmp_path):
+    """--use_ema is ported (tests/test_torch_ema.py); a checkpoint trained
+    without an EMA has none to embed with, and says so."""
     ckpt = str(tmp_path / "ckpt")
     _write_checkpoint(ckpt, "port")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no EMA weights"):
         embed.main(["--checkpoint_dir", ckpt, "--text_ids", "1,2", "--use_ema",
                     "--device", "cpu"])
 

@@ -79,6 +79,11 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.models.speculative",
         "forde_tpu_torch.models.decode_pool",
         "forde_tpu_torch.serve_http",
+        "forde_tpu_torch.train.ema",
+        "forde_tpu_torch.train.lora",
+        "forde_tpu_torch.train.distill",
+        "forde_tpu_torch.eval_lm",
+        "forde_tpu_torch.obs.retrieval",
     ):
         assert name in result["modules"]
 

@@ -16,7 +16,9 @@ data.lm, train.loop) against the JAX package's.
 * The LM datasets: the same numpy batches as the JAX package's.
 * ``train.loop`` on the CPU: a few steps with the slow loop and a
   checkpoint that ``serve`` then decodes from; the config derivation of
-  the JAX CLI; every refused flag names the slice it waits for; with no
+  the JAX CLI; every refused flag names the slice it waits for (the
+  training extras' second part or multi-device; the extras of
+  tests/test_torch_{ema,grad_accum,resume,lora,distill}.py run); with no
   GPU the CLI raises.
 
 Tolerance: fp32 diagnostics and biases within 1e-5 (the same fp32
@@ -251,23 +253,16 @@ def test_config_from_args_matches_jax():
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--ema_decay", "0.99"], "slice 6"),
-    (["--distill_from", "x"], "slice 6"),
-    (["--init_from", "x"], "slice 6"),
-    (["--lora_rank", "4"], "slice 6"),
-    (["--lora_targets", "w_up"], "slice 6"),
-    (["--grad_accum", "2"], "slice 6"),
-    (["--resume"], "slice 6"),
-    (["--remat"], "slice 6"),
-    (["--scan_layers"], "slice 6"),
-    (["--profile_dir", "p"], "slice 6"),
-    (["--plots_dir", "p"], "slice 6"),
-    (["--moe_dispatch", "ep"], "slice 7"),
-    (["--expert_parallelism", "2"], "slice 7"),
-    (["--context_parallelism", "2"], "slice 7"),
-    (["--tensor_parallelism", "2"], "slice 7"),
-    (["--pipeline_parallelism", "2"], "slice 7"),
-    (["--param_sharding", "fsdp"], "slice 7"),
+    (["--remat"], "second part"),
+    (["--scan_layers"], "second part"),
+    (["--profile_dir", "p"], "second part"),
+    (["--plots_dir", "p"], "second part"),
+    (["--moe_dispatch", "ep"], "multi-device"),
+    (["--expert_parallelism", "2"], "multi-device"),
+    (["--context_parallelism", "2"], "multi-device"),
+    (["--tensor_parallelism", "2"], "multi-device"),
+    (["--pipeline_parallelism", "2"], "multi-device"),
+    (["--param_sharding", "fsdp"], "multi-device"),
     (["--data_file", "x.txt", "--tokenizer", "gpt2"], "tokenizer"),
 ])
 def test_unported_flags_name_their_slice(flags, slice_name):

@@ -95,15 +95,14 @@ def test_serve_random_init_samples_in_vocab(capsys):
 
 @pytest.mark.parametrize("flags,match", [
     (["--tensor_parallelism", "2"], "tensor_parallelism.*multi-device"),
-    (["--use_ema"], "use_ema"),
-    (["--lora_base_dir", "x"], "lora_base_dir"),
     (["--prompt", "hello"], "--prompt"),
     (["--text_prompts"], "text_prompts"),
 ])
 def test_serve_unported_flags_raise(flags, match):
     """The flags still refused. --beam_size, --draft_checkpoint_dir,
     --quantize and --prefix_ids run: tests/test_torch_{beam,speculative,
-    quant,prefix}.py."""
+    quant,prefix}.py; --use_ema and --lora_base_dir: tests/test_torch_{ema,
+    lora,resume}.py."""
     with pytest.raises(NotImplementedError, match=match):
         serve.main(flags + ["--device", "cpu"])
 

@@ -181,8 +181,9 @@ def test_http_continuous_exact_and_overlapping(request, name, fuse):
 
 def test_make_server_refusals(dense, nsa):
     """What the reference refuses (beam search, speculative decoding,
-    --prefix_ids and --prefill_chunk on NSA), serve's unported flags, and
-    the default device: CUDA, which raises with no GPU visible."""
+    --prefix_ids and --prefill_chunk on NSA), --use_ema on a checkpoint
+    trained without an EMA, and the default device: CUDA, which raises
+    with no GPU visible."""
     base = ["--device", "cpu", "--port", "0"]
 
     def make(*flags):
@@ -199,7 +200,7 @@ def test_make_server_refusals(dense, nsa):
     ):
         with pytest.raises(SystemExit, match=match):
             make(*flags)
-    with pytest.raises(NotImplementedError, match="--use_ema"):
+    with pytest.raises(ValueError, match="no EMA weights"):  # trained without --ema_decay
         make("--checkpoint_dir", dense.ckpt, "--use_ema")
     if not torch.cuda.is_available():
         args = serve_http.add_server_args(serve.build_parser()).parse_args(
