@@ -41,6 +41,12 @@ holds every CUDA kernel of them against its plain PyTorch version:
     reference-default width and depth, and the dual encoder's fused steps
     with EMA, aligned data rendered on the card and the clip loop's
     retrieval eval at vit_b16.
+  * the training extras' second part: rematerialisation (the decoder LM
+    at full depth, its long-context configuration through the training
+    CLI with --remat --scan_layers; the dual encoder's "block" and "mlp"
+    policies at vit_b16), both training CLIs profiled, the scanned
+    checkpoint layout through --resume and serving, and the NSA branch
+    modules at full width.
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
@@ -204,10 +210,44 @@ Phases:
      to the CPU's on the same embeddings (moving only within a tie band of
      1e-5), the checkpoint restoring the step, the EMA and Adam bit for
      bit; pairs/s with and without the eval, eval ms per batch.
+ 29. rematerialisation: the reference-default decoder at full depth, one
+     fp32 step (2 x 2,048) with remat against one without from the same
+     weights (loss, gradients and stat buffers bit for bit, else phase
+     12's fp32 bars; launches with the forward kernels doubled: 24
+     flash_fwd, 48 small_kv_fwd); 2 fp32 LoRA steps (rank 8) with remat
+     against 2 without from the same base and adapters (losses and
+     adapters bit for bit, else phase 12's fp32 bars; exact launches);
+     bf16 steps of 8 x 2,048 with and without remat (ms, peak); the
+     long-context configuration of
+     benchmarks/decoder.py (``train.loop --seq_len 8192 --remat
+     --scan_layers --bf16``, the batch cut to 4, 2 steps: finite, exact
+     launches of the streaming kernels and K = 960 pools, a scanned
+     checkpoint with a leading axis of 12 that serve's loader reads; step
+     ms, tokens/s, peak); the dual encoder (vit_b16, bf16, batch 128): one
+     sensed step under "none", "block" and "mlp" from the same state
+     (loss, gradients, act_stats and gradient statistics bit for bit, else
+     phase 6's bars; flash_mha_fwd 24 or 48 under "block", flash_mha_bwd
+     24, moment_sums 48 under every policy; ms and memory), and fused
+     "mlp" steps (k = 2, a replayed call) against the same steps eager,
+     bit for bit;
+ 30. observability: ``train.loop --profile_dir`` (2 layers of the full
+     width, 2 steps) and ``clip_loop --preset vit_b16 --bf16 --fuse_steps
+     2 --profile_dir`` (4 steps): each trace loads and holds device events
+     of every kernel of its path (the LM's five; flash_mha_fwd,
+     flash_mha_bwd, moment_sums), the step or fused call's ms with and
+     without the profiler, the traces' sizes; ``--scan_layers --ema_decay``
+     (2 layers, full width) for 2 steps then ``--resume`` for 1: the state
+     restored bit for bit, and serving the scanned checkpoint gives the
+     logits of an unrolled save of the same weights bit for bit; the NSA
+     branch modules (B 2, S 2,048, d 512, 8 x 64 heads, ratio 8, top-k 64,
+     fp32): card within 1e-5 relative L2 of the CPU, top-k indices equal
+     on a tie-free score; ``clip_loop --plots_dir``: the files where
+     matplotlib imports, else a refusal before the first step that names
+     matplotlib.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (about 5-6 minutes):
+Run with no arguments on a machine with one GPU (about 7 minutes):
 
   python3 chip_smoke.py
 """
@@ -2143,10 +2183,12 @@ LM_SEQ = 2048  # the positions of the parity and timing batches
 def lm_launches_per_step(cfg) -> dict:
     """Kernel launches of one training step of the decoder LM: per layer
     the NSA local branch (flash_fwd and its two backward kernels) and the
-    compressed and top-k branches (small_kv_fwd and small_kv_bwd twice)."""
-    n = cfg.num_layers
-    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-            "small_kv_fwd": 2 * n, "small_kv_bwd": 2 * n}
+    compressed and top-k branches (small_kv_fwd and small_kv_bwd twice).
+    With ``cfg.remat`` the backward recomputes each block's forward, so
+    the forward kernels launch twice."""
+    n, fwd = cfg.num_layers, 2 if cfg.remat else 1
+    return {"flash_fwd": fwd * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "small_kv_fwd": 2 * fwd * n, "small_kv_bwd": 2 * n}
 
 
 def run_train_loop(argv, workdir) -> tuple:
@@ -4771,13 +4813,7 @@ def phase_lm_extras(device, workdir) -> dict:
     weights = lm_weights(cfg, device)
     total: Counter = Counter()
     out, secs = {}, {}
-
-    def part(name, fn, *args):
-        t0 = time.perf_counter()
-        result = fn(*args)
-        secs[name] = time.perf_counter() - t0
-        return result
-
+    part = parts_timer(secs)
     out.update(part("ema_accum", lm_ema_and_accum, device, cfg, weights, total))
     resume = part("resume", lm_resume, device, cfg, weights, workdir, total)
     out["resume"] = {k: v for k, v in resume.items() if k not in ("ckpt", "weights", "ema")}
@@ -5012,6 +5048,621 @@ def phase_clip_extras(device, workdir) -> dict:
     return out
 
 
+# ---- the training extras' second part: rematerialisation, the scanned
+# layout, profiling, the NSA branch modules and the plots ---------------
+# Phase 29's long-context run: benchmarks/decoder.py:46-52's configuration
+# (--seq_len 8192 with --remat --scan_layers) at the reference-default
+# width and depth, its batch cut to 4 (the one cut), 2 steps.
+REMAT_LM_ROWS = 2  # the fp32 parity step's rows (phase 12's)
+REMAT_TIMING_ROWS = 8  # the bf16 readings' rows (phase 13's)
+LONG_REMAT_ARGV = SERVE_FLAGS[:-3] + [
+    "--seq_len", "8192", "--bf16", "--remat", "--scan_layers", "--batch_size", "4",
+    "--use_markov_data", "--steps_per_epoch", "2", "--slow_loop_interval", "0",
+    "--log_interval", "1",
+]
+CLIP_REMAT_POLICIES = ("none", "block", "mlp")
+
+
+def lm_stat_buffers(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.named_buffers()
+            if k.endswith(("expert_usage", "step_count"))}
+
+
+def remat_lm_parity(device, cfg, weights, total) -> dict:
+    """One fp32 step (REMAT_LM_ROWS x LM_SEQ, aux 0.01) with remat against
+    one without from the same weights: loss, gradients and stat buffers
+    bit for bit (else phase 12's fp32 bars), exact launches."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.train.step import train_step
+
+    batch = lm_batch(REMAT_LM_ROWS, LM_SEQ, cfg.vocab_size, device, SEED + 90)
+    runs = {}
+    for remat in (False, True):
+        c = cfg.replace(dtypes=DTypePolicy.fp32(), remat=remat)
+        state = lm_train_state(c, weights, device)
+        seen = capture_grads(state)
+        (state, m), launches = counted(lambda: train_step(state, batch, aux_loss_weight=0.01))
+        add_launches(total, launches)
+        runs[remat] = {"loss": m["loss/total"].reshape(1), "grads": flat(seen[0]),
+                       "stats": lm_stat_buffers(state.model), "launches": launches}
+        if launches != lm_launches_per_step(c):
+            raise AssertionError(f"LM step (remat={remat}) launches {launches}, expected "
+                                 f"{lm_launches_per_step(c)}")
+        del state, seen
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    stats_off = same_tensors(a["stats"], b["stats"])
+    same = {"loss": bool(torch.equal(a["loss"], b["loss"])),
+            "grads": bool(torch.equal(a["grads"], b["grads"])), "stats": not stats_off}
+    rel = {k: rel_l2(b[k], a[k]) for k in ("loss", "grads")}
+    log(f"[remat] LM step (fp32, {REMAT_LM_ROWS} x {LM_SEQ}, {cfg.num_layers} layers): remat "
+        f"against none: " + ", ".join(f"{k} " + ("identical" if v else f"{rel.get(k, 0):.3e}")
+                                       for k, v in same.items())
+        + f"; launches {b['launches']} (none: {a['launches']})")
+    if stats_off or any(not same[k] and rel[k] > LM_PARITY_TOL_FP32[k] for k in rel):
+        raise AssertionError(f"remat LM step against the plain step: {same}, {rel}, stat "
+                             f"buffers off {stats_off[:4]}")
+    return {"bit_identical": same, "rel_l2": rel, "launches": b["launches"]}
+
+
+def remat_lm_lora(device, cfg, weights, total) -> dict:
+    """2 fp32 LoRA steps (REMAT_LM_ROWS x LM_SEQ, rank LORA_RANK, aux 0.01)
+    with remat against 2 without, from the same base and adapters: the
+    losses and the adapters after them bit for bit (else phase 12's fp32
+    bars), exact launches. After the first step lora_b is not zero, so the
+    second step's recomputation must read the merged weights, not the
+    base's."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.train import lora as lora_lib
+
+    step = lora_lib.make_lora_train_step(lora_lib.lora_scale(LORA_RANK, 16.0),
+                                         aux_loss_weight=0.01)
+    batches = [lm_batch(REMAT_LM_ROWS, LM_SEQ, cfg.vocab_size, device, SEED + 92 + i)
+               for i in range(2)]
+    runs = {}
+    for remat in (False, True):
+        c = cfg.replace(dtypes=DTypePolicy.fp32(), remat=remat)
+        state = lora_lib.create_lora_train_state(
+            lm_train_state(c, weights, device), LORA_RANK,
+            torch.Generator(device=device).manual_seed(SEED + 94))
+        launches, losses = Counter(), []
+        for b in batches:
+            (state, m), n = counted(lambda: step(state, b))
+            launches.update(add_launches(total, n))
+            losses.append(m["loss/total"].reshape(1))
+        want = {k: 2 * v for k, v in lm_launches_per_step(c).items()}
+        if dict(launches) != want:
+            raise AssertionError(f"2 LoRA steps (remat={remat}) launches {dict(launches)}, "
+                                 f"expected {want}")
+        runs[remat] = {"loss": torch.cat(losses),
+                       "adapters": flat(list(state.lora.tensors.values()))}
+        del state
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    same = {k: bool(torch.equal(a[k], b[k])) for k in a}
+    rel = {k: rel_l2(b[k], a[k]) for k in a}
+    bars = {"loss": LM_PARITY_TOL_FP32["loss"], "adapters": LM_PARITY_TOL_FP32["params"]}
+    log(f"[remat] LoRA rank {LORA_RANK} (fp32, 2 steps of {REMAT_LM_ROWS} x {LM_SEQ}): remat "
+        f"against none: " + ", ".join(f"{k} " + ("identical" if v else f"{rel[k]:.3e}")
+                                       for k, v in same.items()))
+    if any(not same[k] and rel[k] > bars[k] for k in rel):
+        raise AssertionError(f"LoRA steps with remat against without: {same}, {rel}")
+    return {"bit_identical": same, "rel_l2": rel}
+
+
+def remat_lm_readings(device, cfg, weights) -> dict:
+    """bf16 steps at REMAT_TIMING_ROWS x LM_SEQ with and without remat:
+    step ms (median of 3 after a warm-up, host clock between two
+    synchronizes) and the peak memory of the steps."""
+    import torch
+
+    from forde_tpu_torch.train.step import train_step
+
+    batch = lm_batch(REMAT_TIMING_ROWS, LM_SEQ, cfg.vocab_size, device, SEED + 91)
+    out = {}
+    for remat in (False, True):
+        state = lm_train_state(cfg.replace(remat=remat), weights, device)
+        train_step(state, batch, aux_loss_weight=0.01)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times = [wall_ms(lambda: train_step(state, batch, aux_loss_weight=0.01))
+                 for _ in range(3)]
+        out["remat" if remat else "none"] = {
+            "step_ms": float(np.median(times)), "step_ms_all": times,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_above_state_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+        del state
+        torch.cuda.empty_cache()
+    log(f"[remat] LM step (bf16, {REMAT_TIMING_ROWS} x {LM_SEQ}): " + "; ".join(
+        f"{k} {v['step_ms']:.1f} ms ({' / '.join(f'{t:.1f}' for t in v['step_ms_all'])}), peak "
+        f"{v['peak_gib']:.2f} GiB ({v['peak_above_state_gib']:.2f} above the state and what "
+        f"else was allocated)" for k, v in out.items()))
+    return out
+
+
+def remat_long_lm(device, workdir, total) -> dict:
+    """train.loop.main at LONG_REMAT_ARGV with a checkpoint: finite loss,
+    exact launches (the streaming 4-D kernels, K = 960 pools, forward
+    twice), a scanned checkpoint (layers/block/..., leading axis 12) that
+    serve's loader reads; one more step timed; the peak."""
+    import torch
+    import zipfile
+
+    from forde_tpu_torch.train import checkpoint as ckpt_lib
+    from forde_tpu_torch.train import loop
+    from forde_tpu_torch.train.step import train_step
+
+    ckpt = os.path.join(workdir, "lm_long_remat_ckpt")
+    args = loop.build_parser().parse_args(LONG_REMAT_ARGV)
+    cfg = loop.config_from_args(args)
+    out, launches, secs, peak = run_train_loop(
+        LONG_REMAT_ARGV + ["--checkpoint_dir", ckpt, "--seed", str(SEED)], workdir)
+    add_launches(total, launches)
+    loss = out["final_metrics"]["loss/total"]
+    want = {k: args.steps_per_epoch * v for k, v in lm_launches_per_step(cfg).items()}
+    state = out["state"]
+    batch = lm_batch(args.batch_size, args.seq_len, cfg.vocab_size, device, SEED + 92)
+    (_, step_ms), extra = counted(lambda: (None, wall_ms(
+        lambda: train_step(state, batch, aux_loss_weight=args.aux_loss_weight))))
+    add_launches(total, extra)
+    del out, state
+    torch.cuda.empty_cache()
+    with zipfile.ZipFile(os.path.join(ckpt, ckpt_lib.PARAMS_FILENAME)) as zf:
+        keys = [n.removesuffix(".npy") for n in zf.namelist()]
+    key = "params/layers/block/attn_norm/scale"
+    scanned = ckpt_lib.read_npz(os.path.join(ckpt, ckpt_lib.PARAMS_FILENAME),
+                                lambda k: k == key)[key]
+    saved_cfg, _ = ckpt_lib.load_meta(ckpt)
+    _, served = ckpt_lib.load_lm_params(ckpt, device)
+    prompt = torch.from_numpy(np.random.RandomState(SEED + 93).randint(
+        1, cfg.vocab_size, (1, 640))).to(device)
+    with torch.no_grad():
+        logits, _ = served(prompt)
+    finite = bool(torch.isfinite(logits).all())
+    del served, logits
+    torch.cuda.empty_cache()
+    tokens = args.batch_size * args.seq_len / step_ms * 1e3
+    pools = (args.seq_len - cfg.window_size) // cfg.compression_ratio
+    log(f"[remat] long context: train.loop.main ({' '.join(LONG_REMAT_ARGV)}; the batch cut "
+        f"from benchmarks/decoder.py's 8 to {args.batch_size}) took {secs:.2f} s: loss "
+        f"{loss:.4f}, {pools} pools per row, launches {launches}, peak {peak:.2f} GiB; one more "
+        f"step {step_ms:.1f} ms, {tokens:.0f} tokens/s; the checkpoint scanned "
+        f"({key} {tuple(scanned.shape)}, no layer_0 key: "
+        f"{not any('/layer_0/' in k for k in keys)}), served logits finite {finite}")
+    if (not np.isfinite(loss) or launches != want or extra != lm_launches_per_step(cfg)
+            or scanned.shape != (cfg.num_layers, cfg.d_model) or not saved_cfg.scan_layers
+            or any("/layer_0/" in k for k in keys) or not finite):
+        raise AssertionError(f"long-context remat run: loss {loss}, launches {launches} "
+                             f"(expected {want}), one step {extra}, {key} {scanned.shape}, "
+                             f"scan_layers {saved_cfg.scan_layers}, served finite {finite}")
+    return {"seconds": secs, "loss": loss, "peak_gib": peak, "step_ms": step_ms,
+            "tokens_per_s": tokens}
+
+
+def remat_clip(device, total) -> dict:
+    """vit_b16, bf16, batch 128: one sensed step under each of
+    CLIP_REMAT_POLICIES from the same state (loss, gradients, act_stats and
+    the gradient statistics equal "none"'s bit for bit, else phase 6's
+    bars), exact launches (flash_mha_fwd doubled under "block" only,
+    moment_sums never), a second step's ms and the peak; and fused "mlp"
+    steps (k = CLIP_FUSE_K, a replayed call) against the same steps eager."""
+    import torch
+
+    from forde_tpu_torch.nn.stateful import stateful_layers
+    from forde_tpu_torch.train.clip_step import clip_train_step, make_fused_step, stack_batches
+
+    cfg = clip_extras_config()
+    weights = build_model(cfg, device).state_dict()
+    batches = []
+    for i in range(2 + 2 * CLIP_FUSE_K):
+        b = training_batch(cfg, FUSE_BATCH, device, SEED + 94 + i)
+        b["image"] = b["image"].to(cfg.dtypes.compute)
+        batches.append(b)
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    runs, readings = {}, {}
+    for policy in CLIP_REMAT_POLICIES:
+        state = train_state(cfg.replace(remat=policy), weights, device)
+        seen = capture_grads(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (state, m), launches = counted(lambda: clip_train_step(state, batches[0]))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        add_launches(total, launches)
+        # kept on the host, so that the later policies' peaks do not hold them
+        runs[policy] = {
+            "loss": m["loss/contrastive"].reshape(1).cpu(), "grads": flat(seen[0]).cpu(),
+            "act_stats": flat([l.act_stats for l in stateful_layers(state.model).values()]).cpu(),
+            "grad_stats": flat(list(state.grad_stats.values())).cpu()}
+        fwd = 2 if policy == "block" else 1
+        want = {"flash_mha_fwd": fwd * layers, "flash_mha_bwd": layers,
+                "moment_sums": 2 * layers}
+        ms = wall_ms(lambda: clip_train_step(state, batches[1]))
+        readings[policy] = {"step_ms": ms, "peak_gib": peak, "launches": launches,
+                            "fwd_bwd": fwd_bwd_memory(state, batches[1])}
+        if launches != want:
+            raise AssertionError(f"sensed step under remat {policy!r}: launches {launches}, "
+                                 f"expected {want}")
+        del state, seen
+        torch.cuda.empty_cache()
+    for policy in CLIP_REMAT_POLICIES[1:]:
+        got, ref = runs[policy], runs["none"]
+        for k in ref:
+            identical = bool(torch.equal(got[k], ref[k]))
+            rel = rel_l2(got[k], ref[k])
+            readings[policy][k] = {"bit_identical": identical, "rel_l2": rel}
+            if not identical and not rel <= PARITY_TOL["bf16"][k]:
+                raise AssertionError(f"sensed step under remat {policy!r} vs none, {k}: "
+                                     f"relative L2 {rel:.3e} > {PARITY_TOL['bf16'][k]:g}")
+    log(f"[remat] dual encoder (vit_b16, bf16, batch {FUSE_BATCH}), one sensed step: " + "; ".join(
+        f"{p}: {r['step_ms']:.1f} ms, peak {r['peak_gib']:.2f} GiB above the state's (an "
+        f"unsensed forward and backward alone: {r['fwd_bwd']['forward_end_gib']:.2f} held at "
+        f"the forward's end, peak {r['fwd_bwd']['peak_gib']:.2f}), launches {r['launches']}"
+        + "".join(f", {k} " + ("identical" if r[k]["bit_identical"] else
+                               f"{r[k]['rel_l2']:.3e}") for k in runs["none"] if k in r)
+        for p, r in readings.items()))
+
+    mlp = cfg.replace(remat="mlp")
+    fus, eager = train_state(mlp, weights, device), train_state(mlp, weights, device)
+    fused = make_fused_step(mlp, CLIP_FUSE_K, 1)
+    first = fused.prepare(next(stack_batches(iter(batches[2:2 + CLIP_FUSE_K]), CLIP_FUSE_K)))
+    rolled = batches[2 + CLIP_FUSE_K:]
+    second = fused.prepare(next(stack_batches(iter(rolled), CLIP_FUSE_K)))
+    fused(fus, first)
+    copy_train_state_(eager, fus)
+    (fus, fm), lf = counted(lambda: fused(fus, second))
+    add_launches(total, lf)
+
+    def eager_steps():
+        m = None
+        for b in rolled:
+            _, m = clip_train_step(eager, b)
+        return m
+
+    em, le = counted(eager_steps)
+    add_launches(total, le)
+    want = {k: CLIP_FUSE_K * v for k, v in launches_per_step(cfg, True).items()}
+    got = {"params": flat(fus.optimizer.params), "grads": flat(fus.optimizer.mu),
+           "loss": fm["loss/contrastive"].reshape(1),
+           "act_stats": flat([l.act_stats for l in stateful_layers(fus.model).values()]),
+           "grad_stats": flat(list(fus.grad_stats.values()))}
+    ref = {"params": flat(eager.optimizer.params), "grads": flat(eager.optimizer.mu),
+           "loss": em["loss/contrastive"].reshape(1),
+           "act_stats": flat([l.act_stats for l in stateful_layers(eager.model).values()]),
+           "grad_stats": flat(list(eager.grad_stats.values()))}
+    off = [k for k in ref if not torch.equal(got[k], ref[k])]
+    log(f"[remat] fused {CLIP_FUSE_K} steps with 'mlp' remat, a replayed call against the same "
+        f"steps eager: " + ("bit-identical" if not off else "differs in " + ", ".join(
+            f"{k} {rel_l2(got[k], ref[k]):.3e}" for k in off)) + f"; launches {lf} / {le}")
+    if off or lf != want or le != want:
+        raise AssertionError(f"fused mlp remat vs eager: off {off}, launches {lf} / {le} "
+                             f"(expected {want})")
+    del fus, eager, fused, first, second, batches
+    torch.cuda.empty_cache()
+    readings["fused_mlp_bit_identical"] = True
+    return readings
+
+
+def fwd_bwd_memory(state, batch) -> dict:
+    """GiB above what was allocated before it, of one unsensed forward and
+    backward of the dual encoder (the optimizer left out): held at the end
+    of the forward (the saved activations) and at the peak."""
+    import torch
+
+    from forde_tpu_torch.models.dual_encoder import clip_contrastive_loss
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    img, txt, scale = state.model(batch["image"], batch["input_ids"],
+                                  batch.get("attention_mask"), sense=False)
+    loss, _ = clip_contrastive_loss(img, txt, scale)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(loss, state.optimizer.params)
+    del grads, loss, img, txt
+    torch.cuda.synchronize()
+    return {"forward_end_gib": held / 2 ** 30,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30}
+
+
+def phase_remat(device, workdir) -> dict:
+    """Phase 29: rematerialisation at full width: the LM step with and
+    without remat (fp32 parity, LoRA steps' parity, bf16 readings), the long-context
+    configuration through the CLI (--remat --scan_layers, 4 x 8,192), and
+    the dual encoder's three policies and fused "mlp" steps."""
+    import torch
+
+    cfg = serve_config()
+    total: Counter = Counter()
+    secs = {}
+    part = parts_timer(secs)
+    weights = lm_weights(cfg, device)
+    out = {"lm_parity": part("lm_parity", remat_lm_parity, device, cfg, weights, total),
+           "lm_lora": part("lm_lora", remat_lm_lora, device, cfg, weights, total),
+           "lm_readings": part("lm_readings", remat_lm_readings, device, cfg, weights)}
+    del weights
+    torch.cuda.empty_cache()
+    out["long_context"] = part("long_context", remat_long_lm, device, workdir, total)
+    out["clip"] = part("clip", remat_clip, device, total)
+    log("[remat] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    out["seconds"] = secs
+    out["launches"] = dict(total)
+    return out
+
+
+def parts_timer(secs: dict):
+    """part(name, fn, *args): fn(*args), its seconds kept in ``secs``."""
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        secs[name] = time.perf_counter() - t0
+        return result
+
+    return part
+
+
+# Phase 30: the LM loop profiled at 2 layers of the full width; clip_loop
+# profiled at vit_b16 (fused pairs of sensed steps); the scanned CLI round
+# trip; the NSA branch modules at full width; the plots.
+LM2_FLAGS = SERVE_FLAGS[:2] + ["--num_layers", "2"] + SERVE_FLAGS[4:]
+PROFILE_LM_ARGV = LM2_FLAGS + [
+    "--batch_size", "8", "--use_markov_data", "--steps_per_epoch", "2",
+    "--slow_loop_interval", "0", "--log_interval", "1",
+]
+PROFILE_CLIP_ARGV = [
+    "--preset", "vit_b16", "--bf16", "--use_dummy_data", "--dummy_pool", "2",
+    "--batch_size", "128", "--num_steps", "4", "--fuse_steps", "2", "--slow_loop_interval", "0",
+    "--log_interval", "2",
+]
+SCANNED_ARGV = LM2_FLAGS + [
+    "--batch_size", "2", "--use_markov_data", "--slow_loop_interval", "0", "--log_interval", "1",
+    "--scan_layers", "--ema_decay", str(EMA_DECAY),
+]
+# The CUDA names of each wrapper's kernels, as a profile shows them.
+DEVICE_NAMES = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_bwd_dq",
+                "flash_bwd_dkv": "flash_bwd_dkv", "small_kv_fwd": "small_kv_fwd",
+                "small_kv_bwd": "skv_bwd_", "flash_mha_fwd": "flash_mha_fwd",
+                "flash_mha_bwd": "mha_bwd_", "moment_sums": "moment_"}
+NSA_MODULE_SHAPE = dict(batch=2, seq=2048, d_model=512, heads=8, head_dim=64, ratio=8, top_k=64,
+                        window=512)
+NSA_MODULE_REL = 1e-5
+PLOTS_ARGV = ["--preset", "tiny", "--bf16", "--use_dummy_data", "--batch_size", "16",
+              "--num_steps", "2", "--slow_loop_interval", "2", "--log_interval", "2"]
+
+
+def trace_kernels(path: str, names) -> dict:
+    """{wrapper: device events of its kernels} in a profiler trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {n: sum(DEVICE_NAMES[n] in k for k in kernels) for n in names}
+
+
+def observe_profiles(device, workdir, total) -> dict:
+    """--profile_dir in both loops: each trace exists, loads and holds
+    device events of every kernel of its path; the step ms with and without
+    the profiler (the LM at 2 layers), the traces' sizes."""
+    import torch
+
+    from forde_tpu_torch.obs import profiler
+    from forde_tpu_torch.train import clip_loop
+    from forde_tpu_torch.train.clip_step import make_fused_step, stack_batches
+    from forde_tpu_torch.train.step import train_step
+
+    out = {}
+    prof = os.path.join(workdir, "profile_lm")
+    res, launches, secs, _ = run_train_loop(
+        PROFILE_LM_ARGV + ["--profile_dir", prof, "--seed", str(SEED)], workdir)
+    add_launches(total, launches)
+    cfg = res["state"].model.config
+    lm_names = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_kv_fwd", "small_kv_bwd")
+    found = trace_kernels(res["traces"][0], lm_names) if len(res["traces"]) == 1 else {}
+    size = os.path.getsize(res["traces"][0]) if res["traces"] else 0
+    state = res["state"]
+    batch = lm_batch(8, LM_SEQ, cfg.vocab_size, device, SEED + 95)
+    plain = [wall_ms(lambda: train_step(state, batch, aux_loss_weight=0.01)) for _ in range(3)]
+    with profiler.trace(os.path.join(workdir, "profile_lm_steps"), device):
+        profiled = [wall_ms(lambda: train_step(state, batch, aux_loss_weight=0.01))
+                    for _ in range(3)]
+    out["lm"] = {"trace_mib": size / 2 ** 20, "kernel_events": found,
+                 "step_ms": float(np.median(plain)), "step_ms_profiled": float(np.median(profiled)),
+                 "seconds": secs}
+    log(f"[observe] train.loop.main ({' '.join(PROFILE_LM_ARGV)} --profile_dir) took {secs:.2f} "
+        f"s: trace {size / 2 ** 20:.1f} MiB, device events {found}; a step (8 x {LM_SEQ}, 2 "
+        f"layers) {out['lm']['step_ms']:.2f} ms without the profiler, "
+        f"{out['lm']['step_ms_profiled']:.2f} ms with it")
+    if launches != {k: 2 * v for k, v in lm_launches_per_step(cfg).items()} or not found or (
+            min(found.values()) == 0):
+        raise AssertionError(f"profiled LM loop: launches {launches}, device events {found}")
+    del res, state
+    torch.cuda.empty_cache()
+
+    prof = os.path.join(workdir, "profile_clip")
+    argv = PROFILE_CLIP_ARGV + ["--profile_dir", prof, "--seed", str(SEED)]
+    args = clip_loop.build_parser().parse_args(argv)
+    ccfg = clip_loop.config_from_args(args)
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        t0 = time.perf_counter()
+        res, launches = counted(lambda: clip_loop.main(argv))
+        secs = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    add_launches(total, launches)
+    clip_names = ("flash_mha_fwd", "flash_mha_bwd", "moment_sums")
+    found = trace_kernels(res["traces"][0], clip_names) if len(res["traces"]) == 1 else {}
+    size = os.path.getsize(res["traces"][0]) if res["traces"] else 0
+    want = {k: args.num_steps * v for k, v in launches_per_step(ccfg, True).items()}
+    # a fused call (the loop's k steps, one graph replay) with and without
+    # the profiler
+    fused = make_fused_step(ccfg, args.fuse_steps, 1)
+    b = training_batch(ccfg, args.batch_size, device, SEED + 98)
+    b["image"] = b["image"].to(ccfg.dtypes.compute)
+    stacked = fused.prepare(next(stack_batches(iter([b] * args.fuse_steps), args.fuse_steps)))
+    state = res["state"]
+    fused(state, stacked)
+    plain = [wall_ms(lambda: fused(state, stacked)) for _ in range(3)]
+    with profiler.trace(os.path.join(workdir, "profile_clip_calls"), device):
+        profiled = [wall_ms(lambda: fused(state, stacked)) for _ in range(3)]
+    out["clip"] = {"seconds": secs, "trace_mib": size / 2 ** 20, "kernel_events": found,
+                   "fused_call_ms": float(np.median(plain)),
+                   "fused_call_ms_profiled": float(np.median(profiled))}
+    log(f"[observe] clip_loop.main ({' '.join(PROFILE_CLIP_ARGV)} --profile_dir) took "
+        f"{secs:.2f} s: trace {size / 2 ** 20:.1f} MiB, device events {found}; a fused call of "
+        f"{args.fuse_steps} sensed steps {out['clip']['fused_call_ms']:.2f} ms without the "
+        f"profiler, {out['clip']['fused_call_ms_profiled']:.2f} ms with it")
+    if launches != want or not found or min(found.values()) == 0:
+        raise AssertionError(f"profiled clip loop: launches {launches} (expected {want}), "
+                             f"device events {found}")
+    del res, state, fused, stacked
+    torch.cuda.empty_cache()
+    return out
+
+
+def observe_scanned_round_trip(device, workdir, total) -> dict:
+    """The LM loop with --scan_layers --ema_decay at 2 layers of the full
+    width, 2 steps, then --resume for 1 more: the restored state equals
+    the saved one bit for bit; serving the checkpoint gives the logits of
+    serving an unrolled save of the same weights, bit for bit."""
+    import torch
+
+    from forde_tpu_torch import interop
+    from forde_tpu_torch.train import checkpoint as ckpt_lib
+
+    ckpt = os.path.join(workdir, "scanned_ckpt")
+    first, la, _, _ = run_train_loop(SCANNED_ARGV + ["--steps_per_epoch", "2",
+                                                     "--checkpoint_dir", ckpt], workdir)
+    add_launches(total, la)
+    saved = {k: v.clone() for k, v in state_tensors(first["state"]).items()}
+    del first
+    fresh, lb, _, _ = run_train_loop(SCANNED_ARGV + ["--steps_per_epoch", "0"], workdir)
+    ckpt_lib.restore_train_state(ckpt, fresh["state"])
+    off = same_tensors(saved, state_tensors(fresh["state"]))
+    del fresh
+    resumed, lc, _, _ = run_train_loop(SCANNED_ARGV + ["--steps_per_epoch", "3", "--resume",
+                                                       "--checkpoint_dir", ckpt], workdir)
+    add_launches(total, lc)
+    model = resumed["state"].model
+    unrolled = os.path.join(workdir, "unrolled_ckpt")
+    ckpt_lib.save_params(unrolled, model.config.replace(scan_layers=False),
+                         interop.flatten(interop.state_dict_to_flax(model.state_dict())),
+                         {"step": resumed["step"]})
+    del resumed, model
+    prompt = torch.from_numpy(np.random.RandomState(SEED + 96).randint(
+        1, 50257, (1, 700))).to(device)
+    logits = []
+    for d in (ckpt, unrolled):
+        _, m = ckpt_lib.load_lm_params(d, device)
+        with torch.no_grad():
+            logits.append(m(prompt)[0])
+        del m
+    same = bool(torch.equal(logits[0], logits[1]))
+    cfg, meta = ckpt_lib.load_meta(ckpt)
+    log(f"[observe] --scan_layers --ema_decay {EMA_DECAY} (2 layers, full width): the saved "
+        f"state restored bit for bit ({len(saved)} tensors, {len(off)} off), --resume went on "
+        f"to step {meta['step']}; served logits of the scanned checkpoint = an unrolled save's: "
+        f"{same}")
+    if off or not same or meta["step"] != 3 or not cfg.scan_layers:
+        raise AssertionError(f"scanned round trip: {off[:4]} off, logits equal {same}, step "
+                             f"{meta['step']}, scan_layers {cfg.scan_layers}")
+    torch.cuda.empty_cache()
+    return {"restored_bit_identical": True, "served_logits_bit_identical": same}
+
+
+def observe_nsa_modules(device) -> dict:
+    """CompressedGlobalAttention and TopKSelection at NSA_MODULE_SHAPE, fp32:
+    the card's outputs within NSA_MODULE_REL relative L2 of the CPU's on the
+    same weights, the top-k indices equal (a tie-free score: a seeded
+    permutation)."""
+    import torch
+
+    from forde_tpu_torch.nn.nsa_modules import CompressedGlobalAttention, TopKSelection
+
+    s = NSA_MODULE_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 97)
+    mods = {"compressed": CompressedGlobalAttention(s["d_model"], s["heads"], s["head_dim"],
+                                                    s["ratio"]),
+            "topk": TopKSelection(s["d_model"], s["heads"], s["head_dim"], s["top_k"])}
+    for m in mods.values():
+        for sub in m.modules():
+            if hasattr(sub, "init_params"):
+                sub.init_params(gen)
+    x = torch.randn(s["batch"], s["seq"], s["d_model"], generator=gen)
+    scores = torch.stack([torch.randperm(s["seq"], generator=gen).float()
+                          for _ in range(s["batch"])])
+    start = s["seq"] - s["window"]
+    with torch.no_grad():
+        cpu = {"compressed": mods["compressed"](x, start), "topk": mods["topk"](x, scores)}
+        card = {"compressed": mods["compressed"].to(device)(x.to(device), start),
+                "topk": mods["topk"].to(device)(x.to(device), scores.to(device))}
+    rel = {"compressed": rel_l2(card["compressed"].cpu(), cpu["compressed"]),
+           "topk": rel_l2(card["topk"][0].cpu(), cpu["topk"][0])}
+    same_idx = bool(torch.equal(card["topk"][1].cpu(), cpu["topk"][1]))
+    log(f"[observe] NSA branch modules ({s}, fp32): card against CPU relative L2 "
+        f"{rel}; top-k indices equal {same_idx}")
+    if not same_idx or max(rel.values()) > NSA_MODULE_REL:
+        raise AssertionError(f"NSA branch modules card vs CPU: {rel}, indices equal {same_idx}")
+    return {"rel_l2": rel, "indices_equal": same_idx}
+
+
+def observe_plots(workdir) -> dict:
+    """clip_loop --plots_dir: with matplotlib the files are written; without
+    it the flag raises before the first step, naming matplotlib."""
+    import importlib.util
+
+    from forde_tpu_torch.train import clip_loop
+
+    plots = os.path.join(workdir, "plots")
+    argv = PLOTS_ARGV + ["--plots_dir", plots, "--seed", str(SEED)]
+    if importlib.util.find_spec("matplotlib") is not None:
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            clip_loop.main(argv)
+        finally:
+            os.chdir(cwd)
+        files = sorted(os.path.relpath(os.path.join(d, f), plots)
+                       for d, _, fs in os.walk(plots) for f in fs)
+        log(f"[observe] matplotlib imports here: clip_loop --plots_dir wrote {files}")
+        if len(files) != 6:
+            raise AssertionError(f"clip_loop --plots_dir wrote {files}")
+        return {"matplotlib": True, "files": files}
+    try:
+        clip_loop.main(argv)
+    except RuntimeError as e:
+        message = str(e)
+    else:
+        raise AssertionError("clip_loop --plots_dir ran without matplotlib")
+    log(f"[observe] matplotlib does not import here: clip_loop --plots_dir raised before the "
+        f"first step: {message}")
+    if "matplotlib" not in message or os.path.exists(plots):
+        raise AssertionError(f"--plots_dir without matplotlib: {message}")
+    return {"matplotlib": False, "message": message}
+
+
+def phase_observe(device, workdir) -> dict:
+    """Phase 30: profiles of both loops, the scanned CLI round trip, the
+    NSA branch modules on the card, the plots."""
+    total: Counter = Counter()
+    secs = {}
+    part = parts_timer(secs)
+    out = {"profiles": part("profiles", observe_profiles, device, workdir, total),
+           "scanned": part("scanned", observe_scanned_round_trip, device, workdir, total),
+           "nsa_modules": part("nsa_modules", observe_nsa_modules, device),
+           "plots": part("plots", observe_plots, workdir)}
+    log("[observe] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    out["seconds"] = secs
+    out["launches"] = dict(total)
+    return out
+
+
 def timed(phase, *args):
     """phase(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -5075,6 +5726,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         lm_extras = timed(phase_lm_extras, device, workdir)
         clip_extras = timed(phase_clip_extras, device, workdir)
+        remat = timed(phase_remat, device, workdir)
+        observe = timed(phase_observe, device, workdir)
     shapes.update(timed(phase_serving_kernel_timing, device))
     shapes["topk_replay"] = topk["shapes"]
     lm_parity = timed(phase_lm_step_parity, device)
@@ -5097,7 +5750,9 @@ def main() -> int:
                 "pool": pool["launches"].get(name, 0),
                 "http": http["launches"].get(name, 0),
                 "lm_extras": lm_extras["launches"].get(name, 0),
-                "clip_extras": clip_extras["launches"].get(name, 0)}
+                "clip_extras": clip_extras["launches"].get(name, 0),
+                "remat": remat["launches"].get(name, 0),
+                "observe": observe["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -5242,6 +5897,8 @@ def main() -> int:
         "http": {k: v for k, v in http.items() if k != "launches"},
         "lm_extras": {k: v for k, v in lm_extras.items() if k != "launches"},
         "clip_extras": {k: v for k, v in clip_extras.items() if k != "launches"},
+        "remat": {k: v for k, v in remat.items() if k != "launches"},
+        "observe": {k: v for k, v in observe.items() if k != "launches"},
         "card": smi,
     }
     print(smi)

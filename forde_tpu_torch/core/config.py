@@ -56,9 +56,12 @@ class LLMConfig:
     "interpret") runs the attention kernels on CUDA tensors and their
     plain versions on CPU tensors; "reference" runs the plain attention
     paths everywhere. ``moe_dispatch``: "dense" or "capacity" ("ep", expert
-    parallelism over a device mesh, comes with the multi-device slice). ``remat`` and ``scan_layers``
-    are kept for the checkpoint schema: the port's model is unrolled and
-    reads the ``scan_layers`` parameter layout too (``interop``).
+    parallelism over a device mesh, comes with the multi-device slice).
+    ``remat``: a training forward recomputes each decoder block in the
+    backward (nn/remat.py). ``scan_layers`` is the checkpoint layout: the
+    saved trees keep the blocks under ``layers/block/...`` with a leading
+    (L,) axis, as the JAX package's scanned model does; the port's model
+    stays unrolled in either layout (``interop``).
     ``quantized``: weight-only int8 serving (ops/quant.py): the
     dense-causal attention's projections, the dense FFN, the lm_head and
     the MoE expert bank take int8 weights from ``quant.quantize_params``.
@@ -143,8 +146,12 @@ class DualEncoderConfig:
     masked-attention path everywhere. ``sense`` builds the StatefulLayers'
     fast-loop state (a call still chooses whether to sense);
     ``forde_lite`` picks the slow loop's rule-based assigner over the GMM.
-    ``num_neuron_types``, ``stateful_kernel_impl`` and ``remat`` are kept
-    for the checkpoint schema; the port reads none of them.
+    ``remat``, the rematerialisation policy of a training forward
+    (nn/remat.py): False/"none" keeps every activation, True/"block"
+    recomputes whole tower blocks in the backward (attention too), "mlp"
+    only the StatefulLayer. ``num_neuron_types`` and
+    ``stateful_kernel_impl`` are kept for the checkpoint schema; the port
+    reads neither.
     """
 
     image_size: int = 224

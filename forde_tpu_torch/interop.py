@@ -25,7 +25,9 @@ map of the port's module names, ``_WEIGHT_OWNERS``), not by its rank.
 
 A decoder LM trained with ``scan_layers`` keeps its blocks under
 ``layers/block/...`` with a leading (L,) axis; ``split_scan_layers``
-turns that into the unrolled ``layer_{i}/...`` trees the port's model has.
+turns that into the unrolled ``layer_{i}/...`` trees the port's model has,
+and ``stack_scan_layers`` turns them back (``state_dict_to_flax`` writes
+a tree in either layout).
 
 The JAX train state's ``perturbations`` (the zero tap slots) and
 ``grad_stats`` trees hold one (F, 2) leaf ``z_tap`` per StatefulLayer; the
@@ -91,6 +93,8 @@ _WEIGHT_OWNERS = {
         "compressed_q_proj", "compressed_k_proj", "compressed_v_proj",
         "compressed_out_proj", "topk_q_proj", "topk_k_proj", "topk_v_proj",
         "topk_out_proj",
+        # the standalone NSA branches (nn/nsa_modules.py)
+        "q_proj", "k_proj", "v_proj",
     ), "kernel"),
 }
 
@@ -142,6 +146,31 @@ def split_scan_layers(tree: Mapping) -> dict:
         for i, row in enumerate(np.asarray(value)):
             out[f"layer_{i}/{path}"] = row
     return unflatten(flatten(out))
+
+
+def stack_scan_layers(tree: Mapping) -> dict:
+    """Inverse of ``split_scan_layers``: the unrolled ``layer_{i}/...``
+    subtrees of ``tree`` -> ``layers/block/...`` leaves with a leading (L,)
+    axis, each leaf's dtype kept (fp32 params, an (L,) int32
+    ``step_count``); a tree without them is returned as it is."""
+    index = {}
+    for k in tree:
+        m = _BLOCK.match(str(k))
+        if m and m.group(1) == "layer":
+            index[int(m.group(2))] = k
+    if not index:
+        return dict(tree)
+    if sorted(index) != list(range(len(index))):
+        raise ValueError(f"layers {sorted(index)} are not 0..{len(index) - 1}")
+    per_layer = [flatten(tree[index[i]]) for i in range(len(index))]
+    for i, flat in enumerate(per_layer[1:], 1):
+        if flat.keys() != per_layer[0].keys():
+            raise KeyError(f"layer_{i} has other leaves than layer_0: "
+                           f"{sorted(set(flat) ^ set(per_layer[0]))}")
+    out = {k: v for k, v in tree.items() if k not in index.values()}
+    out["layers"] = {"block": unflatten({
+        path: np.stack([flat[path] for flat in per_layer]) for path in per_layer[0]})}
+    return out
 
 
 def flax_to_state_dict(
@@ -204,12 +233,14 @@ def _flax_names(key: str) -> list:
     return names
 
 
-def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict]:
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor],
+                       scan_layers: bool = False) -> Dict[str, dict]:
     """Inverse of ``flax_to_state_dict``: {"params": tree, "brain": tree,
     "stats_buffer": tree} of numpy arrays, the JAX package's layout
-    (``brain`` and ``stats_buffer`` empty where the model has none). A
-    ``weight`` takes the Flax leaf of its module (``_WEIGHT_OWNERS``);
-    one under a module of another name raises."""
+    (``brain`` and ``stats_buffer`` empty where the model has none), with
+    ``scan_layers`` the scanned one (``stack_scan_layers``). A ``weight``
+    takes the Flax leaf of its module (``_WEIGHT_OWNERS``); one under a
+    module of another name raises."""
     trees: Dict[str, Dict[str, np.ndarray]] = {"params": {}, "brain": {}, "stats_buffer": {}}
     for key, (path, transposed) in flax_keys(state_dict).items():
         collection, _, flax_path = path.partition("/")
@@ -222,7 +253,8 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, dict
             value = value.numpy() if value.dtype == torch.int8 else value.float().numpy()
             value = np.array(value.T if transposed else value)
         trees[collection][flax_path] = value
-    return {k: unflatten(v) for k, v in trees.items()}
+    stack = stack_scan_layers if scan_layers else dict
+    return {k: stack(unflatten(v)) for k, v in trees.items()}
 
 
 def flax_keys(names) -> Dict[str, Tuple[str, bool]]:

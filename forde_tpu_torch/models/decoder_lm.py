@@ -4,8 +4,12 @@ forde_tpu/models/decoder_lm.py).
 Token + learned positional embeddings, pre-norm blocks of [NSA-or-causal
 attention, mHC-or-plain residual, MoE-or-dense FFN, mHC-or-plain
 residual], final norm, stream collapse, lm_head. The blocks are unrolled
-(``layers.{i}``, the JAX package's ``layer_{i}``); a ``scan_layers``
-checkpoint is split per layer when it is loaded (``interop``).
+(``layers.{i}``, the JAX package's ``layer_{i}``) in either layout:
+``scan_layers`` is a checkpoint layout here (``interop.split_scan_layers``
+on load, ``stack_scan_layers`` on save), since the port compiles no
+program whose size the scan would shrink. With ``remat`` a training
+forward recomputes each block in the backward (nn/remat.py); the
+embedding, stream collapse, final norm, lm_head and loss are kept.
 
 ``forward`` is the teacher-forced pass (``lengths`` for right-padded
 rows) or, given a ``cache`` from ``init_cache``, the cached pass: a
@@ -27,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from forde_tpu_torch.core.config import LLMConfig
+from forde_tpu_torch.nn import remat
 from forde_tpu_torch.nn.attention import CausalSelfAttention, NativeSparseAttention
 from forde_tpu_torch.nn.hyper_connections import (
     HyperConnectionStream,
@@ -218,11 +223,22 @@ class FORDEDecoderLM(torch.nn.Module):
 
         streams = self.initial_streams(x) if cfg.use_hyper_connections else None
         total_aux = torch.zeros((), device=x.device)
+        # cfg.remat: each block's activations are recomputed in the backward
+        # (the JAX package's nn.remat(DecoderBlock)); no-grad calls and the
+        # cached and capture passes (serving) never are
+        rematted = (cfg.remat and torch.is_grad_enabled() and cache is None
+                    and capture is None)
         for i, layer in enumerate(self.layers):
-            x, streams, aux = layer(
-                x, streams, lengths, None if cache is None else cache[f"layer_{i}"],
-                positions, capture, update_stats, deterministic,
-            )
+            if rematted:
+                x, streams, aux = remat.checkpoint(
+                    layer, x, streams, lengths, None, positions, None, update_stats,
+                    deterministic, preserve_rng_state=not deterministic and cfg.dropout_rate > 0,
+                )
+            else:
+                x, streams, aux = layer(
+                    x, streams, lengths, None if cache is None else cache[f"layer_{i}"],
+                    positions, capture, update_stats, deterministic,
+                )
             total_aux = total_aux + aux
 
         if cfg.use_hyper_connections:

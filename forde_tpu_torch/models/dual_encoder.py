@@ -18,6 +18,19 @@ from forde_tpu_torch.nn.layers import Dense, LayerNorm
 from forde_tpu_torch.nn.transformer import FORDETransformerBlock
 
 
+def remat_policy(remat) -> Optional[str]:
+    """``DualEncoderConfig.remat`` as the blocks read it (the JAX package's
+    ``_block_cls``): True or "block" -> "block", "mlp" -> "mlp", False or
+    "none" -> None."""
+    if remat in (True, "block"):
+        return "block"
+    if remat == "mlp":
+        return "mlp"
+    if remat in (False, None, "none"):
+        return None
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def _blocks(cfg: DualEncoderConfig, tw: TowerConfig, device) -> torch.nn.ModuleList:
     return torch.nn.ModuleList(
         FORDETransformerBlock(
@@ -32,6 +45,7 @@ def _blocks(cfg: DualEncoderConfig, tw: TowerConfig, device) -> torch.nn.ModuleL
             sense=cfg.sense,
             param_dtype=cfg.dtypes.param,
             device=device,
+            remat=remat_policy(cfg.remat),
         )
         for _ in range(tw.num_layers)
     )

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from forde_tpu_torch.nn.layers import Dense
+from forde_tpu_torch.nn.remat import recomputing
 from forde_tpu_torch.ops import moe_dispatch
 from forde_tpu_torch.ops.quant import int8_matmul, quantize_activations
 
@@ -180,7 +181,8 @@ class MoEStatefulLayer(torch.nn.Module):
     ``step_count`` int32. ``forward(x, update_stats)``: with
     ``update_stats`` the buffers gain this call's mean router probability
     and one step, in place (the JAX package's mutable ``stats_buffer``);
-    serving leaves them as loaded."""
+    serving leaves them as loaded, and the recomputation of a rematted
+    block (nn/remat.py) does not add them again."""
 
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
@@ -199,7 +201,7 @@ class MoEStatefulLayer(torch.nn.Module):
 
     def forward(self, x: torch.Tensor, update_stats: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         output, aux_loss, router_probs = self.moe_layer(x)
-        if update_stats:
+        if update_stats and not recomputing():
             with torch.no_grad():
                 self.expert_usage += router_probs.mean(dim=(0, 1)).float()
                 self.step_count += 1

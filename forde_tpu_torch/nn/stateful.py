@@ -23,6 +23,7 @@ from typing import Dict, Optional
 import torch
 
 from forde_tpu_torch.nn.layers import Dense
+from forde_tpu_torch.nn.remat import recomputing
 from forde_tpu_torch.ops import stat_sums
 from forde_tpu_torch.ops.stateful import grad_stat_tap, stateful_multiplex
 
@@ -82,8 +83,9 @@ class StatefulLayer(torch.nn.Module):
                 raise ValueError("sense=True needs a StatefulLayer built with sense=True")
             if self.z_tap is not None:
                 z = grad_stat_tap(z, self.z_tap)
-            self.act_stats.add_(activation_stats(z))
-            self.step_count.add_(1)
+            if not recomputing():  # once per forward under remat (nn/remat.py)
+                self.act_stats.add_(activation_stats(z))
+                self.step_count.add_(1)
         y = stateful_multiplex(z, self.neuron_assignments, self.specialist_gate)
         return self.w_out(y.to(self.dtype))
 

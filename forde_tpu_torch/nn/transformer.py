@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from forde_tpu_torch.nn import remat
 from forde_tpu_torch.nn.layers import Dense, LayerNorm
 from forde_tpu_torch.nn.stateful import StatefulLayer
 from forde_tpu_torch.ops.flash_attention import flash_mha
@@ -58,7 +59,13 @@ class EncoderSelfAttention(torch.nn.Module):
 
 
 class FORDETransformerBlock(torch.nn.Module):
-    """LN -> attention -> residual; LN -> StatefulLayer -> residual."""
+    """LN -> attention -> residual; LN -> StatefulLayer -> residual.
+
+    ``remat`` (a training call only, nn/remat.py): "block" recomputes the
+    whole block in the backward, "mlp" only the StatefulLayer (its two
+    (B, S, mlp_hidden) intermediates are the largest tensors of a block),
+    None neither (the JAX package's ``nn.remat`` of the block, and
+    ``remat_mlp``)."""
 
     def __init__(
         self,
@@ -73,8 +80,10 @@ class FORDETransformerBlock(torch.nn.Module):
         sense: bool = False,
         param_dtype: torch.dtype = torch.float32,
         device=None,
+        remat: Optional[str] = None,
     ):
         super().__init__()
+        self.remat = remat
         self.dropout_rate = dropout_rate
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.attn_norm = LayerNorm(d_model, **kw)
@@ -96,8 +105,18 @@ class FORDETransformerBlock(torch.nn.Module):
     ) -> torch.Tensor:
         """``sense``: this call accumulates the StatefulLayer's fast-loop
         statistics (nn/stateful.py)."""
+        if self.remat == "block" and torch.is_grad_enabled():
+            dropout = not deterministic and self.dropout_rate > 0
+            return remat.checkpoint(self._forward, x, key_padding_mask, deterministic, sense,
+                                    preserve_rng_state=dropout)
+        return self._forward(x, key_padding_mask, deterministic, sense)
+
+    def _forward(self, x, key_padding_mask, deterministic, sense):
         training = not deterministic
         attn_out = self.attention(self.attn_norm(x), key_padding_mask)
         x = x + F.dropout(attn_out, self.dropout_rate, training=training)
-        mlp_out = self.stateful(self.mlp_norm(x), sense)
+        if self.remat == "mlp" and torch.is_grad_enabled():
+            mlp_out = remat.checkpoint(self.stateful, self.mlp_norm(x), sense)
+        else:
+            mlp_out = self.stateful(self.mlp_norm(x), sense)
         return x + F.dropout(mlp_out, self.dropout_rate, training=training)

@@ -10,10 +10,11 @@ schema (``{"model": config_to_dict(cfg), "train": {...}}``) and
 ``stats_buffer`` for the decoder LM
 (``params/layer_0/sparse_attention/local_attention/qkv_proj/kernel``,
 ``stats_buffer/layer_0/moe/expert_usage``; a ``scan_layers`` model's
-``layers/block/...`` leaves carry a leading (L,) axis), and ``ema_params``
-beside ``params`` where the run kept an EMA. The JAX package's Orbax
-train-state directories need JAX to read; flatten their trees into
-``params.npz`` on the JAX side.
+``layers/block/...`` leaves carry a leading (L,) axis: a decoder LM whose
+config has ``scan_layers`` is written in that layout, and read in either),
+and ``ema_params`` beside ``params`` where the run kept an EMA. The JAX
+package's Orbax train-state directories need JAX to read:
+``scripts/orbax_to_npz.py`` converts one into this layout.
 
 A training run's checkpoint (``save_train_state``) adds ``opt_state.npz``:
 Adam's moments and count, the host step and the dual encoder's gradient
@@ -53,11 +54,35 @@ def save_params(
     train_meta: Optional[dict] = None,
 ) -> None:
     """Write ``model_config.json`` and ``params.npz`` (keys "/"-joined Flax
-    paths under ``params/`` and ``brain/`` or ``stats_buffer/``)."""
+    paths under ``params/`` and ``brain/`` or ``stats_buffer/``), a decoder
+    LM's in the layout its ``cfg.scan_layers`` names (``relayout``)."""
     os.makedirs(directory, exist_ok=True)
     with open(os.path.join(directory, MODEL_CONFIG_FILENAME), "w") as f:
         json.dump({"model": config_to_dict(cfg), "train": train_meta or {}}, f, indent=1)
+    if isinstance(cfg, LLMConfig):
+        params_npz_dict = relayout(params_npz_dict, cfg.scan_layers)
     np.savez(os.path.join(directory, PARAMS_FILENAME), **params_npz_dict)
+
+
+def relayout(flat: Mapping[str, np.ndarray], scan_layers: bool) -> Dict[str, np.ndarray]:
+    """A checkpoint's flat arrays ("<collection>/<Flax path>") in the
+    scanned layout (``scan_layers``: each collection's ``layer_{i}/...``
+    stacked into ``layers/block/...``) or the unrolled one (split back);
+    keys of no collection ("count", "step") stay as they are."""
+    from forde_tpu_torch.interop import flatten, split_scan_layers, stack_scan_layers, unflatten
+
+    change = stack_scan_layers if scan_layers else split_scan_layers
+    out, collections = {}, {}
+    for key, value in flat.items():
+        collection, _, path = key.partition("/")
+        if path:
+            collections.setdefault(collection, {})[path] = value
+        else:
+            out[key] = value
+    for collection, paths in collections.items():
+        for path, value in flatten(change(unflatten(paths))).items():
+            out[f"{collection}/{path}"] = value
+    return out
 
 
 # The dual encoder's writer, by its name in the first slices of the port.
@@ -187,11 +212,14 @@ def _merged_lora_model(lora: dict, weights: dict, tree: dict, device,
                        lora_base_dir: Optional[str]) -> torch.nn.Module:
     """The base of a LoRA checkpoint with its adapters merged into the
     weights and the checkpoint's stat buffers loaded."""
-    from forde_tpu_torch.interop import flatten, flax_keys
+    from forde_tpu_torch.interop import flatten, flax_keys, split_scan_layers
     from forde_tpu_torch.train import lora as lora_lib
 
     _, model = load_lm_params(lora_base_dir or lora["base"], device)
-    flat = {k: torch.from_numpy(np.array(v)).to(device) for k, v in flatten(weights).items()}
+    # the adapters and stat buffers of a run over a scanned base carry the
+    # layers on a leading axis: merge and load them per layer
+    flat = {k: torch.from_numpy(np.array(v)).to(device)
+            for k, v in flatten(split_scan_layers(weights)).items()}
     paths = {k.rsplit("/", 1)[0] for k in flat}
     adapters = lora_lib.LoRAAdapters(flat, lora_lib.lora_targets(model, paths))
     if len(flat) != 2 * len(paths):
@@ -200,7 +228,7 @@ def _merged_lora_model(lora: dict, weights: dict, tree: dict, device,
     named = dict(model.named_parameters())
     for name, merged in lora_lib.merge_lora(model, adapters, scale).items():
         named[name].copy_(merged)
-    stats = flatten(tree.get("stats_buffer", {}))
+    stats = flatten(split_scan_layers(tree.get("stats_buffer", {})))
     buffers = {key[len("stats_buffer/"):]: name for name, (key, _) in
                flax_keys(n for n, _ in model.named_buffers()).items()
                if key.startswith("stats_buffer/")}
@@ -305,15 +333,19 @@ def save_train_state(directory: str, state, step: int, train_meta: Optional[dict
     ``embed`` and ``eval_lm`` read, plus ``ema_params``), ``opt_state.npz``
     (Adam's moments, widened to fp32, its count, the host step and the
     gradient statistics) and ``model_config.json`` (the train meta, with
-    ``step``). Each file is written under a temporary name first and then
-    moved over the old one (``os.replace``), so a preemption while the
+    ``step``). A decoder LM whose config has ``scan_layers`` is written in
+    the scanned layout (``relayout``): ``params``, ``ema_params``,
+    ``stats_buffer`` and Adam's ``mu``/``nu`` stacked under
+    ``layers/block/...``. Each file is written under a temporary name first
+    and then moved over the old one (``os.replace``), so a preemption while the
     files are written leaves the previous checkpoint whole; the three moves
     come last, back to back, and ``restore_train_state`` refuses files of
     different steps."""
     os.makedirs(directory, exist_ok=True)
     params, extra = _state_tensors(state)
-    arrays = {k: _to_numpy(t, tr) for k, (t, tr) in params.items()}
-    opt_arrays = {k: _to_numpy(t, tr) for k, (t, tr) in extra.items()}
+    scanned = bool(getattr(state.model.config, "scan_layers", False))
+    arrays = relayout({k: _to_numpy(t, tr) for k, (t, tr) in params.items()}, scanned)
+    opt_arrays = relayout({k: _to_numpy(t, tr) for k, (t, tr) in extra.items()}, scanned)
     opt_arrays["step"] = np.asarray(step, np.int64)
     meta = {**(train_meta or {}), "step": step}
     cfg_tmp = os.path.join(directory, MODEL_CONFIG_FILENAME + ".tmp")
@@ -352,8 +384,9 @@ def restore_train_state(directory: str, state):
     """Restore a ``save_train_state`` checkpoint into ``state`` (a
     ``TrainState`` or ``CLIPTrainState`` of the same structure) in place:
     every tensor is written with ``copy_``, so a CUDA graph captured over
-    the state stays valid. Raises on a key that is missing or extra, on a
-    shape that differs, on files of different steps, and when the
+    the state stays valid. The checkpoint may be in either layout (scanned
+    or unrolled; ``relayout``). Raises on a key that is missing or extra,
+    on a shape that differs, on files of different steps, and when the
     checkpoint's optimizer meta (moment dtype, warmup, LR schedule) is not
     the state's. Returns ``state`` with ``state.step`` set."""
     _, meta = load_meta(directory)
@@ -369,6 +402,7 @@ def restore_train_state(directory: str, state):
                          f"{MODEL_CONFIG_FILENAME} of step {meta.get('step')}")
     params, extra = _state_tensors(state)
     for name, want, got in (("params.npz", params, arrays), ("opt_state.npz", extra, opt_arrays)):
+        got = relayout(got, False)
         missing, unused = sorted(set(want) - set(got)), sorted(set(got) - set(want))
         if missing or unused:
             raise KeyError(f"{directory}/{name} vs the train state: missing {missing}, "

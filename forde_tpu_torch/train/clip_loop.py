@@ -30,9 +30,22 @@ GPU visible it raises.
 card one CUDA graph of the k steps (the EMA update included) over a
 stacked super-batch.
 
+``--profile_dir`` records a ``torch.profiler`` trace of the whole loop
+(obs/profiler.py). ``--plots_dir`` draws the brain-map plots
+(obs/plots.py) of the first two StatefulLayers (in the JAX package's
+order of their layer paths) after every slow loop that was not skipped,
+each into ``<plots_dir>/<layer path with "_" for "/">``
+(``text_block_0_stateful``); it defaults to None (the JAX loop's default
+is "plots") and raises before the first step where matplotlib cannot be
+imported.
+
+  python -m forde_tpu_torch.train.clip_loop --preset vit_b16 --bf16 \\
+      --use_dummy_data --dummy_pool 2 --batch_size 128 --num_steps 16 \\
+      --sense_interval 8 --slow_loop_interval 8 --fuse_steps 2 \\
+      --profile_dir prof --plots_dir plots
+
 Not ported yet (and not accepted): ``--tensor_parallelism`` and
-``--param_sharding`` (the multi-device slice), ``--plots_dir`` and
-``--profile_dir`` (the training extras' second part), and the streamed
+``--param_sharding`` (the multi-device slice), and the streamed
 Conceptual Captions data (a tokenizer and data in the repository).
 """
 
@@ -123,6 +136,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_interval", type=int, default=0,
                    help="steps between retrieval evals (0 disables)")
     p.add_argument("--eval_batches", type=int, default=4)
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the training loop here")
+    p.add_argument("--plots_dir", type=str, default=None,
+                   help="draw the brain-map plots of two layers here after each slow loop "
+                        "(needs matplotlib; default: no plots)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     # custom-preset model knobs
@@ -223,7 +241,9 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         SyntheticVLDataset,
     )
     from forde_tpu_torch.nn.stateful import stateful_layers
+    from forde_tpu_torch.obs import profiler
     from forde_tpu_torch.obs.metrics import MetricsWriter, ThroughputMeter
+    from forde_tpu_torch.obs.plots import require_matplotlib
     from forde_tpu_torch.obs.retrieval import evaluate_retrieval
     from forde_tpu_torch.train import checkpoint as ckpt_lib
     from forde_tpu_torch.train.clip_step import (
@@ -242,6 +262,8 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             "only --use_dummy_data and --use_aligned_data are ported; the streamed Conceptual "
             "Captions pipeline is not (it waits for a tokenizer and data in the repository)"
         )
+    if args.plots_dir:
+        require_matplotlib()
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     brain = BrainConfig()
@@ -341,7 +363,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     metrics = None
     preempt = ckpt_lib.preemption_requests() if args.checkpoint_dir else contextlib.nullcontext([])
     try:
-        with preempt as stop:
+        with preempt as stop, profiler.trace(args.profile_dir, device) as traces:
             for batch in batches:
                 if stop:
                     break
@@ -401,6 +423,8 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                     mode = "Forde-lite" if cfg.forde_lite else "GMM"
                     print(f"[brain update @ {step}] mode={mode} {dt_ms:.1f}ms"
                           f"{' (skipped: no sensed step)' if skipped else ''}", flush=True)
+                    if args.plots_dir and not skipped:
+                        _plot(diag, step, args.plots_dir, brain)
 
                 if args.eval_interval > 0 and step % args.eval_interval == 0 and eval_sets:
                     _synchronize(device)
@@ -437,8 +461,41 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     return {
         "state": state, "final_metrics": last, "step": step,
         "pairs_per_sec": meter.items_per_sec,
-        "brain_updates": brain_updates, "retrieval": retrieval,
+        "brain_updates": brain_updates, "retrieval": retrieval, "traces": traces,
     }
+
+
+def plot_layers(names) -> dict:
+    """{StatefulLayer module name: its plots' directory name} of the two
+    layers the JAX loop plots: the first two by their sorted Flax layer
+    paths, each named by its path with "_" for "/"
+    (``text.blocks.0.stateful`` -> ``text_block_0_stateful``)."""
+    from forde_tpu_torch.interop import flax_keys
+
+    suffix = "/neuron_assignments"
+    paths = {name: key[len("brain/"):-len(suffix)] for name, (key, _) in
+             flax_keys(f"{n}.neuron_assignments" for n in names).items()}
+    chosen = sorted(paths, key=lambda n: tuple(paths[n].split("/")))[:2]
+    return {name.removesuffix(".neuron_assignments"): paths[name].replace("/", "_")
+            for name in chosen}
+
+
+def _plot(diag, step: int, plots_dir: str, brain) -> None:
+    """The three brain-map plots of two layers after a neuron slow loop,
+    as the JAX loop draws them (epoch 0, its feature names and labels)."""
+    import os
+
+    from forde_tpu_torch.obs import plots
+
+    for name, tag in plot_layers(diag["layers"]).items():
+        d = diag["layers"][name]
+        a = d["assignments"].cpu().numpy()
+        out = os.path.join(plots_dir, tag)
+        plots.plot_brain_scan(plots.grid_of(a), 0, step, out)
+        plots.plot_feature_space(d["stats"].cpu().numpy()[:, :2], a, 0, step, out,
+                                 feature_names=("grad_gini", "grad_gdp"))
+        plots.plot_census(a, 0, step, out, num_clusters=brain.num_clusters,
+                          labels={0: "Generalist", 1: "Pooling", 2: "Specialist"})
 
 
 def main(argv: Optional[list] = None) -> dict:

@@ -38,9 +38,24 @@ the run at the next step boundary, save, and exit 0.
       --batch_size 4 --use_markov_data --steps_per_epoch 4 --grad_accum 2 \\
       --ema_decay 0.99 --slow_loop_interval 2 --checkpoint_dir ckpt --resume
 
+The training extras' second part: ``--remat`` recomputes each block's
+activations in the backward (nn/remat.py; the stat buffers still count
+each forward once); ``--scan_layers`` writes every checkpoint in the JAX
+package's scanned layout (``layers/block/...`` with a leading (L,) axis;
+the model itself stays unrolled); ``--profile_dir`` records a
+``torch.profiler`` trace of the whole loop (obs/profiler.py);
+``--plots_dir`` draws the brain-map plots (obs/plots.py) after every slow
+loop that was not skipped. ``--plots_dir`` defaults to None (the JAX
+loop's default is "plots"), and where matplotlib cannot be imported it
+raises before the first step.
+
+  python -m forde_tpu_torch.train.loop --d_model 512 --num_layers 12 \\
+      --num_heads 8 --window_size 512 --num_streams 4 --seq_len 8192 \\
+      --batch_size 4 --bf16 --remat --scan_layers --use_markov_data \\
+      --steps_per_epoch 100 --profile_dir prof --plots_dir plots
+
 Flags whose code is not ported raise ``NotImplementedError`` and name the
-slice they wait for (ROADMAP.md); ``--plots_dir`` is one of them and
-defaults to None, so the loop writes no plots.
+slice they wait for (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -134,8 +149,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="comma-separated module/param names to adapt (default: "
                         "qkv_proj,out_proj,q_proj,k_proj,v_proj; add w_up,w_down for the "
                         "MoE expert banks)")
-    p.add_argument("--remat", action="store_true", help="(not ported)")
-    p.add_argument("--scan_layers", action="store_true", help="(not ported)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each decoder block's activations in the backward")
+    p.add_argument("--scan_layers", action="store_true",
+                   help="checkpoints in the scanned layout (layers/block/... with a leading "
+                        "(L,) axis), as the JAX package's --scan_layers writes them")
     p.add_argument("--expert_parallelism", type=int, default=1, help="(not ported beyond 1)")
     p.add_argument("--context_parallelism", type=int, default=1, help="(not ported beyond 1)")
     p.add_argument("--param_sharding", choices=["replicated", "fsdp"], default="replicated",
@@ -143,9 +161,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline_parallelism", type=int, default=1, help="(not ported beyond 1)")
     p.add_argument("--pp_microbatches", type=int, default=0)
     p.add_argument("--tensor_parallelism", type=int, default=1, help="(not ported beyond 1)")
-    p.add_argument("--profile_dir", type=str, default=None, help="(not ported)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the training loop here")
     p.add_argument("--plots_dir", type=str, default=None,
-                   help="(not ported: the brain-map plots of obs/plots.py)")
+                   help="draw the brain-map plots here after each slow loop (needs "
+                        "matplotlib; default: no plots)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return p
@@ -171,21 +191,17 @@ def config_from_args(args) -> LLMConfig:
         use_hyper_connections=not args.no_mhc,
         num_streams=args.num_streams,
         moe_dispatch=args.moe_dispatch,
-        remat=False,
-        scan_layers=False,
+        # serve's flags have neither (its random-init model is unrolled)
+        remat=getattr(args, "remat", False),
+        scan_layers=getattr(args, "scan_layers", False),
         dropout_rate=0.0,
         dtypes=DTypePolicy.bf16() if args.bf16 else DTypePolicy.fp32(),
     )
 
 
-EXTRAS = "the training extras' second part (remat, profiling, scan layers, plots)"
 MULTI = "multi-device"
 TOKENIZER = "a tokenizer and data in the repository"
 _NOT_PORTED = (
-    (lambda a: a.remat, "--remat", EXTRAS),
-    (lambda a: a.scan_layers, "--scan_layers", EXTRAS),
-    (lambda a: a.profile_dir, "--profile_dir", EXTRAS),
-    (lambda a: a.plots_dir, "--plots_dir", EXTRAS),
     (lambda a: a.moe_dispatch == "ep", "--moe_dispatch ep", MULTI),
     (lambda a: a.expert_parallelism > 1, "--expert_parallelism > 1", MULTI),
     (lambda a: a.context_parallelism > 1, "--context_parallelism > 1", MULTI),
@@ -330,20 +346,28 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     from forde_tpu_torch.brain.slow_loop import moe_slow_loop_step
     from forde_tpu_torch.core.config import BrainConfig
     from forde_tpu_torch.data.prefetch import prefetch_to_device
+    from forde_tpu_torch.obs import profiler
     from forde_tpu_torch.obs.metrics import REFERENCE_TAGS, MetricsWriter, ThroughputMeter
+    from forde_tpu_torch.obs.plots import require_matplotlib
     from forde_tpu_torch.train import checkpoint as ckpt_lib
     from forde_tpu_torch.train.state import create_train_state
 
     if args is None:
         args = build_parser().parse_args([])
     _refuse_unported(args)
+    if args.plots_dir:
+        require_matplotlib()
     device = resolve_device(args.device)
     config = config_from_args(args)
     base = None
     if args.init_from:
+        # the checkpoint's layout (scan_layers) is the architecture; remat
+        # is the one knob kept from the command line
         config, base = ckpt_lib.load_lm_params(args.init_from, device)
-        config = config.replace(dropout_rate=0.0)
-        print(f"config loaded from {args.init_from}/model_config.json (CLI shape flags ignored)")
+        config = config.replace(dropout_rate=0.0, remat=args.remat)
+        base.config = base.config.replace(remat=args.remat)
+        print(f"config loaded from {args.init_from}/model_config.json (CLI shape flags "
+              f"ignored; scan_layers={config.scan_layers})")
         if args.seq_len > config.max_seq_len:
             raise ValueError(f"--seq_len {args.seq_len} exceeds the base model's max_seq_len "
                              f"{config.max_seq_len}")
@@ -397,7 +421,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     metrics = None
     preempt = ckpt_lib.preemption_requests() if args.checkpoint_dir else contextlib.nullcontext([])
     try:
-        with preempt as stop:
+        with preempt as stop, profiler.trace(args.profile_dir, device) as traces:
             for epoch in range(args.num_epochs):
                 if stop:
                     break
@@ -439,6 +463,8 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                         writer.scalars({f"SlowLoop/{k}": record[k] for k in
                                         ("latency_ms", "load_imbalance", "routing_entropy")},
                                        step)
+                        if args.plots_dir and not record["skipped"]:
+                            _plot(diag, epoch, step, args.plots_dir, brain)
 
                     if args.checkpoint_dir and args.checkpoint_interval > 0 and (
                         step % args.checkpoint_interval == 0
@@ -456,7 +482,21 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     finally:
         writer.close()
     return {"state": state, "final_metrics": last, "step": step,
-            "tokens_per_sec": meter.items_per_sec, "brain_updates": brain_updates}
+            "tokens_per_sec": meter.items_per_sec, "brain_updates": brain_updates,
+            "traces": traces}
+
+
+def _plot(diag, epoch: int, step: int, plots_dir: str, brain) -> None:
+    """The three brain-map plots of a MoE slow loop, as the JAX loop draws
+    them (its grid shape, feature names and census labels)."""
+    from forde_tpu_torch.obs import plots
+
+    assignments = diag["assignments"].cpu().numpy()
+    plots.plot_brain_scan(plots.grid_of(assignments), epoch, step, plots_dir)
+    plots.plot_feature_space(diag["cluster_features"].cpu().numpy(), assignments, epoch, step,
+                             plots_dir, feature_names=("usage mean", "usage var"))
+    plots.plot_census(assignments, epoch, step, plots_dir, num_clusters=brain.num_clusters,
+                      labels={0: "Generalist", 1: "Specialist", 2: "Under-utilized"})
 
 
 def main(argv: Optional[List[str]] = None) -> dict:

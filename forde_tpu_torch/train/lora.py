@@ -18,10 +18,16 @@ whose torch ``weight`` is (out, in); as it is for ``w_up``/``w_down``.
 The step (``make_lora_train_step``) merges each target, runs the base
 model on the merged weights with ``torch.func.functional_call`` (so the
 gradient reaches A and B through every attention kernel's backward), and
-asks autograd for the adapters' gradients only. The optimizer holds the
-adapters alone; the base never changes. ``init_lora`` draws A from a
-``torch.Generator``, which cannot reproduce ``jax.random``: parity tests
-carry the JAX package's adapters across as numpy.
+asks autograd for the adapters' gradients only, inside the same call (a
+``remat`` backward recomputes the blocks on the merged weights too). The
+optimizer holds the adapters alone; the base never changes. ``init_lora``
+draws A from a ``torch.Generator``, which cannot reproduce ``jax.random``:
+parity tests carry the JAX package's adapters across as numpy.
+
+The adapters are kept per layer, as the model's parameters are. A
+checkpoint of a LoRA run over a ``scan_layers`` base writes them in the
+JAX package's scanned layout, ``layers/block/<path>/lora_a`` of shape
+(L, ..., in, r) (``train/checkpoint.relayout``), and reads either.
 
 Serving merges the adapters into the base weights once at load
 (``train/checkpoint.load_lm_params``).
@@ -161,28 +167,48 @@ def create_lora_train_state(
     return TrainState(model=model, optimizer=optimizer, lora=adapters)
 
 
+class _LossAndGrads(torch.nn.Module):
+    """The base model's forward, the loss and the adapters' gradients as
+    one module call. ``functional_call`` puts the merged weights in place
+    for the length of one call, and under ``remat`` the backward reruns
+    each block's forward: the backward has to run inside the same call, or
+    the recomputation would read the frozen base weights."""
+
+    def __init__(self, model: torch.nn.Module, adapters, aux_loss_weight: float):
+        super().__init__()
+        self.model = model
+        self.adapters = adapters
+        self.aux_loss_weight = aux_loss_weight
+
+    def forward(self, ids: torch.Tensor):
+        from forde_tpu_torch.train.step import lm_loss
+
+        logits, aux = self.model(ids, update_stats=True)
+        lm = lm_loss(logits, ids)
+        total = lm + self.aux_loss_weight * aux
+        grads = torch.autograd.grad(total, self.adapters, materialize_grads=True)
+        return total.detach(), lm.detach(), aux.detach(), grads
+
+
 def make_lora_train_step(scale: float, aux_loss_weight: float = 1.0):
     """``(state, batch) -> (state, metrics)`` over a LoRA state: merge ->
     forward on the merged weights (MoE stat buffers updating, as in
     ``train_step``) -> CE + aux -> gradients of the adapters only -> one
     AdamW update of the adapters. The JAX package passes the frozen base as
     a step argument; here the state's model holds it."""
-    from forde_tpu_torch.train.step import lm_loss
 
     def lora_train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        ids = batch["input_ids"]
         merged = merge_lora(state.model, state.lora, scale)
-        logits, aux = torch.func.functional_call(
-            state.model, merged, (ids,), {"update_stats": True}, strict=False)
-        lm = lm_loss(logits, ids)
-        total = lm + aux_loss_weight * aux
-        grads = torch.autograd.grad(total, state.optimizer.params, materialize_grads=True)
+        step = _LossAndGrads(state.model, state.optimizer.params, aux_loss_weight)
+        total, lm, aux, grads = torch.func.functional_call(
+            step, {f"model.{name}": t for name, t in merged.items()}, (batch["input_ids"],),
+            strict=False)
         grad_norm = state.optimizer.step(grads)
         state.step += 1
         return state, {
-            "loss/total": total.detach(),
-            "loss/lm": lm.detach(),
-            "loss/aux": aux.detach(),
+            "loss/total": total,
+            "loss/lm": lm,
+            "loss/aux": aux,
             "training/grad_norm": grad_norm,
         }
 

@@ -59,8 +59,7 @@ def test_custom_gmm_run_with_bf16_moments(tmp_path, capsys, monkeypatch):
     assert all(m.dtype == torch.bfloat16 for m in out["state"].optimizer.mu)
 
 
-@pytest.mark.parametrize("flag", ["--tensor_parallelism", "--param_sharding", "--profile_dir",
-                                  "--plots_dir"])
+@pytest.mark.parametrize("flag", ["--tensor_parallelism", "--param_sharding"])
 def test_unported_flags_are_not_accepted(flag):
     with pytest.raises(SystemExit):
         clip_loop.build_parser().parse_args([flag, "1"])

@@ -3,9 +3,9 @@ package's (forde_tpu.eval_lm), mirroring the checkpoint cases of
 tests/test_eval_lm.py:
 
 * a tiny decoder trained by the JAX package's loop with ``--ema_decay``
-  (an Orbax checkpoint) is flattened into the port's ``params.npz`` on the
-  JAX side (params, EMA and stat buffers, through the JAX package's own
-  ``load_lm_state``); both CLIs evaluate it on a small text file, with and
+  (an Orbax checkpoint) is converted into the port's ``params.npz`` by
+  scripts/orbax_to_npz.py (params, EMA and stat buffers, through the JAX
+  package's own ``load_lm_state``); both CLIs evaluate it on a small text file, with and
   without ``--use_ema``, and print the same JSON: the losses within 1e-5
   relative (fp32 forwards in other orders), the perplexity within 1e-5
   relative of its rounded value, batches and tokens exactly;
@@ -15,19 +15,20 @@ tests/test_eval_lm.py:
 """
 
 import json
+import os
+import sys
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from forde_tpu import eval_lm as jeval
-from forde_tpu.core import config as jcfg
 from forde_tpu.train import loop as jloop
-from forde_tpu.train.checkpoint import load_lm_state
-from forde_tpu_torch import eval_lm, interop
-from forde_tpu_torch.core import config as tcfg
-from forde_tpu_torch.train import checkpoint as tckpt
+from forde_tpu_torch import eval_lm
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "scripts"))
+import orbax_to_npz  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -52,13 +53,7 @@ def trained(tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         mp.chdir(tmp)  # the loop's metrics go to ./runs
         _train_jax(corpus, jax_dir)
-    config, state = load_lm_state(jax_dir)
-    tckpt.save_params(
-        port_dir, tcfg.config_from_dict(jcfg.config_to_dict(config)),
-        interop.flatten(jax.device_get({"params": state.params, "ema_params": state.ema_params,
-                                        "stats_buffer": state.stats_buffer})),
-        {"step": int(state.step), "ema_decay": 0.5},
-    )
+    orbax_to_npz.convert(jax_dir, port_dir)
     return jax_dir, port_dir, str(corpus)
 
 

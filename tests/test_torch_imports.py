@@ -1,7 +1,10 @@
 """forde_tpu_torch stands alone: importing every one of its modules loads
-neither JAX (nor flax, optax, orbax) nor any module of forde_tpu, and
-builds no kernel."""
+neither JAX (nor flax, optax, orbax) nor any module of forde_tpu, nor
+scripts/orbax_to_npz.py (the one file beside the package that converts
+JAX checkpoints, and imports JAX), nor matplotlib (obs/plots.py imports it
+at its first plot), and builds no kernel."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -20,7 +23,8 @@ for name in names:
     importlib.import_module(name)
 banned = sorted(
     m for m in sys.modules
-    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "forde_tpu")
+    if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "forde_tpu",
+                           "orbax_to_npz", "scripts", "matplotlib")
 )
 print(json.dumps({"modules": names, "banned": banned, "built": sorted(build.build_log)}))
 """
@@ -84,8 +88,30 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.train.distill",
         "forde_tpu_torch.eval_lm",
         "forde_tpu_torch.obs.retrieval",
+        "forde_tpu_torch.nn.nsa_modules",
+        "forde_tpu_torch.nn.remat",
+        "forde_tpu_torch.obs.plots",
+        "forde_tpu_torch.obs.profiler",
     ):
         assert name in result["modules"]
+
+
+def test_no_module_imports_the_converter_or_jax():
+    """No import statement of the package names the converter script, JAX
+    or the JAX package (the probe above sees only what an import runs;
+    this reads every statement, those inside functions too)."""
+    for path in sorted((REPO / "forde_tpu_torch").rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "jax", "flax", "optax", "orbax", "forde_tpu", "orbax_to_npz", "scripts",
+                ), (path, name)
 
 
 def test_every_kernel_source_is_found():

@@ -13,7 +13,8 @@ the LoRA + EMA serving merge, and preemption:
   extra, files of different steps;
 * a LoRA checkpoint with EMA adapters (the JAX package's adapter tree,
   its ``lora_b`` made non-zero, as numpy under its Flax keys) over a base
-  written from JAX weights: ``load_lm_params`` merges it as the JAX
+  written from JAX weights (both written by scripts/orbax_to_npz.py's
+  ``write_checkpoint``, the layout's one definition): ``load_lm_params`` merges it as the JAX
   package's ``load_lm_state`` does (``merge_lora`` of the base and the
   adapters or, with ``use_ema``, the EMA adapters), and the logits equal
   the JAX model's on the JAX-merged weights within atol = rtol = 1e-5
@@ -39,9 +40,7 @@ import numpy as np
 import pytest
 import torch
 
-from forde_tpu.core import config as jcfg
 from forde_tpu.train import lora as jlora
-from forde_tpu_torch import interop
 from forde_tpu_torch.core import config as tcfg
 from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
 from forde_tpu_torch.models.dual_encoder import FORDEDualEncoder
@@ -52,6 +51,10 @@ from forde_tpu_torch.train import state as tstate
 from forde_tpu_torch.train.step import train_step
 
 from test_torch_decoder_lm import jax_variables, tiny_config, token_ids
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                "scripts"))
+import orbax_to_npz  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -161,9 +164,8 @@ def test_restore_refusals(tmp_path):
 def test_lora_ema_checkpoint_merges_as_jax(tmp_path, use_ema):
     cfg = tiny_config()
     model, variables = jax_variables(cfg)
-    t_cfg = tcfg.config_from_dict(jcfg.config_to_dict(cfg))
     base_dir = str(tmp_path / "base")
-    tckpt.save_params(base_dir, t_cfg, interop.flatten(variables))
+    orbax_to_npz.write_checkpoint(base_dir, cfg, variables, {})
     rng = np.random.RandomState(3)
 
     def noisy(tree):
@@ -175,9 +177,8 @@ def test_lora_ema_checkpoint_merges_as_jax(tmp_path, use_ema):
     rank, alpha = 4, 8.0
     lora_dir = str(tmp_path / "lora")
     stats = jax.tree.map(lambda a: np.asarray(a) + 1, variables["stats_buffer"])
-    tckpt.save_params(lora_dir, t_cfg, {
-        **interop.flatten({"params": adapters, "ema_params": ema_adapters,
-                           "stats_buffer": stats})},
+    orbax_to_npz.write_checkpoint(
+        lora_dir, cfg, {"params": adapters, "ema_params": ema_adapters, "stats_buffer": stats},
         {"step": 3, "ema_decay": 0.9,
          "lora": {"rank": rank, "alpha": alpha, "targets": list(jlora.DEFAULT_TARGETS),
                   "base": base_dir}})
@@ -201,7 +202,7 @@ def test_lora_ema_checkpoint_merges_as_jax(tmp_path, use_ema):
         return
     with pytest.raises(ValueError, match="no EMA"):
         bare = str(tmp_path / "bare")
-        tckpt.save_params(bare, t_cfg, interop.flatten(variables))
+        orbax_to_npz.write_checkpoint(bare, cfg, variables, {})
         tckpt.load_lm_params(bare, "cpu", use_ema=True)
 
 
