@@ -245,9 +245,32 @@ Phases:
      matplotlib imports, else a refusal before the first step that names
      matplotlib.
 
+ 31. multi-device training on 4 thread ranks of this process on the one
+     card (parallel/collectives.run_threads; one card's times, not a
+     multi-GPU's), fp32 and bf16: ring attention (the ring, the zigzag and
+     the non-causal ring) over (context 4) at 1 x 8 x 8,192 x 64 against
+     one flash_attention call (fp32; bf16 against the same ring on the
+     kernels' plain versions, the one-call reading printed), o, dq, dk, dv
+     to phase 13's bars, launches per rank exact (the ring 4 flash_fwd, the
+     zigzag 9, a dq and a dk/dv backward each); window_attention_cp at
+     window 512, 2 flash_fwd per rank; small_kv_attention_cp at 960 pools
+     and 64 top-k keys against one unsharded call (forward and backward);
+     gather_pool_means_cp and topk_select_cp bit-identical to the
+     unsharded functions; expert_parallel_ffn a2a and psum (E 8, D 512,
+     H 2,048, top-2, factor 8, over data 2 x expert 2) equal to one rank's
+     capacity dispatch; the sharded contrastive loss at vit_b16's batch of
+     128 over data 4 against clip_contrastive_loss; one full-width fp32
+     train_step of the reference-default decoder (12 layers, 8 experts,
+     NSA, mHC, carried weights) over (context 4) at 1 x 8,192 and over
+     (data 2, expert 2) with ep dispatch at 4 x 2,048, against one rank's
+     step to phase 12's fp32 bars, its kernels counted; then train.loop (8
+     x 2,048, 2 steps) and clip_loop (vit_b16, --fuse_steps 2) in fp32
+     under a one-rank NCCL group (torchrun's variables), their final losses
+     bit-identical to the same CLIs alone.
+
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (about 7 minutes):
+Run with no arguments on a machine with one GPU (about 8 minutes):
 
   python3 chip_smoke.py
 """
@@ -5663,6 +5686,551 @@ def phase_observe(device, workdir) -> dict:
     return out
 
 
+# Phase 31: multi-device training on thread ranks and the CLIs under one
+# NCCL rank. The ring's blocks at the long-context step's shape (one
+# sequence of 8,192 split over 4 context ranks: S_local = 2,048); NSA's
+# context-parallel pieces at the same S (window 512, 960 pools of ratio 8,
+# top-k 64); the LM's expert bank (E 8, D 512, H 2,048, top-2) at
+# capacity factor 8 (no token drops) over (data 2, expert 2); vit_b16's
+# batch of 128 over data 4 for the sharded contrastive loss.
+PAR_B, PAR_H, PAR_S, PAR_D = 1, 8, 8192, 64
+PAR_RANKS = 4
+PAR_SKV = (("pools_k960", 960), ("topk_k64", 64))
+PAR_EP = dict(b=8, s=2048, d=512, h=2048, e=8, k=2, factor=8.0)
+PAR_CLIP = dict(b=128, d=512)
+# The full-width LM step (fp32, the reference-default decoder at 12
+# layers, NSA and mHC on, carried weights): 1 x 8,192 over (context 4),
+# and over (data 2, expert 2) with ep dispatch at capacity factor 8
+# against one rank's capacity dispatch at the same factor. The EP batch is
+# 4 x 2,048, not 8 x 2,048: four fp32 replicas on one card, each with its
+# 2 x 2,048 rows' activations alive at once, and the one-rank reference
+# step beside them, fill its 80 GB at 8 rows.
+PAR_LM_CASES = (("context4", {"context": 4}, 1, 8192, "capacity"),
+                ("data2_expert2_ep", {"data": 2, "expert": 2}, 4, 2048, "ep"))
+PAR_LM_FACTOR = 8.0
+# The CLIs under a one-rank NCCL group against the same CLIs alone, fp32:
+# the LM loop 2 steps at full width (8 x 2,048), and clip_loop at vit_b16
+# with --fuse_steps 2 (its NCCL all-reduce inside the CUDA graph).
+PAR_CLI_LM = [a for a in SERVE_FLAGS if a != "--bf16"] + [
+    "--batch_size", "8", "--use_markov_data", "--steps_per_epoch", "2",
+    "--slow_loop_interval", "0", "--log_interval", "1"]
+PAR_CLI_CLIP = ["--preset", "vit_b16", "--use_dummy_data", "--dummy_pool", "2",
+                "--batch_size", "128", "--num_steps", "2", "--fuse_steps", "2",
+                "--sense_interval", "1", "--slow_loop_interval", "0", "--log_interval", "2"]
+
+
+def thread_ranks(shape, fn) -> list:
+    """``fn(mesh)`` on PAR_RANKS thread ranks of this process on the card
+    (parallel/collectives.run_threads): [(result, the rank's own kernel
+    launches)] in rank order."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.mesh import Mesh
+    from forde_tpu_torch.parallel.collectives import run_threads
+
+    def rank(r, world):
+        with kernels.thread_launches() as counts:
+            out = fn(Mesh(shape, r, world))
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        return out, dict(counts)
+
+    return run_threads(PAR_RANKS, rank)
+
+
+def par_hold(what, got, want, mag, tol, dtype_name) -> float:
+    """|got - want| <= atol + rtol (|want| + mag) per element, or raise;
+    returns the worst ratio to the bar."""
+    atol, rtol = tol[dtype_name]
+    err, ratio = held_against(got, want, atol, rtol * (want.abs() + mag))
+    log(f"[parallel] {what}: max |err| {err:.3e}, worst / bar {ratio:.3f}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{what}: {ratio:.3f} of the bar")
+    return err
+
+
+def par_ring(device, dtype, schedule, causal, launches) -> float:
+    """Ring attention over (context 4) against one flash_attention call
+    over the whole sequence: o, dq, dk, dv and the launches per rank. fp32
+    against that call with the kernels; bf16 against the same ring run on
+    the kernels' plain versions, which round at the same places (the ring
+    adds bf16 partials that one call never forms), the one-call reading
+    printed beside it."""
+    import torch
+
+    from forde_tpu_torch.core.mesh import Sharding
+    from forde_tpu_torch.ops import flash_attention as fa
+    from forde_tpu_torch.parallel.ring_attention import ring_attention
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 310)
+    shape = (PAR_B, PAR_H, PAR_S, PAR_D)
+    q, k, v, w = (torch.randn(shape, device=device, generator=gen).to(dtype) for _ in range(4))
+    dtype_name = str(dtype).removeprefix("torch.")
+
+    def run(mesh):
+        split = Sharding(mesh, (None, None, "context", None))
+        tq, tk, tv = (split(t).contiguous().requires_grad_() for t in (q, k, v))
+        o = ring_attention(tq, tk, tv, mesh, causal=causal, schedule=schedule)
+        torch.sum(o.float() * split(w).float()).backward()
+        return [t.detach() for t in (o, tq.grad, tk.grad, tv.grad)]
+
+    ranks = thread_ranks({"context": PAR_RANKS}, run)
+    got = [torch.cat([r[0][i] for r in ranks], dim=2) for i in range(4)]
+    n = PAR_RANKS
+    calls = 3 + 2 * (n - 1) if schedule == "zigzag" else n
+    for r, (_, counts) in enumerate(ranks):
+        want = {"flash_fwd": calls, "flash_bwd_dq": calls, "flash_bwd_dkv": calls}
+        if counts != want:
+            raise AssertionError(f"ring {schedule} rank {r}: launches {counts}, expected {want}")
+        for name, c in counts.items():
+            launches[name] += c
+    # the reference: one call over the whole sequence, and its magnitudes
+    scale = PAR_D ** -0.5
+    f32 = [t.float() for t in (q, k, v)]
+    if dtype == torch.float32:
+        rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+        ro = fa.flash_attention(rq, rk, rv, causal=causal, scale=scale)
+        torch.sum(ro.float() * w.float()).backward()
+        want = [ro.detach(), rq.grad, rk.grad, rv.grad]
+    else:
+        with plain_lm_kernels():
+            plain = thread_ranks({"context": PAR_RANKS}, run)
+        want = [torch.cat([r[0][i] for r in plain], dim=2).float() for i in range(4)]
+    o_ref, lse = fa.flash_fwd_reference(*f32, scale, None, causal, None)
+    delta = fa._delta(o_ref, w.float(), None)
+    mags = [flash_fwd_magnitude(*f32, scale, None, causal, None),
+            *flash_bwd_magnitudes(*f32, lse, w.float(), delta, scale, None, causal, None)]
+    worst = 0.0
+    label = f"ring {schedule}{'' if causal else ' non-causal'} {dtype_name}"
+    for part, g, want_t, mag, tol in zip(("o", "dq", "dk", "dv"), got, want, mags,
+                                          (TOL_ATTN, TOL_BWD, TOL_BWD, TOL_BWD)):
+        worst = max(worst, par_hold(f"{label} {part} (launches/rank {calls})", g, want_t.float(),
+                                    mag, tol, dtype_name))
+    if dtype != torch.float32:  # the one-call reading, printed only
+        rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+        ro = fa.flash_attention(rq, rk, rv, causal=causal, scale=scale)
+        torch.sum(ro.float() * w.float()).backward()
+        for part, g, ref in zip(("o", "dq", "dk", "dv"), got,
+                                (ro.detach(), rq.grad, rk.grad, rv.grad)):
+            rel = float((g.float() - ref.float()).norm() / ref.float().norm())
+            log(f"[parallel] {label} {part} against one kernel call: relative L2 {rel:.3e}")
+    return worst
+
+
+def par_window(device, dtype, launches) -> float:
+    """window_attention_cp at window 512 over (context 4) against one
+    windowed flash_attention call: 2 flash_fwd per rank."""
+    import torch
+
+    from forde_tpu_torch.core.mesh import Sharding
+    from forde_tpu_torch.ops import flash_attention as fa
+    from forde_tpu_torch.parallel.nsa_context import window_attention_cp
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 311)
+    shape = (PAR_B, PAR_H, PAR_S, PAR_D)
+    q, k, v, w = (torch.randn(shape, device=device, generator=gen).to(dtype) for _ in range(4))
+    dtype_name = str(dtype).removeprefix("torch.")
+
+    def run(mesh):
+        split = Sharding(mesh, (None, None, "context", None))
+        tq, tk, tv = (split(t).contiguous().requires_grad_() for t in (q, k, v))
+        o = window_attention_cp(tq, tk, tv, mesh, WINDOW)
+        torch.sum(o.float() * split(w).float()).backward()
+        return [t.detach() for t in (o, tq.grad, tk.grad, tv.grad)]
+
+    ranks = thread_ranks({"context": PAR_RANKS}, run)
+    for r, (_, counts) in enumerate(ranks):
+        want = {"flash_fwd": 2, "flash_bwd_dq": 2, "flash_bwd_dkv": 2}
+        if counts != want:
+            raise AssertionError(f"window_attention_cp rank {r}: launches {counts}, "
+                                 f"expected {want}")
+        for name, c in counts.items():
+            launches[name] += c
+    got = [torch.cat([r[0][i] for r in ranks], dim=2) for i in range(4)]
+    scale = PAR_D ** -0.5
+    f32 = [t.float() for t in (q, k, v)]
+    if dtype == torch.float32:
+        rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+        ro = fa.flash_attention(rq, rk, rv, causal=True, window_size=WINDOW, scale=scale)
+        torch.sum(ro.float() * w.float()).backward()
+        want = [ro.detach(), rq.grad, rk.grad, rv.grad]
+    else:
+        with plain_lm_kernels():
+            plain = thread_ranks({"context": PAR_RANKS}, run)
+        want = [torch.cat([r[0][i] for r in plain], dim=2) for i in range(4)]
+    o_ref, lse = fa.flash_fwd_reference(*f32, scale, WINDOW, True, None)
+    delta = fa._delta(o_ref, w.float(), None)
+    mags = [flash_fwd_magnitude(*f32, scale, WINDOW, True, None),
+            *flash_bwd_magnitudes(*f32, lse, w.float(), delta, scale, WINDOW, True, None)]
+    worst = 0.0
+    for part, g, want_t, mag, tol in zip(("o", "dq", "dk", "dv"), got, want, mags,
+                                          (TOL_ATTN, TOL_BWD, TOL_BWD, TOL_BWD)):
+        worst = max(worst, par_hold(f"window_attention_cp {str(dtype)[6:]} {part} (2 flash_fwd "
+                                    "per rank)", g, want_t.float(), mag, tol, dtype_name))
+    return worst
+
+
+def par_small_kv(device, launches) -> float:
+    """small_kv_attention_cp at the 8,192-token step's pools (K = 960,
+    ratio 8) and top-k (K = 64), key_pos shifted by -rank * S_local,
+    against one unsharded small_kv_attention call, fp32: out, dq, dk, dv."""
+    import torch
+
+    from forde_tpu_torch.core.mesh import Sharding
+    from forde_tpu_torch.ops import nsa_attention as nsa
+    from forde_tpu_torch.parallel.nsa_context import small_kv_attention_cp
+
+    worst = 0.0
+    for label, kk in PAR_SKV:
+        gen = torch.Generator(device=device).manual_seed(SEED + 312 + kk)
+        q, w = (torch.randn(PAR_B, PAR_H, PAR_S, PAR_D, device=device, generator=gen)
+                for _ in range(2))
+        k, v = (torch.randn(PAR_B, PAR_H, kk, PAR_D, device=device, generator=gen)
+                for _ in range(2))
+        key_pos = small_kv_key_pos("pools" if kk != 64 else "topk", PAR_B, PAR_S, kk, device, gen)
+
+        def run(mesh):
+            split = Sharding(mesh, (None, None, "context", None))
+            tq = split(q).contiguous().requires_grad_()
+            tk, tv = (t.clone().requires_grad_() for t in (k, v))
+            o = small_kv_attention_cp(tq, tk, tv, key_pos, mesh)
+            torch.sum(o * split(w)).backward()
+            return [t.detach() for t in (o, tq.grad, tk.grad, tv.grad)]
+
+        ranks = thread_ranks({"context": PAR_RANKS}, run)
+        for r, (_, counts) in enumerate(ranks):
+            if counts != {"small_kv_fwd": 1, "small_kv_bwd": 1}:
+                raise AssertionError(f"small_kv_attention_cp {label} rank {r}: {counts}")
+            for name, c in counts.items():
+                launches[name] += c
+        got = [torch.cat([r[0][i] for r in ranks], dim=2) for i in range(2)]
+        got += [sum(r[0][i] for r in ranks) for i in (2, 3)]  # k, v: every rank's share
+        rq, rk, rv = (t.clone().requires_grad_() for t in (q, k, v))
+        ro = nsa.small_kv_attention(rq, rk, rv, key_pos)
+        torch.sum(ro * w).backward()
+        scale = PAR_D ** -0.5
+        mags = [small_kv_magnitude(q, k, v, key_pos, scale),
+                *small_kv_bwd_magnitudes(q, k, v, key_pos, w, scale)]
+        for part, g, want, mag, tol in zip(("out", "dq", "dk", "dv"), got,
+                                           (ro.detach(), rq.grad, rk.grad, rv.grad), mags,
+                                           (TOL_ATTN, TOL_SKV_BWD, TOL_SKV_BWD, TOL_SKV_BWD)):
+            worst = max(worst, par_hold(f"small_kv_attention_cp {label} {part}", g, want, mag,
+                                        tol, "float32"))
+    return worst
+
+
+def par_exact_pieces(device) -> None:
+    """gather_pool_means_cp and topk_select_cp over (context 4) equal the
+    unsharded pool means and rows bit for bit."""
+    import torch
+
+    from forde_tpu_torch.core.mesh import Sharding
+    from forde_tpu_torch.ops.moe_dispatch import top_k_desc
+    from forde_tpu_torch.parallel.nsa_context import gather_pool_means_cp, topk_select_cp
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 313)
+    x = torch.randn(2, PAR_S, 512, device=device, generator=gen)
+    num_pools = (PAR_S - WINDOW) // POOL_RATIO
+    idx = top_k_desc(torch.randn(2, PAR_S, device=device, generator=gen), 64)[1]
+    want_pools = x[:, :num_pools * POOL_RATIO].reshape(2, num_pools, POOL_RATIO, 512).mean(2)
+    want_rows = x[torch.arange(2, device=device)[:, None], idx]
+
+    def run(mesh):
+        local = Sharding(mesh, (None, "context"))(x).contiguous()
+        return (gather_pool_means_cp(local, mesh, POOL_RATIO, num_pools),
+                topk_select_cp(local, idx, mesh))
+
+    for r, ((pools, rows), _) in enumerate(thread_ranks({"context": PAR_RANKS}, run)):
+        if not (torch.equal(pools, want_pools) and torch.equal(rows, want_rows)):
+            raise AssertionError(f"rank {r}: gather_pool_means_cp / topk_select_cp differ from "
+                                 "the unsharded means and rows")
+    log(f"[parallel] gather_pool_means_cp ({num_pools} pools) and topk_select_cp (64 rows) "
+        "bit-identical to the unsharded functions on every rank")
+
+
+def par_expert(device) -> dict:
+    """expert_parallel_ffn, a2a and psum, over (data 2, expert 2) against
+    one rank's capacity dispatch at the same factor (no drops), fp32."""
+    import torch
+
+    from forde_tpu_torch.core.mesh import batch_sharding, expert_sharding
+    from forde_tpu_torch.ops import moe_dispatch as md
+    from forde_tpu_torch.parallel.expert_parallel import _experts, expert_parallel_ffn
+
+    p = PAR_EP
+    gen = torch.Generator(device=device).manual_seed(SEED + 314)
+    x = torch.randn(p["b"], p["s"], p["d"], device=device, generator=gen)
+    logits = torch.randn(p["b"], p["s"], p["e"], device=device, generator=gen)
+    idx, probs = md.top_k_gating(logits, p["k"])
+    bank = (torch.randn(p["e"], p["d"], p["h"], device=device, generator=gen) * p["d"] ** -0.5,
+            torch.zeros(p["e"], p["h"], device=device),
+            torch.randn(p["e"], p["h"], p["d"], device=device, generator=gen) * p["h"] ** -0.5,
+            torch.zeros(p["e"], p["d"], device=device))
+    t = p["b"] * p["s"]
+    plan = md.capacity_route(idx.reshape(t, p["k"]), probs.reshape(t, p["k"]), p["e"],
+                             max(int(p["factor"] * t * p["k"] / p["e"]), p["k"]))
+    want = md.capacity_combine(_experts(md.capacity_gather(x.reshape(t, -1), plan), *bank),
+                               plan).reshape(x.shape)
+    out = {}
+    for variant in ("a2a", "psum"):
+        def run(mesh, variant=variant):
+            rows, experts = batch_sharding(mesh), expert_sharding(mesh)
+            return expert_parallel_ffn(rows(x), rows(idx), rows(probs),
+                                       tuple(experts(b) for b in bank), mesh,
+                                       num_experts=p["e"], top_k=p["k"],
+                                       capacity_factor=p["factor"], variant=variant)
+
+        ranks = thread_ranks({"data": 2, "expert": 2}, run)
+        got = torch.cat([ranks[0][0], ranks[2][0]])  # data 0 and data 1 (expert 0)
+        for a, b in ((ranks[0][0], ranks[1][0]), (ranks[2][0], ranks[3][0])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"EP {variant}: the expert ranks' outputs differ")
+        rel = float((got - want).norm() / want.norm())
+        log(f"[parallel] expert_parallel_ffn {variant} (E {p['e']}, D {p['d']}, H {p['h']}, "
+            f"top-{p['k']}, factor {p['factor']:g}, {t} tokens over data 2 x expert 2): "
+            f"relative L2 {rel:.3e} against one rank's capacity dispatch")
+        if not rel <= 1e-5:
+            raise AssertionError(f"EP {variant}: relative L2 {rel:.3e} > 1e-5")
+        out[variant] = rel
+    return out
+
+
+def par_contrastive(device) -> dict:
+    """sharded_contrastive_loss at vit_b16's batch of 128 over data 4
+    against clip_contrastive_loss: loss, accuracies, gradients (fp32)."""
+    import torch
+
+    from forde_tpu_torch.core.mesh import batch_sharding
+    from forde_tpu_torch.models.dual_encoder import clip_contrastive_loss
+    from forde_tpu_torch.parallel.contrastive import sharded_contrastive_loss
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 315)
+    img, txt = (torch.randn(PAR_CLIP["b"], PAR_CLIP["d"], device=device, generator=gen)
+                for _ in range(2))
+    # pairs aligned enough that the accuracies are not 0, and not so much
+    # that p_ii ~ 1: the gradient's (p - 1) terms would then cancel in fp32
+    # (at txt = img + 0.5 noise its relative L2 reads 3.4e-4 on an H100)
+    txt = txt + 0.3 * img
+    scale = torch.tensor(2.6592, device=device)
+    ri, rt, rs = (t.clone().requires_grad_() for t in (img, txt, scale))
+    want, want_m = clip_contrastive_loss(ri, rt, rs)
+    want.backward()
+    want = want.detach()
+
+    def run(mesh):
+        rows = batch_sharding(mesh)
+        ti, tt = (rows(t).clone().requires_grad_() for t in (img, txt))
+        ts = scale.clone().requires_grad_()
+        loss, metrics = sharded_contrastive_loss(ti, tt, ts, mesh)
+        (loss / mesh.size).backward()
+        return loss.detach(), metrics, ti.grad, tt.grad, ts.grad
+
+    ranks = [r for r, _ in thread_ranks({"data": PAR_RANKS}, run)]
+    # the loss relative to max(|loss|, 1): 1e-5 as the CPU test holds it
+    readings = {"loss": abs(float(ranks[0][0]) - float(want)) / max(abs(float(want)), 1.0)}
+    for key in want_m:
+        readings[key] = abs(float(ranks[0][1][key]) - float(want_m[key].detach()))
+    gi, gt = torch.cat([r[2] for r in ranks]), torch.cat([r[3] for r in ranks])
+    gs = sum(r[4] for r in ranks)
+    for name, g, ref in (("d_img", gi, ri.grad), ("d_txt", gt, rt.grad), ("d_scale", gs, rs.grad)):
+        readings[name] = float((g - ref).norm() / ref.norm())
+    log("[parallel] sharded_contrastive_loss (128 over data 4) against clip_contrastive_loss: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+    bars = {"loss": 1e-5, "d_img": 1e-4, "d_txt": 1e-4, "d_scale": 1e-4}
+    for k, v in readings.items():
+        if not v <= bars.get(k, 1e-6):
+            raise AssertionError(f"sharded contrastive {k}: {v:.3e}")
+    if any(not torch.equal(r[0], ranks[0][0]) for r in ranks):
+        raise AssertionError("sharded contrastive: the ranks' losses differ")
+    return readings
+
+
+def par_lm_step(device, launches) -> dict:
+    """One full-width fp32 LM train_step on thread ranks (PAR_LM_CASES)
+    against one rank's step on the same batch: loss, grad norm, gradients
+    (Adam's first moment, expert banks gathered) and the updated
+    parameters to phase 12's fp32 bars; the kernels counted per rank."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.train.state import create_train_state, shard_train_state
+    from forde_tpu_torch.train.step import lm_batch as split_batch, train_step
+
+    base = serve_config().replace(dtypes=DTypePolicy.fp32(), moe_capacity_factor=PAR_LM_FACTOR,
+                                  max_seq_len=max(s for *_, s, _ in PAR_LM_CASES))
+    weights = lm_weights(base, device)
+    out = {}
+    for name, shape, b, s, dispatch in PAR_LM_CASES:
+        cfg = base.replace(moe_dispatch=dispatch)
+        ids = lm_batch(b, s, cfg.vocab_size, device, SEED + 316)["input_ids"]
+
+        def run(mesh, cfg=cfg, ids=ids):
+            model = FORDEDecoderLM(cfg, device=device, mesh=mesh)
+            model.load_state_dict(weights)
+            state = shard_train_state(create_train_state(cfg, None, 3e-4, 0.01, model=model),
+                                      mesh)
+            state, m = train_step(state, split_batch(ids, mesh), aux_loss_weight=0.01)
+            res = {"loss": m["loss/total"].reshape(1), "grad_norm": m["training/grad_norm"],
+                   "coords": mesh.coords, "marks": state.expert_params,
+                   "mu": [t.clone() for t in state.optimizer.mu],
+                   "params": [t.detach().clone() for t in state.optimizer.params]}
+            del state, model
+            return res
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ranks = thread_ranks(shape, run)
+        ranks_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for _, counts in ranks:
+            for k, c in counts.items():
+                launches[k] += c
+        counts0 = ranks[0][1]
+        marks = ranks[0][0]["marks"]
+
+        def whole(key):
+            """The optimizer's tensors flattened, expert banks gathered."""
+            first = sorted((r for r, _ in ranks
+                            if r["coords"]["data"] == r["coords"]["context"] == 0),
+                           key=lambda r: r["coords"]["expert"])
+            return torch.cat([(torch.cat([r[key][i] for r in first]) if marks[i]
+                               else ranks[0][0][key][i]).flatten() for i in range(len(marks))])
+
+        got = {"loss": ranks[0][0]["loss"], "grads": whole("mu"), "params": whole("params")}
+        grad_norm = float(ranks[0][0]["grad_norm"])
+        ref_cfg = cfg.replace(moe_dispatch="capacity")
+        model = FORDEDecoderLM(ref_cfg, device=device)
+        model.load_state_dict(weights)
+        state = create_train_state(ref_cfg, None, 3e-4, 0.01, model=model)
+        kernels.reset_launches()
+        state, m = train_step(state, {"input_ids": ids}, aux_loss_weight=0.01)
+        torch.cuda.synchronize()
+        want = {"loss": m["loss/total"].reshape(1),
+                "grads": torch.cat([t.flatten() for t in state.optimizer.mu]),
+                "params": torch.cat([t.detach().flatten() for t in state.optimizer.params])}
+        want_norm = float(m["training/grad_norm"])
+        del state, model
+        torch.cuda.empty_cache()
+        rel = {k: float((got[k].float() - want[k].float()).norm() / want[k].float().norm())
+               for k in want}
+        rel["grad_norm"] = abs(grad_norm - want_norm) / want_norm
+        log(f"[parallel] LM step {name} ({b} x {s}, fp32, {cfg.num_layers} layers, {dispatch}): "
+            "relative L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+            + f"; launches of rank 0 {counts0}; {ranks_s:.1f} s, peak {peak:.2f} GiB")
+        for k, tol in {**LM_PARITY_TOL_FP32, "grad_norm": LM_PARITY_TOL_FP32["loss"]}.items():
+            if not rel[k] <= tol:
+                raise AssertionError(f"LM step {name} {k}: {rel[k]:.3e} > {tol:g}")
+        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_kv_fwd", "small_kv_bwd"):
+            if not counts0.get(key):
+                raise AssertionError(f"LM step {name}: rank 0 launched no {key}")
+        out[name] = {"relative_l2": rel, "launches_rank0": counts0, "seconds": ranks_s,
+                     "peak_gib": peak}
+    return out
+
+
+def par_clis(workdir) -> dict:
+    """The LM loop and clip_loop under a one-rank NCCL group (torchrun's
+    variables, WORLD_SIZE=1) and alone, each in a subprocess:
+    the final losses equal bit for bit, the log naming the NCCL group."""
+    import socket
+
+    from forde_tpu_torch.obs.metrics import REFERENCE_TAGS
+
+    def port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return str(s.getsockname()[1])
+
+    def start(module, argv, name, group):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+        env["PYTHONPATH"] = REPO
+        if group:
+            env.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port())
+        return subprocess.Popen([sys.executable, "-m", module, *argv, "--experiment_name", name],
+                                cwd=workdir, env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def final(name, tag):
+        import glob
+
+        (path,) = glob.glob(os.path.join(workdir, "runs", f"{name}_*", "metrics.jsonl"))
+        rows = [json.loads(line) for line in open(path)]
+        return [r["value"] for r in rows if r["tag"] == tag][-1]
+
+    out = {}
+    for module, argv, tag in (
+        ("forde_tpu_torch.train.loop", PAR_CLI_LM, REFERENCE_TAGS.get("loss/total", "loss/total")),
+        ("forde_tpu_torch.train.clip_loop", PAR_CLI_CLIP, "loss/contrastive"),
+    ):
+        short = module.rsplit(".", 1)[1]
+        t0 = time.perf_counter()
+        procs, logs = {}, {}
+        for group in (True, False):  # one after the other: each fills much of the card
+            procs[group] = start(module, argv, f"par_{short}_{group}", group)
+            logs[group] = procs[group].communicate(timeout=600)[0]
+        secs = time.perf_counter() - t0
+        for g, p in procs.items():
+            if p.returncode != 0:
+                raise AssertionError(f"{short} (group {g}) exited {p.returncode}:\n"
+                                     + logs[g][-3000:])
+        if "process group: nccl over 1 rank(s)" not in logs[True]:
+            raise AssertionError(f"{short} under torchrun's variables did not start NCCL:\n"
+                                 + logs[True][-2000:])
+        with_group, alone = final(f"par_{short}_True", tag), final(f"par_{short}_False", tag)
+        log(f"[parallel] {short} {' '.join(argv)}: final loss {with_group!r} under a one-rank "
+            f"NCCL group, {alone!r} alone ({secs:.1f} s for the pair)")
+        if with_group != alone:
+            raise AssertionError(f"{short}: {with_group!r} under NCCL != {alone!r} alone")
+        out[short] = {"final_loss": alone, "seconds": secs}
+    return out
+
+
+def phase_parallel(device, workdir) -> dict:
+    """Phase 31: the multi-device modules on PAR_RANKS thread ranks of one
+    process on the one card (their times are one card's, not a
+    multi-GPU's), at full width: the ring (causal, zigzag, non-causal),
+    the window with its halo, NSA's small-KV calls, pool means and top-k
+    rows, the expert-parallel FFN, the sharded contrastive loss, and one
+    full-width LM step over (context 4) and (data 2, expert 2); then the
+    training CLIs under a one-rank NCCL group. Returns the launches of the
+    thread ranks (the references' launches are not counted)."""
+    import torch
+
+    launches: Counter = Counter()
+    secs, worst = {}, {}
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        for schedule, causal in (("ring", True), ("zigzag", True), ("ring", False)):
+            key = f"ring_{schedule}{'' if causal else '_noncausal'}_{str(dtype)[6:]}"
+            worst[key] = par_ring(device, dtype, schedule, causal, launches)
+        worst[f"window_{str(dtype)[6:]}"] = par_window(device, dtype, launches)
+    worst["small_kv"] = par_small_kv(device, launches)
+    par_exact_pieces(device)
+    secs["attention"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    expert = par_expert(device)
+    contrastive = par_contrastive(device)
+    secs["expert_contrastive"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lm = par_lm_step(device, launches)
+    secs["lm_step"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clis = par_clis(workdir)
+    secs["clis"] = time.perf_counter() - t0
+    log("[parallel] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    log(f"[parallel] launches of the thread ranks: {dict(launches)}")
+    return {"launches": dict(launches), "worst_max_abs_err": worst, "expert": expert,
+            "contrastive": contrastive, "lm_step": lm, "clis": clis, "seconds": secs}
+
+
 def timed(phase, *args):
     """phase(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -5733,6 +6301,8 @@ def main() -> int:
     lm_parity = timed(phase_lm_step_parity, device)
     lm_timing = timed(phase_lm_train_timing, device)
     shapes.update(timed(phase_training_kernel_timing, device))
+    with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
+        parallel = timed(phase_parallel, device, workdir)
 
     def by_path(name):
         return {"embed": main_run["launches"].get(name, 0),
@@ -5752,7 +6322,8 @@ def main() -> int:
                 "lm_extras": lm_extras["launches"].get(name, 0),
                 "clip_extras": clip_extras["launches"].get(name, 0),
                 "remat": remat["launches"].get(name, 0),
-                "observe": observe["launches"].get(name, 0)}
+                "observe": observe["launches"].get(name, 0),
+                "parallel": parallel["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -5899,6 +6470,7 @@ def main() -> int:
         "clip_extras": {k: v for k, v in clip_extras.items() if k != "launches"},
         "remat": {k: v for k, v in remat.items() if k != "launches"},
         "observe": {k: v for k, v in observe.items() if k != "launches"},
+        "parallel": {k: v for k, v in parallel.items() if k != "launches"},
         "card": smi,
     }
     print(smi)

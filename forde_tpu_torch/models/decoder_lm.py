@@ -16,6 +16,11 @@ rows) or, given a ``cache`` from ``init_cache``, the cached pass: a
 prefill at the cache's position counter or one token per row at
 ``positions``. The cache is updated in place. Logits are fp32.
 
+``mesh`` (core/mesh.py) reaches every block: a training forward then
+takes this rank's tokens (batch split over data, sequence over context,
+its learned positions starting at rank * S_local) and the attention and
+MoE sublayers run their multi-device paths.
+
 With ``config.quantized`` (int8 serving, ops/quant.py) the dense-causal
 attention's ``qkv_proj``/``out_proj``, the dense FFN's ``ffn_up``/
 ``ffn_down``, the ``lm_head`` and the MoE expert bank hold int8 weights;
@@ -46,7 +51,7 @@ from forde_tpu_torch.ops.quant import QDense
 class DecoderBlock(torch.nn.Module):
     """Pre-norm decoder block."""
 
-    def __init__(self, config: LLMConfig, device=None):
+    def __init__(self, config: LLMConfig, device=None, mesh=None):
         super().__init__()
         cfg = self.config = config
         kw = dict(dtype=cfg.dtypes.compute, param_dtype=cfg.dtypes.param, device=device)
@@ -55,12 +60,12 @@ class DecoderBlock(torch.nn.Module):
             self.sparse_attention = NativeSparseAttention(
                 cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.window_size,
                 cfg.compression_ratio, cfg.top_k_global, impl=cfg.attention_impl,
-                max_decode_len=cfg.max_seq_len, **kw,
+                max_decode_len=cfg.max_seq_len, mesh=mesh, **kw,
             )
         else:
             self.causal_attention = CausalSelfAttention(
                 cfg.d_model, cfg.num_heads, cfg.head_dim, impl=cfg.attention_impl,
-                max_decode_len=cfg.max_seq_len, quantized=cfg.quantized, **kw,
+                max_decode_len=cfg.max_seq_len, quantized=cfg.quantized, mesh=mesh, **kw,
             )
         mhc = dict(param_dtype=cfg.dtypes.param, device=device)
         if cfg.use_hyper_connections:
@@ -70,7 +75,7 @@ class DecoderBlock(torch.nn.Module):
             self.moe = MoEStatefulLayer(
                 cfg.num_experts, cfg.top_k_experts, cfg.expert_hidden_dim, cfg.d_model,
                 cfg.moe_aux_loss_weight, cfg.moe_dispatch, cfg.moe_capacity_factor, **kw,
-                quantized=cfg.quantized,
+                quantized=cfg.quantized, mesh=mesh,
             )
         elif cfg.quantized:
             self.ffn_up = QDense(cfg.d_model, cfg.expert_hidden_dim, dtype=kw["dtype"],
@@ -138,16 +143,19 @@ class FORDEDecoderLM(torch.nn.Module):
     """Decoder-only LM with MoE + NSA + mHC. ``forward`` returns (logits
     fp32, total MoE aux loss)."""
 
-    def __init__(self, config: LLMConfig, device=None, generator: Optional[torch.Generator] = None):
+    def __init__(self, config: LLMConfig, device=None, generator: Optional[torch.Generator] = None,
+                 mesh=None):
         super().__init__()
         cfg = self.config = config
+        self.mesh = mesh
         dt, pdt = cfg.dtypes.compute, cfg.dtypes.param
         kw = dict(dtype=dt, param_dtype=pdt, device=device)
         self.token_embed = torch.nn.Embedding(cfg.vocab_size, cfg.d_model, dtype=pdt, device=device)
         self.pos_embed = torch.nn.Embedding(cfg.max_seq_len, cfg.d_model, dtype=pdt, device=device)
         if cfg.use_hyper_connections:
             self.initial_streams = HyperConnectionStream(cfg.num_streams, cfg.d_model, **kw)
-        self.layers = torch.nn.ModuleList(DecoderBlock(cfg, device) for _ in range(cfg.num_layers))
+        self.layers = torch.nn.ModuleList(
+            DecoderBlock(cfg, device, mesh) for _ in range(cfg.num_layers))
         if cfg.use_hyper_connections:
             self.stream_collapser = StreamCollapser(cfg.d_model, cfg.num_streams, **kw)
         self.final_norm = LayerNorm(cfg.d_model, **kw)
@@ -178,6 +186,19 @@ class FORDEDecoderLM(torch.nn.Module):
         for emb in (self.token_embed, self.pos_embed):
             emb.weight.normal_(0.0, emb.num_embeddings ** -0.5, generator=generator)
         self.lm_head.weight.normal_(0.0, 0.02, generator=generator)
+
+    def set_mesh(self, mesh) -> "FORDEDecoderLM":
+        """Put the model (e.g. one loaded from a checkpoint) on ``mesh``:
+        every module that takes a mesh holds this one."""
+        for module in self.modules():
+            if "mesh" in vars(module):
+                module.mesh = mesh
+        return self
+
+    def _context_offset(self, s_local: int) -> int:
+        from forde_tpu_torch.core.mesh import AXIS_CONTEXT
+
+        return 0 if self.mesh is None else self.mesh.coords[AXIS_CONTEXT] * s_local
 
     def init_cache(self, batch: int, device=None) -> dict:
         """An empty decode cache, the JAX package's tree: ``pos_index`` and
@@ -216,7 +237,8 @@ class FORDEDecoderLM(torch.nn.Module):
             else:
                 position_ids = (offset + steps)[None, :]
         else:
-            position_ids = steps[None, :]
+            # on a context shard the block starts at rank * S_local
+            position_ids = (steps + self._context_offset(s))[None, :]
         x = self.token_embed(input_ids.to(torch.int64)).to(dt)
         x = x + self.pos_embed(position_ids).to(dt)
         x = F.dropout(x, cfg.dropout_rate, training=not deterministic and cfg.dropout_rate > 0)

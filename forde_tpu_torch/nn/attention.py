@@ -18,6 +18,16 @@ wrap and a pool-granular causal mask; masked small-KV scores are -1e9
 static floats of the length (per-row tensors with ``lengths``, per-row
 positions in decode), and a gated-off branch is computed and multiplied
 by 0.
+
+Given a ``mesh`` whose context axis is above 1 (training under context
+parallelism), ``forward`` takes this rank's block of the sequence and the
+attention runs over the global one: the sliding window through
+``parallel.nsa_context.window_attention_cp``, dense causal attention
+through ``parallel.ring_attention``, and NSA's global branches with the
+global length in their gates and pool count, pool means all-gathered, a
+global top-k over the all-gathered importance scores (the rows fetched by
+``topk_select_cp``) and ``small_kv_attention_cp``. Decode and the ragged
+forward stay single-device (serving).
 """
 
 from __future__ import annotations
@@ -48,6 +58,15 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 def _qkv_heads(qkv: torch.Tensor, num_heads: int, head_dim: int):
     return tuple(_split_heads(t, num_heads, head_dim) for t in qkv.chunk(3, dim=-1))
+
+
+def _context_group(mesh):
+    """The context axis' group when it is above 1, else None."""
+    from forde_tpu_torch.core.mesh import AXIS_CONTEXT
+
+    if mesh is None or mesh.shape[AXIS_CONTEXT] == 1:
+        return None
+    return mesh.group(AXIS_CONTEXT)
 
 
 def _counter(device) -> torch.Tensor:
@@ -85,11 +104,12 @@ class SlidingWindowAttention(torch.nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int, window_size: int = 512,
                  impl: str = "auto", dtype=torch.float32, max_decode_len: int = 2048,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, mesh=None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
         self.window_size, self.impl, self.dtype = window_size, impl, dtype
         self.max_decode_len = max_decode_len
+        self.mesh = mesh
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.qkv_proj = Dense(d_model, 3 * num_heads * head_dim, **kw)
         self.out_proj = Dense(num_heads * head_dim, d_model, **kw)
@@ -99,7 +119,13 @@ class SlidingWindowAttention(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self._qkv(x)
-        out = flash_attention(q, k, v, causal=True, window_size=self.window_size, impl=self.impl)
+        if _context_group(self.mesh) is not None:
+            from forde_tpu_torch.parallel.nsa_context import window_attention_cp
+
+            out = window_attention_cp(q, k, v, self.mesh, self.window_size, impl=self.impl)
+        else:
+            out = flash_attention(q, k, v, causal=True, window_size=self.window_size,
+                                  impl=self.impl)
         return self.out_proj(_merge_heads(out))
 
     def ring_size(self) -> int:
@@ -153,10 +179,12 @@ class CausalSelfAttention(torch.nn.Module):
 
     def __init__(self, d_model: int, num_heads: int, head_dim: int, impl: str = "auto",
                  dtype=torch.float32, max_decode_len: int = 2048,
-                 param_dtype=torch.float32, device=None, quantized: bool = False):
+                 param_dtype=torch.float32, device=None, quantized: bool = False,
+                 mesh=None):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
         self.impl, self.dtype, self.max_decode_len = impl, dtype, max_decode_len
+        self.mesh = mesh
         hd = num_heads * head_dim
         if quantized:
             self.qkv_proj = QDense(d_model, 3 * hd, dtype=dtype, device=device)
@@ -171,7 +199,12 @@ class CausalSelfAttention(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         q, k, v = self._qkv(x)
-        out = flash_attention(q, k, v, causal=True, impl=self.impl)
+        if _context_group(self.mesh) is not None:
+            from forde_tpu_torch.parallel.ring_attention import ring_attention
+
+            out = ring_attention(q, k, v, self.mesh, causal=True)
+        else:
+            out = flash_attention(q, k, v, causal=True, impl=self.impl)
         return self.out_proj(_merge_heads(out))
 
     def init_cache(self, batch: int, device) -> Cache:
@@ -218,8 +251,9 @@ class NativeSparseAttention(torch.nn.Module):
                  window_size: int = 512, compression_ratio: int = 8, top_k_global: int = 64,
                  use_compressed: bool = True, use_top_k: bool = True, impl: str = "auto",
                  dtype=torch.float32, max_decode_len: int = 2048,
-                 param_dtype=torch.float32, device=None):
+                 param_dtype=torch.float32, device=None, mesh=None):
         super().__init__()
+        self.mesh = mesh
         self.num_heads, self.head_dim = num_heads, head_dim
         self.window_size, self.compression_ratio = window_size, compression_ratio
         self.top_k_global = top_k_global
@@ -229,7 +263,7 @@ class NativeSparseAttention(torch.nn.Module):
         hd = num_heads * head_dim
         self.local_attention = SlidingWindowAttention(
             d_model, num_heads, head_dim, window_size, impl, dtype, max_decode_len,
-            param_dtype, device,
+            param_dtype, device, mesh,
         )
         if use_compressed:
             self.compressed_q_proj = Dense(d_model, hd, **kw)
@@ -255,7 +289,11 @@ class NativeSparseAttention(torch.nn.Module):
         every position < lengths[i] computes what a forward of row i alone
         at its length would: per-row gates, pad importance at -inf, and
         per-row pool counts (pools past them are INVALID_KEY_POS keys)."""
-        s = x.shape[1]
+        cp = _context_group(self.mesh)
+        if cp is not None and lengths is not None:
+            raise ValueError("the ragged NSA forward is a serving path: not under context "
+                             "parallelism")
+        s = x.shape[1] * (1 if cp is None else cp.size)  # the global length
         w, ratio = self.window_size, self.compression_ratio
         output = self.local_attention(x)
         if lengths is None:
@@ -274,13 +312,23 @@ class NativeSparseAttention(torch.nn.Module):
 
     def _compressed_global(self, x, lengths):
         b, s, d_model = x.shape
+        cp = _context_group(self.mesh)
+        if cp is not None:
+            s *= cp.size
         ratio = self.compression_ratio
         num_pools = max(max(s - self.window_size, ratio) // ratio, 1)
-        # The modular-wrap quirk: pool positions past S wrap to the start.
-        pool_indices = torch.arange(num_pools * ratio, device=x.device) % s
-        # jnp.mean of a bf16 array sums in fp32 and returns bf16.
-        compressed = x[:, pool_indices].reshape(b, num_pools, ratio, d_model)
-        compressed = compressed.float().mean(dim=2).to(x.dtype)
+        if cp is not None:
+            # Pooled on each rank, then all-gathered: num_pools * ratio <= S
+            # here (S > window under context parallelism), so no pool wraps.
+            from forde_tpu_torch.parallel.nsa_context import gather_pool_means_cp
+
+            compressed = gather_pool_means_cp(x, self.mesh, ratio, num_pools)
+        else:
+            # The modular-wrap quirk: pool positions past S wrap to the start.
+            pool_indices = torch.arange(num_pools * ratio, device=x.device) % s
+            # jnp.mean of a bf16 array sums in fp32 and returns bf16.
+            compressed = x[:, pool_indices].reshape(b, num_pools, ratio, d_model)
+            compressed = compressed.float().mean(dim=2).to(x.dtype)
         q = self._heads(self.compressed_q_proj(x))
         k = self._heads(self.compressed_k_proj(compressed))
         v = self._heads(self.compressed_v_proj(compressed))
@@ -293,24 +341,42 @@ class NativeSparseAttention(torch.nn.Module):
             )
             key_pos = torch.where(pool[None, :] < np_row[:, None], key_pos,
                                   torch.full_like(key_pos, INVALID_KEY_POS))
-        out = small_kv_attention(q, k, v, key_pos, impl=self.impl)
+        out = self._small_kv(q, k, v, key_pos, cp)
         return self.compressed_out_proj(_merge_heads(out).to(x.dtype))
+
+    def _small_kv(self, q, k, v, key_pos, cp):
+        if cp is None:
+            return small_kv_attention(q, k, v, key_pos, impl=self.impl)
+        from forde_tpu_torch.parallel.nsa_context import small_kv_attention_cp
+
+        return small_kv_attention_cp(q, k, v, key_pos, self.mesh, impl=self.impl)
 
     def _top_k(self, x, lengths):
         b, s, _ = x.shape
-        k_sel = min(self.top_k_global, s)
+        cp = _context_group(self.mesh)
         importance = self.importance_scorer(x)[..., 0]
+        if cp is not None:
+            # a global top-k: the (B, S) scores are gathered, not the rows;
+            # they only pick indices, so they carry no gradient
+            importance = torch.cat(cp.all_gather(importance.detach()), dim=1)
+            s = importance.shape[1]
+        k_sel = min(self.top_k_global, s)
         if lengths is not None:
             pos = torch.arange(s, device=x.device)
             importance = torch.where(pos[None, :] < lengths[:, None], importance,
                                      torch.full_like(importance, -float("inf")))
         _, idx = top_k_desc(importance, k_sel)  # global per sequence
-        selected = x[torch.arange(b, device=x.device)[:, None], idx]
+        if cp is not None:
+            from forde_tpu_torch.parallel.nsa_context import topk_select_cp
+
+            selected = topk_select_cp(x, idx, self.mesh)
+        else:
+            selected = x[torch.arange(b, device=x.device)[:, None], idx]
         q = self._heads(self.topk_q_proj(x))
         kk = self._heads(self.topk_k_proj(selected))
         vv = self._heads(self.topk_v_proj(selected))
         # Selected token j is visible to queries at positions >= its index.
-        out = small_kv_attention(q, kk, vv, idx, impl=self.impl)
+        out = self._small_kv(q, kk, vv, idx, cp)
         return self.topk_out_proj(_merge_heads(out).to(x.dtype))
 
     # ---- streaming decode ---------------------------------------------

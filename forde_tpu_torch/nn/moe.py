@@ -11,6 +11,18 @@ the MoE slow loop reads. With ``quantized`` (int8 serving, ops/quant.py)
 the bank holds int8 weights with per-(expert, output channel) scales and
 both products run int8 over dynamically quantized activations, one
 ``int8_matmul`` per expert.
+
+Given a ``mesh`` (core/mesh.py) the layer takes this rank's tokens (split
+over data and context) and, with an expert axis above 1, this rank's
+slice of the bank (train/state.py keeps it): ``"ep"`` dispatch runs
+``parallel.expert_parallel.expert_parallel_ffn`` (all-to-all or psum), and
+dense or capacity dispatch runs as the psum variant of the same dispatch
+(the JAX package gets the same values from GSPMD over its expert-sharded
+bank). The router's aux loss and ``expert_usage`` are the global batch's:
+fractions and mean probabilities are averaged over the token axes (data,
+context) before their product. A capacity plan covers this rank's tokens,
+where the JAX package's pjit plan covers the global batch: without drops
+(``capacity_factor >= num_experts``) the two agree.
 """
 
 from __future__ import annotations
@@ -26,18 +38,33 @@ from forde_tpu_torch.ops import moe_dispatch
 from forde_tpu_torch.ops.quant import int8_matmul, quantize_activations
 
 
-DISPATCHES = ("dense", "capacity")
+DISPATCHES = ("dense", "capacity", "ep")
 
 
 def _dispatch_check(dispatch: str) -> None:
-    if dispatch == "ep":
-        raise NotImplementedError(
-            "moe_dispatch='ep' (expert parallelism over a device mesh) is not "
-            "ported to forde_tpu_torch yet (it waits for the multi-device "
-            "slice; see ROADMAP.md)"
-        )
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown moe_dispatch {dispatch!r}")
+
+
+def _token_group(mesh):
+    from forde_tpu_torch.core.mesh import AXIS_CONTEXT, AXIS_DATA
+
+    return mesh.group(AXIS_DATA, AXIS_CONTEXT)
+
+
+def global_load_balancing_loss(router_probs, top_k_indices, num_experts: int, mesh):
+    """``load_balancing_loss`` of the global batch from this rank's
+    tokens: routed fractions and mean probabilities averaged over the
+    token axes, then their product."""
+    from forde_tpu_torch.parallel.collectives import pmean
+
+    group = _token_group(mesh)
+    num_tokens = router_probs.shape[0] * router_probs.shape[1]
+    top_k = top_k_indices.shape[-1]
+    counts = F.one_hot(top_k_indices.reshape(-1), num_experts).sum(0)
+    fraction = pmean(counts.to(torch.float32) / (num_tokens * top_k), group)
+    prob = pmean(router_probs.mean(dim=(0, 1)), group)
+    return num_experts * torch.sum(fraction * prob)
 
 
 class ExpertsFFN(torch.nn.Module):
@@ -139,9 +166,14 @@ class MoELayer(torch.nn.Module):
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
                  capacity_factor: float = 2.0, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None, quantized: bool = False):
+                 param_dtype=torch.float32, device=None, quantized: bool = False,
+                 mesh=None):
         super().__init__()
         _dispatch_check(dispatch)
+        if dispatch == "ep" and quantized:
+            raise ValueError("quantized serving supports dense/capacity dispatch (EP moves "
+                             "fp tensors)")
+        self.mesh = mesh
         self.num_experts = num_experts
         self.top_k = top_k
         self.aux_loss_weight = aux_loss_weight
@@ -156,10 +188,33 @@ class MoELayer(torch.nn.Module):
         router_logits = self.router(x).float()
         router_probs = torch.softmax(router_logits, dim=-1)
         top_k_indices, top_k_probs = moe_dispatch.top_k_gating(router_logits, self.top_k)
-        if self.dispatch == "dense":
-            all_out = self.experts.all_tokens(x)  # (E, B, S, D)
+        mesh = self.mesh
+        split = mesh is not None and self.experts.b_up.shape[0] < self.num_experts
+        if self.dispatch == "ep" and mesh is None:
+            raise ValueError('dispatch="ep" requires a mesh (MoELayer(mesh=...))')
+        if self.dispatch == "ep" or (split and self.dispatch == "capacity"):
+            from forde_tpu_torch.parallel.expert_parallel import expert_parallel_ffn
+
+            e = self.experts
+            output = expert_parallel_ffn(
+                x, top_k_indices, top_k_probs, (e.w_up, e.b_up, e.w_down, e.b_down), mesh,
+                num_experts=self.num_experts, top_k=self.top_k,
+                capacity_factor=self.capacity_factor,
+                variant="auto" if self.dispatch == "ep" else "psum",
+            )
+        elif self.dispatch == "dense":
+            all_out = self.experts.all_tokens(x)  # (E or this rank's E/ep, B, S, D)
             combine = moe_dispatch.combine_matrix(top_k_indices, top_k_probs, self.num_experts)
-            output = moe_dispatch.dense_combine(all_out, combine)
+            if split:
+                from forde_tpu_torch.core.mesh import AXIS_EXPERT
+                from forde_tpu_torch.parallel.collectives import psum
+
+                group = mesh.group(AXIS_EXPERT)
+                e0 = group.index * all_out.shape[0]
+                combine = combine[..., e0:e0 + all_out.shape[0]]
+                output = psum(moe_dispatch.dense_combine(all_out, combine), group)
+            else:
+                output = moe_dispatch.dense_combine(all_out, combine)
         else:
             b, s, d = x.shape
             t, k = b * s, self.top_k
@@ -170,9 +225,13 @@ class MoELayer(torch.nn.Module):
             )
             expert_out = self.experts.dispatched(moe_dispatch.capacity_gather(x.reshape(t, d), plan))
             output = moe_dispatch.capacity_combine(expert_out, plan).reshape(b, s, d)
-        aux_loss = moe_dispatch.load_balancing_loss(
-            router_probs, top_k_indices, self.num_experts
-        ) * self.aux_loss_weight
+        if mesh is not None and not mesh.trivial:
+            aux_loss = global_load_balancing_loss(router_probs, top_k_indices,
+                                                  self.num_experts, mesh)
+        else:
+            aux_loss = moe_dispatch.load_balancing_loss(router_probs, top_k_indices,
+                                                        self.num_experts)
+        aux_loss = aux_loss * self.aux_loss_weight
         return output.to(x.dtype), aux_loss, router_probs
 
 
@@ -187,12 +246,13 @@ class MoEStatefulLayer(torch.nn.Module):
     def __init__(self, num_experts: int = 8, top_k: int = 2, expert_hidden_dim: int = 2048,
                  d_model: int = 512, aux_loss_weight: float = 0.01, dispatch: str = "dense",
                  capacity_factor: float = 2.0, dtype=torch.float32,
-                 param_dtype=torch.float32, device=None, quantized: bool = False):
+                 param_dtype=torch.float32, device=None, quantized: bool = False,
+                 mesh=None):
         super().__init__()
         self.moe_layer = MoELayer(
             num_experts, top_k, expert_hidden_dim, d_model, aux_loss_weight, dispatch,
             capacity_factor, dtype=dtype, param_dtype=param_dtype, device=device,
-            quantized=quantized,
+            quantized=quantized, mesh=mesh,
         )
         self.register_buffer(
             "expert_usage", torch.zeros(num_experts, dtype=torch.float32, device=device)
@@ -203,6 +263,12 @@ class MoEStatefulLayer(torch.nn.Module):
         output, aux_loss, router_probs = self.moe_layer(x)
         if update_stats and not recomputing():
             with torch.no_grad():
-                self.expert_usage += router_probs.mean(dim=(0, 1)).float()
+                usage = router_probs.mean(dim=(0, 1)).float()
+                mesh = self.moe_layer.mesh
+                if mesh is not None and not mesh.trivial:
+                    from forde_tpu_torch.parallel.collectives import pmean
+
+                    usage = pmean(usage, _token_group(mesh))  # the global batch's mean
+                self.expert_usage += usage
                 self.step_count += 1
         return output, aux_loss

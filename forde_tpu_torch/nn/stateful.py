@@ -13,7 +13,10 @@ call leaves the buffers as they are. A sensed call adds the statistics of
 its pre-activations z to the buffers and, when a training step has set
 ``z_tap`` (an (F, 2) fp32 zeros leaf with ``requires_grad=True``), routes z
 through ``grad_stat_tap``, so that ``z_tap.grad`` holds [grad_gini,
-grad_gdp] of dL/dz after the backward.
+grad_gdp] of dL/dz after the backward. Under data parallelism the step
+sets ``stat_group`` (the data axis) for the length of the step: both
+statistics then come from moment sums summed over the data axis before
+anything reads them, the global batch's, the same on every rank.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ from forde_tpu_torch.ops.stateful import grad_stat_tap, stateful_multiplex
 GRAD_TAP_NAME = "z_tap"
 
 
-def activation_stats(z: torch.Tensor) -> torch.Tensor:
+def activation_stats(z: torch.Tensor, group=None) -> torch.Tensor:
     """Per-neuron [act_gini, act_gdp, act_var] (F, 3) fp32 of z (..., F),
-    from one ``moment_sums`` pass over the detached z."""
+    from one ``moment_sums`` pass over the detached z. ``group``: the data
+    axis of a data-parallel step (parallel/collectives.py): the sums and
+    the row count are the global batch's."""
     n = z.numel() // z.shape[-1]
-    l1, sumsq, sm = stat_sums.moment_sums(z.detach())
+    l1, sumsq, sm = stat_sums.global_moment_sums(z.detach(), group)
+    n *= 1 if group is None else group.size
     mean = sm / n
     l2 = torch.sqrt(sumsq)
     safe_l2 = torch.where(l2 == 0, torch.ones_like(l2), l2)
@@ -68,6 +74,7 @@ class StatefulLayer(torch.nn.Module):
             torch.zeros(hidden_dim, dtype=torch.int32, device=device),
         )
         self.z_tap: Optional[torch.Tensor] = None
+        self.stat_group = None  # the data axis, set by a data-parallel step
         if sense:
             self.register_buffer(
                 "act_stats", torch.zeros(hidden_dim, 3, dtype=torch.float32, device=device)
@@ -82,9 +89,9 @@ class StatefulLayer(torch.nn.Module):
             if not self.sense:
                 raise ValueError("sense=True needs a StatefulLayer built with sense=True")
             if self.z_tap is not None:
-                z = grad_stat_tap(z, self.z_tap)
+                z = grad_stat_tap(z, self.z_tap, self.stat_group)
             if not recomputing():  # once per forward under remat (nn/remat.py)
-                self.act_stats.add_(activation_stats(z))
+                self.act_stats.add_(activation_stats(z, self.stat_group))
                 self.step_count.add_(1)
         y = stateful_multiplex(z, self.neuron_assignments, self.specialist_gate)
         return self.w_out(y.to(self.dtype))

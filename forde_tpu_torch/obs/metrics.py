@@ -37,6 +37,20 @@ class MetricsWriter:
         self._jsonl.close()
 
 
+class NullWriter(MetricsWriter):
+    """A writer that writes nothing: the ranks of a multi-process run other
+    than rank 0."""
+
+    def __init__(self):
+        self.log_dir = None
+
+    def scalar(self, tag: str, value: float, step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
 class ThroughputMeter:
     """Pairs (or tokens) per second on the one device the port runs on,
     over the steps counted since the last ``reset``, on the host clock."""

@@ -212,7 +212,7 @@ def flash_mha_fwd(
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     build.check(lib, err, "flash_mha_fwd")
-    kernels.launches["flash_mha_fwd"] += 1
+    kernels.count("flash_mha_fwd")
     return o, lse
 
 
@@ -300,7 +300,7 @@ def flash_mha_bwd(
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     build.check(lib, err, "flash_mha_bwd")
-    kernels.launches["flash_mha_bwd"] += 1
+    kernels.count("flash_mha_bwd")
     return dqkv
 
 
@@ -526,7 +526,7 @@ def flash_fwd(
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, "flash_fwd")
-    kernels.launches["flash_fwd"] += 1
+    kernels.count("flash_fwd")
     return o, lse
 
 
@@ -606,7 +606,7 @@ def _bwd_launch(name: str, outputs, q, k, v, do, lse, delta, scale, window, caus
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, name)
-    kernels.launches[name] += 1
+    kernels.count(name)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len) -> torch.Tensor:
@@ -722,3 +722,89 @@ def flash_attention(
     kv_len = s if (not causal and s_pad != s) else None
     o = FlashAttention.apply(q, k, v, scale, window_size, causal, kv_len)
     return o[:, :, :s, :d]
+
+
+class FlashAttentionLSE(torch.autograd.Function):
+    """``flash_fwd`` returning (o, lse), both differentiable: the backward
+    folds the lse cotangent into ``flash_bwd`` as delta - dlse (the JAX
+    package's ``_flash_attention_lse_padded`` custom_vjp)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, window, causal, kv_len):
+        o, lse = flash_fwd(q, k, v, scale, window, causal, kv_len)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.static = (scale, window, causal, kv_len)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do.contiguous(), *ctx.static, dlse=dlse)
+        return dq, dk, dv, None, None, None, None
+
+
+def _attention_lse_reference(q, k, v, causal, window_size, scale):
+    """The JAX package's reference branch of ``flash_attention_with_lse``:
+    fp32 scores, masked to -1e30, p / l rounded to v's dtype before the
+    product with v."""
+    s = q.shape[2]
+    sc = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        pos = torch.arange(s, device=q.device)
+        keep = pos[:, None] >= pos[None, :]
+        if window_size is not None:
+            keep &= pos[:, None] - pos[None, :] < window_size
+        sc = sc.masked_fill(~keep, MASK_VALUE)
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul((p / l).to(v.dtype).float(), v.float()).to(q.dtype)
+    return o, m + torch.log(l)
+
+
+def flash_attention_with_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window_size: Optional[int] = None,
+    scale: Optional[float] = None,
+    impl: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention over (B, H, S, D) returning ``(o, lse)``, lse
+    (B, H, S, 1) fp32 and differentiable: the building block of the
+    cross-device softmax merge (parallel/ring_attention.py,
+    parallel/nsa_context.py). Partials over disjoint keys combine exactly,
+
+        m = max(lse_a, lse_b); w_x = exp(lse_x - m)
+        o = (o_a w_a + o_b w_b) / (w_a + w_b); lse = m + log(w_a + w_b),
+
+    and a row that sees no key keeps lse about -1e30, so it drops out of
+    any merge.
+
+    ``impl`` "reference": the plain masked attention, differentiated by
+    autograd. Otherwise ``FlashAttentionLSE``: the kernels ``flash_fwd``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv`` for a CUDA tensor, their plain
+    versions for a CPU tensor. The JAX package takes its reference path
+    for S off a multiple of 8; the kernels here pad S to ``BLOCK`` (and D
+    to a multiple of 64) as ``flash_attention`` does: the padded query
+    rows' o and lse are cut away, and a non-causal padded call masks the
+    padded keys with ``kv_len = S``."""
+    b, h, s, d = q.shape
+    scale = 1.0 / float(d) ** 0.5 if scale is None else float(scale)
+    if impl == "reference":
+        return _attention_lse_reference(q, k, v, causal, window_size, scale)
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
+    s_pad = _ceil_to(s, BLOCK)
+    d_pad = max(_ceil_to(d, 64), 64)
+    if s_pad != s or d_pad != d:
+        pad = (0, d_pad - d, 0, s_pad - s)
+        q, k, v = (F.pad(t, pad) for t in (q, k, v))
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    kv_len = s if (not causal and s_pad != s) else None
+    o, lse = FlashAttentionLSE.apply(q, k, v, scale, window_size, causal, kv_len)
+    return o[:, :, :s, :d], lse[:, :, :s]

@@ -154,7 +154,7 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, "small_kv_fwd")
-    kernels.launches["small_kv_fwd"] += 1
+    kernels.count("small_kv_fwd")
     return out
 
 
@@ -222,7 +222,7 @@ def small_kv_bwd(q, k, v, key_pos, do, scale: float):
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     build.check(lib, err, "small_kv_bwd")
-    kernels.launches["small_kv_bwd"] += 1
+    kernels.count("small_kv_bwd")
     return dq, dk, dv
 
 

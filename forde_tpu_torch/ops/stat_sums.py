@@ -93,5 +93,13 @@ def moment_sums(x: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     build.check(lib, err, "moment_sums")
-    kernels.launches["moment_sums"] += 1
+    kernels.count("moment_sums")
     return out
+
+
+def global_moment_sums(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``moment_sums`` of x, summed over ``group`` (a data axis of
+    parallel/collectives.py: every rank gets the global batch's sums) when
+    one is given."""
+    sums = moment_sums(x)
+    return sums if group is None or group.size == 1 else group.all_reduce(sums)

@@ -77,11 +77,13 @@ def stateful_multiplex(
     return _Multiplex.apply(z, assignments.to(torch.int32), float(specialist_gate))
 
 
-def grad_stats_from_cotangent(g: torch.Tensor) -> torch.Tensor:
+def grad_stats_from_cotangent(g: torch.Tensor, group=None) -> torch.Tensor:
     """Per-neuron [grad_gini (Hoyer), grad_gdp (mean |g|)] (F, 2) fp32 of
-    dL/dz (..., F), from one ``moment_sums`` pass over g."""
+    dL/dz (..., F), from one ``moment_sums`` pass over g (summed over
+    ``group``, the data axis, under data parallelism)."""
     n = g.numel() // g.shape[-1]
-    l1, sumsq, _ = stat_sums.moment_sums(g)
+    l1, sumsq, _ = stat_sums.global_moment_sums(g, group)
+    n *= 1 if group is None else group.size
     l2 = torch.sqrt(sumsq)
     safe_l2 = torch.where(l2 == 0, torch.ones_like(l2), l2)
     denom = (float(n) ** 0.5 - 1.0) if n > 1 else 1.0
@@ -93,16 +95,17 @@ def grad_stats_from_cotangent(g: torch.Tensor) -> torch.Tensor:
 
 class _GradStatTap(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z, slot):
+    def forward(ctx, z, slot, group):
+        ctx.group = group
         return z.view_as(z)
 
     @staticmethod
     def backward(ctx, g):
-        return g, grad_stats_from_cotangent(g)
+        return g, grad_stats_from_cotangent(g, ctx.group), None
 
 
-def grad_stat_tap(z: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+def grad_stat_tap(z: torch.Tensor, slot: torch.Tensor, group=None) -> torch.Tensor:
     """Identity on ``z``; the gradient of ``slot`` (an (F, 2) fp32 zeros
     leaf with ``requires_grad=True``) comes back as the per-neuron
     [grad_gini, grad_gdp] of dL/dz. No (B, S, F) copy of dL/dz is kept."""
-    return _GradStatTap.apply(z, slot)
+    return _GradStatTap.apply(z, slot, group)

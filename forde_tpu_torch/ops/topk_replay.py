@@ -88,5 +88,5 @@ def topk_replay(
             torch.cuda.current_stream(s.device).cuda_stream,
         )
     build.check(lib, err, "topk_replay")
-    kernels.launches["topk_replay"] += 1
+    kernels.count("topk_replay")
     return kept, idx

@@ -114,7 +114,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 _NOT_PORTED = (
     (lambda a: a.tensor_parallelism > 1, "--tensor_parallelism > 1",
-     "the multi-device slice"),
+     "slice 11 of the multi-device work"),
     (lambda a: a.prompt is not None, "--prompt",
      "a tokenizer in the repository"),
     (lambda a: a.text_prompts, "--text_prompts",

@@ -122,7 +122,8 @@ def load_clip_params(directory: str, device,
 
 
 def load_lm_params(directory: str, device, use_ema: bool = False,
-                   lora_base_dir: Optional[str] = None) -> Tuple[LLMConfig, torch.nn.Module]:
+                   lora_base_dir: Optional[str] = None,
+                   mesh=None) -> Tuple[LLMConfig, torch.nn.Module]:
     """(config, decoder LM on ``device`` in eval mode) from a checkpoint
     directory, the unrolled or the ``scan_layers`` layout. The model holds
     the checkpoint's parameters and MoE stat buffers exactly: a key that
@@ -135,7 +136,9 @@ def load_lm_params(directory: str, device, use_ema: bool = False,
     resolved as the JAX package's ``load_lm_state`` does: the base is
     loaded from ``lora["base"]`` (or ``lora_base_dir``), the adapters (the
     EMA adapters with ``use_ema``) are merged into its weights, and the
-    checkpoint's stat buffers are loaded: a plain model comes back."""
+    checkpoint's stat buffers are loaded: a plain model comes back.
+    ``mesh``: the model's multi-device paths run on it (its expert banks
+    stay whole: ``train.state.shard_experts`` keeps a rank's slice)."""
     from forde_tpu_torch.interop import flax_to_state_dict, split_scan_layers
     from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
 
@@ -146,8 +149,9 @@ def load_lm_params(directory: str, device, use_ema: bool = False,
     weights = tree["params"]
     lora = meta.get("lora")
     if lora:
-        return cfg, _merged_lora_model(lora, weights, tree, device, lora_base_dir)
-    model = FORDEDecoderLM(cfg, device=device)
+        model = _merged_lora_model(lora, weights, tree, device, lora_base_dir)
+        return cfg, model.set_mesh(mesh)
+    model = FORDEDecoderLM(cfg, device=device, mesh=mesh)
     expected = model.state_dict()
     stats = tree.get("stats_buffer")
     if stats is None:
@@ -314,6 +318,25 @@ def _state_tensors(state) -> Tuple[Dict[str, Tuple[torch.Tensor, bool]],
     return params, extra
 
 
+def _expert_key(state, key: str) -> bool:
+    """Whether ``key`` holds this rank's slice of an expert bank (a state
+    on a mesh with an expert axis, ``train.state.shard_train_state``)."""
+    return bool(getattr(state, "expert_params", None) and any(state.expert_params)
+                and "experts" in key.split("/"))
+
+
+def _gather_experts(state, tensors: Dict[str, Tuple[torch.Tensor, bool]]) -> None:
+    """Replace each expert-bank slice by the whole bank, all-gathered over
+    the expert axis (every rank calls this, in the same key order)."""
+    from forde_tpu_torch.core.mesh import AXIS_EXPERT
+
+    group = state.mesh.group(AXIS_EXPERT)
+    for key in sorted(tensors):
+        if _expert_key(state, key):
+            t, transposed = tensors[key]
+            tensors[key] = (torch.cat(group.all_gather(t.detach()), 0), transposed)
+
+
 def _to_numpy(t: torch.Tensor, transposed: bool) -> np.ndarray:
     t = t.detach().cpu()
     a = t.numpy() if t.dtype in (torch.int32, torch.int64, torch.int8) else t.float().numpy()
@@ -340,9 +363,19 @@ def save_train_state(directory: str, state, step: int, train_meta: Optional[dict
     and then moved over the old one (``os.replace``), so a preemption while the
     files are written leaves the previous checkpoint whole; the three moves
     come last, back to back, and ``restore_train_state`` refuses files of
-    different steps."""
-    os.makedirs(directory, exist_ok=True)
+    different steps.
+
+    On a mesh every rank calls it: expert banks are all-gathered over the
+    expert axis, and rank 0 writes the same files that one process
+    writes."""
     params, extra = _state_tensors(state)
+    mesh = getattr(state, "mesh", None)
+    if mesh is not None:
+        _gather_experts(state, params)
+        _gather_experts(state, extra)
+        if mesh.rank != 0:
+            return
+    os.makedirs(directory, exist_ok=True)
     scanned = bool(getattr(state.model.config, "scan_layers", False))
     arrays = relayout({k: _to_numpy(t, tr) for k, (t, tr) in params.items()}, scanned)
     opt_arrays = relayout({k: _to_numpy(t, tr) for k, (t, tr) in extra.items()}, scanned)
@@ -388,7 +421,9 @@ def restore_train_state(directory: str, state):
     or unrolled; ``relayout``). Raises on a key that is missing or extra,
     on a shape that differs, on files of different steps, and when the
     checkpoint's optimizer meta (moment dtype, warmup, LR schedule) is not
-    the state's. Returns ``state`` with ``state.step`` set."""
+    the state's. On a mesh each rank restores the whole checkpoint and
+    keeps its own slice of the expert banks, so a run may resume at another
+    world size. Returns ``state`` with ``state.step`` set."""
     _, meta = load_meta(directory)
     saved, own = _optimizer_meta(meta), _meta_of(state.optimizer)
     if saved != own:
@@ -411,6 +446,10 @@ def restore_train_state(directory: str, state):
             value = torch.from_numpy(np.array(got[key]))
             if transposed:
                 value = value.transpose(-1, -2)
+            if _expert_key(state, key):
+                from forde_tpu_torch.core.mesh import expert_sharding
+
+                value = expert_sharding(state.mesh)(value)
             if tuple(value.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)} != "
                                  f"{tuple(t.shape)}")

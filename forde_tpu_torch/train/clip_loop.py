@@ -44,8 +44,19 @@ imported.
       --sense_interval 8 --slow_loop_interval 8 --fuse_steps 2 \\
       --profile_dir prof --plots_dir plots
 
+Data parallelism: under torchrun every rank builds the global batch from
+the seed and keeps its rows (``core.mesh.batch_sharding``) of a data axis
+over all the ranks; the step's loss, statistics and gradients are the
+global batch's (train/clip_step.py), rank 0 logs and writes the
+checkpoint, and the slow loop runs on every rank alike. NCCL on the card
+(a fused step's CUDA graph holds its all-reduces), gloo with ``--device
+cpu``:
+
+  torchrun --standalone --nproc_per_node 4 -m forde_tpu_torch.train.clip_loop \
+      --preset vit_b16 --bf16 --use_dummy_data --batch_size 512 --num_steps 16
+
 Not ported yet (and not accepted): ``--tensor_parallelism`` and
-``--param_sharding`` (the multi-device slice), and the streamed
+``--param_sharding`` (slice 11 of the multi-device work), and the streamed
 Conceptual Captions data (a tokenizer and data in the repository).
 """
 
@@ -240,9 +251,10 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         AlignedSyntheticVLDataset,
         SyntheticVLDataset,
     )
+    from forde_tpu_torch.core import mesh as mesh_lib
     from forde_tpu_torch.nn.stateful import stateful_layers
     from forde_tpu_torch.obs import profiler
-    from forde_tpu_torch.obs.metrics import MetricsWriter, ThroughputMeter
+    from forde_tpu_torch.obs.metrics import MetricsWriter, NullWriter, ThroughputMeter
     from forde_tpu_torch.obs.plots import require_matplotlib
     from forde_tpu_torch.obs.retrieval import evaluate_retrieval
     from forde_tpu_torch.train import checkpoint as ckpt_lib
@@ -254,6 +266,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         stack_batches,
     )
     from forde_tpu_torch.train.ema import init_ema, swap_in_ema, with_ema
+    from forde_tpu_torch.train.state import shard_train_state
 
     if args is None:
         args = build_parser().parse_args([])
@@ -264,13 +277,20 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         )
     if args.plots_dir:
         require_matplotlib()
-    device = resolve_device(args.device)
+    device = mesh_lib.local_device(resolve_device(args.device))
+    mesh = None
+    if mesh_lib.maybe_initialize_distributed(device):
+        mesh = mesh_lib.create_mesh_for_batch(args.batch_size)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    shard = (lambda b: b) if mesh is None else (
+        lambda b: {k: v.contiguous() for k, v in mesh_lib.shard_batch(b, mesh).items()})
     cfg = config_from_args(args)
     brain = BrainConfig()
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.lr_schedule == "cosine" and args.decay_steps == 0:
         args.decay_steps = max(args.num_steps - args.warmup_steps, 1)
-        print(f"cosine decay over {args.decay_steps} steps (derived from the run length)")
+        say(f"cosine decay over {args.decay_steps} steps (derived from the run length)")
 
     t_init = time.perf_counter()
     state = create_clip_train_state(
@@ -282,8 +302,11 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     if args.ema_decay > 0:
         init_ema(state)
     n_params = sum(p.numel() for p in state.optimizer.params)
-    print(f"state created in {time.perf_counter() - t_init:.1f}s "
-          f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
+    say(f"state created in {time.perf_counter() - t_init:.1f}s "
+        f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
+    shard_train_state(state, mesh)
+    if mesh is not None:
+        say(f"mesh: {mesh.shape} over {mesh.size} rank(s)", flush=True)
     train_meta = {
         "moment_dtype": args.moment_dtype, "warmup_steps": args.warmup_steps,
         "ema_decay": args.ema_decay, "lr_schedule": args.lr_schedule,
@@ -312,14 +335,15 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             v = getattr(args, name)
             if v > 0 and v % fuse:
                 rounded = ((v + fuse - 1) // fuse) * fuse
-                print(f"--{name} {v} -> {rounded} (rounded to a "
-                      f"--fuse_steps boundary)")
+                say(f"--{name} {v} -> {rounded} (rounded to a --fuse_steps boundary)")
                 setattr(args, name, rounded)
         fused_step = make_fused_step(cfg, fuse, args.sense_interval, sensed_step=sensed_step,
                                      nosense_step=nosense_step)
 
-    writer = MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
+    writer = (MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
+              if lead else NullWriter())
     eval_sets = _eval_sets(args, cfg, device) if args.eval_interval > 0 else {}
+    stacked_sharding = None if mesh is None else mesh_lib.stacked_batch_sharding(mesh)
     if args.use_aligned_data:
         # Train on classes [0, 0.9 C); the eval's unseen_ classes are the rest.
         batches = AlignedDeviceRenderer(AlignedSyntheticVLDataset(
@@ -329,7 +353,10 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             class_range=(0, int(args.aligned_classes * 0.9)), seed=args.seed,
         ), device).batches()
         if fused_step is not None:
-            batches = (fused_step.prepare(sb) for sb in stack_batches(batches, fuse))
+            batches = (fused_step.prepare(sb)
+                       for sb in stack_batches(batches, fuse, sharding=stacked_sharding))
+        else:
+            batches = (shard(b) for b in batches)
     elif args.dummy_pool:
         dataset = SyntheticVLDataset(
             args.batch_size, args.num_steps, image_size=cfg.image_size,
@@ -345,7 +372,10 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             db["image"] = db["image"].to(cfg.dtypes.compute)
             pool.append(db)
         if fused_step is not None:
-            pool = [fused_step.prepare(sb) for sb in stack_batches(iter(pool), fuse)]
+            pool = [fused_step.prepare(sb)
+                    for sb in stack_batches(iter(pool), fuse, sharding=stacked_sharding)]
+        else:
+            pool = [shard(b) for b in pool]
         batches = (pool[i % len(pool)] for i in range(args.num_steps // fuse))
     else:
         batches = prefetch_to_device(iter(SyntheticVLDataset(
@@ -353,7 +383,10 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             text_len=args.text_len, vocab_size=cfg.vocab_size, seed=args.seed,
         )), device)
         if fused_step is not None:
-            batches = (fused_step.prepare(sb) for sb in stack_batches(batches, fuse))
+            batches = (fused_step.prepare(sb)
+                       for sb in stack_batches(batches, fuse, sharding=stacked_sharding))
+        else:
+            batches = (shard(b) for b in batches)
 
     def save(step):
         ckpt_lib.save_train_state(args.checkpoint_dir, state, step, train_meta)
@@ -386,10 +419,10 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                     writer.scalars(last, step)
                     pps = meter.items_per_sec
                     writer.scalar("Throughput/pairs_per_sec_per_chip", pps, step)
-                    print(f"step {step}: loss {last['loss/contrastive']:.4f} "
-                          f"acc_i {last['contrastive/acc_img']:.2f} "
-                          f"grad_norm {last['training/grad_norm']:.2f} "
-                          f"{pps:,.0f} pairs/s/device", flush=True)
+                    say(f"step {step}: loss {last['loss/contrastive']:.4f} "
+                        f"acc_i {last['contrastive/acc_img']:.2f} "
+                        f"grad_norm {last['training/grad_norm']:.2f} "
+                        f"{pps:,.0f} pairs/s/device", flush=True)
                     if step <= args.log_interval:
                         meter.reset()  # the first window holds the warm-up
 
@@ -421,9 +454,9 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                     })
                     writer.scalar("SlowLoop/latency_ms", dt_ms, step)
                     mode = "Forde-lite" if cfg.forde_lite else "GMM"
-                    print(f"[brain update @ {step}] mode={mode} {dt_ms:.1f}ms"
-                          f"{' (skipped: no sensed step)' if skipped else ''}", flush=True)
-                    if args.plots_dir and not skipped:
+                    say(f"[brain update @ {step}] mode={mode} {dt_ms:.1f}ms"
+                        f"{' (skipped: no sensed step)' if skipped else ''}", flush=True)
+                    if args.plots_dir and lead and not skipped:
                         _plot(diag, step, args.plots_dir, brain)
 
                 if args.eval_interval > 0 and step % args.eval_interval == 0 and eval_sets:
@@ -436,9 +469,9 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                             with swap_in_ema(state):
                                 rmetrics.update(evaluate_retrieval(state, held,
                                                                    prefix=f"ema_{prefix}"))
-                        print(f"[retrieval/{prefix or 'eval'} @ {step}] i2t R@1 "
-                              f"{rmetrics[f'retrieval/{prefix}i2t_recall@1']:.3f} t2i R@1 "
-                              f"{rmetrics[f'retrieval/{prefix}t2i_recall@1']:.3f}", flush=True)
+                        say(f"[retrieval/{prefix or 'eval'} @ {step}] i2t R@1 "
+                            f"{rmetrics[f'retrieval/{prefix}i2t_recall@1']:.3f} t2i R@1 "
+                            f"{rmetrics[f'retrieval/{prefix}t2i_recall@1']:.3f}", flush=True)
                     _synchronize(device)
                     retrieval.append({"step": step, "seconds": time.perf_counter() - t0,
                                       "metrics": rmetrics})
@@ -454,14 +487,15 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             last = {k: float(v) for k, v in metrics.items()}
         if args.checkpoint_dir:
             save(step)
-            print(f"checkpoint (train state, step {step}) written to {args.checkpoint_dir}",
-                  flush=True)
+            say(f"checkpoint (train state, step {step}) written to {args.checkpoint_dir}",
+                flush=True)
     finally:
         writer.close()
     return {
         "state": state, "final_metrics": last, "step": step,
         "pairs_per_sec": meter.items_per_sec,
         "brain_updates": brain_updates, "retrieval": retrieval, "traces": traces,
+        "mesh": mesh,
     }
 
 
@@ -499,7 +533,16 @@ def _plot(diag, step: int, plots_dir: str, brain) -> None:
 
 
 def main(argv: Optional[list] = None) -> dict:
-    return train(build_parser().parse_args(argv))
+    from forde_tpu_torch.train.loop import _process_group_up
+
+    started = not _process_group_up()
+    try:
+        return train(build_parser().parse_args(argv))
+    finally:
+        if started and _process_group_up():  # the group this run started
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

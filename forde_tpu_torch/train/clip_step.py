@@ -20,6 +20,17 @@ scale, as 0-d tensors on the model's device (no host synchronisation).
 (``stack_batches``): on the card as one CUDA graph of the k steps,
 forward, backward and optimizer included (the JAX package's scanned
 program); on the CPU as the same k eager steps.
+
+Data parallelism: a state put on a mesh (``train.state.shard_train_state``)
+takes this rank's rows of the global batch (``core.mesh.batch_sharding``;
+``stack_batches(sharding=)`` for fused steps). The loss is the global
+batch's (``parallel.contrastive.sharded_contrastive_loss``, which the JAX
+package's step gets from XLA's all-gather), the StatefulLayers' moment
+sums are summed over the data axis before their statistics are formed,
+and the gradients are summed over the ranks (``train.step.
+reduce_gradients``), so every rank takes the same step and the slow loop
+reads the same statistics on each. On the card with NCCL a fused step's
+graph holds those all-reduces.
 """
 
 from __future__ import annotations
@@ -53,6 +64,8 @@ class CLIPTrainState:
     grad_step_count: torch.Tensor
     step: int = 0
     ema: Optional[List[torch.Tensor]] = None
+    mesh: Optional[object] = None  # core.mesh.Mesh, set by shard_train_state
+    expert_params: Optional[List[bool]] = None
 
 
 def create_clip_train_state(
@@ -92,28 +105,45 @@ def create_clip_train_state(
     )
 
 
+def _data_group(state: CLIPTrainState):
+    from forde_tpu_torch.core.mesh import AXIS_DATA
+
+    mesh = state.mesh
+    return None if mesh is None or mesh.shape[AXIS_DATA] == 1 else mesh.group(AXIS_DATA)
+
+
 def _step(state: CLIPTrainState, batch: Batch, sense: bool) -> Tuple[CLIPTrainState, Dict]:
+    from forde_tpu_torch.train.step import reduce_gradients
+
     model = state.model
     params = state.optimizer.params
+    group = _data_group(state)
     layers = stateful_layers(model) if sense else {}
     taps = {
         name: torch.zeros_like(state.grad_stats[name], requires_grad=True)
         for name in layers
     }
     for name, layer in layers.items():
-        layer.z_tap = taps[name]
+        layer.z_tap, layer.stat_group = taps[name], group
     try:
         img, txt, scale = model(
             batch["image"], batch["input_ids"], batch.get("attention_mask"), sense=sense
         )
-        loss, metrics = clip_contrastive_loss(img, txt, scale)
+        if group is None:
+            loss, metrics = clip_contrastive_loss(img, txt, scale)
+            objective = loss
+        else:
+            from forde_tpu_torch.parallel.contrastive import sharded_contrastive_loss
+
+            loss, metrics = sharded_contrastive_loss(img, txt, scale, state.mesh)
+            objective = loss / group.size  # every rank holds the loss
         grads = torch.autograd.grad(
-            loss, params + list(taps.values()), materialize_grads=True
+            objective, params + list(taps.values()), materialize_grads=True
         )
     finally:
         for layer in layers.values():
-            layer.z_tap = None
-    param_grads = grads[: len(params)]
+            layer.z_tap, layer.stat_group = None, None
+    param_grads = reduce_gradients(state, grads[: len(params)])
     with torch.no_grad():
         for name, g in zip(taps, grads[len(params):]):
             state.grad_stats[name].add_(g)
@@ -245,16 +275,14 @@ def clip_eval_embeddings(state: CLIPTrainState, batch: Batch):
 def stack_batches(batch_iter: Iterable[Batch], n: int, sharding=None) -> Iterator[Batch]:
     """Group a device-batch iterator into stacked (n, ...) super-batches
     for ``make_fused_step``. Drops a final partial group (an epoch tail
-    shorter than ``n``). ``sharding`` (a multi-device layout) is not
-    ported."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "stack_batches(sharding=...) is not ported to forde_tpu_torch yet (it waits "
-            "for the multi-device slice; see ROADMAP.md)"
-        )
+    shorter than ``n``). ``sharding`` (``core.mesh.stacked_batch_sharding``)
+    keeps this rank's rows of each stacked global batch."""
     buf = []
     for b in batch_iter:
         buf.append(b)
         if len(buf) == n:
-            yield {k: torch.stack([x[k] for x in buf]) for k in buf[0]}
+            stacked = {k: torch.stack([x[k] for x in buf]) for k in buf[0]}
+            if sharding is not None:
+                stacked = {k: sharding(v).contiguous() for k, v in stacked.items()}
+            yield stacked
             buf = []

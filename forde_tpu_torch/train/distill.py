@@ -10,7 +10,9 @@ Loss per step (Hinton et al.):
           + aux_loss_weight * moe_aux
 
 The teacher's forward runs under ``torch.no_grad()`` with its stat
-buffers left as they are, and its logits go to fp32.
+buffers left as they are, and its logits go to fp32. On a mesh (the
+teacher built on the student's, ``load_teacher(mesh=)``) each rank adds
+its shares of the global batch's CE and KL means (train/step.py).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from forde_tpu_torch.train.state import TrainState
-from forde_tpu_torch.train.step import lm_loss
+from forde_tpu_torch.train.step import Shares, lm_loss, reduce_gradients
 
 
 def make_distill_step(
@@ -41,12 +43,23 @@ def make_distill_step(
             t_lp = F.log_softmax(t_logits.float() / temperature, dim=-1)
         logits, aux = state.model(ids, update_stats=True)
         logits = logits.float()
-        lm = lm_loss(logits, ids)
         s_lp = F.log_softmax(logits / temperature, dim=-1)
-        kl = (torch.exp(t_lp) * (t_lp - s_lp)).sum(-1).mean() * temperature ** 2
-        total = alpha * lm + (1.0 - alpha) * kl + aux_loss_weight * aux
-        grads = torch.autograd.grad(total, state.optimizer.params, materialize_grads=True)
-        grad_norm = state.optimizer.step(grads)
+        kl_rows = (torch.exp(t_lp) * (t_lp - s_lp)).sum(-1)
+        if "labels" in batch:
+            shares = Shares(state.model.mesh, batch["labels"])
+            lm_share = F.cross_entropy(logits.flatten(0, 1), batch["labels"].long().flatten(),
+                                       ignore_index=-100, reduction="sum") / shares.targets
+            kl_share = kl_rows.sum() / shares.positions * temperature ** 2
+            objective = shares.objective(alpha * lm_share + (1.0 - alpha) * kl_share,
+                                         aux_loss_weight * aux)
+            lm, kl = shares.total(lm_share), shares.total(kl_share)
+            total = alpha * lm + (1.0 - alpha) * kl + aux_loss_weight * aux.detach()
+        else:
+            lm = lm_loss(logits, ids)
+            kl = kl_rows.mean() * temperature ** 2
+            total = objective = alpha * lm + (1.0 - alpha) * kl + aux_loss_weight * aux
+        grads = torch.autograd.grad(objective, state.optimizer.params, materialize_grads=True)
+        grad_norm = state.optimizer.step(reduce_gradients(state, grads))
         state.step += 1
         return state, {
             "loss/total": total.detach(),
@@ -59,12 +72,16 @@ def make_distill_step(
     return distill_step
 
 
-def load_teacher(checkpoint_dir: str, device) -> torch.nn.Module:
+def load_teacher(checkpoint_dir: str, device, mesh=None) -> torch.nn.Module:
     """The teacher from a train.loop checkpoint (``model_config.json`` +
     ``params.npz``; a LoRA checkpoint arrives merged), frozen, on
-    ``device``. The JAX package returns (model, variables); the port's
-    model holds its weights."""
+    ``device``; on ``mesh`` it runs the multi-device paths, with this
+    rank's slice of its expert banks. The JAX package returns (model,
+    variables); the port's model holds its weights."""
     from forde_tpu_torch.train.checkpoint import load_lm_params
+    from forde_tpu_torch.train.state import shard_experts
 
-    _, model = load_lm_params(checkpoint_dir, device)
+    _, model = load_lm_params(checkpoint_dir, device, mesh=mesh)
+    if mesh is not None:
+        shard_experts(model, mesh)
     return model.requires_grad_(False)

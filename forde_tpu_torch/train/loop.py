@@ -54,8 +54,28 @@ raises before the first step.
       --batch_size 4 --bf16 --remat --scan_layers --use_markov_data \\
       --steps_per_epoch 100 --profile_dir prof --plots_dir plots
 
-Flags whose code is not ported raise ``NotImplementedError`` and name the
-slice they wait for (ROADMAP.md).
+Multi-device training: under torchrun each rank builds the global batch
+from the seed and takes its part (``train.step.lm_batch``) of a mesh
+(core/mesh.py) of (data, expert, context): ``--expert_parallelism`` splits
+the expert banks (``--moe_dispatch ep``: the all-to-all or psum dispatch of
+parallel/expert_parallel.py; dense and capacity dispatch run as its psum
+variant), ``--context_parallelism`` splits the sequence (ring attention, or
+NSA's context-parallel branches), and data absorbs the other ranks. NCCL on
+the card, gloo with ``--device cpu``; rank 0 logs and writes the
+checkpoint, which a run of another world size resumes.
+
+  torchrun --standalone --nproc_per_node 4 -m forde_tpu_torch.train.loop \
+      --d_model 512 --num_layers 12 --num_heads 8 --window_size 512 \
+      --num_streams 4 --seq_len 8192 --batch_size 2 --context_parallelism 2 \
+      --use_markov_data --steps_per_epoch 100
+  torchrun --standalone --nproc_per_node 4 -m forde_tpu_torch.train.loop \
+      --device cpu --d_model 64 --num_layers 2 --num_heads 2 --window_size 16 \
+      --seq_len 64 --batch_size 4 --expert_parallelism 2 --moe_dispatch ep \
+      --use_markov_data --steps_per_epoch 4
+
+Flags whose code is not ported (tensor and pipeline parallelism, FSDP,
+the gpt2 tokenizer and the streamed corpus) raise ``NotImplementedError``
+and name what they wait for (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -131,7 +151,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="metrics go to runs/<name>_<time>/metrics.jsonl")
     p.add_argument("--bf16", action="store_true", help="bfloat16 compute")
     p.add_argument("--moe_dispatch", choices=["dense", "capacity", "ep"], default="dense",
-                   help='"ep" (expert parallelism over a mesh) is not ported')
+                   help='"ep": explicit expert parallelism (all-to-all) over the mesh\'s '
+                        'expert axis; needs --expert_parallelism > 1')
     p.add_argument("--moment_dtype", type=str, default=None,
                    help="Adam moment storage dtype (e.g. bfloat16); update math stays fp32")
     p.add_argument("--ema_decay", type=float, default=0.0,
@@ -154,13 +175,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scan_layers", action="store_true",
                    help="checkpoints in the scanned layout (layers/block/... with a leading "
                         "(L,) axis), as the JAX package's --scan_layers writes them")
-    p.add_argument("--expert_parallelism", type=int, default=1, help="(not ported beyond 1)")
-    p.add_argument("--context_parallelism", type=int, default=1, help="(not ported beyond 1)")
+    p.add_argument("--expert_parallelism", type=int, default=1,
+                   help="mesh expert-axis size (shards the stacked MoE experts)")
+    p.add_argument("--context_parallelism", type=int, default=1,
+                   help="mesh context-axis size (sequence sharding: ring attention, or "
+                        "NSA's context-parallel branches)")
     p.add_argument("--param_sharding", choices=["replicated", "fsdp"], default="replicated",
-                   help="fsdp: not ported")
-    p.add_argument("--pipeline_parallelism", type=int, default=1, help="(not ported beyond 1)")
+                   help="fsdp: not ported (slice 11)")
+    p.add_argument("--pipeline_parallelism", type=int, default=1,
+                   help="(not ported beyond 1: slice 11)")
     p.add_argument("--pp_microbatches", type=int, default=0)
-    p.add_argument("--tensor_parallelism", type=int, default=1, help="(not ported beyond 1)")
+    p.add_argument("--tensor_parallelism", type=int, default=1,
+                   help="(not ported beyond 1: slice 11)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the training loop here")
     p.add_argument("--plots_dir", type=str, default=None,
@@ -199,12 +225,9 @@ def config_from_args(args) -> LLMConfig:
     )
 
 
-MULTI = "multi-device"
+MULTI = "slice 11 of the multi-device work (tensor parallelism, FSDP and the pipeline)"
 TOKENIZER = "a tokenizer and data in the repository"
 _NOT_PORTED = (
-    (lambda a: a.moe_dispatch == "ep", "--moe_dispatch ep", MULTI),
-    (lambda a: a.expert_parallelism > 1, "--expert_parallelism > 1", MULTI),
-    (lambda a: a.context_parallelism > 1, "--context_parallelism > 1", MULTI),
     (lambda a: a.tensor_parallelism > 1, "--tensor_parallelism > 1", MULTI),
     (lambda a: a.pipeline_parallelism > 1, "--pipeline_parallelism > 1", MULTI),
     (lambda a: a.param_sharding == "fsdp", "--param_sharding fsdp", MULTI),
@@ -223,7 +246,7 @@ def _refuse_unported(args) -> None:
             )
 
 
-def _dataset(args, config: LLMConfig):
+def _dataset(args, config: LLMConfig, say=print):
     from forde_tpu_torch.data import lm
 
     num_batches = args.steps_per_epoch * args.num_epochs
@@ -235,17 +258,17 @@ def _dataset(args, config: LLMConfig):
         if dataset.vocab_hint > config.vocab_size:
             raise ValueError(f"{args.data_file} has ids up to {dataset.vocab_hint - 1} "
                              f">= model vocab {config.vocab_size}")
-        print(f"local corpus {args.data_file}: {len(dataset.windows):,} windows of "
-              f"{args.seq_len} tokens ({args.tokenizer} tokenization)")
+        say(f"local corpus {args.data_file}: {len(dataset.windows):,} windows of "
+            f"{args.seq_len} tokens ({args.tokenizer} tokenization)")
         return dataset
     if args.use_markov_data:
         dataset = lm.create_markov_dataset(
             args.batch_size, args.seq_len, config.vocab_size, num_batches=num_batches,
             active_vocab=args.markov_active_vocab, p=args.markov_p, seed=args.seed,
         )
-        print(f"markov data: active_vocab {dataset.active_vocab} p {dataset.p} unigram "
-              f"floor {np.log(dataset.active_vocab):.3f} nats, perfect-model floor "
-              f"{dataset.entropy_floor():.3f} nats")
+        say(f"markov data: active_vocab {dataset.active_vocab} p {dataset.p} unigram "
+            f"floor {np.log(dataset.active_vocab):.3f} nats, perfect-model floor "
+            f"{dataset.entropy_floor():.3f} nats")
         return dataset
     return lm.create_dummy_dataset(args.batch_size, args.seq_len, config.vocab_size,
                                    num_batches=num_batches)
@@ -273,14 +296,21 @@ def _train_meta(args) -> dict:
     return meta
 
 
-def _check_extras(args, config: LLMConfig) -> None:
-    """The JAX loop's refusals of flag combinations it does not compose."""
+def _check_extras(args, config: LLMConfig) -> int:
+    """The JAX loop's refusals of flag combinations it does not compose;
+    returns the batch the mesh's data axis must divide (one microbatch
+    under ``--grad_accum``)."""
     if args.lora_rank:
         if not args.init_from:
             raise ValueError("--lora_rank requires --init_from (LoRA fine-tunes a frozen base "
                              "checkpoint)")
         for given, name in ((args.distill_from, "--distill_from"),
-                            (args.grad_accum > 1, "--grad_accum")):
+                            (args.grad_accum > 1, "--grad_accum"),
+                            (args.pipeline_parallelism > 1, "--pipeline_parallelism"),
+                            (args.moe_dispatch == "ep", "--moe_dispatch ep"),
+                            (args.context_parallelism > 1, "--context_parallelism"),
+                            (args.tensor_parallelism > 1, "--tensor_parallelism"),
+                            (args.param_sharding != "replicated", "--param_sharding fsdp")):
             if given:
                 raise ValueError(f"--lora_rank does not compose with {name} yet (data "
                                  "parallelism composes)")
@@ -289,11 +319,44 @@ def _check_extras(args, config: LLMConfig) -> None:
                 "--lora_rank needs --slow_loop_interval 0: the brain update actuates router "
                 "biases in the FROZEN base, which would drift it away from the checkpoint the "
                 "serving merge reloads")
-    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
-        raise ValueError(f"--grad_accum {args.grad_accum} must divide --batch_size "
-                         f"{args.batch_size}")
+    if args.context_parallelism > 1 and not args.no_nsa:
+        # NSA under CP needs the window to fit within one shard boundary
+        # (the halo exchange, parallel/nsa_context.py) and ratio-aligned shards.
+        per_shard = args.seq_len // args.context_parallelism
+        if per_shard < args.window_size - 1:
+            raise ValueError(
+                f"--context_parallelism {args.context_parallelism} puts {per_shard} tokens per "
+                f"shard < window_size-1 ({args.window_size - 1}); use fewer context shards")
+    if args.context_parallelism > 1 and args.seq_len % args.context_parallelism:
+        raise ValueError(f"--seq_len {args.seq_len} must divide by --context_parallelism "
+                         f"{args.context_parallelism}")
+    if args.moe_dispatch == "ep" and args.expert_parallelism <= 1:
+        raise ValueError("--moe_dispatch ep requires --expert_parallelism > 1")
+    mesh_batch = args.batch_size
+    if args.grad_accum > 1:
+        if args.batch_size % args.grad_accum:
+            raise ValueError(f"--grad_accum {args.grad_accum} must divide --batch_size "
+                             f"{args.batch_size}")
+        # the data axis shards ONE microbatch at a time
+        mesh_batch = args.batch_size // args.grad_accum
     if args.distill_from and args.grad_accum > 1:
         raise ValueError("--distill_from does not compose with --grad_accum yet")
+    return mesh_batch
+
+
+def _mesh(args, mesh_batch: int, device: torch.device):
+    """The run's mesh under torchrun (its process group started here), or
+    None for one process with every axis at 1, exactly as before."""
+    from forde_tpu_torch.core import mesh as mesh_lib
+
+    distributed = mesh_lib.maybe_initialize_distributed(device)
+    if not distributed and args.expert_parallelism == args.context_parallelism == 1:
+        return None
+    mesh = mesh_lib.create_mesh_for_batch(
+        mesh_batch, expert=args.expert_parallelism, context=args.context_parallelism)
+    if mesh.rank == 0:
+        print(f"mesh: {mesh.shape} over {mesh.size} rank(s)", flush=True)
+    return mesh
 
 
 def _zero_stats(model: torch.nn.Module) -> None:
@@ -318,7 +381,7 @@ def _step_fn(args, state, device):
     elif args.distill_from:
         from forde_tpu_torch.train.distill import load_teacher, make_distill_step
 
-        teacher = load_teacher(args.distill_from, device)
+        teacher = load_teacher(args.distill_from, device, mesh=state.mesh)
         if teacher.config.vocab_size != state.model.config.vocab_size:
             raise ValueError("teacher/student vocab mismatch")
         print(f"distilling from {args.distill_from} "
@@ -347,36 +410,46 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     from forde_tpu_torch.core.config import BrainConfig
     from forde_tpu_torch.data.prefetch import prefetch_to_device
     from forde_tpu_torch.obs import profiler
-    from forde_tpu_torch.obs.metrics import REFERENCE_TAGS, MetricsWriter, ThroughputMeter
+    from forde_tpu_torch.core.mesh import local_device
+    from forde_tpu_torch.obs.metrics import (
+        REFERENCE_TAGS,
+        MetricsWriter,
+        NullWriter,
+        ThroughputMeter,
+    )
     from forde_tpu_torch.obs.plots import require_matplotlib
     from forde_tpu_torch.train import checkpoint as ckpt_lib
-    from forde_tpu_torch.train.state import create_train_state
+    from forde_tpu_torch.train.state import create_train_state, shard_train_state
+    from forde_tpu_torch.train.step import lm_batch
 
     if args is None:
         args = build_parser().parse_args([])
     _refuse_unported(args)
     if args.plots_dir:
         require_matplotlib()
-    device = resolve_device(args.device)
+    device = local_device(resolve_device(args.device))
     config = config_from_args(args)
+    mesh_batch = _check_extras(args, config)
+    mesh = _mesh(args, mesh_batch, device)
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     base = None
     if args.init_from:
         # the checkpoint's layout (scan_layers) is the architecture; remat
         # is the one knob kept from the command line
-        config, base = ckpt_lib.load_lm_params(args.init_from, device)
+        config, base = ckpt_lib.load_lm_params(args.init_from, device, mesh=mesh)
         config = config.replace(dropout_rate=0.0, remat=args.remat)
         base.config = base.config.replace(remat=args.remat)
-        print(f"config loaded from {args.init_from}/model_config.json (CLI shape flags "
-              f"ignored; scan_layers={config.scan_layers})")
+        say(f"config loaded from {args.init_from}/model_config.json (CLI shape flags "
+            f"ignored; scan_layers={config.scan_layers})")
         if args.seq_len > config.max_seq_len:
             raise ValueError(f"--seq_len {args.seq_len} exceeds the base model's max_seq_len "
                              f"{config.max_seq_len}")
-    _check_extras(args, config)
     brain = BrainConfig()
     generator = torch.Generator(device=device).manual_seed(args.seed)
     if args.lr_schedule == "cosine" and args.decay_steps == 0:
         args.decay_steps = max(args.steps_per_epoch * args.num_epochs - args.warmup_steps, 1)
-        print(f"cosine decay over {args.decay_steps} steps (derived from the run length)")
+        say(f"cosine decay over {args.decay_steps} steps (derived from the run length)")
 
     t_init = time.perf_counter()
     if base is not None:
@@ -386,7 +459,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         config, generator, args.learning_rate, args.weight_decay,
         warmup_steps=args.warmup_steps, moment_dtype=args.moment_dtype,
         lr_schedule=args.lr_schedule, decay_steps=args.decay_steps,
-        min_lr_ratio=args.min_lr_ratio, device=device, model=base,
+        min_lr_ratio=args.min_lr_ratio, device=device, model=base, mesh=mesh,
     )
     if args.lora_rank:
         from forde_tpu_torch.train import lora as lora_lib
@@ -395,17 +468,18 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             state, args.lora_rank, generator, targets=lora_lib.parse_targets(args.lora_targets))
         n_adapt = lora_lib.adapter_param_count(state.lora)
         n_base = sum(p.numel() for p in state.model.parameters())
-        print(f"LoRA rank {args.lora_rank}: {n_adapt:,} trainable adapter params over a frozen "
-              f"{n_base:,}-param base ({100 * n_adapt / n_base:.2f}%)")
+        say(f"LoRA rank {args.lora_rank}: {n_adapt:,} trainable adapter params over a frozen "
+            f"{n_base:,}-param base ({100 * n_adapt / n_base:.2f}%)")
     elif base is not None:
-        print(f"warm-started params from {args.init_from} (fresh optimizer, step 0)")
+        say(f"warm-started params from {args.init_from} (fresh optimizer, step 0)")
     if args.ema_decay > 0:
         from forde_tpu_torch.train.ema import init_ema
 
         init_ema(state)
     n_params = sum(p.numel() for p in state.optimizer.params)
-    print(f"state created in {time.perf_counter() - t_init:.1f}s "
-          f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
+    say(f"state created in {time.perf_counter() - t_init:.1f}s "
+        f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
+    shard_train_state(state, mesh, args.param_sharding)
     train_meta = _train_meta(args)
     if args.checkpoint_dir and args.resume:
         ckpt_lib.resume_train_state(args.checkpoint_dir, state)
@@ -414,8 +488,9 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     def save(step):
         ckpt_lib.save_train_state(args.checkpoint_dir, state, step, train_meta)
 
-    dataset = _dataset(args, config)
-    writer = MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
+    dataset = _dataset(args, config, say)
+    writer = (MetricsWriter(f"runs/{args.experiment_name}_{datetime.now():%Y%m%d_%H%M%S}")
+              if lead else NullWriter())
     meter = ThroughputMeter(items_per_step=args.batch_size * args.seq_len)
     step, last, brain_updates = state.step, {}, []
     metrics = None
@@ -428,6 +503,8 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                 for batch in prefetch_to_device(iter(dataset), device):
                     if stop:
                         break
+                    if mesh is not None:  # this rank's part of the global batch
+                        batch = lm_batch(batch["input_ids"], mesh, args.grad_accum)
                     state, metrics = step_fn(state, batch)
                     step += 1
                     meter.step()
@@ -440,18 +517,20 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                                        step)
                         tps = meter.items_per_sec
                         writer.scalar("Throughput/tokens_per_sec_per_chip", tps, step)
-                        print(f"epoch {epoch} step {step}: loss {last['loss/total']:.4f} "
-                              f"(lm {last['loss/lm']:.4f} aux {last['loss/aux']:.4f}) "
-                              f"grad_norm {last['training/grad_norm']:.2f} {tps:,.0f} "
-                              "tok/s/chip", flush=True)
+                        say(f"epoch {epoch} step {step}: loss {last['loss/total']:.4f} "
+                            f"(lm {last['loss/lm']:.4f} aux {last['loss/aux']:.4f}) "
+                            f"grad_norm {last['training/grad_norm']:.2f} {tps:,.0f} "
+                            "tok/s/chip", flush=True)
 
                     if config.use_moe and args.slow_loop_interval > 0 and (
                         step % args.slow_loop_interval == 0
                     ):
                         _synchronize(device)  # the latency is the update's own
                         t0 = time.perf_counter()
+                        # every rank runs it on the same reduced statistics with the
+                        # same generator, so the router biases stay equal
                         diag = moe_slow_loop_step(state.model, config, generator, epoch=epoch,
-                                                  step=step, brain=brain, verbose=True)
+                                                  step=step, brain=brain, verbose=lead)
                         _synchronize(device)
                         dt_ms = (time.perf_counter() - t0) * 1000
                         record = {"step": step, "latency_ms": dt_ms,
@@ -463,7 +542,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                         writer.scalars({f"SlowLoop/{k}": record[k] for k in
                                         ("latency_ms", "load_imbalance", "routing_entropy")},
                                        step)
-                        if args.plots_dir and not record["skipped"]:
+                        if args.plots_dir and lead and not record["skipped"]:
                             _plot(diag, epoch, step, args.plots_dir, brain)
 
                     if args.checkpoint_dir and args.checkpoint_interval > 0 and (
@@ -478,12 +557,12 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
             last = {k: float(v) for k, v in metrics.items()}
         if args.checkpoint_dir:
             save(step)
-            print(f"checkpoint (step {step}) written to {args.checkpoint_dir}", flush=True)
+            say(f"checkpoint (step {step}) written to {args.checkpoint_dir}", flush=True)
     finally:
         writer.close()
     return {"state": state, "final_metrics": last, "step": step,
             "tokens_per_sec": meter.items_per_sec, "brain_updates": brain_updates,
-            "traces": traces}
+            "traces": traces, "mesh": mesh}
 
 
 def _plot(diag, epoch: int, step: int, plots_dir: str, brain) -> None:
@@ -500,7 +579,20 @@ def _plot(diag, epoch: int, step: int, plots_dir: str, brain) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
-    return train(build_parser().parse_args(argv))
+    started = not _process_group_up()
+    try:
+        return train(build_parser().parse_args(argv))
+    finally:
+        if started and _process_group_up():  # the group this run started
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _process_group_up() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
 
 
 if __name__ == "__main__":

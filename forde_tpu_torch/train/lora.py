@@ -180,13 +180,12 @@ class _LossAndGrads(torch.nn.Module):
         self.adapters = adapters
         self.aux_loss_weight = aux_loss_weight
 
-    def forward(self, ids: torch.Tensor):
-        from forde_tpu_torch.train.step import lm_loss
+    def forward(self, batch: Dict[str, torch.Tensor]):
+        from forde_tpu_torch.train.step import lm_losses
 
-        logits, aux = self.model(ids, update_stats=True)
-        lm = lm_loss(logits, ids)
-        total = lm + self.aux_loss_weight * aux
-        grads = torch.autograd.grad(total, self.adapters, materialize_grads=True)
+        logits, aux = self.model(batch["input_ids"], update_stats=True)
+        objective, total, lm = lm_losses(self.model, logits, aux, batch, self.aux_loss_weight)
+        grads = torch.autograd.grad(objective, self.adapters, materialize_grads=True)
         return total.detach(), lm.detach(), aux.detach(), grads
 
 
@@ -198,12 +197,13 @@ def make_lora_train_step(scale: float, aux_loss_weight: float = 1.0):
     a step argument; here the state's model holds it."""
 
     def lora_train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        from forde_tpu_torch.train.step import reduce_gradients
+
         merged = merge_lora(state.model, state.lora, scale)
         step = _LossAndGrads(state.model, state.optimizer.params, aux_loss_weight)
         total, lm, aux, grads = torch.func.functional_call(
-            step, {f"model.{name}": t for name, t in merged.items()}, (batch["input_ids"],),
-            strict=False)
-        grad_norm = state.optimizer.step(grads)
+            step, {f"model.{name}": t for name, t in merged.items()}, (batch,), strict=False)
+        grad_norm = state.optimizer.step(reduce_gradients(state, grads))
         state.step += 1
         return state, {
             "loss/total": total,

@@ -56,6 +56,9 @@ class AdamW:
         self.nu = [torch.zeros_like(p, dtype=moment_dtype or p.dtype) for p in self.params]
         device = self.params[0].device if self.params else None
         self.count = torch.zeros((), dtype=torch.int32, device=device)  # steps taken
+        # (P,) per-parameter norms -> the global norm; train/state.py sets it
+        # where some parameters are slices of an expert bank
+        self.global_norm = None
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -63,7 +66,9 @@ class AdamW:
         parameter, same order). Returns the global norm of ``grads`` before
         clipping, as a 0-d fp32 tensor on the parameters' device."""
         grads = [g.float() for g in grads]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = torch.stack(torch._foreach_norm(grads))
+        norm = (torch.linalg.vector_norm(norms) if self.global_norm is None
+                else self.global_norm(norms))
         if self.grad_clip_norm is not None:
             scale = torch.where(
                 norm < self.grad_clip_norm,

@@ -175,8 +175,11 @@ def test_moe_dispatch_capacity_not_ported():
     dense = tiny_config()
     (other, _), _ = JaxLM(config=dense).apply(variables, jnp.asarray(ids), mutable=["stats_buffer"])
     assert np.abs(np.asarray(other) - np.asarray(want)).max() > 1e-3  # the drops matter
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        FORDEDecoderLM(tcfg.config_from_dict(jcfg.config_to_dict(tiny_config(moe_dispatch="ep"))))
+    # "ep" dispatch is ported (parallel/expert_parallel.py) and, as in the
+    # JAX package, needs a mesh: a model without one refuses to run it
+    ep = FORDEDecoderLM(tcfg.config_from_dict(jcfg.config_to_dict(tiny_config(moe_dispatch="ep"))))
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ep(torch.from_numpy(ids))
 
 
 def test_random_init_is_seeded_and_finite():

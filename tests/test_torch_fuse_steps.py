@@ -206,8 +206,16 @@ def test_stack_batches_drops_partial_tail():
     assert len(stacked) == 2
     assert stacked[0]["image"].shape[0] == 2
     assert torch.equal(stacked[1]["input_ids"][1], batches[3]["input_ids"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        next(tstep.stack_batches(iter(batches), 2, sharding="data"))
+    # with a sharding, each rank keeps its rows of every stacked batch
+    from forde_tpu_torch.core import mesh as mesh_lib
+    from forde_tpu_torch.parallel.collectives import ThreadWorld
+
+    mesh = mesh_lib.Mesh({"data": 2}, rank=1, world=ThreadWorld(2))
+    part = next(tstep.stack_batches(iter(batches), 2,
+                                    sharding=mesh_lib.stacked_batch_sharding(mesh)))
+    half = batches[0]["image"].shape[0] // 2
+    assert part["image"].shape[:2] == (2, half)
+    assert torch.equal(part["input_ids"][1], batches[1]["input_ids"][half:])
 
 
 SCHEDULES = {

@@ -262,8 +262,20 @@ def test_config_from_args_matches_jax():
     (["--data_file", "x.txt", "--tokenizer", "gpt2"], "tokenizer"),
 ])
 def test_unported_flags_name_their_slice(flags, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        loop.main(TINY + ["--use_dummy_data", "--device", "cpu"] + flags)
+    """Tensor and pipeline parallelism, FSDP and the gpt2 tokenizer are
+    refused and name what they wait for (slice 11, a tokenizer).
+    ``--moe_dispatch ep``, ``--expert_parallelism`` and
+    ``--context_parallelism`` are ported (tests/test_torch_parallel_cli.py):
+    a lone process refuses them as the JAX loop does, ep for want of an
+    expert axis and the others for want of ranks."""
+    argv = TINY + ["--use_dummy_data", "--device", "cpu"] + flags
+    if flags[0] in ("--moe_dispatch", "--expert_parallelism", "--context_parallelism"):
+        with pytest.raises(ValueError, match="requires --expert_parallelism > 1|of 1 ranks"):
+            loop.main(argv)
+        return
+    with pytest.raises(NotImplementedError, match=slice_name) as err:
+        loop.main(argv)
+    assert slice_name == "tokenizer" or "slice 11" in str(err.value)
 
 
 def test_plots_dir_defaults_to_none():

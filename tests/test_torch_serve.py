@@ -116,7 +116,8 @@ def test_serve_needs_a_gpu_by_default(monkeypatch):
 def test_serve_moe_capacity_names_training_slice(tmp_path, capsys):
     """A checkpoint with capacity dispatch is served (its training slice
     is ported): the same greedy tokens as the JAX package's
-    ``generate_cached``; expert-parallel dispatch names its slice."""
+    ``generate_cached``; expert-parallel dispatch needs a mesh, which
+    serving has not, and is refused as the JAX package refuses it."""
     ckpt = str(tmp_path / "ckpt")
     cfg = tiny_config(moe_dispatch="capacity")
     model, variables = jax_variables(cfg, seed=9)
@@ -131,6 +132,6 @@ def test_serve_moe_capacity_names_training_slice(tmp_path, capsys):
                                 jax.random.PRNGKey(0), max_new_tokens=NEW, temperature=0.0)
     assert rows == np.asarray(want).tolist()
     assert "restored step 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(ValueError, match="requires a mesh"):
         serve.main(["--d_model", "32", "--num_layers", "1", "--num_heads", "2",
                     "--moe_dispatch", "ep", "--device", "cpu"])
