@@ -3606,7 +3606,9 @@ def plain_int8_products():
             out = out + self.bias.float()
         return out.to(self.compute_dtype)
 
-    def experts(x, w_q, w_scale):
+    def experts(x, w_q, w_scale, group=None):
+        if group is not None:  # a row-parallel product: not one rank's
+            raise ValueError("plain_int8_products is one rank's")
         return torch.stack([plain_int8_product(x if x.ndim == 2 else x[e], w_q[e], w_scale[e])
                             for e in range(w_q.shape[0])])
 
@@ -5720,9 +5722,11 @@ PAR_CLI_CLIP = ["--preset", "vit_b16", "--use_dummy_data", "--dummy_pool", "2",
 
 
 def thread_ranks(shape, fn) -> list:
-    """``fn(mesh)`` on PAR_RANKS thread ranks of this process on the card
-    (parallel/collectives.run_threads): [(result, the rank's own kernel
-    launches)] in rank order."""
+    """``fn(mesh)`` on thread ranks of this process on the card, one per
+    rank of ``shape`` (parallel/collectives.run_threads): [(result, the
+    rank's own kernel launches)] in rank order."""
+    import math
+
     import torch
 
     from forde_tpu_torch import kernels
@@ -5736,7 +5740,7 @@ def thread_ranks(shape, fn) -> list:
                 torch.cuda.synchronize()
         return out, dict(counts)
 
-    return run_threads(PAR_RANKS, rank)
+    return run_threads(math.prod(shape.values()), rank)
 
 
 def par_hold(what, got, want, mag, tol, dtype_name) -> float:
@@ -6231,6 +6235,363 @@ def phase_parallel(device, workdir) -> dict:
             "contrastive": contrastive, "lm_step": lm, "clis": clis, "seconds": secs}
 
 
+# Phase 32: tensor parallelism, FSDP and the GPipe pipeline on
+# thread ranks of one process on the one card, at full width, fp32. The LM
+# of SERVE_FLAGS (capacity dispatch at factor 8, so that no token drops and
+# the ranks' capacity plans equal one rank's): (a) model 4 at 2 x 2,048;
+# (b) data 2 x model 2 with fsdp at 4 x 2,048; (c) GPipe over pipe 4 with 4
+# microbatches and over data 2 x pipe 2 with 2, at 4 x 1,024: at 4 x 2,048
+# the four stages' activations of all M + S - 1 ticks (the bubble is
+# computed) did not fit the 80 GB beside each other (pipe 4 ran out at 77.7
+# GiB), and 2 rows would not split into 4 microbatches, so the rows keep
+# their number and their length halves. Each case: (name, mesh, rows,
+# tokens a row, param_sharding, GPipe microbatches or 0).
+PAR2_LM_CASES = (("model4", {"model": 4}, 2, 2048, "replicated", 0),
+                 ("data2_model2_fsdp", {"data": 2, "model": 2}, 4, 2048, "fsdp", 0),
+                 ("pipe4_m4", {"pipe": 4}, 4, 1024, "replicated", 4),
+                 ("data2_pipe2_m2", {"data": 2, "pipe": 2}, 4, 1024, "replicated", 2))
+# (d) the dual encoder at vit_b16, one sensed step at batch 128 over data 2 x
+# model 2 with fsdp, held to phase 12's fp32 bars, act_stats included (its
+# readings between two fp32 paths: the binary-step neurons turn fp32 noise
+# in a pre-activation near 0 into a whole unit, ~4e-5 relative L2, and the
+# split GEMMs and the partial sums over the model axis are such noise);
+# (e) generate_cached over model 2 on SERVE_PROMPT_LENS.
+PAR2_CLIP_BATCH = 128
+PAR2_TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_kv_fwd",
+                         "small_kv_bwd")
+
+
+def par2_state_bytes(state) -> int:
+    """A rank's parameter and Adam moment bytes."""
+    opt = state.optimizer
+    return sum(t.numel() * t.element_size() for t in (*opt.params, *opt.mu, *opt.nu))
+
+
+def par2_whole(state, keep: bool) -> dict:
+    """{name: (whole parameter, whole Adam mu)} of a sharded state (every
+    rank calls it; ``keep`` False drops the result)."""
+    names = [n for n, _ in state.model.named_parameters()]
+    out = {}
+    for n, p, m, sh in zip(names, state.optimizer.params, state.optimizer.mu, state.layouts):
+        whole = (sh.gather(p.detach()), sh.gather(m))
+        if keep:
+            out[n] = whole
+    return out
+
+
+def par2_hold(what, got, want, grad_norm, want_norm, bars) -> dict:
+    """fp32 bars (``bars``: phase 12's for the dual encoder, phase 31's LM
+    step bars for the LM) on loss, grad norm, gradients (Adam's mu) and
+    the updated parameters, as relative L2."""
+    import torch
+
+    def cat(d, i):
+        return torch.cat([d[n][i].float().flatten() for n in sorted(want["whole"])])
+
+    rel = {"loss": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "grad_norm": abs(grad_norm - want_norm) / want_norm}
+    for key, i in (("grads", 1), ("params", 0)):
+        a, b = cat(got["whole"], i), cat(want["whole"], i)
+        rel[key] = float((a - b).norm() / b.norm())
+    log(f"[parallel2] {what}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rel.items()))
+    for k, tol in bars.items():
+        if not rel[k] <= tol:
+            raise AssertionError(f"{what} {k}: {rel[k]:.3e} > {tol:g}")
+    return rel
+
+
+def par2_lm_case(device, base, weights, case, launches) -> dict:
+    """One LM train step of ``case`` (PAR2_LM_CASES) on thread ranks
+    against one rank's step on the same batch (for GPipe: the same
+    microbatches, as pieces of one microbatch's data shard, their aux
+    losses averaged, the pipeline's semantics)."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.mesh import AXIS_DATA, AXIS_MODEL
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.parallel.pipeline import make_pp_train_step
+    from forde_tpu_torch.train.state import create_train_state, shard_train_state
+    from forde_tpu_torch.train.step import lm_batch as split_batch, lm_loss, train_step
+
+    name, shape, rows, seq, param_sharding, micro = case
+    cfg = base.replace(scan_layers=bool(micro))
+    ids = lm_batch(rows, seq, cfg.vocab_size, device, SEED + 330)["input_ids"]
+
+    def run(mesh):
+        model = FORDEDecoderLM(cfg, device=device, mesh=mesh)
+        model.load_state_dict(weights)
+        state = shard_train_state(create_train_state(cfg, None, 3e-4, 0.01, model=model),
+                                  mesh, param_sharding)
+        held = par2_state_bytes(state)
+        if micro:
+            step = make_pp_train_step(mesh, micro, aux_loss_weight=0.01)
+            state, m = step(state, split_batch(ids, mesh, micro))
+        else:
+            state, m = train_step(state, split_batch(ids, mesh), aux_loss_weight=0.01)
+        keep = mesh.coords[AXIS_DATA] == mesh.coords[AXIS_MODEL] == 0
+        res = {"loss": float(m["loss/total"]), "grad_norm": float(m["training/grad_norm"]),
+               "bytes": held, "whole": par2_whole(state, keep)}
+        del state, model
+        return res
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ranks = thread_ranks(shape, run)
+    ranks_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for _, counts in ranks:
+        for k, c in counts.items():
+            launches[k] += c
+    whole = {}
+    for r, _ in ranks:
+        whole.update(r["whole"])
+    got = {"loss": ranks[0][0]["loss"], "whole": whole}
+    grad_norm = ranks[0][0]["grad_norm"]
+    per_rank = [c for _, c in ranks]
+    rank_bytes = [r["bytes"] for r, _ in ranks]
+    for r, _ in ranks:
+        r["whole"] = None
+    del ranks, whole
+    torch.cuda.empty_cache()
+
+    model = FORDEDecoderLM(cfg, device=device)
+    model.load_state_dict(weights)
+    state = create_train_state(cfg, None, 3e-4, 0.01, model=model)
+    replicated_bytes = par2_state_bytes(state)
+    if micro:
+        data = shape.get("data", 1)
+        mb = rows // micro
+        pieces = [ids[m * mb:(m + 1) * mb][d * (mb // data):(d + 1) * (mb // data)]
+                  for m in range(micro) for d in range(data)]
+        params = state.optimizer.params
+        grads = [torch.zeros_like(p) for p in params]
+        lm_sum, aux_sum = 0.0, 0.0
+        for piece in pieces:
+            logits, aux = state.model(piece, update_stats=True)
+            lm = lm_loss(logits, piece)
+            g = torch.autograd.grad((lm + 0.01 * aux) / len(pieces), params,
+                                    materialize_grads=True)
+            torch._foreach_add_(grads, g)
+            lm_sum, aux_sum = lm_sum + float(lm.detach()), aux_sum + float(aux.detach())
+            del logits, aux, lm, g
+        want_norm = float(state.optimizer.step(grads))
+        want_loss = (lm_sum + 0.01 * aux_sum) / len(pieces)
+    else:
+        state, m = train_step(state, {"input_ids": ids}, aux_loss_weight=0.01)
+        want_norm, want_loss = float(m["training/grad_norm"]), float(m["loss/total"])
+    names = [n for n, _ in state.model.named_parameters()]
+    want = {"loss": want_loss, "whole": {n: (p.detach(), m) for n, p, m in zip(
+        names, state.optimizer.params, state.optimizer.mu)}}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    rel = par2_hold(f"LM step {name} ({rows} x {seq}, {param_sharding}"
+                    + (f", {micro} microbatches" if micro else "") + ")", got, want, grad_norm,
+                    want_norm, {**LM_PARITY_TOL_FP32, "grad_norm": LM_PARITY_TOL_FP32["loss"]})
+    del state, model, want, got
+    torch.cuda.empty_cache()
+    for key in PAR2_TRAINING_KERNELS:
+        if not all(c.get(key) for c in per_rank):
+            raise AssertionError(f"LM step {name}: a rank launched no {key}")
+    log(f"[parallel2] LM step {name}: launches per rank "
+        + "; ".join(str({k: c.get(k, 0) for k in PAR2_TRAINING_KERNELS}) for c in per_rank)
+        + f"; {ranks_s:.1f} s for the ranks, peak {peak:.2f} GiB; parameter + moment bytes "
+        f"per rank {[round(b / 2 ** 20, 1) for b in rank_bytes]} MiB against "
+        f"{replicated_bytes / 2 ** 20:.1f} MiB replicated "
+        f"({max(rank_bytes) / replicated_bytes:.3f} of it)")
+    return {"relative_l2": rel, "launches_per_rank": per_rank, "seconds": ranks_s,
+            "peak_gib": peak, "state_bytes_per_rank": rank_bytes,
+            "state_bytes_replicated": replicated_bytes}
+
+
+def par2_clip(device, launches) -> dict:
+    """(d): one sensed fp32 vit_b16 step at batch 128 over data 2 x model
+    2 with fsdp against one rank's, to phase 12's fp32 bars: loss, grad
+    norm, gradients, parameters, and the all-gathered act_stats against
+    the one-rank buffers (each layer's relative L2)."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.config import DTypePolicy, vit_b16_config
+    from forde_tpu_torch.core.mesh import AXIS_DATA, AXIS_MODEL, shard_batch
+    from forde_tpu_torch.nn.stateful import stateful_layers
+    from forde_tpu_torch.train.clip_step import clip_train_step
+    from forde_tpu_torch.train.state import shard_train_state
+
+    cfg = vit_b16_config().replace(dtypes=DTypePolicy.fp32())
+    weights = build_model(cfg, device).state_dict()
+    batch = training_batch(cfg, PAR2_CLIP_BATCH, device, SEED + 331)
+    shape = {"data": 2, "model": 2}
+
+    def stats(state):
+        return {n: layer.act_stats.clone() for n, layer in stateful_layers(state.model).items()}
+
+    def run(mesh):
+        state = train_state(cfg, weights, device, moment_dtype=None)
+        shard_train_state(state, mesh, "fsdp")
+        held = par2_state_bytes(state)
+        state, m = clip_train_step(state, shard_batch(batch, mesh))
+        keep = mesh.coords[AXIS_DATA] == mesh.coords[AXIS_MODEL] == 0
+        return {"loss": float(m["loss/contrastive"]), "grad_norm": float(m["training/grad_norm"]),
+                "bytes": held, "act_stats": stats(state), "whole": par2_whole(state, keep)}
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = thread_ranks(shape, run)
+    ranks_s = time.perf_counter() - t0
+    for _, counts in ranks:
+        for k, c in counts.items():
+            launches[k] += c
+    per_rank = [c for _, c in ranks]
+    state = train_state(cfg, weights, device, moment_dtype=None)
+    replicated_bytes = par2_state_bytes(state)
+    state, m = clip_train_step(state, batch)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    names = [n for n, _ in state.model.named_parameters()]
+    want = {"loss": float(m["loss/contrastive"]), "whole": {n: (p.detach(), mu) for n, p, mu in zip(
+        names, state.optimizer.params, state.optimizer.mu)}}
+    got = {"loss": ranks[0][0]["loss"], "whole": ranks[0][0]["whole"]}
+    want_stats = stats(state)
+    worst, rel_l2 = 0.0, 0.0
+    for r, _ in ranks:
+        for n, t in r["act_stats"].items():
+            worst = max(worst, float((t - want_stats[n]).abs().max() / want_stats[n].abs().max()))
+            rel_l2 = max(rel_l2, float((t - want_stats[n]).norm() / want_stats[n].norm()))
+    bar = PARITY_TOL["fp32"]["act_stats"]
+    log(f"[parallel2] dual encoder act_stats, all-gathered, against one rank: worst layer's "
+        f"relative L2 {rel_l2:.3e} (bar {bar:g}), worst |d| / the buffer's max {worst:.3e}")
+    if not rel_l2 <= bar:
+        raise AssertionError(f"dual encoder act_stats: {rel_l2:.3e} > {bar:g}")
+    fp32 = {k: v for k, v in PARITY_TOL["fp32"].items() if k in ("loss", "grad_norm", "grads",
+                                                                "params")}
+    rel = par2_hold("dual encoder vit_b16 step (data 2 x model 2, fsdp, batch 128)", got, want,
+                    ranks[0][0]["grad_norm"], float(m["training/grad_norm"]), fp32)
+    log("[parallel2] dual encoder launches per rank "
+        + "; ".join(str({k: c.get(k, 0) for k in ("flash_mha_fwd", "flash_mha_bwd",
+                                                    "moment_sums")}) for c in per_rank)
+        + f"; {ranks_s:.1f} s; parameter + moment bytes per rank "
+        f"{max(r['bytes'] for r, _ in ranks) / replicated_bytes:.3f} of replicated")
+    for key in ("flash_mha_fwd", "flash_mha_bwd", "moment_sums"):
+        if not all(c.get(key) for c in per_rank):
+            raise AssertionError(f"dual encoder step: a rank launched no {key}")
+    del state, ranks
+    torch.cuda.empty_cache()
+    return {"relative_l2": {**rel, "act_stats": rel_l2}, "act_stats_worst_of_max": worst,
+            "launches_per_rank": per_rank,
+            "seconds": ranks_s}
+
+
+def par2_serving(device, launches) -> dict:
+    """(e): generate_cached over model 2, greedy, eager (the thread
+    transport cannot be captured in a CUDA graph), on the 8 prompts of
+    SERVE_PROMPT_LENS with SERVE_NEW_TOKENS each, against one rank's
+    graphed decode (its tokens are its eager decode's, phase 17): fp32
+    tokens exactly one rank's; then int8 over model 2, each rank's int8
+    arrays exactly its slices of one rank's, and the share of tokens that
+    match."""
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+    from forde_tpu_torch.models.generate import generate_cached
+    from forde_tpu_torch.ops.quant import quantize_params
+    from forde_tpu_torch.train.state import shard_model
+
+    cfg = serve_config().replace(dtypes=DTypePolicy.fp32())
+    weights = lm_weights(cfg, device)
+    prompts = [torch.tensor([p], device=device) for p in serve_prompts(cfg.vocab_size)]
+
+    def build(quantized):
+        model = FORDEDecoderLM(cfg, device=device)
+        model.load_state_dict(weights)
+        model.eval()
+        return quantize_params(model) if quantized else model
+
+    def decode(model, graphed):
+        with torch.no_grad():
+            return [generate_cached(model, p, None, max_new_tokens=SERVE_NEW_TOKENS,
+                                    temperature=0.0, cuda_graph=graphed)[0, p.shape[1]:].tolist()
+                    for p in prompts]
+
+    out = {}
+    for label, quantized in (("fp32", False), ("int8", True)):
+        one_model = build(quantized)
+        whole = {n: p.detach() for n, p in one_model.named_parameters()}
+        t0 = time.perf_counter()
+        one = decode(one_model, True)  # graphed: the same tokens as eager (phase 17)
+        one_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+
+        def run(mesh, quantized=quantized, whole=whole):
+            model = build(quantized)
+            layouts, _ = shard_model(model, mesh)
+            own = dict(model.named_parameters())
+            for n, sh in layouts.items():
+                if sh.axes and not torch.equal(own[n], sh(whole[n])):
+                    raise AssertionError(f"TP serving {n}: a rank's slice differs")
+            t0 = time.perf_counter()
+            toks = decode(model, False)
+            return toks, time.perf_counter() - t0
+
+        ranks = thread_ranks({"model": 2}, run)
+        for _, counts in ranks:
+            for k, c in counts.items():
+                launches[k] += c
+        got = ranks[0][0][0]
+        same = [a == b for g, w in zip(got, one) for a, b in zip(g, w)]
+        share = sum(same) / len(same)
+        log(f"[parallel2] TP serving {label} over model 2 (eager): {share:.4f} of "
+            f"{len(same)} greedy tokens equal one rank's; {ranks[0][0][1]:.1f} s against "
+            f"{one_s:.1f} s on one rank (graphed); launches per rank "
+            + "; ".join(str(dict(c)) for _, c in ranks))
+        if not quantized and got != one:
+            raise AssertionError("TP serving fp32: tokens differ from one rank's")
+        if ranks[1][0][0] != got:
+            raise AssertionError(f"TP serving {label}: the ranks' tokens differ")
+        out[label] = {"token_share": share, "seconds_tp": ranks[0][0][1], "seconds_one": one_s,
+                      "launches_per_rank": [c for _, c in ranks]}
+        del one_model, whole, ranks
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel_2(device) -> dict:
+    """Phase 32: tensor parallelism, FSDP and the GPipe pipeline on thread
+    ranks of one process on the one card (one card's times and memory,
+    not a multi-GPU machine's): the LM steps of PAR2_LM_CASES, the dual
+    encoder's sensed step, and tensor-parallel serving. Returns the
+    launches of the thread ranks (the references' are not counted)."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+
+    launches: Counter = Counter()
+    secs, cases = {}, {}
+    base = serve_config().replace(dtypes=DTypePolicy.fp32(), moe_capacity_factor=PAR_LM_FACTOR,
+                                  moe_dispatch="capacity")
+    weights = lm_weights(base, device)
+    for case in PAR2_LM_CASES:
+        t0 = time.perf_counter()
+        cases[case[0]] = par2_lm_case(device, base, weights, case, launches)
+        secs[case[0]] = time.perf_counter() - t0
+    del weights
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    clip = par2_clip(device, launches)
+    secs["clip"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving = par2_serving(device, launches)
+    secs["serving"] = time.perf_counter() - t0
+    log("[parallel2] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    log(f"[parallel2] launches of the thread ranks: {dict(launches)}")
+    return {"launches": dict(launches), "lm": cases, "clip": clip, "serving": serving,
+            "seconds": secs}
+
+
 def timed(phase, *args):
     """phase(*args), its wall time logged."""
     t0 = time.perf_counter()
@@ -6303,6 +6664,7 @@ def main() -> int:
     shapes.update(timed(phase_training_kernel_timing, device))
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         parallel = timed(phase_parallel, device, workdir)
+    parallel_2 = timed(phase_parallel_2, device)
 
     def by_path(name):
         return {"embed": main_run["launches"].get(name, 0),
@@ -6323,7 +6685,8 @@ def main() -> int:
                 "clip_extras": clip_extras["launches"].get(name, 0),
                 "remat": remat["launches"].get(name, 0),
                 "observe": observe["launches"].get(name, 0),
-                "parallel": parallel["launches"].get(name, 0)}
+                "parallel": parallel["launches"].get(name, 0),
+                "parallel_2": parallel_2["launches"].get(name, 0)}
 
     entries = []
     for name, replaces in (
@@ -6471,6 +6834,7 @@ def main() -> int:
         "remat": {k: v for k, v in remat.items() if k != "launches"},
         "observe": {k: v for k, v in observe.items() if k != "launches"},
         "parallel": {k: v for k, v in parallel.items() if k != "launches"},
+        "parallel_2": {k: v for k, v in parallel_2.items() if k != "launches"},
         "card": smi,
     }
     print(smi)

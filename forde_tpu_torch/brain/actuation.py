@@ -27,12 +27,19 @@ def compute_router_adjustments(
 @torch.no_grad()
 def apply_router_adjustments(model: torch.nn.Module, adjustments: torch.Tensor) -> int:
     """Add ``adjustments`` to every router bias of its shape (the
-    parameters named ``...router_linear.bias``), in place. Returns the
-    number of biases updated."""
+    parameters named ``...router_linear.bias``), in place; an FSDP-split
+    bias (parallel/fsdp.py) takes its shard's part. Returns the number of
+    biases updated."""
     count = 0
     for name, param in model.named_parameters():
-        if "router_linear" in name and name.endswith("bias") and param.shape == adjustments.shape:
-            param.add_(adjustments.to(param.dtype))
+        if not ("router_linear" in name and name.endswith("bias")):
+            continue
+        adj = adjustments
+        if getattr(param, "fsdp", None) is not None:
+            group, dim = param.fsdp
+            adj = adjustments.chunk(group.size, dim)[group.index]
+        if param.shape == adj.shape:
+            param.add_(adj.to(param.dtype))
             count += 1
     return count
 

@@ -38,7 +38,11 @@ def collect_moe_stats(
     model: torch.nn.Module, num_layers: int, num_experts: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """((L, E) fp32 usage sums, 0-d int32 step count: the largest of the
-    layers') from the decoder's MoE layers; a layer without MoE reads 0."""
+    layers') from the decoder's MoE layers; a layer without MoE reads 0.
+    Under GPipe stages (parallel/pipeline.py) each stage holds its own
+    layers' rows, summed over the pipe axis."""
+    from forde_tpu_torch.core.mesh import AXIS_PIPE
+
     device = next(model.parameters()).device
     usage = torch.zeros(num_layers, num_experts, dtype=torch.float32, device=device)
     step_count = torch.zeros((), dtype=torch.int32, device=device)
@@ -47,6 +51,9 @@ def collect_moe_stats(
         if moe is not None:
             usage[i] = moe.expert_usage.float()
             step_count = torch.maximum(step_count, moe.step_count.to(torch.int32))
+    mesh = getattr(model, "mesh", None)
+    if mesh is not None and mesh.shape[AXIS_PIPE] > 1:
+        usage = mesh.group(AXIS_PIPE).all_reduce(usage)
     return usage, step_count
 
 

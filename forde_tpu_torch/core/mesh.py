@@ -17,8 +17,12 @@ NCCL on ``cuda``, gloo on the CPU), else one process with the trivial
 mesh. The thread transport (``collectives.run_threads``) is for tests and
 ``chip_smoke.py`` only.
 
-The ``model`` and ``pipe`` axes exist, and a size above 1 raises: tensor
-and pipeline parallelism (``tp_param_spec``) wait for slice 11.
+The ``model`` axis carries tensor parallelism: ``tp_param_spec`` gives the
+Megatron layout of each parameter by its name (column-parallel layers split
+their output features, row-parallel ones their input features), in the
+port's layout, where a ``Linear.weight`` is (out, in), the transpose of a
+Flax ``kernel``. The ``pipe`` axis carries the GPipe stages
+(parallel/pipeline.py).
 """
 
 from __future__ import annotations
@@ -41,8 +45,6 @@ AXIS_MODEL = "model"
 AXIS_PIPE = "pipe"
 
 ALL_AXES = (AXIS_DATA, AXIS_EXPERT, AXIS_CONTEXT, AXIS_MODEL, AXIS_PIPE)
-SLICE_11 = ("waits for slice 11 of the port (tensor parallelism, FSDP and the pipeline; "
-            "see ROADMAP.md)")
 
 
 class Mesh:
@@ -57,9 +59,6 @@ class Mesh:
         if unknown:
             raise ValueError(f"unknown mesh axes {sorted(unknown)}")
         self.shape: Dict[str, int] = {a: int(shape.get(a, 1)) for a in ALL_AXES}
-        for axis in (AXIS_MODEL, AXIS_PIPE):
-            if self.shape[axis] > 1:
-                raise NotImplementedError(f"a {axis} axis of {self.shape[axis]}: {SLICE_11}")
         self.size = math.prod(self.shape.values())
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a mesh of {self.size}")
@@ -123,8 +122,34 @@ class Mesh:
     def trivial(self) -> bool:
         return self.size == 1
 
+    def restrict(self, *axes: str) -> "MeshView":
+        """This mesh seen with only ``axes`` live: every other axis reads
+        as size 1, and its groups hold this rank alone."""
+        return MeshView(self, axes)
+
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
+
+
+class MeshView:
+    """``Mesh.restrict``: the parent's groups along the kept axes, the
+    trivial group along the others (a GPipe stage runs its blocks on the
+    tokens of its own data shard, as the JAX package's stage program runs
+    them un-meshed)."""
+
+    def __init__(self, parent: Mesh, axes: Sequence[str]):
+        self.parent, self.axes = parent, tuple(axes)
+        self.shape = {a: (parent.shape[a] if a in axes else 1) for a in ALL_AXES}
+        self.coords = {a: (parent.coords[a] if a in axes else 0) for a in ALL_AXES}
+        self.size = math.prod(self.shape.values())
+        self.rank, self.distributed = parent.rank, parent.distributed
+
+    def group(self, *axes: str) -> Group:
+        return self.parent.group(*(a for a in axes if a in self.axes))
+
+    @property
+    def trivial(self) -> bool:
+        return self.size == 1
 
 
 def _dist_up() -> bool:
@@ -249,22 +274,68 @@ def local_device(device: Any) -> torch.device:
 class Sharding:
     """A layout: dimension i of an array splits over ``spec[i]`` (an axis
     name, or None for whole), the JAX package's ``PartitionSpec``. Called
-    on a global array (tensor or numpy) it returns this rank's block."""
+    on a global array (tensor or numpy) it returns this rank's block;
+    ``gather`` (every rank of the split axes calls it) rebuilds the global
+    array from the blocks.
+
+    ``blocks[i]`` > 1: dimension i is that many equal blocks, each split on
+    its own, and a rank's part is its slice of every block, in block order
+    (a fused qkv projection split by head: a rank holds the q, k and v
+    columns of its heads). ``stage``: the tensor belongs to one GPipe stage
+    and only that stage's ranks hold it (a stage's layers, whole)."""
 
     mesh: Mesh
     spec: Tuple[Optional[str], ...]
+    blocks: Tuple[int, ...] = ()
+    stage: bool = False
+
+    def _live(self):
+        for dim, axis in enumerate(self.spec):
+            if axis is not None and self.mesh.shape[axis] > 1:
+                nb = self.blocks[dim] if dim < len(self.blocks) else 1
+                yield dim, axis, nb
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes over which the ranks hold different parts."""
+        own = {a for _, a, _ in self._live()}
+        if self.stage and self.mesh.shape[AXIS_PIPE] > 1:
+            own.add(AXIS_PIPE)
+        return tuple(a for a in ALL_AXES if a in own)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dimension split over ``axis``, or None."""
+        return next((d for d, a, _ in self._live() if a == axis), None)
 
     def __call__(self, x):
-        for dim, axis in enumerate(self.spec):
-            if axis is None or self.mesh.shape[axis] == 1:
-                continue
+        for dim, axis, nb in self._live():
             n, i = self.mesh.shape[axis], self.mesh.coords[axis]
-            if x.shape[dim] % n:
+            if x.shape[dim] % (n * nb):
                 raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
-                                 f"{axis}={n}")
-            step = x.shape[dim] // n
-            x = x[(slice(None),) * dim + (slice(i * step, (i + 1) * step),)]
+                                 f"{axis}={n}" + (f" in {nb} blocks" if nb > 1 else ""))
+            step = x.shape[dim] // (n * nb)
+            parts = [x[(slice(None),) * dim + (slice(b * n * step + i * step,
+                                                     b * n * step + (i + 1) * step),)]
+                     for b in range(nb)]
+            x = parts[0] if nb == 1 else _cat(parts, dim)
         return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The global tensor from this rank's block ``x`` (no gradient)."""
+        for dim, axis, nb in reversed(list(self._live())):
+            pieces = self.mesh.group(axis).all_gather(x.detach().contiguous())
+            if nb == 1:
+                x = torch.cat(pieces, dim)
+            else:
+                split = [p.unflatten(dim, (nb, -1)) for p in pieces]
+                x = torch.cat(split, dim + 1).flatten(dim, dim + 1)
+        return x
+
+
+def _cat(parts, dim):
+    if isinstance(parts[0], np.ndarray):
+        return np.concatenate(parts, dim)
+    return torch.cat(parts, dim)
 
 
 def batch_sharding(mesh: Mesh) -> Sharding:
@@ -291,6 +362,62 @@ def replicated(mesh: Mesh) -> Sharding:
 def expert_sharding(mesh: Mesh) -> Sharding:
     """The leading (expert) dimension of a stacked expert bank."""
     return Sharding(mesh, (AXIS_EXPERT,))
+
+
+# The Megatron layout by module name (the JAX package's sets). Column-
+# parallel modules split their output features over ``model`` (per-head or
+# per-hidden slices that compute independently); row-parallel modules split
+# their input features, and their partial outputs are summed over ``model``.
+TP_COLUMN_PARALLEL = frozenset({
+    "qkv_proj",            # fused attention in-projection (split by head)
+    "topk_q_proj", "topk_k_proj", "topk_v_proj",
+    "compressed_q_proj", "compressed_k_proj", "compressed_v_proj",
+    "lm_head",             # vocab split; the logits are all-gathered
+    "w_in",                # StatefulLayer up-projection (hidden split: the
+                           # multiplex is elementwise over hidden)
+})
+TP_ROW_PARALLEL = frozenset({
+    "out_proj", "topk_out_proj", "compressed_out_proj",
+    "w_out",               # StatefulLayer down-projection
+})
+_WEIGHTS = ("weight", "weight_q")  # Dense / QDense (out, in): Flax's kernel transposed
+
+
+def tp_param_spec(names: Sequence[str], leaf) -> Optional[tuple]:
+    """The tensor-parallel dims of one parameter, or None to leave it
+    alone: the JAX package's ``tp_param_spec`` for the port's names
+    (``names``: the dotted name's parts) and layout. A spec has ``leaf``'s
+    rank, with ``model`` on the split dim. Flax's column split of a
+    ``kernel`` (its last dim) is dim -2 of the (out, in) ``weight``, its
+    row split (dim -2) is dim -1; a column layer's ``bias`` and int8
+    ``scale`` follow the output, a row layer's stay whole (added after the
+    sum). The expert banks keep Flax's (E, d, h) / (E, h, d) layout:
+    ``w_up``, ``b_up``, ``w_up_q`` and ``w_up_scale`` split on hidden,
+    ``w_down`` and ``w_down_q`` as a row. The caller checks the axis size
+    and that the dim divides."""
+    if not names or not hasattr(leaf, "ndim") or leaf.ndim == 0:
+        return None
+    last = names[-1]
+    parent = names[-2] if len(names) >= 2 else ""
+    none = (None,) * leaf.ndim
+
+    def _at(dim: int) -> tuple:
+        spec = list(none)
+        spec[dim] = AXIS_MODEL
+        return tuple(spec)
+
+    if parent in TP_COLUMN_PARALLEL:
+        if last in _WEIGHTS:
+            return _at(-2) if leaf.ndim >= 2 else None
+        if last in ("bias", "scale"):
+            return _at(-1)
+    if parent in TP_ROW_PARALLEL and last in _WEIGHTS:
+        return _at(-1) if leaf.ndim >= 2 else None
+    if last in ("w_up", "b_up", "w_up_q", "w_up_scale"):
+        return _at(-1)
+    if last in ("w_down", "w_down_q"):
+        return _at(-2) if leaf.ndim >= 2 else None
+    return None
 
 
 def shard_batch(batch: Mapping[str, Any], mesh: Mesh) -> Dict[str, Any]:

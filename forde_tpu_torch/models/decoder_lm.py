@@ -19,7 +19,10 @@ prefill at the cache's position counter or one token per row at
 ``mesh`` (core/mesh.py) reaches every block: a training forward then
 takes this rank's tokens (batch split over data, sequence over context,
 its learned positions starting at rank * S_local) and the attention and
-MoE sublayers run their multi-device paths.
+MoE sublayers run their multi-device paths. Tensor parallelism is set on
+the modules by ``train.state.shard_model`` (parallel/tensor_parallel.py),
+GPipe stages run through ``parallel.pipeline.pp_forward``, and FSDP-split
+parameters are gathered per block (``parallel.fsdp.call``).
 
 With ``config.quantized`` (int8 serving, ops/quant.py) the dense-causal
 attention's ``qkv_proj``/``out_proj``, the dense FFN's ``ffn_up``/
@@ -46,6 +49,7 @@ from forde_tpu_torch.nn.hyper_connections import (
 from forde_tpu_torch.nn.layers import Dense, LayerNorm
 from forde_tpu_torch.nn.moe import MoEStatefulLayer
 from forde_tpu_torch.ops.quant import QDense
+from forde_tpu_torch.parallel import fsdp
 
 
 class DecoderBlock(torch.nn.Module):
@@ -226,7 +230,6 @@ class FORDEDecoderLM(torch.nn.Module):
         attention input. ``update_stats``: the MoE layers add this call's
         router statistics to their buffers."""
         cfg = self.config
-        dt = cfg.dtypes.compute
         b, s = input_ids.shape
         steps = torch.arange(s, device=input_ids.device)
         if cache is not None:
@@ -239,11 +242,7 @@ class FORDEDecoderLM(torch.nn.Module):
         else:
             # on a context shard the block starts at rank * S_local
             position_ids = (steps + self._context_offset(s))[None, :]
-        x = self.token_embed(input_ids.to(torch.int64)).to(dt)
-        x = x + self.pos_embed(position_ids).to(dt)
-        x = F.dropout(x, cfg.dropout_rate, training=not deterministic and cfg.dropout_rate > 0)
-
-        streams = self.initial_streams(x) if cfg.use_hyper_connections else None
+        x, streams = self.embed(input_ids, position_ids, deterministic)
         total_aux = torch.zeros((), device=x.device)
         # cfg.remat: each block's activations are recomputed in the backward
         # (the JAX package's nn.remat(DecoderBlock)); no-grad calls and the
@@ -251,25 +250,50 @@ class FORDEDecoderLM(torch.nn.Module):
         rematted = (cfg.remat and torch.is_grad_enabled() and cache is None
                     and capture is None)
         for i, layer in enumerate(self.layers):
-            if rematted:
+            args = (x, streams, lengths, None if cache is None else cache[f"layer_{i}"],
+                    positions, capture, update_stats, deterministic)
+            if rematted and not fsdp.is_split(layer):
                 x, streams, aux = remat.checkpoint(
-                    layer, x, streams, lengths, None, positions, None, update_stats,
-                    deterministic, preserve_rng_state=not deterministic and cfg.dropout_rate > 0,
+                    layer, *args,
+                    preserve_rng_state=not deterministic and cfg.dropout_rate > 0,
                 )
-            else:
-                x, streams, aux = layer(
-                    x, streams, lengths, None if cache is None else cache[f"layer_{i}"],
-                    positions, capture, update_stats, deterministic,
-                )
+            else:  # an FSDP-split block is recomputed in the backward anyway
+                x, streams, aux = fsdp.call(layer, *args)
             total_aux = total_aux + aux
+        return self.head(x, streams), total_aux
 
+    def embed(self, input_ids: torch.Tensor, position_ids: torch.Tensor,
+              deterministic: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The prologue: token + position embeddings (after dropout) and,
+        with mHC, the initial streams."""
+        cfg = self.config
+        dt = cfg.dtypes.compute
+        x = fsdp.call(self.token_embed, input_ids.to(torch.int64)).to(dt)
+        x = x + fsdp.call(self.pos_embed, position_ids).to(dt)
+        x = F.dropout(x, cfg.dropout_rate, training=not deterministic and cfg.dropout_rate > 0)
+        streams = fsdp.call(self.initial_streams, x) if cfg.use_hyper_connections else None
+        return x, streams
+
+    def head(self, x: torch.Tensor, streams: Optional[torch.Tensor]) -> torch.Tensor:
+        """The epilogue: stream collapse, final norm and the logits."""
+        cfg = self.config
         if cfg.use_hyper_connections:
-            if cfg.reference_quirks:
-                # The reference computes final_norm and drops it: lm_head
-                # reads the raw collapsed streams.
-                x = self.stream_collapser(streams)
-            else:
-                x = self.final_norm(self.stream_collapser(streams))
+            x = fsdp.call(self.stream_collapser, streams)
+            if not cfg.reference_quirks:
+                # (the reference computes final_norm and drops it: lm_head
+                # reads the raw collapsed streams)
+                x = fsdp.call(self.final_norm, x)
         else:
-            x = self.final_norm(x)
-        return self.lm_head(x).float(), total_aux
+            x = fsdp.call(self.final_norm, x)
+        return self.logits(x)
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits of the final hidden states; a column-parallel
+        ``lm_head`` (tensor parallelism) gives this rank's vocabulary
+        columns, all-gathered over the model axis."""
+        logits = fsdp.call(self.lm_head, x).float()
+        if self.lm_head.tp is not None:
+            from forde_tpu_torch.parallel.collectives import all_gather
+
+            logits = all_gather(logits, self.lm_head.tp[1], dim=-1)
+        return logits

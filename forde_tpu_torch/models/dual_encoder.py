@@ -3,7 +3,10 @@ blocks, projections into a shared embedding space, and the symmetric
 contrastive loss (port of forde_tpu/models/dual_encoder.py).
 
 Layouts are the JAX package's: images (B, H, W, C) float in [0, 1],
-``input_ids`` and ``attention_mask`` (B, S), right-padded.
+``input_ids`` and ``attention_mask`` (B, S), right-padded. Under FSDP
+(parallel/fsdp.py) each block, embedding, norm and projection gathers its
+parameters for its call; under tensor parallelism the blocks' attention
+and StatefulLayers run their slices (parallel/tensor_parallel.py).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch.nn.functional as F
 from forde_tpu_torch.core.config import DualEncoderConfig, TowerConfig
 from forde_tpu_torch.nn.layers import Dense, LayerNorm
 from forde_tpu_torch.nn.transformer import FORDETransformerBlock
+from forde_tpu_torch.parallel import fsdp
 
 
 def remat_policy(remat) -> Optional[str]:
@@ -90,14 +94,14 @@ class VisionTransformer(torch.nn.Module):
         # (row, column, channel) order, as the JAX package does.
         patches = images.to(dtype).reshape(b, nh, p, nw, p, c)
         patches = patches.permute(0, 1, 3, 2, 4, 5).reshape(b, nh * nw, p * p * c)
-        x = self.patch_embed(patches)
-        parts = [self.cls_token.to(dtype).expand(b, -1, -1), x]
+        x = fsdp.call(self.patch_embed, patches)
+        parts = [fsdp.full(self.cls_token).to(dtype).expand(b, -1, -1), x]
         if self.register_tokens is not None:
-            parts.append(self.register_tokens.to(dtype).expand(b, -1, -1))
-        x = torch.cat(parts, dim=1) + self.pos_embed.to(dtype)
+            parts.append(fsdp.full(self.register_tokens).to(dtype).expand(b, -1, -1))
+        x = torch.cat(parts, dim=1) + fsdp.full(self.pos_embed).to(dtype)
         for block in self.blocks:
-            x = block(x, None, deterministic, sense)
-        return self.final_norm(x)[:, 0, :]
+            x = fsdp.call(block, x, None, deterministic, sense)
+        return fsdp.call(self.final_norm, x)[:, 0, :]
 
 
 class TextTransformer(torch.nn.Module):
@@ -129,11 +133,11 @@ class TextTransformer(torch.nn.Module):
         b, s = input_ids.shape
         if attention_mask is None:
             attention_mask = torch.ones(b, s, dtype=torch.int32, device=input_ids.device)
-        x = self.token_embed(input_ids.to(torch.int64)).to(dtype)
-        x = x + self.pos_embed[:, :s].to(dtype)
+        x = fsdp.call(self.token_embed, input_ids.to(torch.int64)).to(dtype)
+        x = x + fsdp.full(self.pos_embed)[:, :s].to(dtype)
         for block in self.blocks:
-            x = block(x, attention_mask, deterministic, sense)
-        return self.final_norm(x)[:, 0, :]
+            x = fsdp.call(block, x, attention_mask, deterministic, sense)
+        return fsdp.call(self.final_norm, x)[:, 0, :]
 
 
 class FORDEDualEncoder(torch.nn.Module):
@@ -207,7 +211,7 @@ class FORDEDualEncoder(torch.nn.Module):
         self, images: torch.Tensor, deterministic: bool = True, sense: bool = False
     ) -> torch.Tensor:
         feat = self.vision(images, deterministic, sense)
-        return self.image_projection(feat).float()
+        return fsdp.call(self.image_projection, feat).float()
 
     def encode_text(
         self,
@@ -217,7 +221,7 @@ class FORDEDualEncoder(torch.nn.Module):
         sense: bool = False,
     ) -> torch.Tensor:
         feat = self.text(input_ids, attention_mask, deterministic, sense)
-        return self.text_projection(feat).float()
+        return fsdp.call(self.text_projection, feat).float()
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

@@ -71,7 +71,10 @@ class ExpertsFFN(torch.nn.Module):
     """The expert bank: (E, d, h) up, tanh-approximated gelu, (E, h, d)
     down, each expert a Dense -> gelu -> Dense. ``quantized``: ``w_up_q``,
     ``w_down_q`` int8 and ``w_up_scale`` (E, h), ``w_down_scale`` (E, d)
-    fp32 in place of ``w_up``, ``w_down`` (the JAX package's leaves)."""
+    fp32 in place of ``w_up``, ``w_down`` (the JAX package's leaves).
+    ``tp_group``: under tensor parallelism the bank holds this rank's
+    slice of the hidden dim (column-split up, row-split down), and the
+    partial outputs are summed over the model axis before ``b_down``."""
 
     def __init__(self, num_experts: int, hidden_dim: int, d_model: int,
                  dtype=torch.float32, param_dtype=torch.float32, device=None,
@@ -93,6 +96,7 @@ class ExpertsFFN(torch.nn.Module):
             self.w_down = torch.nn.Parameter(torch.zeros(e, h, d, **kw))
         self.b_up = torch.nn.Parameter(torch.zeros(e, h, **kw))
         self.b_down = torch.nn.Parameter(torch.zeros(e, d, **kw))
+        self.tp_group = None
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:
@@ -103,21 +107,41 @@ class ExpertsFFN(torch.nn.Module):
         self.b_down.zero_()
 
     @staticmethod
-    def _q_products(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
+    def _q_products(x: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
+                    group=None) -> torch.Tensor:
         """Expert e's rows of ``x`` (E, N, din) or one (N, din) for every
         expert, times ``w_q[e]`` in int8 over activations quantized per
-        row: (E, N, dout) fp32 (the JAX package's ``_q_einsum``)."""
-        xq, x_scale = quantize_activations(x)
+        row: (E, N, dout) fp32 (the JAX package's ``_q_einsum``). ``group``:
+        din is split over it (a row-parallel product: whole-row scales, the
+        int32 sums added over the group)."""
+        xq, x_scale = quantize_activations(x, group)
         acc = torch.stack([int8_matmul(xq if xq.ndim == 2 else xq[e], w_q[e])
                            for e in range(w_q.shape[0])])
+        if group is not None:
+            acc = group.all_reduce(acc)
         return acc.float() * x_scale * w_scale[:, None, :]
 
     def _quantized(self, x: torch.Tensor) -> torch.Tensor:
         """(N, D) or (E, N, D) -> (E, N, D) through the int8 bank."""
         hid = self._q_products(x, self.w_up_q, self.w_up_scale) + self.b_up[:, None, :]
         hid = F.gelu(hid, approximate="tanh")
-        out = self._q_products(hid, self.w_down_q, self.w_down_scale) + self.b_down[:, None, :]
-        return out.to(self.dtype)
+        out = self._q_products(hid, self.w_down_q, self.w_down_scale, self.tp_group)
+        return (out + self.b_down[:, None, :]).to(self.dtype)
+
+    def _down(self, h: torch.Tensor, equation: str) -> torch.Tensor:
+        out = torch.einsum(equation, h, self.w_down.to(self.dtype))
+        if self.tp_group is not None:
+            from forde_tpu_torch.parallel.collectives import reduce_from_model
+
+            out = reduce_from_model(out, self.tp_group)
+        return out
+
+    def _up_input(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp_group is None:
+            return x
+        from forde_tpu_torch.parallel.collectives import copy_to_model
+
+        return copy_to_model(x, self.tp_group)
 
     def all_tokens(self, x: torch.Tensor) -> torch.Tensor:
         """Every expert on every token: x (B, S, D) -> (E, B, S, D)."""
@@ -125,20 +149,18 @@ class ExpertsFFN(torch.nn.Module):
             b, s, d = x.shape
             return self._quantized(x.reshape(b * s, d)).reshape(-1, b, s, d)
         dt = self.dtype
-        h = torch.einsum("bsd,edh->ebsh", x.to(dt), self.w_up.to(dt))
+        h = torch.einsum("bsd,edh->ebsh", self._up_input(x.to(dt)), self.w_up.to(dt))
         h = F.gelu(h + self.b_up.to(dt)[:, None, None, :], approximate="tanh")
-        out = torch.einsum("ebsh,ehd->ebsd", h, self.w_down.to(dt))
-        return out + self.b_down.to(dt)[:, None, None, :]
+        return self._down(h, "ebsh,ehd->ebsd") + self.b_down.to(dt)[:, None, None, :]
 
     def dispatched(self, expert_inputs: torch.Tensor) -> torch.Tensor:
         """Each expert on its own buffer: (E, C, D) -> (E, C, D)."""
         if self.quantized:
             return self._quantized(expert_inputs)
         dt = self.dtype
-        h = torch.einsum("ecd,edh->ech", expert_inputs.to(dt), self.w_up.to(dt))
+        h = torch.einsum("ecd,edh->ech", self._up_input(expert_inputs.to(dt)), self.w_up.to(dt))
         h = F.gelu(h + self.b_up.to(dt)[:, None, :], approximate="tanh")
-        out = torch.einsum("ech,ehd->ecd", h, self.w_down.to(dt))
-        return out + self.b_down.to(dt)[:, None, :]
+        return self._down(h, "ech,ehd->ecd") + self.b_down.to(dt)[:, None, :]
 
 
 class MoERouter(torch.nn.Module):
@@ -200,7 +222,7 @@ class MoELayer(torch.nn.Module):
                 x, top_k_indices, top_k_probs, (e.w_up, e.b_up, e.w_down, e.b_down), mesh,
                 num_experts=self.num_experts, top_k=self.top_k,
                 capacity_factor=self.capacity_factor,
-                variant="auto" if self.dispatch == "ep" else "psum",
+                variant="auto" if self.dispatch == "ep" else "psum", tp_group=e.tp_group,
             )
         elif self.dispatch == "dense":
             all_out = self.experts.all_tokens(x)  # (E or this rank's E/ep, B, S, D)

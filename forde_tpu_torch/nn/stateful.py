@@ -17,6 +17,15 @@ grad_gdp] of dL/dz after the backward. Under data parallelism the step
 sets ``stat_group`` (the data axis) for the length of the step: both
 statistics then come from moment sums summed over the data axis before
 anything reads them, the global batch's, the same on every rank.
+
+Under tensor parallelism (``tp_group``, the model axis) ``w_in`` holds this
+rank's F/tp hidden columns and ``w_out`` the same rows: the multiplex is
+elementwise over hidden, so a rank runs it on its columns of z with its
+slice of ``neuron_assignments`` (kept whole, as the slow loop writes it).
+The statistics of those columns are all-gathered over the model axis,
+after their sums over the data axis, so ``act_stats`` stays the whole
+(F, 3), and ``gather_columns`` does the same for a step's ``z_tap``
+gradient, which holds this rank's (F/tp, 2).
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ class StatefulLayer(torch.nn.Module):
         )
         self.z_tap: Optional[torch.Tensor] = None
         self.stat_group = None  # the data axis, set by a data-parallel step
+        self.tp_group = None  # the model axis, set by parallel/tensor_parallel.py
         if sense:
             self.register_buffer(
                 "act_stats", torch.zeros(hidden_dim, 3, dtype=torch.float32, device=device)
@@ -83,17 +93,32 @@ class StatefulLayer(torch.nn.Module):
                 "step_count", torch.zeros((), dtype=torch.int32, device=device)
             )
 
+    def local_features(self) -> int:
+        """The hidden columns this rank computes."""
+        tp = 1 if self.tp_group is None else self.tp_group.size
+        return self.neuron_assignments.shape[0] // tp
+
+    def gather_columns(self, t: torch.Tensor) -> torch.Tensor:
+        """(F/tp, ...) per-neuron rows of this rank -> the whole (F, ...)."""
+        if self.tp_group is None or self.tp_group.size == 1:
+            return t
+        return torch.cat(self.tp_group.all_gather(t.contiguous()), 0)
+
     def forward(self, x: torch.Tensor, sense: bool = False) -> torch.Tensor:
         z = self.w_in(x)
+        assignments = self.neuron_assignments
+        if self.tp_group is not None:
+            n = z.shape[-1]
+            assignments = assignments.narrow(0, self.tp_group.index * n, n)
         if sense:
             if not self.sense:
                 raise ValueError("sense=True needs a StatefulLayer built with sense=True")
             if self.z_tap is not None:
                 z = grad_stat_tap(z, self.z_tap, self.stat_group)
             if not recomputing():  # once per forward under remat (nn/remat.py)
-                self.act_stats.add_(activation_stats(z, self.stat_group))
+                self.act_stats.add_(self.gather_columns(activation_stats(z, self.stat_group)))
                 self.step_count.add_(1)
-        y = stateful_multiplex(z, self.neuron_assignments, self.specialist_gate)
+        y = stateful_multiplex(z, assignments, self.specialist_gate)
         return self.w_out(y.to(self.dtype))
 
 

@@ -52,12 +52,17 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def quantize_activations(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_activations(x: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dynamic symmetric per-row int8 quantization: (..., din) float ->
     ((..., din) int8, (..., 1) fp32 scale). The one recipe of
-    ``int8_dense`` and the expert bank."""
+    ``int8_dense`` and the expert bank. ``group``: the ranks of a
+    row-parallel product, each holding a slice of din; the scale is the
+    whole row's (its largest magnitude over the group)."""
     xf = x.float()
-    x_scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-12) / 127.0
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    if group is not None and group.size > 1:
+        amax = torch.stack(group.all_gather(amax)).amax(0)
+    x_scale = torch.clamp(amax, min=1e-12) / 127.0
     xq = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
     return xq, x_scale
 
@@ -91,13 +96,19 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
 
 
 def int8_dense(x: torch.Tensor, kernel_q: torch.Tensor, w_scale: torch.Tensor,
-               bias: Optional[torch.Tensor] = None, out_dtype=torch.float32) -> torch.Tensor:
+               bias: Optional[torch.Tensor] = None, out_dtype=torch.float32,
+               group=None) -> torch.Tensor:
     """``x @ dequant(kernel_q)`` as an int8 product: x (..., din) float,
     kernel_q (din, dout) int8, w_scale (dout,). Activations are quantized
-    per row; the int32 accumulator is rescaled by both scales (fp32)."""
-    xq, x_scale = quantize_activations(x)
+    per row; the int32 accumulator is rescaled by both scales (fp32).
+    ``group``: a row-parallel product (x and kernel_q hold this rank's
+    slice of din): the rows' scales are the whole rows', and the int32
+    partial sums are summed over the group, exactly, before the rescale."""
+    xq, x_scale = quantize_activations(x, group)
     lead = xq.shape[:-1]
     acc = int8_matmul(xq.reshape(-1, xq.shape[-1]), kernel_q).reshape(*lead, -1)
+    if group is not None and group.size > 1:
+        acc = group.all_reduce(acc)
     out = acc.float() * x_scale * w_scale
     if bias is not None:
         out = out + bias.float()
@@ -113,7 +124,8 @@ class QDense(torch.nn.Module):
     """Serving counterpart of ``nn.layers.Dense`` with int8 weights:
     ``weight_q`` (out, in) int8, ``scale`` (out,) fp32 and ``bias`` (out,)
     fp32, made from a trained weight by ``quantize_params``. The output is
-    in the compute dtype."""
+    in the compute dtype. ``tp``: as ``Dense.tp`` (a row-parallel product
+    through ``int8_dense``'s ``group``)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32, device=None):
@@ -124,9 +136,12 @@ class QDense(torch.nn.Module):
                                         requires_grad=False)
         self.bias = (torch.nn.Parameter(torch.zeros(out_features, device=device),
                                         requires_grad=False) if bias else None)
+        self.tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return int8_dense(x, self.weight_q.t(), self.scale, self.bias, self.compute_dtype)
+        group = self.tp[1] if self.tp is not None and self.tp[0] == "row" else None
+        return int8_dense(x, self.weight_q.t(), self.scale, self.bias, self.compute_dtype,
+                          group=group)
 
 
 def quantize_params(params):

@@ -1,7 +1,8 @@
 """The collectives of the port's multi-device code: counterparts of the
 ``jax.lax`` collectives that the JAX package's ``parallel/*`` bodies call
 inside ``shard_map`` (``axis_index``, ``axis_size``, ``ppermute``,
-``all_gather(tiled=True)``, ``psum``, ``pmean``, ``all_to_all``).
+``all_gather(tiled=True)``, ``psum``, ``psum_scatter(tiled=True)``, ``pmean``,
+``all_to_all``), and the two Megatron operators of tensor parallelism.
 
 A rank runs its own PyTorch program on its local tensors; a collective
 exchanges them with the other ranks of a ``Group`` (the ranks of a mesh
@@ -26,10 +27,21 @@ scalars add up to the loss: a term that every rank of a group holds alike
 (the result of ``psum`` or ``pmean``) is divided by the number of ranks
 that hold it before it is added (train/step.py does this). Under that
 convention each collective's backward is its transpose: ``ppermute`` the
-inverse permutation, tiled ``all_gather`` the sum of the cotangents over
-the group and then this rank's slice, ``psum`` a ``psum``, ``pmean`` a
-``pmean``, ``all_to_all`` the ``all_to_all`` with split and concat axes
-swapped. ``tests/test_torch_collectives.py`` holds each against
+inverse permutation, tiled ``all_gather`` the ``psum_scatter`` of the
+cotangents (their sum over the group, of which each rank receives its own
+slice) and ``psum_scatter`` the tiled ``all_gather``, ``psum`` a ``psum``,
+``pmean`` a ``pmean``, ``all_to_all`` the ``all_to_all`` with split and
+concat axes swapped.
+
+Tensor parallelism (the ``model`` axis) under that convention: the output
+of a row-parallel layer, a partial sum on each rank, becomes whole through
+``reduce_from_model`` (a ``psum``, whose backward is a ``psum``). The input
+of a column-parallel layer passes ``copy_to_model``: the identity forward,
+and in the backward the mean of the ranks' cotangents, so that every
+rank of the group holds the same cotangent of the replicated activation,
+its share of the true one (Megatron's identity-forward, psum-backward
+operator, divided by the group's size because each rank's scalar carries
+1/size of the loss). ``tests/test_torch_collectives.py`` holds each against
 ``jax.grad`` through ``shard_map``.
 """
 
@@ -76,6 +88,11 @@ class Group:
     def all_to_all(self, chunks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Chunk j goes to rank j; returns the chunks received, by source."""
         return [c.clone() for c in chunks]
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the group of ``x`` (whose dim 0 splits into one
+        block per rank): this rank's block of it."""
+        return x.clone()
 
 
 class LocalGroup(Group):
@@ -133,6 +150,15 @@ class DistGroup(Group):
         dist.all_to_all_single(recv, send, group=self.pg)
         return list(recv.unbind(0))
 
+    def reduce_scatter(self, x):
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        out = torch.empty((x.shape[0] // self.size, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x, group=self.pg)
+        return out
+
 
 class _Slots:
     """What the ranks of one thread group share: a slot per rank and a
@@ -183,6 +209,14 @@ class ThreadGroup(Group):
     def all_to_all(self, chunks):
         got = self._exchange(torch.stack([c.detach() for c in chunks]))
         return [t[self.index].clone() for t in got]
+
+    def reduce_scatter(self, x):
+        got = self._exchange(x)
+        n = x.shape[0] // self.size
+        out = got[0][self.index * n:(self.index + 1) * n].clone()
+        for t in got[1:]:
+            out += t[self.index * n:(self.index + 1) * n]
+        return out
 
 
 class ThreadWorld:
@@ -294,26 +328,83 @@ def ppermute(x: torch.Tensor, group: Group, perm: Perm) -> torch.Tensor:
     return _PPermute.apply(x, group, perm)
 
 
+def _reduce_scatter(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    n = group.size
+    if x.shape[dim] % n:
+        raise ValueError(f"psum_scatter: axis {dim} of {tuple(x.shape)} does not split into {n}")
+    lead = x.movedim(dim, 0)
+    return group.reduce_scatter(lead.contiguous()).movedim(0, dim)
+
+
+def _gather(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:
+    return torch.cat(group.all_gather(x.contiguous()), dim)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim, ctx.length = group, dim, x.shape[dim]
-        return torch.cat(group.all_gather(x), dim)
+        ctx.group, ctx.dim = group, dim
+        return _gather(x, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        total = ctx.group.all_reduce(g.contiguous())
-        return total.narrow(ctx.dim, ctx.group.index * ctx.length, ctx.length), None, None
+        return _reduce_scatter(g, ctx.group, ctx.dim), None, None
 
 
 def all_gather(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
     """``lax.all_gather(tiled=True)``: the ranks' ``x`` concatenated along
-    ``dim`` in rank order. Its backward sums the cotangents over the group
-    (an all-reduce, which gloo and NCCL both have) and keeps this rank's
-    slice."""
+    ``dim`` in rank order. Its backward is ``psum_scatter``: the
+    cotangents summed over the group, of which this rank keeps its slice."""
     if group.size == 1:
         return x
     return _AllGather.apply(x, group, dim % x.ndim)
+
+
+class _PSumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _reduce_scatter(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim), None, None
+
+
+def psum_scatter(x: torch.Tensor, group: Group, dim: int = 0) -> torch.Tensor:
+    """``lax.psum_scatter(scatter_dimension=dim, tiled=True)``: the sum of
+    the ranks' ``x`` over the group, split along ``dim`` into one block per
+    rank, of which this rank gets its own (``reduce_scatter_tensor`` under
+    ``torch.distributed``). Its backward is the tiled ``all_gather``."""
+    if group.size == 1:
+        return x
+    return _PSumScatter.apply(x, group, dim % x.ndim)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.group.all_reduce(g.contiguous()) / ctx.group.size, None
+
+
+def copy_to_model(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The input of a column-parallel layer (tensor parallelism over the
+    ``model`` group): the identity; its backward averages the ranks'
+    cotangents, so that each holds the same share of the replicated
+    input's cotangent (see the module docstring)."""
+    return x if group.size == 1 else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group: Group) -> torch.Tensor:
+    """The output of a row-parallel layer: the ranks' partial sums added
+    up (a ``psum`` over the ``model`` group, whose backward is a
+    ``psum``)."""
+    return psum(x, group)
 
 
 def _all_to_all(x, group, split_axis, concat_axis):

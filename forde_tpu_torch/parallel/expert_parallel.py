@@ -37,16 +37,21 @@ from forde_tpu_torch.ops import moe_dispatch
 from forde_tpu_torch.parallel.collectives import Group, all_gather, all_to_all, pmean, psum
 
 
-def _experts(h_in, w_up, b_up, w_down, b_down):
-    """The local experts on their buffers (E_local, N, D), in h_in's dtype."""
+def _experts(h_in, w_up, b_up, w_down, b_down, tp_group=None):
+    """The local experts on their buffers (E_local, N, D), in h_in's dtype.
+    ``tp_group``: the bank's hidden dim is split over the model axis, and
+    the partial outputs are summed over it before the bias."""
     dt = h_in.dtype
     h = torch.einsum("ecd,edh->ech", h_in, w_up.to(dt))
     h = F.gelu(h + b_up.to(dt)[:, None, :], approximate="tanh")
-    return torch.einsum("ech,ehd->ecd", h, w_down.to(dt)) + b_down.to(dt)[:, None, :]
+    out = torch.einsum("ech,ehd->ecd", h, w_down.to(dt))
+    if tp_group is not None:
+        out = psum(out, tp_group)
+    return out + b_down.to(dt)[:, None, :]
 
 
 def _ep_ffn_body(flat_x, top_k_indices, top_k_probs, w_up, b_up, w_down, b_down, *,
-                 num_experts: int, capacity: int, group: Group) -> torch.Tensor:
+                 num_experts: int, capacity: int, group: Group, tp_group=None) -> torch.Tensor:
     """The psum dispatch: a capacity plan of the local tokens (T, ...),
     this rank's experts' slots, and the partial combine summed over the
     expert axis."""
@@ -56,7 +61,7 @@ def _ep_ffn_body(flat_x, top_k_indices, top_k_probs, w_up, b_up, w_down, b_down,
     slot_token = plan["slot_token"][e0:e0 + e_shard].long()
     slot_valid = plan["slot_valid"][e0:e0 + e_shard]
     expert_in = flat_x[slot_token] * slot_valid[..., None].to(flat_x.dtype)
-    expert_out = _experts(expert_in, w_up, b_up, w_down, b_down)
+    expert_out = _experts(expert_in, w_up, b_up, w_down, b_down, tp_group)
     ei = plan["expert_indices"].long()
     local = (ei >= e0) & (ei < e0 + e_shard)
     local_e = torch.clamp(ei - e0, 0, e_shard - 1)
@@ -67,7 +72,8 @@ def _ep_ffn_body(flat_x, top_k_indices, top_k_probs, w_up, b_up, w_down, b_down,
 
 
 def _ep_a2a_ffn_body(flat_x, top_k_indices, top_k_probs, w_up, b_up, w_down, b_down, *,
-                     num_experts: int, capacity: int, group: Group) -> torch.Tensor:
+                     num_experts: int, capacity: int, group: Group,
+                     tp_group=None) -> torch.Tensor:
     """The all-to-all dispatch of this rank's T/ep slice of the local
     tokens; returns that slice's (T/ep, D) outputs."""
     e_shard = w_up.shape[0]
@@ -83,7 +89,7 @@ def _ep_a2a_ffn_body(flat_x, top_k_indices, top_k_probs, w_up, b_up, w_down, b_d
     # recv[src, le, c]: slot c of my local expert le, from source rank src
     recv = all_to_all(send, group, 0, 0)
     h_in = recv.transpose(0, 1).reshape(e_shard, ep * capacity, d)
-    out = _experts(h_in, w_up, b_up, w_down, b_down)
+    out = _experts(h_in, w_up, b_up, w_down, b_down, tp_group)
     out = out.reshape(e_shard, ep, capacity, d).transpose(0, 1).contiguous()
     # back[src_e, le, c]: global expert src_e * e_shard + le's output for my slot c
     back = all_to_all(out, group, 0, 0)
@@ -136,13 +142,15 @@ def expert_parallel_ffn(
     top_k: int = 2,
     capacity_factor: float = 2.0,
     variant: str = "auto",
+    tp_group=None,
 ) -> torch.Tensor:
     """The MoE FFN with explicit EP, inside the model (``moe_dispatch ==
     "ep"``): the router and the aux loss run around it. ``x`` (B_local,
     S_local, D) and the routing (B_local, S_local, K) are this rank's;
     ``expert_params`` (w_up, b_up, w_down, b_down) its slice of the bank.
     ``variant``: "a2a" | "psum" | "auto" (all-to-all where the local token
-    count divides the expert axis and there is no context axis)."""
+    count divides the expert axis and there is no context axis).
+    ``tp_group``: the bank's hidden dim is split over the model axis."""
     b, s, d = x.shape
     ep = mesh.shape[AXIS_EXPERT]
     cp = mesh.shape[AXIS_CONTEXT]
@@ -162,12 +170,12 @@ def expert_parallel_ffn(
                              f"expert axis ({ep}); use variant='psum'")
         capacity = max(int(capacity_factor * (t_local // ep) * top_k / num_experts), top_k)
         out = _ep_a2a_ffn_body(*flat, *expert_params, num_experts=num_experts,
-                               capacity=capacity, group=group)
+                               capacity=capacity, group=group, tp_group=tp_group)
         return all_gather(out, group, dim=0).reshape(b, s, -1).to(x.dtype)
     if variant != "psum":
         raise ValueError(f"unknown variant {variant!r}")
     capacity = max(int(capacity_factor * t_local * top_k / num_experts), top_k)
     out = _ep_ffn_body(*flat, *expert_params, num_experts=num_experts, capacity=capacity,
-                       group=group)
+                       group=group, tp_group=tp_group)
     return out.reshape(b, s, d).to(x.dtype)
 

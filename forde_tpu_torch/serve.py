@@ -22,14 +22,25 @@ serves int8 weights (ops/quant.py; the draft's too). Runs on CUDA unless
 served with its adapters merged into the base it records (or
 ``--lora_base_dir``; train/checkpoint.load_lm_params).
 
-Not ported yet, and refused with the slice they wait for: tensor-parallel
-serving and expert-parallel MoE dispatch (the multi-device slice), and
+``--tensor_parallelism N`` serves under ``torchrun --nproc_per_node N``:
+the model's Megatron layers split over a model axis of N ranks
+(parallel/tensor_parallel.py; the decode caches hold each rank's heads),
+int8 with ``--quantize`` too. Every rank decodes the same prompts; rank 0
+prints and writes the output file.
+
+  torchrun --standalone --nproc_per_node 2 -m forde_tpu_torch.serve \
+      --checkpoint_dir ckpt --prompt_ids 5,17,200 --temperature 0 \
+      --tensor_parallelism 2
+
+Not ported yet, and refused: expert-parallel MoE dispatch in serving, and
 text prompts (they need a tokenizer in the repository).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import sys
 from typing import List, Optional
@@ -92,7 +103,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--length_penalty", type=float, default=0.0,
                    help="beam search: scores / generated_len**penalty (only meaningful "
                         "with --eos_id)")
-    p.add_argument("--tensor_parallelism", type=int, default=1, help="(not ported)")
+    p.add_argument("--tensor_parallelism", type=int, default=1,
+                   help="model-parallel serving over N ranks (torchrun --nproc_per_node N): "
+                        "Megatron layout (core/mesh.py tp_param_spec)")
     p.add_argument("--use_ema", action="store_true",
                    help="serve the EMA weights (a checkpoint trained with --ema_decay)")
     p.add_argument("--lora_base_dir", type=str, default=None,
@@ -113,8 +126,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _NOT_PORTED = (
-    (lambda a: a.tensor_parallelism > 1, "--tensor_parallelism > 1",
-     "slice 11 of the multi-device work"),
     (lambda a: a.prompt is not None, "--prompt",
      "a tokenizer in the repository"),
     (lambda a: a.text_prompts, "--text_prompts",
@@ -177,6 +188,23 @@ def _load_draft(args, device):
     return draft
 
 
+def _tensor_parallel(args, model, device):
+    """With ``--tensor_parallelism`` N > 1: the mesh (data 1, model N) over
+    the process group torchrun started, ``model`` keeping this rank's
+    slices. Otherwise None."""
+    if args.tensor_parallelism <= 1:
+        return None
+    from forde_tpu_torch.core import mesh as mesh_lib
+    from forde_tpu_torch.train.state import shard_model
+
+    mesh_lib.maybe_initialize_distributed(device)
+    mesh = mesh_lib.create_mesh(data=1, model=args.tensor_parallelism)
+    shard_model(model, mesh)
+    if mesh.rank == 0:
+        print(f"[serve] mesh serving: {mesh.shape}")
+    return mesh
+
+
 def _parse_ids(text: str) -> List[int]:
     return [int(t) for t in text.split(",") if t.strip()]
 
@@ -186,10 +214,33 @@ def main(argv: Optional[list] = None) -> List[List[int]]:
     continuation) in input order."""
     args = build_parser().parse_args(argv)
     _refuse_unported(args)
-    device = resolve_device(args.device)
+    from forde_tpu_torch.core.mesh import local_device
+
+    device = local_device(resolve_device(args.device))
+    started = args.tensor_parallelism > 1 and not _process_group_up()
+    try:
+        config, model = load_serving_model(args, device)
+        mesh = _tensor_parallel(args, model, device)
+        if mesh is None or mesh.rank == 0:
+            return _serve(args, config, model, device)
+        with contextlib.redirect_stdout(io.StringIO()):  # rank 0 alone prints
+            return _serve(args, config, model, device, write=False)
+    finally:
+        if started and _process_group_up():
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _process_group_up() -> bool:
+    import torch.distributed as dist
+
+    return dist.is_available() and dist.is_initialized()
+
+
+def _serve(args, config, model, device, write: bool = True) -> List[List[int]]:
     from forde_tpu_torch.models import generate as G
 
-    config, model = load_serving_model(args, device)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     sampling = dict(
         max_new_tokens=args.max_new_tokens, temperature=args.temperature,
@@ -231,7 +282,7 @@ def main(argv: Optional[list] = None) -> List[List[int]]:
         results = [out[i, : int(n) + args.max_new_tokens].tolist() for i, n in enumerate(lens)]
         for i, row in enumerate(results):
             print(f"[{i}] token ids: {row}")
-        if args.output_file:
+        if args.output_file and write:
             with open(args.output_file, "w") as f:
                 for i, row in enumerate(results):
                     f.write(json.dumps({"index": i, "prompt_ids": prompts[i],

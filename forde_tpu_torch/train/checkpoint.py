@@ -28,10 +28,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import struct
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Mapping, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,8 +138,8 @@ def load_lm_params(directory: str, device, use_ema: bool = False,
     loaded from ``lora["base"]`` (or ``lora_base_dir``), the adapters (the
     EMA adapters with ``use_ema``) are merged into its weights, and the
     checkpoint's stat buffers are loaded: a plain model comes back.
-    ``mesh``: the model's multi-device paths run on it (its expert banks
-    stay whole: ``train.state.shard_experts`` keeps a rank's slice)."""
+    ``mesh``: the model's multi-device paths run on it (it stays whole:
+    ``train.state.shard_model`` keeps a rank's part)."""
     from forde_tpu_torch.interop import flax_to_state_dict, split_scan_layers
     from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
 
@@ -279,6 +280,24 @@ def _meta_of(optimizer) -> dict:
     })
 
 
+if TYPE_CHECKING:
+    from forde_tpu_torch.core.mesh import Sharding
+
+_LAYER = re.compile(r"(?<=/)layer_(\d+)(?=/)")
+
+
+def _param_paths(state) -> List[Tuple[str, bool]]:
+    """The Flax path (under ``params/``) of each optimizer parameter, and
+    whether the Flax layout transposes it."""
+    from forde_tpu_torch.interop import flax_keys
+
+    lora = getattr(state, "lora", None)
+    if lora is not None:
+        return [(k, False) for k in lora.tensors]
+    keys = flax_keys(n for n, _ in state.model.named_parameters())
+    return [(k[len("params/"):], t) for k, t in keys.values()]
+
+
 def _state_tensors(state) -> Tuple[Dict[str, Tuple[torch.Tensor, bool]],
                                    Dict[str, Tuple[torch.Tensor, bool]]]:
     """Every tensor of a train state by its checkpoint key, with whether
@@ -292,12 +311,7 @@ def _state_tensors(state) -> Tuple[Dict[str, Tuple[torch.Tensor, bool]],
     from forde_tpu_torch.interop import flax_keys, grad_stats_key
 
     model, opt = state.model, state.optimizer
-    lora = getattr(state, "lora", None)
-    if lora is not None:
-        paths = [(k, False) for k in lora.tensors]
-    else:
-        keys = flax_keys(n for n, _ in model.named_parameters())
-        paths = [(k[len("params/"):], t) for k, t in keys.values()]
+    paths = _param_paths(state)
     if len(paths) != len(opt.params):
         raise ValueError(f"{len(opt.params)} optimizer parameters, {len(paths)} named")
     params: Dict[str, Tuple[torch.Tensor, bool]] = {}
@@ -318,23 +332,61 @@ def _state_tensors(state) -> Tuple[Dict[str, Tuple[torch.Tensor, bool]],
     return params, extra
 
 
-def _expert_key(state, key: str) -> bool:
-    """Whether ``key`` holds this rank's slice of an expert bank (a state
-    on a mesh with an expert axis, ``train.state.shard_train_state``)."""
-    return bool(getattr(state, "expert_params", None) and any(state.expert_params)
-                and "experts" in key.split("/"))
+def _key_layouts(state) -> Dict[str, "Sharding"]:
+    """The layout of each split tensor of a state on a mesh by its
+    checkpoint key (its parameter's, for the parameter, its EMA and its
+    Adam moments; ``train.state.shard_train_state``)."""
+    layouts = getattr(state, "layouts", None)
+    if getattr(state, "mesh", None) is None or not layouts:
+        return {}
+    out = {}
+    for (path, _), sh in zip(_param_paths(state), layouts):
+        if sh.axes:
+            for prefix in ("params", "ema_params", "mu", "nu"):
+                out[f"{prefix}/{path}"] = sh
+    return out
 
 
-def _gather_experts(state, tensors: Dict[str, Tuple[torch.Tensor, bool]]) -> None:
-    """Replace each expert-bank slice by the whole bank, all-gathered over
-    the expert axis (every rank calls this, in the same key order)."""
-    from forde_tpu_torch.core.mesh import AXIS_EXPERT
+def _gather_state(state, tensors: Dict[str, Tuple[torch.Tensor, bool]]) -> None:
+    """Replace each rank's part of a tensor by the whole, all-gathered
+    over the axes that split it (every rank calls this; the ranks of one
+    group hold the same keys, so they gather in the same order). A GPipe
+    stage's layers come last: stage s's local layer j is global layer
+    s * L/S + j, so the stages exchange their layers j in turn."""
+    from forde_tpu_torch.core.mesh import AXIS_PIPE
 
-    group = state.mesh.group(AXIS_EXPERT)
+    layouts = _key_layouts(state)
     for key in sorted(tensors):
-        if _expert_key(state, key):
+        sh = layouts.get(key)
+        if sh is not None and any(a != AXIS_PIPE for a in sh.axes):
             t, transposed = tensors[key]
-            tensors[key] = (torch.cat(group.all_gather(t.detach()), 0), transposed)
+            tensors[key] = (sh.gather(t), transposed)
+    mesh = state.mesh
+    if mesh.shape[AXIS_PIPE] == 1:
+        return
+    group = mesh.group(AXIS_PIPE)
+    per = state.model.config.num_layers // group.size
+    first = group.index * per
+    local = sorted((_LAYER.sub(lambda m: f"layer_{int(m[1]) - first}", k), k)
+                   for k in tensors if _LAYER.search(k))
+    for canonical, key in local:
+        t, transposed = tensors.pop(key)
+        j = int(_LAYER.search(canonical)[1])
+        for s, piece in enumerate(group.all_gather(t.detach().contiguous())):
+            tensors[_LAYER.sub(f"layer_{s * per + j}", canonical)] = (piece, transposed)
+
+
+def _other_stage(state, key: str) -> bool:
+    """Whether ``key`` is a layer that another GPipe stage holds."""
+    from forde_tpu_torch.core.mesh import AXIS_PIPE
+
+    mesh = getattr(state, "mesh", None)
+    m = _LAYER.search(key)
+    if mesh is None or mesh.shape[AXIS_PIPE] == 1 or m is None:
+        return False
+    from forde_tpu_torch.parallel.pipeline import stage_layers
+
+    return int(m[1]) not in stage_layers(mesh, state.model.config.num_layers)
 
 
 def _to_numpy(t: torch.Tensor, transposed: bool) -> np.ndarray:
@@ -365,14 +417,14 @@ def save_train_state(directory: str, state, step: int, train_meta: Optional[dict
     come last, back to back, and ``restore_train_state`` refuses files of
     different steps.
 
-    On a mesh every rank calls it: expert banks are all-gathered over the
-    expert axis, and rank 0 writes the same files that one process
-    writes."""
+    On a mesh every rank calls it: each split tensor is all-gathered
+    whole (``_gather_state``), and rank 0 writes the same files, in the JAX
+    package's layout, that one process writes."""
     params, extra = _state_tensors(state)
     mesh = getattr(state, "mesh", None)
     if mesh is not None:
-        _gather_experts(state, params)
-        _gather_experts(state, extra)
+        _gather_state(state, params)
+        _gather_state(state, extra)
         if mesh.rank != 0:
             return
     os.makedirs(directory, exist_ok=True)
@@ -422,8 +474,9 @@ def restore_train_state(directory: str, state):
     on a shape that differs, on files of different steps, and when the
     checkpoint's optimizer meta (moment dtype, warmup, LR schedule) is not
     the state's. On a mesh each rank restores the whole checkpoint and
-    keeps its own slice of the expert banks, so a run may resume at another
-    world size. Returns ``state`` with ``state.step`` set."""
+    keeps its own part of each tensor (and its stage's layers), so a run
+    may resume under another layout or world size. Returns ``state`` with
+    ``state.step`` set."""
     _, meta = load_meta(directory)
     saved, own = _optimizer_meta(meta), _meta_of(state.optimizer)
     if saved != own:
@@ -436,9 +489,11 @@ def restore_train_state(directory: str, state):
         raise ValueError(f"{directory}: {OPT_STATE_FILENAME} is of step {step}, "
                          f"{MODEL_CONFIG_FILENAME} of step {meta.get('step')}")
     params, extra = _state_tensors(state)
+    layouts = _key_layouts(state)
     for name, want, got in (("params.npz", params, arrays), ("opt_state.npz", extra, opt_arrays)):
         got = relayout(got, False)
-        missing, unused = sorted(set(want) - set(got)), sorted(set(got) - set(want))
+        missing = sorted(set(want) - set(got))
+        unused = sorted(k for k in set(got) - set(want) if not _other_stage(state, k))
         if missing or unused:
             raise KeyError(f"{directory}/{name} vs the train state: missing {missing}, "
                            f"unused {unused}")
@@ -446,10 +501,8 @@ def restore_train_state(directory: str, state):
             value = torch.from_numpy(np.array(got[key]))
             if transposed:
                 value = value.transpose(-1, -2)
-            if _expert_key(state, key):
-                from forde_tpu_torch.core.mesh import expert_sharding
-
-                value = expert_sharding(state.mesh)(value)
+            if key in layouts:
+                value = layouts[key](value)
             if tuple(value.shape) != tuple(t.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(value.shape)} != "
                                  f"{tuple(t.shape)}")

@@ -44,20 +44,23 @@ imported.
       --sense_interval 8 --slow_loop_interval 8 --fuse_steps 2 \\
       --profile_dir prof --plots_dir plots
 
-Data parallelism: under torchrun every rank builds the global batch from
-the seed and keeps its rows (``core.mesh.batch_sharding``) of a data axis
-over all the ranks; the step's loss, statistics and gradients are the
-global batch's (train/clip_step.py), rank 0 logs and writes the
-checkpoint, and the slow loop runs on every rank alike. NCCL on the card
-(a fused step's CUDA graph holds its all-reduces), gloo with ``--device
-cpu``:
+Multi-device training: under torchrun every rank builds the global batch
+from the seed and keeps its rows (``core.mesh.batch_sharding``) of a data
+axis; ``--tensor_parallelism`` splits the towers' attention heads and
+StatefulLayer hidden columns over a model axis (parallel/
+tensor_parallel.py), and ``--param_sharding fsdp`` shards the parameters
+and Adam moments over the data axis (parallel/fsdp.py). The step's loss,
+statistics and gradients are the global batch's (train/clip_step.py),
+rank 0 logs and writes the checkpoint, and the slow loop runs on every
+rank alike. NCCL on the card (a fused step's CUDA graph holds its
+collectives), gloo with ``--device cpu``:
 
   torchrun --standalone --nproc_per_node 4 -m forde_tpu_torch.train.clip_loop \
-      --preset vit_b16 --bf16 --use_dummy_data --batch_size 512 --num_steps 16
+      --preset vit_b16 --bf16 --use_dummy_data --batch_size 512 --num_steps 16 \
+      --tensor_parallelism 2 --param_sharding fsdp
 
-Not ported yet (and not accepted): ``--tensor_parallelism`` and
-``--param_sharding`` (slice 11 of the multi-device work), and the streamed
-Conceptual Captions data (a tokenizer and data in the repository).
+Not ported yet (and not accepted): the streamed Conceptual Captions data
+(a tokenizer and data in the repository).
 """
 
 from __future__ import annotations
@@ -102,6 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--min_lr_ratio", type=float, default=0.0,
                    help="cosine floor as a fraction of the peak LR")
     p.add_argument("--weight_decay", type=float, default=0.01)
+    p.add_argument("--tensor_parallelism", type=int, default=1,
+                   help="size of the model mesh axis: Megatron column/row layout for tower "
+                        "attention + StatefulLayer projections (core/mesh.tp_param_spec)")
+    p.add_argument("--param_sharding", choices=["replicated", "fsdp"], default="replicated",
+                   help="fsdp = ZeRO-3-style param/moment sharding over the data axis")
     p.add_argument("--num_steps", type=int, default=1000)
     p.add_argument("--log_interval", type=int, default=10)
     p.add_argument("--slow_loop_interval", type=int, default=100,
@@ -279,8 +287,8 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
         require_matplotlib()
     device = mesh_lib.local_device(resolve_device(args.device))
     mesh = None
-    if mesh_lib.maybe_initialize_distributed(device):
-        mesh = mesh_lib.create_mesh_for_batch(args.batch_size)
+    if mesh_lib.maybe_initialize_distributed(device) or args.tensor_parallelism > 1:
+        mesh = mesh_lib.create_mesh_for_batch(args.batch_size, model=args.tensor_parallelism)
     lead = mesh is None or mesh.rank == 0
     say = print if lead else (lambda *a, **k: None)
     shard = (lambda b: b) if mesh is None else (
@@ -304,7 +312,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
     n_params = sum(p.numel() for p in state.optimizer.params)
     say(f"state created in {time.perf_counter() - t_init:.1f}s "
         f"({n_params / 1e6:.1f}M params) on {device}", flush=True)
-    shard_train_state(state, mesh)
+    shard_train_state(state, mesh, args.param_sharding)
     if mesh is not None:
         say(f"mesh: {mesh.shape} over {mesh.size} rank(s)", flush=True)
     train_meta = {

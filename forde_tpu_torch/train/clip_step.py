@@ -66,6 +66,7 @@ class CLIPTrainState:
     ema: Optional[List[torch.Tensor]] = None
     mesh: Optional[object] = None  # core.mesh.Mesh, set by shard_train_state
     expert_params: Optional[List[bool]] = None
+    layouts: Optional[list] = None  # each parameter's core.mesh.Sharding
 
 
 def create_clip_train_state(
@@ -120,8 +121,9 @@ def _step(state: CLIPTrainState, batch: Batch, sense: bool) -> Tuple[CLIPTrainSt
     group = _data_group(state)
     layers = stateful_layers(model) if sense else {}
     taps = {
-        name: torch.zeros_like(state.grad_stats[name], requires_grad=True)
-        for name in layers
+        name: torch.zeros(layer.local_features(), 2, dtype=torch.float32,
+                          device=state.grad_stats[name].device, requires_grad=True)
+        for name, layer in layers.items()
     }
     for name, layer in layers.items():
         layer.z_tap, layer.stat_group = taps[name], group
@@ -131,12 +133,12 @@ def _step(state: CLIPTrainState, batch: Batch, sense: bool) -> Tuple[CLIPTrainSt
         )
         if group is None:
             loss, metrics = clip_contrastive_loss(img, txt, scale)
-            objective = loss
         else:
             from forde_tpu_torch.parallel.contrastive import sharded_contrastive_loss
 
             loss, metrics = sharded_contrastive_loss(img, txt, scale, state.mesh)
-            objective = loss / group.size  # every rank holds the loss
+        # every rank holds the loss
+        objective = loss if state.mesh is None else loss / state.mesh.size
         grads = torch.autograd.grad(
             objective, params + list(taps.values()), materialize_grads=True
         )
@@ -146,7 +148,7 @@ def _step(state: CLIPTrainState, batch: Batch, sense: bool) -> Tuple[CLIPTrainSt
     param_grads = reduce_gradients(state, grads[: len(params)])
     with torch.no_grad():
         for name, g in zip(taps, grads[len(params):]):
-            state.grad_stats[name].add_(g)
+            state.grad_stats[name].add_(layers[name].gather_columns(g))
         if sense:
             state.grad_step_count.add_(1)
     grad_norm = state.optimizer.step(param_grads)

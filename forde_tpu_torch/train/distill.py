@@ -76,12 +76,12 @@ def load_teacher(checkpoint_dir: str, device, mesh=None) -> torch.nn.Module:
     """The teacher from a train.loop checkpoint (``model_config.json`` +
     ``params.npz``; a LoRA checkpoint arrives merged), frozen, on
     ``device``; on ``mesh`` it runs the multi-device paths, with this
-    rank's slice of its expert banks. The JAX package returns (model,
+    rank's part of its parameters (``train.state.shard_model``). The JAX package returns (model,
     variables); the port's model holds its weights."""
     from forde_tpu_torch.train.checkpoint import load_lm_params
-    from forde_tpu_torch.train.state import shard_experts
+    from forde_tpu_torch.train.state import shard_model
 
     _, model = load_lm_params(checkpoint_dir, device, mesh=mesh)
     if mesh is not None:
-        shard_experts(model, mesh)
+        shard_model(model, mesh)
     return model.requires_grad_(False)

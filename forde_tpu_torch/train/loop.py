@@ -56,13 +56,20 @@ raises before the first step.
 
 Multi-device training: under torchrun each rank builds the global batch
 from the seed and takes its part (``train.step.lm_batch``) of a mesh
-(core/mesh.py) of (data, expert, context): ``--expert_parallelism`` splits
-the expert banks (``--moe_dispatch ep``: the all-to-all or psum dispatch of
-parallel/expert_parallel.py; dense and capacity dispatch run as its psum
-variant), ``--context_parallelism`` splits the sequence (ring attention, or
-NSA's context-parallel branches), and data absorbs the other ranks. NCCL on
-the card, gloo with ``--device cpu``; rank 0 logs and writes the
-checkpoint, which a run of another world size resumes.
+(core/mesh.py) of (data, expert, context, model, pipe):
+``--expert_parallelism`` splits the expert banks (``--moe_dispatch ep``:
+the all-to-all or psum dispatch of parallel/expert_parallel.py; dense and
+capacity dispatch run as its psum variant), ``--context_parallelism``
+splits the sequence (ring attention, or NSA's context-parallel branches),
+``--tensor_parallelism`` splits the Megatron layers (heads, hidden
+columns, the vocabulary where it divides; parallel/tensor_parallel.py),
+``--pipeline_parallelism`` runs GPipe stages over the layers with
+``--pp_microbatches`` (parallel/pipeline.py; with ``--scan_layers``, data
+parallelism only, as in the JAX loop), ``--param_sharding fsdp`` shards
+the parameters and moments over the data axis (parallel/fsdp.py), and data
+absorbs the other ranks. NCCL on the card, gloo with ``--device cpu``;
+rank 0 logs and writes the checkpoint, in the JAX package's layout, which
+a run of another layout or world size resumes.
 
   torchrun --standalone --nproc_per_node 4 -m forde_tpu_torch.train.loop \
       --d_model 512 --num_layers 12 --num_heads 8 --window_size 512 \
@@ -72,10 +79,14 @@ checkpoint, which a run of another world size resumes.
       --device cpu --d_model 64 --num_layers 2 --num_heads 2 --window_size 16 \
       --seq_len 64 --batch_size 4 --expert_parallelism 2 --moe_dispatch ep \
       --use_markov_data --steps_per_epoch 4
+  torchrun --standalone --nproc_per_node 4 -m forde_tpu_torch.train.loop \
+      --device cpu --d_model 64 --num_layers 2 --num_heads 2 --window_size 16 \
+      --seq_len 64 --batch_size 4 --tensor_parallelism 2 --param_sharding fsdp \
+      --use_markov_data --steps_per_epoch 4
 
-Flags whose code is not ported (tensor and pipeline parallelism, FSDP,
-the gpt2 tokenizer and the streamed corpus) raise ``NotImplementedError``
-and name what they wait for (ROADMAP.md).
+Flags whose code is not ported (the gpt2 tokenizer and the streamed
+corpus) raise ``NotImplementedError`` and name what they wait for
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -181,12 +192,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh context-axis size (sequence sharding: ring attention, or "
                         "NSA's context-parallel branches)")
     p.add_argument("--param_sharding", choices=["replicated", "fsdp"], default="replicated",
-                   help="fsdp: not ported (slice 11)")
+                   help="fsdp: shard each param/moment's largest free dim over the data axis "
+                        "(ZeRO-3: per-rank param + optimizer memory falls ~data-fold)")
     p.add_argument("--pipeline_parallelism", type=int, default=1,
-                   help="(not ported beyond 1: slice 11)")
-    p.add_argument("--pp_microbatches", type=int, default=0)
+                   help="mesh pipe-axis size: GPipe stages over the layers (needs "
+                        "--scan_layers)")
+    p.add_argument("--pp_microbatches", type=int, default=0,
+                   help="GPipe microbatches per step (0 = 2 * pipeline_parallelism)")
     p.add_argument("--tensor_parallelism", type=int, default=1,
-                   help="(not ported beyond 1: slice 11)")
+                   help="mesh model-axis size: Megatron tensor parallelism (core/mesh.py "
+                        "tp_param_spec)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of the training loop here")
     p.add_argument("--plots_dir", type=str, default=None,
@@ -225,12 +240,8 @@ def config_from_args(args) -> LLMConfig:
     )
 
 
-MULTI = "slice 11 of the multi-device work (tensor parallelism, FSDP and the pipeline)"
 TOKENIZER = "a tokenizer and data in the repository"
 _NOT_PORTED = (
-    (lambda a: a.tensor_parallelism > 1, "--tensor_parallelism > 1", MULTI),
-    (lambda a: a.pipeline_parallelism > 1, "--pipeline_parallelism > 1", MULTI),
-    (lambda a: a.param_sharding == "fsdp", "--param_sharding fsdp", MULTI),
     (lambda a: a.data_file and a.tokenizer == "gpt2", "--tokenizer gpt2", TOKENIZER),
     (lambda a: not (a.data_file or a.use_markov_data or a.use_dummy_data),
      "the streamed corpus (no --data_file, --use_markov_data or --use_dummy_data)", TOKENIZER),
@@ -332,8 +343,34 @@ def _check_extras(args, config: LLMConfig) -> int:
                          f"{args.context_parallelism}")
     if args.moe_dispatch == "ep" and args.expert_parallelism <= 1:
         raise ValueError("--moe_dispatch ep requires --expert_parallelism > 1")
+    pp = args.pipeline_parallelism
     mesh_batch = args.batch_size
+    if pp > 1:
+        if not args.scan_layers:
+            raise ValueError("--pipeline_parallelism requires --scan_layers (the stacked layout "
+                             "IS the stage slicing)")
+        if args.num_layers % pp:
+            raise ValueError(f"--pipeline_parallelism {pp} must divide --num_layers "
+                             f"{args.num_layers}")
+        mb = args.pp_microbatches or 2 * pp
+        if args.batch_size % mb:
+            raise ValueError(f"pp microbatches {mb} must divide --batch_size {args.batch_size}")
+        # The pipeline composes with DP only (microbatch examples shard over
+        # 'data'); the stages run their blocks un-meshed, as in the JAX loop.
+        if args.moe_dispatch == "ep":
+            raise ValueError("--pipeline_parallelism does not compose with --moe_dispatch ep "
+                             "yet (stages run un-meshed); use dense/capacity dispatch")
+        if args.context_parallelism > 1 or args.tensor_parallelism > 1:
+            raise ValueError("--pipeline_parallelism composes with data parallelism only for "
+                             "now — set --context_parallelism/--tensor_parallelism to 1")
+        if args.distill_from:
+            raise ValueError("--distill_from does not compose with --pipeline_parallelism yet "
+                             "(the GPipe step has no teacher-forward slot)")
+        mesh_batch = args.batch_size // mb  # the data axis splits ONE microbatch
     if args.grad_accum > 1:
+        if pp > 1:
+            raise ValueError("--grad_accum does not compose with --pipeline_parallelism (GPipe "
+                             "already microbatches); use --pp_microbatches")
         if args.batch_size % args.grad_accum:
             raise ValueError(f"--grad_accum {args.grad_accum} must divide --batch_size "
                              f"{args.batch_size}")
@@ -350,10 +387,11 @@ def _mesh(args, mesh_batch: int, device: torch.device):
     from forde_tpu_torch.core import mesh as mesh_lib
 
     distributed = mesh_lib.maybe_initialize_distributed(device)
-    if not distributed and args.expert_parallelism == args.context_parallelism == 1:
+    axes = dict(expert=args.expert_parallelism, context=args.context_parallelism,
+                model=args.tensor_parallelism, pipe=args.pipeline_parallelism)
+    if not distributed and all(v == 1 for v in axes.values()):
         return None
-    mesh = mesh_lib.create_mesh_for_batch(
-        mesh_batch, expert=args.expert_parallelism, context=args.context_parallelism)
+    mesh = mesh_lib.create_mesh_for_batch(mesh_batch, **axes)
     if mesh.rank == 0:
         print(f"mesh: {mesh.shape} over {mesh.size} rank(s)", flush=True)
     return mesh
@@ -369,11 +407,17 @@ def _zero_stats(model: torch.nn.Module) -> None:
 
 
 def _step_fn(args, state, device):
-    """The step the flags choose: LoRA, distillation, accumulation or the
-    plain step, wrapped last by the EMA (as the JAX loop orders them)."""
+    """The step the flags choose: the GPipe step, LoRA, distillation,
+    accumulation or the plain step, wrapped last by the EMA (as the JAX
+    loop orders them)."""
     from forde_tpu_torch.train.step import make_accum_train_step, train_step
 
-    if args.lora_rank:
+    if args.pipeline_parallelism > 1:
+        from forde_tpu_torch.parallel.pipeline import make_pp_train_step
+
+        step_fn = make_pp_train_step(state.mesh, _microbatches(args),
+                                     aux_loss_weight=args.aux_loss_weight)
+    elif args.lora_rank:
         from forde_tpu_torch.train.lora import lora_scale, make_lora_train_step
 
         step_fn = make_lora_train_step(lora_scale(args.lora_rank, args.lora_alpha),
@@ -399,6 +443,13 @@ def _step_fn(args, state, device):
 
         step_fn = with_ema(step_fn, args.ema_decay)
     return step_fn
+
+
+def _microbatches(args) -> int:
+    """The batch's split: GPipe microbatches, or --grad_accum's."""
+    if args.pipeline_parallelism > 1:
+        return args.pp_microbatches or 2 * args.pipeline_parallelism
+    return args.grad_accum
 
 
 def train(args: Optional[argparse.Namespace] = None) -> dict:
@@ -504,7 +555,7 @@ def train(args: Optional[argparse.Namespace] = None) -> dict:
                     if stop:
                         break
                     if mesh is not None:  # this rank's part of the global batch
-                        batch = lm_batch(batch["input_ids"], mesh, args.grad_accum)
+                        batch = lm_batch(batch["input_ids"], mesh, _microbatches(args))
                     state, metrics = step_fn(state, batch)
                     step += 1
                     meter.step()

@@ -7,20 +7,21 @@ the ``stats_buffer`` collection; here the model holds its parameters and
 its MoE stat buffers, and ``TrainState`` adds the optimizer and the step
 count.
 
-``shard_train_state`` puts a state on a mesh (core/mesh.py) under
-``param_sharding="replicated"``: every tensor stays whole on every rank but
-the stacked expert banks under an expert axis above 1, of which each rank
-keeps its E/ep experts, with their Adam moments and EMA (the expert rule
-of the JAX package's ``state_shardings``; in a checkpoint's scanned (L, E,
-...) layout that is dimension 1). The train steps then reduce every
-gradient once (``train/step.py``).
+``shard_train_state`` puts a state on a mesh (core/mesh.py): each rank
+keeps its part of every parameter, with its Adam moments and EMA, by the
+rule of the JAX package's ``state_shardings`` (``param_layouts``): a
+GPipe stage's layers, the expert banks' E/ep experts, the Megatron slices
+over the model axis and, under ``param_sharding="fsdp"``, a data-axis
+shard of the largest free dim. In a checkpoint's scanned (L, E, ...)
+layout the expert dim is dimension 1. The train steps then reduce every
+gradient once, over the axes its parameter is whole on (``train/step.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Union
+from typing import TYPE_CHECKING, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -122,8 +123,9 @@ class TrainState:
     ``ema``: the EMA of the optimizer's parameters, one tensor each in the
     same order (train/ema.py), or None. ``lora``: with LoRA the optimizer
     trains these adapters over a frozen ``model`` (train/lora.py).
-    ``mesh``: set by ``shard_train_state``; ``expert_params`` then marks
-    the optimizer's parameters that hold this rank's slice of an expert
+    ``mesh``: set by ``shard_train_state``; ``layouts`` then holds each
+    optimizer parameter's layout (``core.mesh.Sharding``), and
+    ``expert_params`` marks those that hold this rank's slice of an expert
     bank."""
 
     model: FORDEDecoderLM
@@ -133,6 +135,7 @@ class TrainState:
     lora: Optional["LoRAAdapters"] = None
     mesh: Optional["mesh_lib.Mesh"] = None
     expert_params: Optional[List[bool]] = None
+    layouts: Optional[List["mesh_lib.Sharding"]] = None
 
 
 def create_train_state(
@@ -167,75 +170,158 @@ def create_train_state(
 
 def state_shardings(state, mesh: "mesh_lib.Mesh", param_sharding: str = "replicated"
                     ) -> Dict[str, "mesh_lib.Sharding"]:
-    """The layout of every model tensor by name: the expert rule
-    (``core.mesh.param_shardings``), the optimizer's moments and EMA
-    following their parameters. ``fsdp`` waits for slice 11."""
-    if param_sharding == "fsdp":
-        raise NotImplementedError(f"--param_sharding fsdp {mesh_lib.SLICE_11}")
-    if param_sharding != "replicated":
+    """The layout of every parameter of ``state.model`` by name
+    (``param_layouts``); the optimizer's moments and EMA follow their
+    parameters."""
+    return param_layouts(state.model, mesh, param_sharding)
+
+
+def param_layouts(model: torch.nn.Module, mesh: "mesh_lib.Mesh",
+                  param_sharding: str = "replicated") -> Dict[str, "mesh_lib.Sharding"]:
+    """Every parameter's layout on ``mesh`` (the JAX package's
+    ``_leaf_sharding``, in the port's layout): a decoder layer belongs to
+    its GPipe stage under a pipe axis; an expert bank splits dim 0 over
+    the expert axis; the Megatron layers split over the model axis
+    (``core.mesh.tp_param_spec``, a fused qkv projection by head) where the
+    dim and the attention heads divide; and ``fsdp`` splits each remaining parameter of at least
+    2 x data elements on its largest free dim over the data axis. That dim
+    is chosen in the Flax layout (a stable sort by size, so a square
+    kernel takes Flax's dim 0, the torch weight's dim 1)."""
+    from forde_tpu_torch.interop import flax_keys
+
+    if param_sharding not in ("replicated", "fsdp"):
         raise ValueError(f"unknown param_sharding {param_sharding!r}")
-    return mesh_lib.param_shardings(dict(state.model.named_parameters()), mesh)
+    fsdp = param_sharding == "fsdp"
+    named = dict(model.named_parameters())
+    transposed = {n: t for n, (_, t) in flax_keys(named).items()}
+    expert, tp = mesh.shape[mesh_lib.AXIS_EXPERT], mesh.shape[mesh_lib.AXIS_MODEL]
+    data, pipe = mesh.shape[mesh_lib.AXIS_DATA], mesh.shape[mesh_lib.AXIS_PIPE]
+    out = {}
+    for name, t in named.items():
+        names = name.split(".")
+        spec, blocks = [None] * t.ndim, [1] * t.ndim
+        stage = pipe > 1 and names[0] == "layers"
+        if expert > 1 and "experts" in names and t.ndim >= 1 and t.shape[0] % expert == 0:
+            spec[0] = mesh_lib.AXIS_EXPERT
+        if tp > 1:
+            split = mesh_lib.tp_param_spec(names, t)
+            if split is not None and _heads_split(model, names, tp):
+                dim = split.index(mesh_lib.AXIS_MODEL)
+                if t.shape[dim] % tp == 0 and spec[dim] is None:
+                    spec[dim] = mesh_lib.AXIS_MODEL
+                    blocks[dim] = 3 if names[-2] == "qkv_proj" else 1
+        if fsdp and data > 1 and t.numel() >= 2 * data:
+            order = list(range(t.ndim))
+            if transposed[name] and t.ndim >= 2:  # the Flax dims, in torch's numbering
+                order[-2], order[-1] = order[-1], order[-2]
+            for dim in sorted(order, key=lambda i: -t.shape[i]):
+                if spec[dim] is None and t.shape[dim] % data == 0:
+                    spec[dim] = mesh_lib.AXIS_DATA
+                    break
+        out[name] = mesh_lib.Sharding(mesh, tuple(spec), tuple(blocks), stage)
+    return out
+
+
+def _heads_split(model: torch.nn.Module, names: Sequence[str], tp: int) -> bool:
+    """Whether the attention module that owns a projection (if one does)
+    has heads that split over ``tp``: a rank runs whole heads, so where
+    they do not divide (ViT-Ti's 3 heads over 2) the module's projections
+    stay whole, which computes what GSPMD's split of its columns does."""
+    owner = model.get_submodule(".".join(names[:-2])) if len(names) > 2 else model
+    heads = getattr(owner, "num_heads", None)
+    return heads is None or heads % tp == 0
 
 
 @torch.no_grad()
-def shard_experts(model: torch.nn.Module, mesh: "mesh_lib.Mesh") -> Dict[int, torch.Tensor]:
-    """Keep this rank's slice of every expert bank of ``model`` (new
-    parameters); returns {id(old parameter): new parameter}."""
-    replaced: Dict[int, torch.Tensor] = {}
-    shardings = mesh_lib.param_shardings(dict(model.named_parameters()), mesh)
-    for name, sharding in shardings.items():
-        if not sharding.spec:
+def shard_model(model: torch.nn.Module, mesh: "mesh_lib.Mesh",
+                param_sharding: str = "replicated") -> Tuple[Dict[str, "mesh_lib.Sharding"],
+                                                              Dict[int, Optional[torch.Tensor]]]:
+    """Keep this rank's part of every parameter of ``model`` (whole on
+    every rank) and set its modules up for the layout: GPipe stages drop
+    the layers of the others, split parameters become new parameters of
+    their slice, the tensor-parallel modules take the model axis
+    (parallel/tensor_parallel.py) and the FSDP-split parameters are marked
+    for their gather (parallel/fsdp.py). Returns (the layouts by name,
+    {id(old parameter): new parameter, or None where another stage holds
+    it})."""
+    from forde_tpu_torch.parallel import fsdp, pipeline, tensor_parallel
+
+    layouts = param_layouts(model, mesh, param_sharding)
+    replaced: Dict[int, Optional[torch.Tensor]] = {}
+    for p in pipeline.drop_other_stages(model, mesh):
+        replaced[id(p)] = None
+    for name, p in list(model.named_parameters()):
+        sh = layouts[name]
+        if not any(a != mesh_lib.AXIS_PIPE for a in sh.axes):
             continue
         owner_name, _, leaf = name.rpartition(".")
-        owner = model.get_submodule(owner_name)
-        old = getattr(owner, leaf)
-        new = torch.nn.Parameter(sharding(old.detach()).clone(), requires_grad=old.requires_grad)
+        owner = model.get_submodule(owner_name) if owner_name else model
+        new = torch.nn.Parameter(sh(p.detach()).clone(), requires_grad=p.requires_grad)
         setattr(owner, leaf, new)
-        replaced[id(old)] = new
-    return replaced
+        replaced[id(p)] = new
+    layouts = {n: sh for n, sh in layouts.items() if n in dict(model.named_parameters())}
+    tensor_parallel.setup(model, mesh, layouts)
+    fsdp.setup(model, mesh, layouts)
+    return layouts, replaced
 
 
 def shard_train_state(state, mesh: Optional["mesh_lib.Mesh"],
                       param_sharding: str = "replicated"):
     """Put ``state`` (a ``TrainState`` or ``CLIPTrainState``, whole on
-    every rank) on ``mesh`` in place: each rank keeps its slice of the
-    expert banks, their Adam moments and EMA (``state_shardings``), and
-    the state records the mesh. None leaves the state as it is."""
+    every rank) on ``mesh`` in place: each rank keeps its part of every
+    parameter (``shard_model``), with the Adam moments and EMA of the
+    same layout, and the state records the mesh, each optimizer
+    parameter's layout (``layouts``) and which are expert-bank slices
+    (``expert_params``). None leaves the state as it is."""
     if mesh is None:
         return state
-    shardings = state_shardings(state, mesh, param_sharding)
     state.mesh = mesh
     opt = state.optimizer
-    by_id = {id(p): shardings[n] for n, p in state.model.named_parameters()}
-    replaced = shard_experts(state.model, mesh)
+    before = {id(p): n for n, p in state.model.named_parameters()}
     lora = getattr(state, "lora", None)
-    if lora is not None and replaced and any("experts" in k for k in lora.tensors):
+    layouts, replaced = shard_model(state.model, mesh, param_sharding)
+    if lora is not None and any(replaced.values()) and any("experts" in k for k in lora.tensors):
         raise ValueError("LoRA adapters of an expert bank split over the expert axis are not "
                          "supported; adapt other modules or use --expert_parallelism 1")
-    slices = [by_id.get(id(p)) for p in opt.params]
-    state.expert_params = [bool(sh is not None and sh.spec) for sh in slices]
-    for i, (p, sh) in enumerate(zip(opt.params, slices)):
-        if not state.expert_params[i]:
-            continue
-        opt.params[i] = replaced[id(p)]
-        opt.mu[i], opt.nu[i] = sh(opt.mu[i]).clone(), sh(opt.nu[i]).clone()
-        if state.ema is not None:
-            state.ema[i] = sh(state.ema[i]).clone()
-    if any(state.expert_params):
-        opt.global_norm = _sharded_norm(state.expert_params, mesh)
+    full = mesh_lib.Sharding(mesh, ())
+    keep, state_layouts = [], []
+    for i, p in enumerate(opt.params):
+        if id(p) in replaced and replaced[id(p)] is None:
+            continue  # another stage's layer
+        keep.append(i)
+        name = before.get(id(p))
+        sh = layouts.get(name, full) if name is not None else full
+        state_layouts.append(sh)
+        if id(p) in replaced:
+            opt.params[i] = replaced[id(p)]
+            opt.mu[i], opt.nu[i] = sh(opt.mu[i]).clone(), sh(opt.nu[i]).clone()
+            if state.ema is not None:
+                state.ema[i] = sh(state.ema[i]).clone()
+    opt.params = [opt.params[i] for i in keep]
+    opt.mu, opt.nu = [opt.mu[i] for i in keep], [opt.nu[i] for i in keep]
+    if state.ema is not None:
+        state.ema = [state.ema[i] for i in keep]
+    state.layouts = state_layouts
+    state.expert_params = [mesh_lib.AXIS_EXPERT in sh.axes for sh in state_layouts]
+    if any(sh.axes for sh in state_layouts):
+        opt.global_norm = _sharded_norm(state_layouts, mesh)
     return state
 
 
-def _sharded_norm(expert_params: List[bool], mesh: "mesh_lib.Mesh"):
-    """The global gradient norm when some gradients are slices of an
-    expert bank: their squares summed over the expert axis too."""
-    mask = torch.tensor(expert_params)
-    group = mesh.group(mesh_lib.AXIS_EXPERT)
+def _sharded_norm(layouts: Sequence["mesh_lib.Sharding"], mesh: "mesh_lib.Mesh"):
+    """The global gradient norm when some gradients are parts of their
+    parameter: each one's square summed over the axes that split it (one
+    all-reduce for each set of such axes)."""
+    kinds: Dict[Tuple[str, ...], List[int]] = {}
+    for i, sh in enumerate(layouts):
+        kinds.setdefault(sh.axes, []).append(i)
 
     def global_norm(norms: torch.Tensor) -> torch.Tensor:
         sq = norms.float() ** 2
-        on = mask.to(sq.device)
-        experts = group.all_reduce(torch.where(on, sq, 0.0).sum())
-        return torch.sqrt(torch.where(on, 0.0, sq).sum() + experts)
+        total = torch.zeros((), dtype=sq.dtype, device=sq.device)
+        for axes, idx in kinds.items():
+            part = sq[torch.tensor(idx, device=sq.device)].sum()
+            total = total + (mesh.group(*axes).all_reduce(part) if axes else part)
+        return torch.sqrt(total)
 
     return global_norm

@@ -18,10 +18,11 @@ positions over context, and its block of the shifted targets, so that a
 context block's last target is the next block's first token). A rank
 differentiates its share of the global batch's loss (``Shares``): its
 summed cross-entropy over the global target count, divided by the number
-of expert ranks that hold the same tokens, plus the aux loss (the same on
-every rank) over the number of ranks. ``reduce_gradients`` then sums every
-gradient once over the ranks that share its parameter: the whole mesh for
-a replicated one, the data and context axes for a slice of an expert bank.
+of ranks that hold the same tokens (along the expert, model and pipe
+axes), plus the aux loss (the same on every rank) over the number of
+ranks. ``reduce_gradients`` then sums every gradient once over the ranks
+that hold the same part of its parameter: the whole mesh for a replicated
+one, the data and context axes for a slice of an expert bank.
 Every step builder (this module's, LoRA's, distillation's, the dual
 encoder's) calls it between the backward and the optimizer, so EMA follows
 the reduced parameters. The metrics are the global batch's on every rank.
@@ -79,7 +80,8 @@ class Shares:
 
     def __init__(self, mesh: "mesh_lib.Mesh", labels: torch.Tensor):
         self.tokens = mesh.group(mesh_lib.AXIS_DATA, mesh_lib.AXIS_CONTEXT)
-        self.replicas = mesh.shape[mesh_lib.AXIS_EXPERT]  # ranks holding the same tokens
+        # the ranks that hold the same tokens
+        self.replicas = mesh.size // self.tokens.size
         self.world = mesh.size
         b, s = labels.shape
         self.positions = b * s * self.tokens.size  # B * S of the global batch
@@ -124,22 +126,28 @@ def loss_fn(
 
 
 def reduce_gradients(state, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
-    """Sum each gradient over the ranks that share its parameter: all of
-    them for a replicated parameter, the data and context axes for a slice
-    of an expert bank (``state.expert_params``). One all-reduce per kind,
-    over the gradients flattened into one fp32 buffer. Under
-    ``torch.distributed`` it runs even on one rank (one NCCL all-reduce in
-    a fused step's CUDA graph); on one process with no process group it
-    returns ``grads``."""
+    """Sum each gradient over the ranks that hold the same part of its
+    parameter: every mesh axis but those its layout splits
+    (``state.layouts``). A replicated parameter sums over the whole mesh,
+    a slice of an expert bank over data and context, a tensor-parallel
+    slice over all but the model axis, a GPipe stage's layer over all but
+    the pipe axis; an FSDP shard arrives summed over the data axis already
+    (the ``psum_scatter`` of its gather's backward) and is not summed over
+    it again. One all-reduce per set of axes, over the gradients flattened
+    into one fp32 buffer. Under ``torch.distributed`` it runs even on one
+    rank (one NCCL all-reduce in a fused step's CUDA graph); on one process
+    with no process group it returns ``grads``."""
     mesh = state.mesh
     if mesh is None or (mesh.trivial and not mesh.distributed):
         return list(grads)
-    marks = state.expert_params or [False] * len(grads)
+    layouts = state.layouts or [mesh_lib.Sharding(mesh, ())] * len(grads)
+    kinds: Dict[Tuple[str, ...], List[int]] = {}
+    for i, sh in enumerate(layouts):
+        kinds.setdefault(tuple(a for a in mesh_lib.ALL_AXES if a not in sh.axes), []).append(i)
     out = list(grads)
-    for expert, group in ((False, mesh.group(*mesh_lib.ALL_AXES)),
-                          (True, mesh.group(mesh_lib.AXIS_DATA, mesh_lib.AXIS_CONTEXT))):
-        idx = [i for i, m in enumerate(marks) if m == expert]
-        if not idx or (group.size == 1 and not mesh.distributed):
+    for axes, idx in kinds.items():
+        group = mesh.group(*axes)
+        if group.size == 1 and not mesh.distributed:
             continue
         flat = group.all_reduce(torch.cat([grads[i].float().reshape(-1) for i in idx]))
         for i, piece in zip(idx, flat.split([grads[i].numel() for i in idx])):

@@ -61,8 +61,21 @@ def test_custom_gmm_run_with_bf16_moments(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("flag", ["--tensor_parallelism", "--param_sharding"])
 def test_unported_flags_are_not_accepted(flag):
-    with pytest.raises(SystemExit):
-        clip_loop.build_parser().parse_args([flag, "1"])
+    """The multi-device flags of the JAX loop are accepted, with its
+    defaults and choices (they run under torchrun:
+    tests/test_torch_parallel_cli_tp.py)."""
+    from forde_tpu.train import clip_loop as jclip_loop
+
+    value = {"--tensor_parallelism": "2", "--param_sharding": "fsdp"}[flag]
+    key = flag[2:]
+    port, jax_parser = clip_loop.build_parser(), jclip_loop.build_parser()
+    assert getattr(port.parse_args([flag, value]), key) == getattr(
+        jax_parser.parse_args([flag, value]), key)
+    assert getattr(port.parse_args([]), key) == getattr(jax_parser.parse_args([]), key)
+    if flag == "--param_sharding":
+        for parser in (port, jax_parser):
+            with pytest.raises(SystemExit):
+                parser.parse_args([flag, "1"])
 
 
 def test_cuda_is_the_default_device():

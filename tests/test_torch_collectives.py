@@ -64,6 +64,9 @@ def _cases():
         "all_to_all_axes": (
             lambda x: jax.lax.all_to_all(x * x, "data", 1, 0, tiled=True), True,
             lambda x, g: col.all_to_all(x * x, g, 1, 0), (8, 8), (32, 2)),
+        "psum_scatter": (
+            lambda x: jax.lax.psum_scatter(x * x, "data", scatter_dimension=0, tiled=True),
+            True, lambda x, g: col.psum_scatter(x * x, g, 0), (32, 3), (8, 3)),
     }
 
 
@@ -104,6 +107,40 @@ def test_collective_on_threads_matches_shard_map(name):
         for o, _ in got[1:]:
             np.testing.assert_array_equal(o, got[0][0])
     np.testing.assert_allclose(np.concatenate([g for _, g in got]), want_grad, **TOL)
+
+
+def test_megatron_operators_match_shard_map():
+    """A column-parallel then row-parallel pair, tanh(x W) V, with x
+    replicated and W's columns / V's rows split over the group:
+    ``copy_to_model`` at the input and ``reduce_from_model`` at the output
+    against ``jax.grad`` through ``shard_map`` (x P(), W P(None, data), V
+    P(data, None), out P()). Every rank holds the same share of x's
+    cotangent, and the shares add up to JAX's."""
+    rng = np.random.RandomState(5)
+    x, wc, wr = (rng.randn(*s).astype(np.float32) for s in ((6, 5), (5, 8), (8, 3)))
+    w = rng.randn(6, 3).astype(np.float32)
+    f = jax.shard_map(lambda x, a, b: jax.lax.psum(jnp.tanh(x @ a) @ b, "data"), mesh=jmesh(),
+                      in_specs=(P(), P(None, "data"), P("data", None)), out_specs=P())
+    want_out = f(x, wc, wr)
+    want = jax.grad(lambda *a: jnp.sum(f(*a) * w), argnums=(0, 1, 2))(x, wc, wr)
+
+    def rank(r, world):
+        g = mesh_lib.create_mesh(data=N, rank=r, world=world).group("data")
+        cols = slice(2 * r, 2 * r + 2)
+        xt = torch.from_numpy(x.copy()).requires_grad_()
+        a = torch.from_numpy(wc[:, cols].copy()).requires_grad_()
+        b = torch.from_numpy(wr[cols].copy()).requires_grad_()
+        out = col.reduce_from_model(torch.tanh(col.copy_to_model(xt, g) @ a) @ b, g)
+        (torch.sum(out * torch.from_numpy(w)) / N).backward()
+        return out.detach().numpy(), xt.grad.numpy(), a.grad.numpy(), b.grad.numpy()
+
+    got = col.run_threads(N, rank)
+    for out, gx, _, _ in got:
+        np.testing.assert_allclose(out, np.asarray(want_out), **TOL)
+        np.testing.assert_array_equal(gx, got[0][1])
+    np.testing.assert_allclose(sum(g[1] for g in got), np.asarray(want[0]), **TOL)
+    np.testing.assert_allclose(np.concatenate([g[2] for g in got], 1), np.asarray(want[1]), **TOL)
+    np.testing.assert_allclose(np.concatenate([g[3] for g in got]), np.asarray(want[2]), **TOL)
 
 
 def test_axis_index_and_size():
@@ -162,6 +199,8 @@ WORKER = textwrap.dedent("""
             out = col.pmean(torch.sin(xr), g)
         elif name == "all_to_all":
             out = col.all_to_all(xr * (col.axis_index(g) + 1.0), g, 0, 0)
+        elif name == "psum_scatter":
+            out = col.psum_scatter(xr * xr, g, 0)
         else:
             out = col.all_to_all(xr * xr, g, 1, 0)
         if sharded:

@@ -252,30 +252,34 @@ def test_config_from_args_matches_jax():
     assert serve.config_from_args is loop.config_from_args
 
 
-@pytest.mark.parametrize("flags,slice_name", [
-    (["--moe_dispatch", "ep"], "multi-device"),
-    (["--expert_parallelism", "2"], "multi-device"),
-    (["--context_parallelism", "2"], "multi-device"),
-    (["--tensor_parallelism", "2"], "multi-device"),
-    (["--pipeline_parallelism", "2"], "multi-device"),
-    (["--param_sharding", "fsdp"], "multi-device"),
+@pytest.mark.parametrize("flags,refusal", [
+    (["--moe_dispatch", "ep"], "requires --expert_parallelism > 1"),
+    (["--expert_parallelism", "2"], "of 1 ranks"),
+    (["--context_parallelism", "2"], "of 1 ranks"),
+    (["--tensor_parallelism", "2"], "of 1 ranks"),
+    (["--pipeline_parallelism", "2"], "--pipeline_parallelism requires --scan_layers"),
+    (["--param_sharding", "fsdp"], None),
     (["--data_file", "x.txt", "--tokenizer", "gpt2"], "tokenizer"),
 ])
-def test_unported_flags_name_their_slice(flags, slice_name):
-    """Tensor and pipeline parallelism, FSDP and the gpt2 tokenizer are
-    refused and name what they wait for (slice 11, a tokenizer).
-    ``--moe_dispatch ep``, ``--expert_parallelism`` and
-    ``--context_parallelism`` are ported (tests/test_torch_parallel_cli.py):
-    a lone process refuses them as the JAX loop does, ep for want of an
-    expert axis and the others for want of ranks."""
+def test_unported_flags_name_their_slice(flags, refusal):
+    """The gpt2 tokenizer is refused and names what it waits for (a
+    tokenizer). The multi-device flags are ported
+    (tests/test_torch_parallel_cli.py, tests/test_torch_parallel_cli_tp.py):
+    a lone process refuses what the JAX loop refuses there, ep for want of
+    an expert axis, ``--pipeline_parallelism`` without ``--scan_layers``
+    with the JAX loop's message, and the other axes for want of ranks;
+    ``--param_sharding fsdp`` over a data axis of 1 trains as replicated."""
     argv = TINY + ["--use_dummy_data", "--device", "cpu"] + flags
-    if flags[0] in ("--moe_dispatch", "--expert_parallelism", "--context_parallelism"):
-        with pytest.raises(ValueError, match="requires --expert_parallelism > 1|of 1 ranks"):
+    if refusal is None:
+        out = loop.main(argv + ["--steps_per_epoch", "1", "--slow_loop_interval", "0"])
+        assert out["step"] == 1 and np.isfinite(out["final_metrics"]["loss/total"])
+        return
+    if flags[0] == "--data_file":
+        with pytest.raises(NotImplementedError, match=refusal):
             loop.main(argv)
         return
-    with pytest.raises(NotImplementedError, match=slice_name) as err:
+    with pytest.raises(ValueError, match=refusal):
         loop.main(argv)
-    assert slice_name == "tokenizer" or "slice 11" in str(err.value)
 
 
 def test_plots_dir_defaults_to_none():

@@ -86,9 +86,17 @@ def test_create_mesh_for_batch_data_axis(batch, expert, context):
 
 
 def test_model_and_pipe_axes_wait_for_slice_11():
+    """The model and pipe axes are ported: their ranks take JAX's
+    row-major coordinates (data, expert, context, model, pipe)."""
     for axis in ("model", "pipe"):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            tmesh.Mesh({axis: 2}, 0, ThreadWorld(2))
+        jm = jmesh.create_mesh(data=2, **{axis: 2}, devices=jax.devices()[:4])
+        ids = np.vectorize(lambda d: d.id)(jm.devices).reshape(-1)
+        for r in range(4):
+            m = tmesh.Mesh({"data": 2, axis: 2}, r, ThreadWorld(4))
+            want = dict(zip(jm.axis_names, np.unravel_index(list(ids).index(
+                jax.devices()[r].id), jm.devices.shape)))
+            assert {a: m.coords[a] for a in jm.axis_names} == {
+                a: int(c) for a, c in want.items()}
     assert tmesh.single_device_mesh().shape == dict(jmesh.single_device_mesh().shape)
     with pytest.raises(ValueError, match="process group or thread ranks"):
         tmesh.Mesh({"data": 2}, 0)

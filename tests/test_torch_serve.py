@@ -94,17 +94,21 @@ def test_serve_random_init_samples_in_vocab(capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--tensor_parallelism", "2"], "tensor_parallelism.*multi-device"),
+    (["--tensor_parallelism", "2"], "2 devices|of 1 ranks|!= 1"),
     (["--prompt", "hello"], "--prompt"),
     (["--text_prompts"], "text_prompts"),
 ])
 def test_serve_unported_flags_raise(flags, match):
-    """The flags still refused. --beam_size, --draft_checkpoint_dir,
-    --quantize and --prefix_ids run: tests/test_torch_{beam,speculative,
-    quant,prefix}.py; --use_ema and --lora_base_dir: tests/test_torch_{ema,
-    lora,resume}.py."""
-    with pytest.raises(NotImplementedError, match=match):
-        serve.main(flags + ["--device", "cpu"])
+    """The flags still refused. --tensor_parallelism is ported: it serves
+    under torchrun (tests/test_torch_parallel_cli_tp.py), and a lone
+    process refuses it for want of ranks, as the JAX CLI does for want of
+    devices. --beam_size, --draft_checkpoint_dir, --quantize and
+    --prefix_ids run: tests/test_torch_{beam,speculative,quant,prefix}.py;
+    --use_ema and --lora_base_dir: tests/test_torch_{ema,lora,resume}.py."""
+    error = ValueError if flags[0] == "--tensor_parallelism" else NotImplementedError
+    with pytest.raises(error, match=match):
+        serve.main(flags + ["--device", "cpu", "--d_model", "32", "--num_layers", "1",
+                            "--num_heads", "2", "--window_size", "16"])
 
 
 def test_serve_needs_a_gpu_by_default(monkeypatch):
