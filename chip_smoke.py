@@ -47,6 +47,10 @@ holds every CUDA kernel of them against its plain PyTorch version:
     policies at vit_b16), both training CLIs profiled, the scanned
     checkpoint layout through --resume and serving, and the NSA branch
     modules at full width.
+  * the multi-device paths on thread ranks of this process (data, context,
+    expert, model and pipe axes; FSDP), and the port's benchmark drivers
+    (``forde_tpu_torch.bench`` and ``forde_tpu_torch.benchmarks``), each
+    ending in its one JSON line.
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
@@ -267,10 +271,45 @@ Phases:
      x 2,048, 2 steps) and clip_loop (vit_b16, --fuse_steps 2) in fp32
      under a one-rank NCCL group (torchrun's variables), their final losses
      bit-identical to the same CLIs alone.
+ 32. tensor parallelism, FSDP and the GPipe pipeline on thread ranks of
+     this process on the one card (fp32, the reference-default decoder at
+     capacity factor 8, carried weights): one LM train_step over (model 4)
+     at 2 x 2,048, (data 2, model 2) with fsdp at 4 x 2,048, GPipe over
+     (pipe 4) with 4 microbatches and (data 2, pipe 2) with 2 at 4 x 1,024,
+     each against one rank's step to phase 31's LM bars, with per-rank
+     parameter + moment bytes against replicated and every training kernel
+     launched on every rank; for model 4 each parameter's share of the
+     gradient difference, by group and by layer, and the ranks' forward
+     against one rank's layer by layer (router and NSA top-k choices,
+     block outputs); vit_b16's sensed step over
+     (data 2, model 2) with fsdp at batch 128 to phase 12's fp32 bars, the
+     specialist units whose binary step flips against one rank counted per
+     layer and the act_stats of the layers no flip reaches held at 1e-5;
+     greedy generate_cached over (model 2), eager, on the serving prompts:
+     fp32 (NSA) and int8 dense-causal (16 new) tokens exactly one rank's,
+     int8 NSA the share that match, each row's first differing position,
+     each rank's int8 arrays its slices of one rank's, and the
+     teacher-forced argmax agreement at 0.95 (NSA int8: 0.9 of a control,
+     one rank with fp32 noise in its weights).
+ 33. the benchmark drivers (forde_tpu_torch/bench.py and
+     forde_tpu_torch/benchmarks/*.py), each main called in-process at
+     reduced counts after tiny_hd128's step is held against its plain
+     version (phase 6's check; bf16 against the plain fp32 step):
+     bench.main (4 steps a preset, the
+     fused sense 32 x 32 run once), decoder.main (2 timed steps a
+     dispatch), serving_bench.main at the reference-default decoder's
+     widths with 6 requests and Poisson arrivals (NSA at window 512, then
+     dense-causal with its prefix mode), quant_decode.main (16 new tokens)
+     and decode_scaling.main (16 new tokens at 2,048 and 16,384 positions);
+     each last line one JSON object of bench.py's keys with a finite
+     positive value and launches of every kernel on its path; what
+     int8_matmul's padding to 17 rows costs a batch-1 decode step; and
+     small_kv_fwd timed at decode_scaling's decode pools (fp32, 512 and
+     4,096 keys).
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (about 8 minutes):
+Run with no arguments on a machine with one GPU (about 14 minutes):
 
   python3 chip_smoke.py
 """
@@ -1082,11 +1121,17 @@ def train_state(cfg, reference_state, device, impl="auto", moment_dtype="bfloat1
     )
 
 
-def phase_step_parity(device) -> dict:
-    """One sensed step of vit_b16_hd128 on the kernel path against one on
-    the all-plain path (plain attention, plain moment sums) from the same
-    weights and batch; fp32 and bf16. Then the launches of one sensed and
-    one unsensed step on the kernel path."""
+def phase_step_parity(device, cfg=None, label="parity", bf16_as_precise=False) -> dict:
+    """One sensed step of vit_b16_hd128 (or of ``cfg``) on the kernel path
+    against one on the all-plain path (plain attention, plain moment sums)
+    from the same weights and batch; fp32 and bf16. Then the launches of
+    one sensed and one unsensed step on the kernel path.
+
+    The bf16 bars are vit_b16_hd128's (PARITY_TOL). ``bf16_as_precise``
+    holds another configuration's bf16 step against the plain fp32 step
+    instead: each quantity of the kernel path in bf16 within its bf16 bar,
+    or within BF16_AS_PRECISE of the plain bf16 path's own distance from
+    fp32 (the control; the rule the backward kernels are held to)."""
     import torch
 
     from forde_tpu_torch import kernels
@@ -1094,7 +1139,7 @@ def phase_step_parity(device) -> dict:
     from forde_tpu_torch.nn.stateful import stateful_layers
     from forde_tpu_torch.train.clip_step import clip_train_step, make_nosense_step
 
-    cfg = main_path_config().replace(sense=True)
+    cfg = (main_path_config() if cfg is None else cfg).replace(sense=True)
     weights = build_model(cfg, device).state_dict()
     batch = training_batch(cfg, PARITY_BATCH, device, SEED + 5)
 
@@ -1144,15 +1189,22 @@ def phase_step_parity(device) -> dict:
     readings = {"fp32": rel(k32, p32), "bf16": rel(k16, p16), "control": rel(p16, p32),
                 "kernel_bf16_vs_plain_fp32": rel(k16, p32)}
     for name, r in readings.items():
-        label = {"fp32": "kernel vs plain, fp32", "bf16": "kernel vs plain, bf16",
-                 "control": "control: plain bf16 vs plain fp32",
-                 "kernel_bf16_vs_plain_fp32": "kernel bf16 vs plain fp32"}[name]
-        log(f"[parity] {label}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
-    for name in ("fp32", "bf16"):
+        what = {"fp32": "kernel vs plain, fp32", "bf16": "kernel vs plain, bf16",
+                "control": "control: plain bf16 vs plain fp32",
+                "kernel_bf16_vs_plain_fp32": "kernel bf16 vs plain fp32"}[name]
+        log(f"[{label}] {what}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
+    for name in ("fp32",) if bf16_as_precise else ("fp32", "bf16"):
         for k, tol in PARITY_TOL[name].items():
             v = readings[name][k]
             if not v <= tol:
                 raise AssertionError(f"step parity {name} {k}: {v:.3e} > {tol:g}")
+    if bf16_as_precise:
+        for k, tol in PARITY_TOL["bf16"].items():
+            v, control = readings["kernel_bf16_vs_plain_fp32"][k], readings["control"][k]
+            if not v <= max(tol, BF16_AS_PRECISE * control):
+                raise AssertionError(
+                    f"step parity bf16 {k}: kernel vs plain fp32 {v:.3e} > {tol:g} and > "
+                    f"{BF16_AS_PRECISE:g} x the plain bf16 path's {control:.3e}")
 
     # Launches of one sensed and one unsensed step on the kernel path (bf16).
     state = train_state(cfg.replace(dtypes=DTypePolicy.bf16()), weights, device)
@@ -1165,7 +1217,7 @@ def phase_step_parity(device) -> dict:
         want = {k: v for k, v in launches_per_step(cfg, sensed).items() if v}
         if got != want:
             raise AssertionError(f"launches of one {'sensed' if sensed else 'unsensed'} step: {got} != {want}")
-    log(f"[parity] launches per step on the kernel path: {per_step}")
+    log(f"[{label}] launches per step on the kernel path: {per_step}")
     return {"readings": readings, "launches_per_step": per_step}
 
 
@@ -1403,6 +1455,12 @@ SMALL_KV_CASES = [
     ("all_future_s64_k40", 2, 4, 64, 40, 64, "future"),
     ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
     ("pools_s2048_k200", 2, 4, 2048, 200, 64, "pools"),
+    # past the fp32 route's 1,024 scores in shared memory (its three-walk
+    # kernel; the bf16 route keeps only the thresholds): a decode step's
+    # pools at max_seq_len 16,384 and ratio 4 (decode_scaling), and a K
+    # that is not a multiple of the tile at D = 128
+    ("decode_pools_s1_k4096", 1, 4, 1, 4096, 64, "decode_pools"),
+    ("pools_s200_k1100_d128", 2, 2, 200, 1100, 128, "pools"),
 ]
 POOL_RATIO, WINDOW, MAX_SEQ = 8, 512, 2048
 
@@ -6300,6 +6358,111 @@ def par2_hold(what, got, want, grad_norm, want_norm, bars) -> dict:
     return rel
 
 
+PAR2_GROUPS = (("router", "router"), ("experts", "experts"),
+               ("nsa_compressed", "compressed"), ("nsa_topk", "topk"),
+               ("nsa_importance", "importance"), ("nsa_gates", "gate_"),
+               ("local_attention", "local_attention"), ("hyper_connections", "stream"),
+               ("embeddings", "embed"), ("lm_head", "lm_head"))
+
+
+def par2_per_parameter(what, got, want) -> dict:
+    """Where the gradient (Adam's mu) differs from one rank's: each
+    parameter's share of the whole squared difference (the 12 largest
+    logged with their own relative L2, which is noise for a gradient near
+    0, such as a softmax-invariant key bias), and the shares by group and
+    by layer. A router, expert or NSA top-k choice that flips within fp32
+    noise sits in one layer's tensors; a fault of the layout spreads across
+    the split ones."""
+    per, sq = {}, {}
+    for n in sorted(want["whole"]):
+        (gp, gm), (wp, wm) = got["whole"][n], want["whole"][n]
+        d = float((gm.float() - wm.float()).norm())
+        sq[n] = d ** 2
+        per[n] = {"grads": d / max(float(wm.float().norm()), 1e-30),
+                  "params": float((gp.float() - wp.float()).norm())
+                  / max(float(wp.float().norm()), 1e-30)}
+    total = sum(sq.values()) or 1.0
+    for n in per:
+        per[n]["share"] = sq[n] / total
+    worst = sorted(per, key=lambda n: -sq[n])[:12]
+    log(f"[parallel2] {what}: largest shares of the squared gradient difference (share, own "
+        f"relative L2 of grads, params): " + "; ".join(
+            f"{n} {per[n]['share']:.3f} {per[n]['grads']:.1e} {per[n]['params']:.1e}"
+            for n in worst))
+    groups, layers = Counter(), Counter()
+    for n, v in per.items():
+        groups[next((g for g, key in PAR2_GROUPS if key in n), "other")] += v["share"]
+        layers[int(n.split(".")[1]) if n.startswith("layers.") else -1] += v["share"]
+    log(f"[parallel2] {what}: shares by group: "
+        + ", ".join(f"{g} {v:.3f}" for g, v in groups.most_common()))
+    log(f"[parallel2] {what}: shares by layer (-1: outside the layers): "
+        + ", ".join(f"{i} {v:.3f}" for i, v in sorted(layers.items())))
+    return {"worst": {n: per[n] for n in worst}, "group_shares": dict(groups),
+            "layer_shares": {str(i): v for i, v in sorted(layers.items())}}
+
+
+def par2_forward_probe(model) -> tuple:
+    """Hooks that keep, per decoder layer, the block's output streams, its
+    router's top-k experts per token and its NSA global top-k keys per row
+    (the first forward of the step): ({kind: {layer: tensor}}, handles)."""
+    import torch
+
+    from forde_tpu_torch.ops.moe_dispatch import top_k_desc
+
+    cfg = model.config
+    seen = {"out": {}, "router": {}, "topk": {}}
+    handles = []
+    for i, layer in enumerate(model.layers):
+        def out_hook(module, args, out, i=i):
+            x, streams, _ = out
+            seen["out"].setdefault(i, (x if streams is None else streams).detach().float())
+        handles.append(layer.register_forward_hook(out_hook))
+        if cfg.use_moe:
+            def router_hook(module, args, logits, i=i):
+                idx = top_k_desc(logits.detach(), cfg.top_k_experts)[1]
+                seen["router"].setdefault(i, torch.sort(idx, -1).values)
+            handles.append(layer.moe.moe_layer.router.register_forward_hook(router_hook))
+        if cfg.use_sparse_attention:
+            def topk_hook(module, args, imp, i=i):
+                k = min(cfg.top_k_global, imp.shape[1])
+                seen["topk"].setdefault(i, torch.sort(top_k_desc(imp[..., 0].detach(), k)[1],
+                                                      -1).values)
+            handles.append(layer.sparse_attention.importance_scorer.register_forward_hook(
+                topk_hook))
+    return seen, handles
+
+
+def par2_forward_flips(what, got, want) -> dict:
+    """Per layer: tokens whose router top-k set differs from one rank's,
+    rows whose NSA top-k set differs, the block output's relative L2 and
+    the tokens whose own relative difference passes 1e-4, with the first
+    layer and token that do. A choice flipped within fp32 noise shows as a
+    count at one layer and tokens that jump from there on; a fault of the
+    layout moves every token from its first layer."""
+    per = {}
+    first = None
+    for i in sorted(want["out"]):
+        a, b = got["out"][i], want["out"][i]
+        tok = ((a - b).flatten(2).norm(dim=-1) / b.flatten(2).norm(dim=-1).clamp_min(1e-30))
+        jumped = tok > 1e-4
+        if first is None and bool(jumped.any()):
+            row, t = [int(v) for v in jumped.nonzero()[0]]
+            first = {"layer": i, "row": row, "token": t}
+        per[i] = {"router_tokens": int((got["router"][i] != want["router"][i]).any(-1).sum())
+                  if i in want["router"] else 0,
+                  "topk_rows": int((got["topk"][i] != want["topk"][i]).any(-1).sum())
+                  if i in want["topk"] else 0,
+                  "out_rel_l2": float((a - b).norm() / b.norm()),
+                  "tokens_past_1e-4": int(jumped.sum()), "tokens": int(jumped.numel())}
+    log(f"[parallel2] {what}: per layer against one rank's forward (router tokens with "
+        f"another top-k set / NSA rows with another top-k set / block output relative L2 / "
+        f"tokens past 1e-4 of {per[0]['tokens']}): " + "; ".join(
+            f"{i} {v['router_tokens']}/{v['topk_rows']}/{v['out_rel_l2']:.1e}/"
+            f"{v['tokens_past_1e-4']}" for i, v in per.items())
+        + f"; first token past 1e-4: {first}")
+    return {"per_layer": per, "first_jump": first}
+
+
 def par2_lm_case(device, base, weights, case, launches) -> dict:
     """One LM train step of ``case`` (PAR2_LM_CASES) on thread ranks
     against one rank's step on the same batch (for GPipe: the same
@@ -6318,20 +6481,25 @@ def par2_lm_case(device, base, weights, case, launches) -> dict:
     cfg = base.replace(scan_layers=bool(micro))
     ids = lm_batch(rows, seq, cfg.vocab_size, device, SEED + 330)["input_ids"]
 
+    probe = shape.get("model") == 4
+
     def run(mesh):
         model = FORDEDecoderLM(cfg, device=device, mesh=mesh)
         model.load_state_dict(weights)
         state = shard_train_state(create_train_state(cfg, None, 3e-4, 0.01, model=model),
                                   mesh, param_sharding)
         held = par2_state_bytes(state)
+        keep = mesh.coords[AXIS_DATA] == mesh.coords[AXIS_MODEL] == 0
+        seen, handles = par2_forward_probe(model) if probe and keep else (None, [])
         if micro:
             step = make_pp_train_step(mesh, micro, aux_loss_weight=0.01)
             state, m = step(state, split_batch(ids, mesh, micro))
         else:
             state, m = train_step(state, split_batch(ids, mesh), aux_loss_weight=0.01)
-        keep = mesh.coords[AXIS_DATA] == mesh.coords[AXIS_MODEL] == 0
+        for h in handles:
+            h.remove()
         res = {"loss": float(m["loss/total"]), "grad_norm": float(m["training/grad_norm"]),
-               "bytes": held, "whole": par2_whole(state, keep)}
+               "bytes": held, "whole": par2_whole(state, keep), "seen": seen}
         del state, model
         return res
 
@@ -6348,11 +6516,12 @@ def par2_lm_case(device, base, weights, case, launches) -> dict:
     for r, _ in ranks:
         whole.update(r["whole"])
     got = {"loss": ranks[0][0]["loss"], "whole": whole}
+    got_seen = ranks[0][0]["seen"]
     grad_norm = ranks[0][0]["grad_norm"]
     per_rank = [c for _, c in ranks]
     rank_bytes = [r["bytes"] for r, _ in ranks]
     for r, _ in ranks:
-        r["whole"] = None
+        r["whole"] = r["seen"] = None
     del ranks, whole
     torch.cuda.empty_cache()
 
@@ -6379,16 +6548,25 @@ def par2_lm_case(device, base, weights, case, launches) -> dict:
         want_norm = float(state.optimizer.step(grads))
         want_loss = (lm_sum + 0.01 * aux_sum) / len(pieces)
     else:
+        want_seen, handles = par2_forward_probe(state.model) if probe else (None, [])
         state, m = train_step(state, {"input_ids": ids}, aux_loss_weight=0.01)
+        for h in handles:
+            h.remove()
         want_norm, want_loss = float(m["training/grad_norm"]), float(m["loss/total"])
     names = [n for n, _ in state.model.named_parameters()]
     want = {"loss": want_loss, "whole": {n: (p.detach(), m) for n, p, m in zip(
         names, state.optimizer.params, state.optimizer.mu)}}
     torch.cuda.synchronize()
     kernels.reset_launches()
-    rel = par2_hold(f"LM step {name} ({rows} x {seq}, {param_sharding}"
-                    + (f", {micro} microbatches" if micro else "") + ")", got, want, grad_norm,
-                    want_norm, {**LM_PARITY_TOL_FP32, "grad_norm": LM_PARITY_TOL_FP32["loss"]})
+    what = (f"LM step {name} ({rows} x {seq}, {param_sharding}"
+            + (f", {micro} microbatches" if micro else "") + ")")
+    per_parameter = None
+    if probe:
+        per_parameter = par2_per_parameter(what, got, want)
+        per_parameter["forward"] = par2_forward_flips(what, got_seen, want_seen)
+        del got_seen, want_seen
+    rel = par2_hold(what, got, want, grad_norm, want_norm,
+                    {**LM_PARITY_TOL_FP32, "grad_norm": LM_PARITY_TOL_FP32["loss"]})
     del state, model, want, got
     torch.cuda.empty_cache()
     for key in PAR2_TRAINING_KERNELS:
@@ -6402,19 +6580,81 @@ def par2_lm_case(device, base, weights, case, launches) -> dict:
         f"({max(rank_bytes) / replicated_bytes:.3f} of it)")
     return {"relative_l2": rel, "launches_per_rank": per_rank, "seconds": ranks_s,
             "peak_gib": peak, "state_bytes_per_rank": rank_bytes,
-            "state_bytes_replicated": replicated_bytes}
+            "state_bytes_replicated": replicated_bytes,
+            **({"per_parameter": per_parameter} if per_parameter else {})}
+
+
+# (d)'s discriminating check of its act_stats: a binary-step (specialist)
+# unit whose z sits within fp32 noise of 0 steps the other way on the ranks
+# than on one rank, and its output moves by a whole unit, which every later
+# layer of its tower sees. The layers that no such flip reaches (each
+# tower's layers up to and including its first with a flip) are held at
+# this relative L2; the layers after it are logged.
+PAR2_UNREACHED_ACT_STATS = 1e-5
+
+
+def par2_binary_steps(model) -> tuple:
+    """Hooks that keep, per StatefulLayer, z > 0 of its first forward in
+    the step (a recomputing backward calls it again): ({name: bool}, the
+    hooks' handles)."""
+    from forde_tpu_torch.nn.stateful import stateful_layers
+
+    steps, handles = {}, []
+    for name, layer in stateful_layers(model).items():
+        def hook(module, args, z, name=name):
+            steps.setdefault(name, z.detach() > 0)
+        handles.append(layer.w_in.register_forward_hook(hook))
+    return steps, handles
+
+
+def par2_flips(got_steps, want_steps, want_stats, got_stats, assignments) -> dict:
+    """Per layer the specialist units (and their tokens) whose binary step
+    differs from one rank's; each tower's layers up to its first with a
+    flip held at PAR2_UNREACHED_ACT_STATS."""
+    import torch
+
+    from forde_tpu_torch.ops.stateful import SPECIALIST
+
+    per = {}
+    for n in want_steps:
+        spec = assignments[n] == SPECIALIST
+        diff = (got_steps[n] != want_steps[n]) & spec
+        a, b = got_stats[n], want_stats[n]
+        per[n] = {"units": int(diff.flatten(0, -2).any(0).sum()), "tokens": int(diff.sum()),
+                  "act_stats": float((a - b).norm() / b.norm())}
+    held = {}
+    for tower in ("vision", "text"):
+        names = sorted((n for n in per if n.startswith(f"{tower}.")),
+                       key=lambda n: int(re.findall(r"\d+", n)[0]))
+        for n in names:
+            held[n] = per[n]["act_stats"]
+            if per[n]["units"]:
+                break
+    log("[parallel2] dual encoder binary steps against one rank, per layer (specialist units "
+        "that flip, their tokens, act_stats relative L2): "
+        + "; ".join(f"{n} {v['units']}/{v['tokens']}/{v['act_stats']:.2e}"
+                    for n, v in per.items()))
+    worst = max(held.values())
+    log(f"[parallel2] dual encoder act_stats of the {len(held)} layers no flip reaches: worst "
+        f"relative L2 {worst:.3e} (bar {PAR2_UNREACHED_ACT_STATS:g}); "
+        f"{sum(v['units'] for v in per.values())} specialist units flip in all")
+    if not held or not worst <= PAR2_UNREACHED_ACT_STATS:
+        raise AssertionError(f"dual encoder act_stats before any flipped binary step: "
+                             f"{worst:.3e} > {PAR2_UNREACHED_ACT_STATS:g}")
+    return {"per_layer": per, "unreached_worst": worst, "unreached_layers": sorted(held)}
 
 
 def par2_clip(device, launches) -> dict:
     """(d): one sensed fp32 vit_b16 step at batch 128 over data 2 x model
     2 with fsdp against one rank's, to phase 12's fp32 bars: loss, grad
     norm, gradients, parameters, and the all-gathered act_stats against
-    the one-rank buffers (each layer's relative L2)."""
+    the one-rank buffers (each layer's relative L2); then the flipped
+    binary steps (``par2_flips``)."""
     import torch
 
     from forde_tpu_torch import kernels
     from forde_tpu_torch.core.config import DTypePolicy, vit_b16_config
-    from forde_tpu_torch.core.mesh import AXIS_DATA, AXIS_MODEL, shard_batch
+    from forde_tpu_torch.core.mesh import AXIS_DATA, AXIS_MODEL, Sharding, shard_batch
     from forde_tpu_torch.nn.stateful import stateful_layers
     from forde_tpu_torch.train.clip_step import clip_train_step
     from forde_tpu_torch.train.state import shard_train_state
@@ -6431,10 +6671,17 @@ def par2_clip(device, launches) -> dict:
         state = train_state(cfg, weights, device, moment_dtype=None)
         shard_train_state(state, mesh, "fsdp")
         held = par2_state_bytes(state)
+        steps, handles = par2_binary_steps(state.model)
         state, m = clip_train_step(state, shard_batch(batch, mesh))
+        for h in handles:
+            h.remove()
         keep = mesh.coords[AXIS_DATA] == mesh.coords[AXIS_MODEL] == 0
+        # rows over data, hidden columns over model: the whole (B, S, F)
+        whole = Sharding(mesh, (AXIS_DATA, None, AXIS_MODEL))
+        steps = {n: whole.gather(t.to(torch.uint8)).bool() for n, t in sorted(steps.items())}
         return {"loss": float(m["loss/contrastive"]), "grad_norm": float(m["training/grad_norm"]),
-                "bytes": held, "act_stats": stats(state), "whole": par2_whole(state, keep)}
+                "bytes": held, "act_stats": stats(state), "whole": par2_whole(state, keep),
+                "steps": steps if keep else None}
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6446,7 +6693,10 @@ def par2_clip(device, launches) -> dict:
     per_rank = [c for _, c in ranks]
     state = train_state(cfg, weights, device, moment_dtype=None)
     replicated_bytes = par2_state_bytes(state)
+    want_steps, handles = par2_binary_steps(state.model)
     state, m = clip_train_step(state, batch)
+    for h in handles:
+        h.remove()
     torch.cuda.synchronize()
     kernels.reset_launches()
     names = [n for n, _ in state.model.named_parameters()]
@@ -6464,6 +6714,13 @@ def par2_clip(device, launches) -> dict:
         f"relative L2 {rel_l2:.3e} (bar {bar:g}), worst |d| / the buffer's max {worst:.3e}")
     if not rel_l2 <= bar:
         raise AssertionError(f"dual encoder act_stats: {rel_l2:.3e} > {bar:g}")
+    rank0 = next(r for r, _ in ranks if r["steps"] is not None)
+    flips = par2_flips(rank0["steps"], want_steps, want_stats, rank0["act_stats"],
+                       {n: layer.neuron_assignments for n, layer in
+                        stateful_layers(state.model).items()})
+    for r, _ in ranks:
+        r["steps"] = None
+    del want_steps
     fp32 = {k: v for k, v in PARITY_TOL["fp32"].items() if k in ("loss", "grad_norm", "grads",
                                                                 "params")}
     rel = par2_hold("dual encoder vit_b16 step (data 2 x model 2, fsdp, batch 128)", got, want,
@@ -6479,18 +6736,43 @@ def par2_clip(device, launches) -> dict:
     del state, ranks
     torch.cuda.empty_cache()
     return {"relative_l2": {**rel, "act_stats": rel_l2}, "act_stats_worst_of_max": worst,
-            "launches_per_rank": per_rank,
+            "binary_step_flips": flips, "launches_per_rank": per_rank,
             "seconds": ranks_s}
+
+
+# (e)'s readings. Greedy decoding over model 2 against one rank: fp32 and
+# the dense-causal int8 model exact (every int8 product's int32 sums are
+# exact over the ranks, and its fp parts are replicated), the NSA int8
+# model a share (its fp NSA branches add partial sums in another order, and
+# an int8 activation that rounds the other way changes the rest of its row).
+# Teacher forcing takes that cascade away: one forward of the TP model over
+# each prompt and one rank's tokens, its argmax at the new positions against
+# the one-rank model's on the same sequence, held at this share for fp32 and
+# dense int8. For NSA int8 the share is held against a control: the one-rank
+# model with every floating-point parameter moved by fp32 noise (relative
+# 2^-23), the size of the noise the ranks' partial sums add. int8 turns such
+# noise into whole rounding steps, which spread through the layers, so the
+# share of such a control is far below 1; the ranks must reach this much of
+# it.
+PAR2_TEACHER_FORCED = 0.95
+PAR2_TEACHER_FORCED_OF_CONTROL = 0.9
+PAR2_CONTROL_NOISE = 2.0 ** -23
+# The dense-causal int8 decode's new tokens: half of SERVE_NEW_TOKENS, for
+# the run's time (the eager decode on two thread ranks takes ~0.22 s a
+# token).
+PAR2_DENSE_NEW_TOKENS = 16
 
 
 def par2_serving(device, launches) -> dict:
     """(e): generate_cached over model 2, greedy, eager (the thread
     transport cannot be captured in a CUDA graph), on the 8 prompts of
-    SERVE_PROMPT_LENS with SERVE_NEW_TOKENS each, against one rank's
+    SERVE_PROMPT_LENS with SERVE_NEW_TOKENS each (PAR2_DENSE_NEW_TOKENS
+    for the dense-causal int8 model), against one rank's
     graphed decode (its tokens are its eager decode's, phase 17): fp32
-    tokens exactly one rank's; then int8 over model 2, each rank's int8
-    arrays exactly its slices of one rank's, and the share of tokens that
-    match."""
+    (NSA) and int8 dense-causal tokens exactly one rank's; int8 NSA the
+    share of tokens that match; each row's first differing position; each
+    rank's int8 arrays exactly its slices of one rank's; and the
+    teacher-forced argmax agreement (PAR2_TEACHER_FORCED)."""
     import torch
 
     from forde_tpu_torch import kernels
@@ -6500,34 +6782,56 @@ def par2_serving(device, launches) -> dict:
     from forde_tpu_torch.ops.quant import quantize_params
     from forde_tpu_torch.train.state import shard_model
 
-    cfg = serve_config().replace(dtypes=DTypePolicy.fp32())
-    weights = lm_weights(cfg, device)
-    prompts = [torch.tensor([p], device=device) for p in serve_prompts(cfg.vocab_size)]
-
-    def build(quantized):
+    def build(cfg, weights, quantized):
         model = FORDEDecoderLM(cfg, device=device)
         model.load_state_dict(weights)
         model.eval()
         return quantize_params(model) if quantized else model
 
-    def decode(model, graphed):
-        with torch.no_grad():
-            return [generate_cached(model, p, None, max_new_tokens=SERVE_NEW_TOKENS,
-                                    temperature=0.0, cuda_graph=graphed)[0, p.shape[1]:].tolist()
-                    for p in prompts]
-
     out = {}
-    for label, quantized in (("fp32", False), ("int8", True)):
-        one_model = build(quantized)
+    for label, cfg, quantized, new in (
+        ("fp32", serve_config(), False, SERVE_NEW_TOKENS),
+        ("int8", serve_config(), True, SERVE_NEW_TOKENS),
+        ("int8_dense", dense_serve_config(), True, PAR2_DENSE_NEW_TOKENS),
+    ):
+        cfg = cfg.replace(dtypes=DTypePolicy.fp32())
+        weights = lm_weights(cfg, device)
+        prompts = [torch.tensor([p], device=device) for p in serve_prompts(cfg.vocab_size)]
+
+        def decode(model, graphed, prompts=prompts, new=new):
+            with torch.no_grad():
+                return [generate_cached(model, p, None, max_new_tokens=new,
+                                        temperature=0.0, cuda_graph=graphed)[0, p.shape[1]:]
+                        .tolist() for p in prompts]
+
+        def forced(model, seqs, prompts=prompts):
+            """Argmax at each new position of one forward over prompt +
+            one rank's tokens."""
+            with torch.no_grad():
+                return [model(torch.cat([p, torch.tensor([s], device=device)], 1))[0]
+                        [0, p.shape[1] - 1:-1].argmax(-1).tolist()
+                        for p, s in zip(prompts, seqs)]
+
+        one_model = build(cfg, weights, quantized)
         whole = {n: p.detach() for n, p in one_model.named_parameters()}
         t0 = time.perf_counter()
         one = decode(one_model, True)  # graphed: the same tokens as eager (phase 17)
         one_s = time.perf_counter() - t0
+        one_forced = forced(one_model, one)
+        control = build(cfg, weights, quantized)
+        gen = torch.Generator(device=device).manual_seed(SEED + 332)
+        with torch.no_grad():
+            for t in control.parameters():
+                if t.is_floating_point():
+                    t.mul_(1.0 + PAR2_CONTROL_NOISE * torch.randn(t.shape, device=device,
+                                                                  generator=gen))
+        control_forced = forced(control, one)
+        del control
         torch.cuda.synchronize()
         kernels.reset_launches()
 
-        def run(mesh, quantized=quantized, whole=whole):
-            model = build(quantized)
+        def run(mesh, cfg=cfg, weights=weights, quantized=quantized, whole=whole, one=one):
+            model = build(cfg, weights, quantized)
             layouts, _ = shard_model(model, mesh)
             own = dict(model.named_parameters())
             for n, sh in layouts.items():
@@ -6535,26 +6839,44 @@ def par2_serving(device, launches) -> dict:
                     raise AssertionError(f"TP serving {n}: a rank's slice differs")
             t0 = time.perf_counter()
             toks = decode(model, False)
-            return toks, time.perf_counter() - t0
+            secs = time.perf_counter() - t0
+            return toks, secs, forced(model, one)
 
         ranks = thread_ranks({"model": 2}, run)
         for _, counts in ranks:
             for k, c in counts.items():
                 launches[k] += c
-        got = ranks[0][0][0]
+        got, secs, got_forced = ranks[0][0]
         same = [a == b for g, w in zip(got, one) for a, b in zip(g, w)]
         share = sum(same) / len(same)
+        first = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
+                 for g, w in zip(got, one)]
+        def agreement(a_rows, b_rows):
+            hits = [a == b for g, w in zip(a_rows, b_rows) for a, b in zip(g, w)]
+            return sum(hits) / len(hits)
+
+        forced_share = agreement(got_forced, one_forced)
+        control_share = agreement(control_forced, one_forced)
+        bar = (PAR2_TEACHER_FORCED_OF_CONTROL * control_share if label == "int8"
+               else PAR2_TEACHER_FORCED)
         log(f"[parallel2] TP serving {label} over model 2 (eager): {share:.4f} of "
-            f"{len(same)} greedy tokens equal one rank's; {ranks[0][0][1]:.1f} s against "
-            f"{one_s:.1f} s on one rank (graphed); launches per rank "
-            + "; ".join(str(dict(c)) for _, c in ranks))
-        if not quantized and got != one:
-            raise AssertionError("TP serving fp32: tokens differ from one rank's")
+            f"{len(same)} greedy tokens equal one rank's; each row's first differing new "
+            f"position {first}; teacher-forced argmax agreement {forced_share:.4f} (bar "
+            f"{bar:.4f}; the control, one rank with fp32 noise in its weights: "
+            f"{control_share:.4f}); {secs:.1f} s against {one_s:.1f} s on one rank "
+            f"(graphed); launches per rank " + "; ".join(str(dict(c)) for _, c in ranks))
+        if label != "int8" and got != one:
+            raise AssertionError(f"TP serving {label}: tokens differ from one rank's")
         if ranks[1][0][0] != got:
             raise AssertionError(f"TP serving {label}: the ranks' tokens differ")
-        out[label] = {"token_share": share, "seconds_tp": ranks[0][0][1], "seconds_one": one_s,
-                      "launches_per_rank": [c for _, c in ranks]}
-        del one_model, whole, ranks
+        if not forced_share >= bar:
+            raise AssertionError(f"TP serving {label}: teacher-forced argmax agreement "
+                                 f"{forced_share:.4f} < {bar:.4f}")
+        out[label] = {"token_share": share, "first_differing": first,
+                      "teacher_forced_agreement": forced_share,
+                      "control_agreement": control_share, "seconds_tp": secs,
+                      "seconds_one": one_s, "launches_per_rank": [c for _, c in ranks]}
+        del one_model, whole, ranks, weights
         torch.cuda.empty_cache()
     return out
 
@@ -6590,6 +6912,233 @@ def phase_parallel_2(device) -> dict:
     log(f"[parallel2] launches of the thread ranks: {dict(launches)}")
     return {"launches": dict(launches), "lm": cases, "clip": clip, "serving": serving,
             "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 33: the benchmark drivers (forde_tpu_torch/bench.py and
+# forde_tpu_torch/benchmarks/*.py), each main called in-process on the card
+# at reduced counts; their full-size runs are separate calls (README).
+# ---------------------------------------------------------------------------
+
+# bench.py: 4 timed steps a preset (16 at the headline's stride 8: the
+# reference's max(steps, 2 * stride)), the fused sense 32 x 32 run once
+# (its 96 steps: 3 replays after the capture).
+BENCH_SMOKE_ENV = {"BENCH_STEPS": "4", "BENCH_SCAN_REPS": "1"}
+BENCH_DECODER_STEPS = 2
+# serving_bench at the reference-default decoder's widths (ISSUE: the same
+# flags as the full-size runs), 6 requests, with its open-loop arrivals.
+SERVING_BENCH_FLAGS = ["--d_model", "512", "--num_layers", "12", "--num_heads", "8",
+                       "--num_experts", "8", "--max_seq_len", "2048", "--bf16"]
+SERVING_BENCH_SMOKE = ["--requests", "6", "--load_rate", "4"]
+QUANT_SMOKE = ["--new", "16", "--reps", "1"]
+SCALING_SMOKE = ["--new", "16"]
+# The kernels each driver's timed sections must launch. Dense-causal cached
+# generation (serving_bench without --nsa, quant_decode at its defaults)
+# prefills and decodes through the cache's plain masked attention
+# (nn/attention.py CausalSelfAttention.decode), as the JAX package's does:
+# no kernel is on those paths.
+BENCH_PATH_KERNELS = {
+    "bench": ("flash_mha_fwd", "flash_mha_bwd", "moment_sums"),
+    "bench_decoder": ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "small_kv_fwd",
+                      "small_kv_bwd"),
+    "bench_serving": ("flash_fwd", "small_kv_fwd", "topk_replay"),
+    "bench_serving_dense": (),
+    "bench_quant": (),
+    "bench_scaling": ("flash_fwd", "small_kv_fwd", "topk_replay"),
+}
+BENCH_LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+
+
+@contextlib.contextmanager
+def environ(**env):
+    """os.environ with ``env`` set, as it was after."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sum_launches(tree) -> Counter:
+    """The launch counts of a driver's ``extra["launches"]`` (per run,
+    mode or length; lists of runs), summed by kernel."""
+    total = Counter()
+    for k, v in (tree.items() if isinstance(tree, dict) else enumerate(tree)):
+        if isinstance(v, int):
+            total[k] += v
+        else:
+            total.update(sum_launches(v))
+    return total
+
+
+def drive_benchmark(name, run) -> dict:
+    """``run()`` (a driver's main) with its standard output echoed and its
+    last line held: one JSON object of bench.py's keys, a finite positive
+    value, and launches of every kernel of BENCH_PATH_KERNELS[name]."""
+    import torch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            run()
+    finally:
+        out = buf.getvalue().strip().splitlines()
+        for line in out:
+            log(f"[benchmarks] {name}: {line}")
+    secs = time.perf_counter() - t0
+    line = json.loads(out[-1])
+    if set(line) != BENCH_LINE_KEYS:
+        raise AssertionError(f"{name}: last line keys {sorted(line)}")
+    value = line["value"]
+    if not (isinstance(value, (int, float)) and np.isfinite(value) and value > 0):
+        raise AssertionError(f"{name}: value {value!r}")
+    extra = line["extra"]
+    if line["vs_baseline"] is not None or not all(k in extra for k in ("card", "peak_gib",
+                                                                        "launches")):
+        raise AssertionError(f"{name}: vs_baseline or extra's card, peak_gib, launches")
+    launched = sum_launches(extra["launches"])
+    missing = [k for k in BENCH_PATH_KERNELS[name] if not launched.get(k)]
+    log(f"[benchmarks] {name}: {secs:.1f} s; launches of its timed sections {dict(launched)}")
+    if missing:
+        raise AssertionError(f"{name}: no launch of {missing} in its timed sections")
+    torch.cuda.empty_cache()
+    return {"line": line, "launches": dict(launched), "seconds": secs}
+
+
+def int8_padding_cost(device) -> dict:
+    """What ``int8_matmul``'s padding costs a batch-1 decode step of
+    quant_decode's model (d 512, 12 layers, dense FFN 2,048, vocabulary
+    50,257): per QDense shape, by CUDA events, ``int8_dense`` on one row
+    (quantize, pad to 17 rows, ``torch._int_mm``, rescale), ``int8_matmul``
+    on one int8 row (pad + product), ``torch._int_mm`` on a row block
+    padded ahead of time, and the bf16 model's ``F.linear`` of one row;
+    then each summed over one step's calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from forde_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    shapes = {"qkv_proj": (512, 1536, 12), "out_proj": (512, 512, 12),
+              "ffn_up": (512, 2048, 12), "ffn_down": (2048, 512, 12),
+              "lm_head": (512, 50257, 1)}
+    per, step = {}, Counter()
+    for name, (k, n, calls) in shapes.items():
+        w = torch.randn(k, n, device=device, generator=gen) * k ** -0.5
+        wq, scale = quant.quantize_weight(w)
+        # QDense's layout: weight_q (n, k) row-major, read through its
+        # transpose (torch._int_mm takes no (k, n) row-major view of an N
+        # that is not a multiple of 8, the lm_head's 50,257)
+        wq = wq.t().contiguous().t()
+        wt = w.t().contiguous().to(torch.bfloat16)
+        x = torch.randn(1, k, device=device, generator=gen, dtype=torch.bfloat16)
+        xq, _ = quant.quantize_activations(x)
+        padded = F.pad(xq, (0, 0, 0, quant._MIN_ROWS - 1))
+        n_main = n - n % quant._ALIGN
+        ms = {
+            "int8_dense": cuda_ms([lambda: quant.int8_dense(x, wq, scale, None, torch.bfloat16)]),
+            "int8_matmul": cuda_ms([lambda: quant.int8_matmul(xq, wq)]),
+            "int_mm_prepadded": cuda_ms([lambda: torch._int_mm(padded, wq[:, :n_main])]),
+            "bf16_linear": cuda_ms([lambda: F.linear(x, wt)]),
+        }
+        per[name] = ms
+        for key, v in ms.items():
+            step[key] += v * calls
+    step["padding"] = step["int8_matmul"] - step["int_mm_prepadded"]
+    log("[benchmarks] int8 at batch 1, ms per call (int8_dense / int8_matmul / _int_mm "
+        "pre-padded / bf16 linear): " + "; ".join(
+            f"{n} " + " / ".join(f"{v:.4f}" for v in ms.values()) for n, ms in per.items()))
+    log("[benchmarks] int8 at batch 1, ms per decode step (12 layers + lm_head): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in step.items()))
+    return {"per_call_ms": per, "per_step_ms": dict(step)}
+
+
+# small_kv_fwd at decode_scaling's decode step (4 heads of 64, fp32, the
+# default config's ratio 4): the compressed pools at 2,048 positions (512,
+# the one-walk route) and at 16,384 (4,096, the three-walk route).
+LONG_KEYS_TIMING = [("decode_pools_s1_k512_fp32", 512), ("decode_pools_s1_k4096_fp32", 4096)]
+
+
+def long_keys_timing(device) -> dict:
+    """Per call of small_kv_fwd at LONG_KEYS_TIMING (fp32): kernel, plain
+    version, SDPA with the same mask (a yardstick only) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from forde_tpu_torch.ops import nsa_attention as nsa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 34)
+    out = {}
+    b, h, s, d = 1, 4, 1, 64
+    for name, kk in LONG_KEYS_TIMING:
+        key_pos = small_kv_key_pos("decode_pools", b, s, kk, device, gen)
+        copies = max(2, -(-200_000_000 // ((b * h * s * d + 2 * b * h * kk * d) * 4)))
+        inputs = [(torch.randn(b, h, s, d, device=device, generator=gen),
+                   *(torch.randn(b, h, kk, d, device=device, generator=gen) for _ in range(2)))
+                  for _ in range(copies)]
+        qpos = torch.arange(s, device=device)[None, None, :, None]
+        kpos = key_pos[:, None, None, :]
+        add = torch.where(qpos >= kpos, 0.0, nsa.NEG_BIG)
+        scale = d ** -0.5
+        with torch.inference_mode():
+            t = time_kernel(
+                f"small_kv_fwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, fp32)",
+                [lambda i=i: nsa.small_kv_fwd(*i, key_pos, scale) for i in inputs],
+                [lambda i=i: nsa.small_kv_fwd_reference(*i, key_pos, scale) for i in inputs],
+                [lambda i=i: F.scaled_dot_product_attention(*i, attn_mask=add, scale=scale)
+                 for i in inputs],
+                *small_kv_bound(inputs[0][0], inputs[0][1], key_pos, "float32"),
+                B=b, H=h, S=s, K=kk, D=d)
+        out[name] = {**t, "dtype": "float32"}
+        del inputs
+    return out
+
+
+def phase_benchmarks(device) -> dict:
+    """Phase 33: the tiny_hd128 step against its plain version (phase 6's
+    check, fp32 at its bars; bf16 against the plain fp32 step, within its
+    bars or as precise as the plain bf16 path: PARITY_TOL["bf16"] sits
+    between vit_b16_hd128's readings, and at tiny_hd128 the plain bf16
+    path's own grad_norm reads 1.2e-2 from fp32, where the kernel path's
+    reads 1.7e-4), then each driver's
+    main in-process at reduced counts: bench.main, decoder.main,
+    serving_bench.main twice (NSA, window 512; dense with its prefix mode),
+    quant_decode.main, decode_scaling.main; each last line held
+    (drive_benchmark); int8_matmul's padding at batch 1; small_kv_fwd at
+    decode_scaling's decode pools (LONG_KEYS_TIMING)."""
+    from forde_tpu_torch import bench
+    from forde_tpu_torch.benchmarks import decode_scaling, decoder, quant_decode, serving_bench
+    from forde_tpu_torch.core.config import DTypePolicy
+
+    tiny = bench.preset_config("tiny_hd128").replace(dtypes=DTypePolicy.bf16())
+    parity = phase_step_parity(device, tiny, "bench", bf16_as_precise=True)
+    runs = {}
+    with environ(**BENCH_SMOKE_ENV):
+        runs["bench"] = drive_benchmark("bench", lambda: bench.main(device="cuda"))
+    runs["bench_decoder"] = drive_benchmark(
+        "bench_decoder", lambda: decoder.main([], steps=BENCH_DECODER_STEPS))
+    runs["bench_serving"] = drive_benchmark("bench_serving", lambda: serving_bench.main(
+        SERVING_BENCH_FLAGS + SERVING_BENCH_SMOKE + ["--nsa", "--nsa_window", "512"]))
+    runs["bench_serving_dense"] = drive_benchmark("bench_serving_dense", lambda: serving_bench.main(
+        SERVING_BENCH_FLAGS + SERVING_BENCH_SMOKE))
+    runs["bench_quant"] = drive_benchmark("bench_quant", lambda: quant_decode.main(QUANT_SMOKE))
+    runs["bench_scaling"] = drive_benchmark(
+        "bench_scaling", lambda: decode_scaling.main(SCALING_SMOKE))
+    padding = int8_padding_cost(device)
+    long_keys = long_keys_timing(device)
+    launches = {name: r["launches"] for name, r in runs.items()}
+    launches["bench_serving"] = dict(Counter(launches["bench_serving"])
+                                     + Counter(launches.pop("bench_serving_dense")))
+    return {"launches": launches, "lines": {n: r["line"] for n, r in runs.items()},
+            "seconds": {n: r["seconds"] for n, r in runs.items()},
+            "tiny_hd128_step_parity": parity, "int8_padding": padding,
+            "small_kv_fwd_long_keys": long_keys}
 
 
 def timed(phase, *args):
@@ -6665,6 +7214,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         parallel = timed(phase_parallel, device, workdir)
     parallel_2 = timed(phase_parallel_2, device)
+    benchmarks = timed(phase_benchmarks, device)
 
     def by_path(name):
         return {"embed": main_run["launches"].get(name, 0),
@@ -6686,7 +7236,10 @@ def main() -> int:
                 "remat": remat["launches"].get(name, 0),
                 "observe": observe["launches"].get(name, 0),
                 "parallel": parallel["launches"].get(name, 0),
-                "parallel_2": parallel_2["launches"].get(name, 0)}
+                "parallel_2": parallel_2["launches"].get(name, 0),
+                **{path: benchmarks["launches"][path].get(name, 0)
+                   for path in ("bench", "bench_decoder", "bench_serving", "bench_quant",
+                                "bench_scaling")}}
 
     entries = []
     for name, replaces in (
@@ -6835,6 +7388,9 @@ def main() -> int:
         "observe": {k: v for k, v in observe.items() if k != "launches"},
         "parallel": {k: v for k, v in parallel.items() if k != "launches"},
         "parallel_2": {k: v for k, v in parallel_2.items() if k != "launches"},
+        "benchmarks": benchmarks["lines"],
+        "benchmarks_phase": {k: v for k, v in benchmarks.items()
+                             if k not in ("launches", "lines")},
         "card": smi,
     }
     print(smi)

@@ -57,8 +57,15 @@
 // would round fp32 to TF32. One block per (32 query rows, sample * head);
 // the scores of its rows against every key stay in shared memory (K <= 1024:
 // at most 131 KB), the keys stream through one 64-row tile buffer (K, then
-// V), and the softmax is the straight one. It runs only in checks and
-// parity runs.
+// V), and the softmax is the straight one. It runs in checks, parity runs
+// and fp32 serving. Past 1,024 keys (the decode pools of a long
+// max_seq_len: 4,096 at 16,384 positions and ratio 4) the scores no longer
+// fit, and small_kv_fwd_long_kernel takes the same blocks through three
+// walks over the key tiles instead: the row max, the sum of exp(s - m),
+// then w = exp(s - m) / sum into a 32 x 64 tile and w v. Each walk
+// recomputes the same fp32 scores, so the softmax stays the straight one;
+// only the order of the sum differs. Both routes take up to 8,192 keys
+// (FWD_MAX_KEYS; the bf16 route keeps only the thresholds per key).
 
 #include <math.h>
 #include <stdint.h>
@@ -74,7 +81,8 @@ using forde::SKV_INVALID_KEY_POS;
 constexpr int BQ = 32;        // query rows per block (fp32 route)
 constexpr int BK = 64;        // keys per tile
 constexpr int THREADS = 256;  // 16 x 16 thread grid (fp32 route)
-constexpr int MAX_KEYS = 1024;
+constexpr int MAX_KEYS = 1024;       // the fp32 route's scores in shared memory
+constexpr int FWD_MAX_KEYS = 8192;  // the long fp32 route and the bf16 route
 constexpr int TC_BQ = 64;        // query rows per block (bf16 route)
 constexpr int TC_THREADS = 128;  // 4 warps of 16 query rows
 
@@ -82,6 +90,12 @@ template <int D>
 size_t smem_bytes(int kp) {
   return ((BQ + BK) * (D + 1) + BQ * (kp + 1)) * sizeof(float) +
          kp * sizeof(int);
+}
+
+// The long fp32 route: the q tile, one K or V tile and a 32 x 64 w tile.
+template <int D>
+size_t long_smem_bytes() {
+  return ((BQ + BK) * (D + 1) + BQ * (BK + 1)) * sizeof(float);
 }
 
 // The q tile (then out on its way out), two stages of a K and a V tile,
@@ -204,6 +218,152 @@ small_kv_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float wv[2], vv[DJ];
 #pragma unroll
       for (int i = 0; i < 2; ++i) wv[i] = s_s[(ty + 16 * i) * LS + k0 + c];
+#pragma unroll
+      for (int j = 0; j < DJ; ++j) vv[j] = kv_s[c * LD + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(wv[i], vv[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int p = q0 + ty + 16 * i;
+    if (p >= S) continue;
+    float* orow = out + ((long long)bh * S + p) * D;
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j];
+  }
+}
+
+// The scores of rows ty + 16i against keys k0 + tx + 16j of one tile, in
+// the order small_kv_fwd_kernel sums them: the same fp32 values.
+template <int D>
+__device__ __forceinline__ void long_scores(float sc[2][4], const float* q_s,
+                                            const float* kv_s, const int* pos_b,
+                                            int q0, int k0, int K, float scale,
+                                            int tx, int ty) {
+  constexpr int LD = D + 1;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) {
+    float qv[2], kv[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) qv[i] = q_s[(ty + 16 * i) * LD + d];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kv[j] = kv_s[(tx + 16 * j) * LD + d];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = k0 + tx + 16 * j;
+    const int kpos = c < K ? pos_b[c] : SKV_INVALID_KEY_POS;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      sc[i][j] = skv_score(sc[i][j] * scale, q0 + ty + 16 * i, c, K, kpos);
+  }
+}
+
+// The 16 threads tx = 0..15 of a row ty are lanes 0-15 or 16-31 of one warp.
+__device__ __forceinline__ float row_max16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+small_kv_fwd_long_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const int* __restrict__ key_pos,
+                         float* __restrict__ out, int H, int S, int K, float scale) {
+  constexpr int LD = D + 1;
+  constexpr int LW = BK + 1;  // pitch of the w tile
+  constexpr int DJ = D / 16;  // output columns per thread
+  const int kp = (K + BK - 1) / BK * BK;
+
+  extern __shared__ float smem[];
+  float* q_s = smem;             // BQ x LD
+  float* kv_s = q_s + BQ * LD;   // BK x LD: a K tile, then a V tile
+  float* w_s = kv_s + BK * LD;   // BQ x LW: one tile's weights
+
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;     // b * H + h
+  const int b = bh / H;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+
+  const float* q_g = q + (long long)bh * S * D;
+  const float* k_g = k + (long long)bh * K * D;
+  const float* v_g = v + (long long)bh * K * D;
+  const int* pos_b = key_pos + (long long)b * K;
+
+  load_rows<D, BQ>(q_s, q_g, q0, S);
+  float sc[2][4];
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+
+  // Walk 1: each row's max; walk 2: its sum of exp(s - m).
+  for (int walk = 0; walk < 2; ++walk) {
+    for (int k0 = 0; k0 < kp; k0 += BK) {
+      __syncthreads();  // q_s written; the previous tile consumed
+      load_rows<D, BK>(kv_s, k_g, k0, K);
+      __syncthreads();
+      long_scores<D>(sc, q_s, kv_s, pos_b, q0, k0, K, scale, tx, ty);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (walk == 0)
+            mx[i] = fmaxf(mx[i], sc[i][j]);
+          else
+            sum[i] += expf(sc[i][j] - mx[i]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (walk == 0)
+        mx[i] = row_max16(mx[i]);
+      else
+        sum[i] = row_sum16(sum[i]);
+    }
+  }
+
+  // Walk 3: w = exp(s - m) / sum of one tile, then out += w V.
+  float acc[2][DJ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  for (int k0 = 0; k0 < kp; k0 += BK) {
+    __syncthreads();  // the previous V tile consumed
+    load_rows<D, BK>(kv_s, k_g, k0, K);
+    __syncthreads();
+    long_scores<D>(sc, q_s, kv_s, pos_b, q0, k0, K, scale, tx, ty);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w_s[(ty + 16 * i) * LW + tx + 16 * j] = expf(sc[i][j] - mx[i]) / sum[i];
+    __syncthreads();  // the K tile consumed, the weights written
+    load_rows<D, BK>(kv_s, v_g, k0, K);
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float wv[2], vv[DJ];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) wv[i] = w_s[(ty + 16 * i) * LW + c];
 #pragma unroll
       for (int j = 0; j < DJ; ++j) vv[j] = kv_s[c * LD + tx + 16 * j];
 #pragma unroll
@@ -395,7 +555,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   const int kp = (keys + BK - 1) / BK * BK;
   cudaError_t err = cudaFuncSetAttribute(
       small_kv_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)tc_smem_bytes<D>(MAX_KEYS));
+      (int)tc_smem_bytes<D>(FWD_MAX_KEYS));
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + TC_BQ - 1) / TC_BQ, batch * heads);
   small_kv_fwd_tc_kernel<D><<<grid, TC_THREADS, tc_smem_bytes<D>(kp), stream>>>(
@@ -410,11 +570,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* key_pos, void* out, int batch, int heads,
                    int seq, int keys, float scale, cudaStream_t stream) {
   const int kp = (keys + BK - 1) / BK * BK;
+  const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
+  if (keys > MAX_KEYS) {
+    cudaError_t err = cudaFuncSetAttribute(
+        small_kv_fwd_long_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)long_smem_bytes<D>());
+    if (err != cudaSuccess) return err;
+    small_kv_fwd_long_kernel<D><<<grid, THREADS, long_smem_bytes<D>(), stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const int*>(key_pos),
+        static_cast<float*>(out), heads, seq, keys, scale);
+    return cudaGetLastError();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       small_kv_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes<D>(MAX_KEYS));
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
   small_kv_fwd_kernel<D><<<grid, THREADS, smem_bytes<D>(kp), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(key_pos),
@@ -427,14 +598,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route;
-// q, k, v and out 16-byte aligned); 0 < keys <= 1024. Returns the CUDA
+// q, k, v and out 16-byte aligned); 0 < keys <= 8192. Returns the CUDA
 // error code of the launch (0 on success).
 int forde_small_kv_fwd(const void* q, const void* k, const void* v,
                        const void* key_pos, void* out, int batch, int heads,
                        int seq, int keys, int head_dim, int dtype, float scale,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (keys <= 0 || keys > MAX_KEYS || seq <= 0) return (int)cudaErrorInvalidValue;
+  if (keys <= 0 || keys > FWD_MAX_KEYS || seq <= 0) return (int)cudaErrorInvalidValue;
 #define FORDE_SKV_FWD(LAUNCH, DIM) \
   return LAUNCH<DIM>(q, k, v, key_pos, out, batch, heads, seq, keys, scale, st)
   if (dtype == 0 && head_dim == 64) FORDE_SKV_FWD(launch, 64);

@@ -39,11 +39,14 @@ from forde_tpu_torch.ops.flash_attention import _check_aligned
 NEG_BIG = -1e9
 INVALID_KEY_POS = 2**30
 KERNEL_IMPLS = ("auto", "pallas", "interpret")
-# The CUDA-core forward keeps the scores of a 32-row q tile against every
-# key in shared memory, and every kernel the key thresholds, which bounds K
-# (the decoder LM's sets are 64 to 256 keys at its 2048 positions; 960
-# pools at 8192 positions).
+# The backward kernels keep the key thresholds in shared memory, which
+# bounds K (the decoder LM's sets are 64 to 256 keys at its 2048 positions;
+# 960 pools at 8192 positions). The forward takes more: past 1,024 keys its
+# fp32 route walks the key tiles three times instead of keeping the scores
+# (a decode step's pools at a long max_seq_len: 4,096 at 16,384 positions,
+# ratio 4).
 MAX_KEYS = 1024
+FWD_MAX_KEYS = 8192
 # The dk/dv kernel starts one block per 64 keys of a (sample, head) and
 # per chunk of the queries; chunks are added until about this many blocks
 # (two per SM of an H100) are in flight.
@@ -83,9 +86,10 @@ def small_kv_fwd_reference(q, k, v, key_pos, scale: float) -> torch.Tensor:
     return torch.matmul(w.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
-def _check_kernel_args(name, q, k, v, key_pos, *others):
-    """Raise on what the CUDA kernels do not take; returns q, k, v and
-    ``others`` contiguous and key_pos as contiguous int32."""
+def _check_kernel_args(name, max_keys, q, k, v, key_pos, *others):
+    """Raise on what the CUDA kernels do not take (at most ``max_keys``
+    keys); returns q, k, v and ``others`` contiguous and key_pos as
+    contiguous int32."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} takes CPU or CUDA tensors, got {q.device}")
     b, h, s, d = q.shape
@@ -98,8 +102,8 @@ def _check_kernel_args(name, q, k, v, key_pos, *others):
         raise TypeError(f"{name} takes float32 or bfloat16 inputs of one dtype")
     if d not in (64, 128):
         raise ValueError(f"{name} takes head_dim 64 or 128, got {d}")
-    if not 0 < kk <= MAX_KEYS:
-        raise ValueError(f"{name} takes 1 to {MAX_KEYS} keys, got {kk}")
+    if not 0 < kk <= max_keys:
+        raise ValueError(f"{name} takes 1 to {max_keys} keys, got {kk}")
     for t in (k, v, key_pos, *others):
         if t.device != q.device:
             raise ValueError(f"k, v, key_pos and do must be on {q.device}")
@@ -129,13 +133,13 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
 
     q (B, H, S, D), k and v (B, H, K, D) of one dtype (float32 or
     bfloat16), D 64 or 128 on CUDA (``small_kv_attention`` pads), K <=
-    ``MAX_KEYS``; key_pos (B, K) integer. A CPU tensor takes the plain
+    ``FWD_MAX_KEYS``; key_pos (B, K) integer. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel on the current stream (bf16
     on the tensor cores, fp32 on the CUDA cores), or raises.
     """
     if q.device.type == "cpu":
         return small_kv_fwd_reference(q, k, v, key_pos, scale)
-    q, k, v, pos = _check_kernel_args("small_kv_fwd", q, k, v, key_pos)
+    q, k, v, pos = _check_kernel_args("small_kv_fwd", FWD_MAX_KEYS, q, k, v, key_pos)
     b, h, s, d = q.shape
     kk = k.shape[2]
     out = torch.empty_like(q)
@@ -186,9 +190,9 @@ def small_kv_bwd_reference(q, k, v, key_pos, do, scale: float):
 def small_kv_bwd(q, k, v, key_pos, do, scale: float):
     """The backward kernel's wrapper: (dq, dk, dv) in the input dtype from
     the forward's inputs and the output gradient ``do`` (B, H, S, D).
-    Arguments as ``small_kv_fwd``. A CPU tensor takes the plain version; a
-    CUDA tensor launches the kernels on the current stream (bf16 on the
-    tensor cores, fp32 on the CUDA cores), or raises. It allocates their
+    Arguments as ``small_kv_fwd``, K <= ``MAX_KEYS``. A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels on the current stream
+    (bf16 on the tensor cores, fp32 on the CUDA cores), or raises. It allocates their
     scratch: the dq kernel's row statistics (m, l, delta: 3 * B * H * S
     fp32) and, with more than one chunk (``dkdv_chunks``), the dk/dv
     partials (2 * chunks * B * H * K * D fp32), which a last kernel sums in
@@ -197,7 +201,7 @@ def small_kv_bwd(q, k, v, key_pos, do, scale: float):
     kernels it runs."""
     if q.device.type == "cpu":
         return small_kv_bwd_reference(q, k, v, key_pos, do, scale)
-    q, k, v, do, pos = _check_kernel_args("small_kv_bwd", q, k, v, key_pos, do)
+    q, k, v, do, pos = _check_kernel_args("small_kv_bwd", MAX_KEYS, q, k, v, key_pos, do)
     b, h, s, d = q.shape
     kk = k.shape[2]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

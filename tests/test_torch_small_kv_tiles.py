@@ -274,3 +274,62 @@ def test_kernel_args_reject_unaligned_pointers():
     with pytest.raises(ValueError, match="16-byte aligned do"):
         nsa._check_aligned("small_kv_bwd", do=buf[1:1 + n].view(1, 2, 64, 64))
     nsa._check_aligned("small_kv_bwd", do=buf[8:].view(1, 2, 64, 64))
+
+
+def _long_fp32_forward(q, k, v, key_pos, scale):
+    """The fp32 route past ``MAX_KEYS`` keys: three walks over the 64-key
+    tiles, each recomputing the fp32 scores (natural units): the row max,
+    the sum of exp(s - m), then w = exp(s - m) / sum and out += w v."""
+    s = nsa._masked_scores(q, k, key_pos, scale)
+    tiles = range(0, k.shape[2], BLOCK)
+    m = torch.stack([s[..., k0:k0 + BLOCK].amax(-1) for k0 in tiles]).amax(0)[..., None]
+    total = sum(torch.exp(s[..., k0:k0 + BLOCK] - m).sum(-1, keepdim=True) for k0 in tiles)
+    out = torch.zeros(q.shape)
+    for k0 in tiles:
+        w = torch.exp(s[..., k0:k0 + BLOCK] - m) / total
+        out = out + w @ v[:, :, k0:k0 + BLOCK]
+    return out
+
+
+@pytest.mark.parametrize("b,h,s,kk,kind", [
+    (1, 4, 1, 4096, "decode_pools"),  # decode at max_seq_len 16,384, ratio 4
+    (2, 2, 70, 1100, "pools"),  # past MAX_KEYS, not a multiple of the tile
+    (2, 2, 70, 1100, "invalid"),
+])
+def test_long_fp32_forward_matches_plain(b, h, s, kk, kind):
+    """Past ``MAX_KEYS`` keys the fp32 forward walks the tiles three times
+    (csrc/small_kv_fwd.cu ``small_kv_fwd_long_kernel``); held to phase 3's
+    fp32 bar against the plain version. The wrapper takes such K up to
+    ``FWD_MAX_KEYS``; the backward stays at ``MAX_KEYS``."""
+    rng = np.random.RandomState(5)
+    q = torch.from_numpy(rng.randn(b, h, s, 64).astype(np.float32))
+    k, v = (torch.from_numpy(rng.randn(b, h, kk, 64).astype(np.float32)) for _ in range(2))
+    j = np.arange(kk)
+    if kind == "decode_pools":  # pool p joins once cur >= 4 (p + 1) + 511
+        key_pos = np.broadcast_to(4 * (j + 1) + 511 - 9000, (b, kk))
+    else:
+        key_pos = np.broadcast_to((j + 1) * 2, (b, kk)).copy()
+        if kind == "invalid":
+            key_pos[1, 700:] = nsa.INVALID_KEY_POS
+    key_pos = torch.from_numpy(np.ascontiguousarray(key_pos, np.int32))
+    scale = 64 ** -0.5
+    got = _long_fp32_forward(q, k, v, key_pos, scale)
+    want = nsa.small_kv_fwd_reference(q, k, v, key_pos, scale)
+    mag = _fwd_magnitude(q, k, v, key_pos, scale)
+    diff = (got - want).abs()
+    assert (diff / (1e-4 + 1e-5 * (want.abs() + mag))).max().item() <= 1.0
+    assert nsa.MAX_KEYS < kk <= nsa.FWD_MAX_KEYS
+    assert nsa.MAX_KEYS == 1024
+
+
+def test_decode_pools_at_16384_positions_fit_the_forward():
+    """decode_scaling's longer length: 4,096 pools at ratio 4 (the JAX
+    package's test config), within the forward kernel's key limit."""
+    from forde_tpu_torch.core.config import create_default_config
+    from forde_tpu_torch.nn.attention import NativeSparseAttention
+
+    cfg = create_default_config().replace(max_seq_len=16384, window_size=512)
+    attn = NativeSparseAttention(cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.window_size,
+                                 cfg.compression_ratio, cfg.top_k_global,
+                                 max_decode_len=cfg.max_seq_len, device="meta")
+    assert attn.max_pools() == 4096 <= nsa.FWD_MAX_KEYS
