@@ -65,10 +65,11 @@ Phases:
      prefill and decode shapes, the streaming S = 8192, an odd S and a
      padded D) and the mask options (kv_lens with 0, kv_bound, causal +
      window; kv_len; INVALID_KEY_POS keys, keys all in the future, K not a
-     multiple of 64; an lse cotangent; a window that is not a multiple of
+     multiple of 64, padding keys that fill whole key chunks, up to 8,192
+     keys; an lse cotangent; a window that is not a multiple of
      the tile), each backward kernel's bf16 error against its plain
-     version's, flash_fwd, flash_bwd_dq, flash_bwd_dkv, small_kv_bwd and
-     moment_sums bit-identical across two calls, a misaligned tensor
+     version's, flash_fwd, small_kv_fwd, flash_bwd_dq, flash_bwd_dkv,
+     small_kv_bwd and moment_sums bit-identical across two calls, a misaligned tensor
      refused by the 4-D wrappers (bf16) and by moment_sums, an F of
      moment_sums that is not a multiple of its 8-column vector, and the
      output and gradients of ``flash_mha``,
@@ -304,8 +305,9 @@ Phases:
      each last line one JSON object of bench.py's keys with a finite
      positive value and launches of every kernel on its path; what
      int8_matmul's padding to 17 rows costs a batch-1 decode step; and
-     small_kv_fwd timed at decode_scaling's decode pools (fp32, 512 and
-     4,096 keys).
+     small_kv_fwd's fp32 route timed at decode_scaling's decode pools
+     (512 and 4,096 keys) and at the default serve's decode and prefill
+     shapes (LONG_KEYS_TIMING).
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
@@ -1446,6 +1448,11 @@ FLASH_FWD_CASES = [
 # (one query; 256 pools at max_seq_len 2048, 64 kept), pools a row does
 # not have (INVALID_KEY_POS), every key in the future (the uniform quirk),
 # D = 128, and K = 200, not a multiple of the kernels' 64-key tiles.
+# Then the fp32 route's key chunks: a decode step's pools at max_seq_len
+# 16,384 and ratio 4 (decode_scaling: 64 chunks), every one of them masked
+# (the uniform quirk across chunks), K = FWD_MAX_KEYS, padding keys that
+# fill whole chunks of a row, a few query rows at D = 128 (one block per
+# row), and K past 1,024 that is not a multiple of the tile at D = 128.
 SMALL_KV_CASES = [
     ("prefill_pools_s2048_k192", 8, 8, 2048, 192, 64, "pools"),
     ("prefill_topk_s2048_k64", 8, 8, 2048, 64, 64, "topk"),
@@ -1455,11 +1462,11 @@ SMALL_KV_CASES = [
     ("all_future_s64_k40", 2, 4, 64, 40, 64, "future"),
     ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
     ("pools_s2048_k200", 2, 4, 2048, 200, 64, "pools"),
-    # past the fp32 route's 1,024 scores in shared memory (its three-walk
-    # kernel; the bf16 route keeps only the thresholds): a decode step's
-    # pools at max_seq_len 16,384 and ratio 4 (decode_scaling), and a K
-    # that is not a multiple of the tile at D = 128
     ("decode_pools_s1_k4096", 1, 4, 1, 4096, 64, "decode_pools"),
+    ("decode_pools_s1_k4096_future", 1, 4, 1, 4096, 64, "future"),
+    ("decode_pools_s1_k8192", 1, 4, 1, 8192, 64, "decode_pools"),
+    ("decode_padded_s1_k4096", 2, 4, 1, 4096, 64, "decode_padded"),
+    ("rows_s5_k300_d128", 1, 8, 5, 300, 128, "pools"),
     ("pools_s200_k1100_d128", 2, 2, 200, 1100, 128, "pools"),
 ]
 POOL_RATIO, WINDOW, MAX_SEQ = 8, 512, 2048
@@ -1506,6 +1513,10 @@ def small_kv_key_pos(kind, b, s, kk, device, gen):
     cur = torch.randint(600, MAX_SEQ - 64, (b, 1), device=device, generator=gen)
     if kind == "decode_pools":  # pool p joins once cur >= (p+1)*ratio + window - 1
         return ((j + 1) * POOL_RATIO + WINDOW - 1 - cur).to(torch.int32)
+    if kind == "decode_padded":  # and a row's pools past its count are padding
+        pos = (j + 1) * POOL_RATIO + WINDOW - 1 - cur
+        count = torch.tensor([1000, 70], device=device)[:b]
+        return torch.where(j[None, :] < count[:, None], pos, INVALID_KEY_POS).to(torch.int32)
     if kind == "decode_topk":  # kept source indices, a few slots empty
         idx = torch.randint(0, 600, (b, kk), device=device, generator=gen)
         idx[:, -3:] = MAX_SEQ
@@ -1615,6 +1626,11 @@ def phase_check_serving_kernels(device) -> dict:
             dt = getattr(torch, dtype_name)
             qd, kd, vd = (t.to(dt) for t in (q, k, v))
             out = nsa.small_kv_fwd(qd, kd, vd, key_pos, scale)
+            same = torch.equal(nsa.small_kv_fwd(qd, kd, vd, key_pos, scale), out)
+            log(f"[check] small_kv_fwd {case} {dtype_name}: two calls bit-identical {same} "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"small_kv_fwd is not deterministic: {case} {dtype_name}")
             qf, kf, vf = (t.float() for t in (qd, kd, vd))
             want = nsa.small_kv_fwd_reference(qf, kf, vf, key_pos, scale)
             mag = small_kv_magnitude(qf, kf, vf, key_pos, scale)
@@ -2157,12 +2173,14 @@ def phase_serve_timing(device, state) -> dict:
     return out
 
 
-# Timed shapes: (name, B, H, S, D, window) of flash_fwd, the serving
-# prefill and the streaming side; (name, B, H, S, K, keys) of small_kv_fwd,
-# one prefill layer's two launches and one decode step's two.
+# Timed shapes: (name, B, H, S, D, window, dtype) of flash_fwd, the
+# serving prefill (bf16, and fp32 as serve runs it without --bf16) and the
+# streaming side; (name, B, H, S, K, keys) of small_kv_fwd, one prefill
+# layer's two launches and one decode step's two.
 FLASH_FWD_TIMING = [
-    ("serve_prefill_s2048_window512", 8, 8, 2048, 64, WINDOW),
-    ("stream_s8192_window512", 1, 8, 8192, 64, WINDOW),
+    ("serve_prefill_s2048_window512", 8, 8, 2048, 64, WINDOW, "bfloat16"),
+    ("stream_s8192_window512", 1, 8, 8192, 64, WINDOW, "bfloat16"),
+    ("serve_prefill_s2048_window512_fp32", 8, 8, 2048, 64, WINDOW, "float32"),
 ]
 SMALL_KV_TIMING = [
     ("prefill_pools_s2048_k192", 8, 8, 2048, 192, "pools"),
@@ -2173,10 +2191,10 @@ SMALL_KV_TIMING = [
 
 
 def phase_serving_kernel_timing(device) -> dict:
-    """Per call of flash_fwd and small_kv_fwd at the serving shapes (bf16):
-    kernel, plain version, SDPA with the same mask (a yardstick only: the
-    port never calls it) and the bound. Inputs cycle through copies that
-    together exceed the 50 MB L2."""
+    """Per call of flash_fwd and small_kv_fwd at the serving shapes (bf16;
+    flash_fwd's serving prefill in fp32 too): kernel, plain version, SDPA
+    with the same mask (a yardstick only: the port never calls it) and the
+    bound. Inputs cycle through copies that together exceed the 50 MB L2."""
     import torch
     import torch.nn.functional as F
 
@@ -2186,9 +2204,11 @@ def phase_serving_kernel_timing(device) -> dict:
     gen = torch.Generator(device=device).manual_seed(SEED + 21)
     bf16 = torch.bfloat16
     out = {"flash_fwd": {}, "small_kv_fwd": {}}
-    for name, b, h, s, d, window in FLASH_FWD_TIMING:
-        copies = max(2, -(-200_000_000 // (3 * b * h * s * d * 2)))
-        inputs = [[torch.randn(b, h, s, d, device=device, generator=gen).to(bf16)
+    for name, b, h, s, d, window, dtype_name in FLASH_FWD_TIMING:
+        dt = getattr(torch, dtype_name)
+        elem = 2 if dt == bf16 else 4
+        copies = max(2, -(-200_000_000 // (3 * b * h * s * d * elem)))
+        inputs = [[torch.randn(b, h, s, d, device=device, generator=gen).to(dt)
                    for _ in range(3)] for _ in range(copies)]
         pos = torch.arange(s, device=device)
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
@@ -2198,14 +2218,15 @@ def phase_serving_kernel_timing(device) -> dict:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
         with torch.inference_mode():
-            out["flash_fwd"][name] = time_kernel(
-                f"flash_fwd {name} (B={b}, H={h}, S={s}, D={d}, bf16)",
+            t = time_kernel(
+                f"flash_fwd {name} (B={b}, H={h}, S={s}, D={d}, {dtype_name})",
                 [lambda i=i: fa.flash_fwd(*i, scale, window, True, None) for i in inputs],
                 [lambda i=i: fa.flash_fwd_reference(*i, scale, window, True, None)
                  for i in inputs[:2]],
                 [lambda i=i: sdpa(*i) for i in inputs],
-                *flash_fwd_bound(b, h, s, d, window, True, None, "bfloat16"),
+                *flash_fwd_bound(b, h, s, d, window, True, None, dtype_name),
                 B=b, H=h, S=s, D=d, window=window)
+        out["flash_fwd"][name] = {**t, "dtype": dtype_name}
         del inputs
         torch.cuda.empty_cache()
 
@@ -7059,10 +7080,22 @@ def int8_padding_cost(device) -> dict:
     return {"per_call_ms": per, "per_step_ms": dict(step)}
 
 
-# small_kv_fwd at decode_scaling's decode step (4 heads of 64, fp32, the
-# default config's ratio 4): the compressed pools at 2,048 positions (512,
-# the one-walk route) and at 16,384 (4,096, the three-walk route).
-LONG_KEYS_TIMING = [("decode_pools_s1_k512_fp32", 512), ("decode_pools_s1_k4096_fp32", 4096)]
+# small_kv_fwd's fp32 route, (name, B, H, S, K, keys): decode_scaling's
+# decode step (4 heads of 64, the default config's ratio 4: the compressed
+# pools at 2,048 positions, 512, and at 16,384, 4,096), the default serve's
+# decode in fp32 (8 rows of 8 heads: its 256 pools and 64 kept rows, and
+# one row's pools) and its prefill's two calls (S = 2,048: 192 pools, 64
+# selected). A decode step splits the keys over many blocks; a prefill's
+# query tiles fill the card alone.
+LONG_KEYS_TIMING = [
+    ("decode_pools_s1_k512_fp32", 1, 4, 1, 512, "decode_pools"),
+    ("decode_pools_s1_k4096_fp32", 1, 4, 1, 4096, "decode_pools"),
+    ("serve_decode_pools_s1_k256_fp32", 8, 8, 1, 256, "decode_pools"),
+    ("serve_decode_topk_s1_k64_fp32", 8, 8, 1, 64, "decode_topk"),
+    ("serve_decode_pools_b1_s1_k256_fp32", 1, 8, 1, 256, "decode_pools"),
+    ("prefill_pools_s2048_k192_fp32", 8, 8, 2048, 192, "pools"),
+    ("prefill_topk_s2048_k64_fp32", 8, 8, 2048, 64, "topk"),
+]
 
 
 def long_keys_timing(device) -> dict:
@@ -7075,9 +7108,9 @@ def long_keys_timing(device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(SEED + 34)
     out = {}
-    b, h, s, d = 1, 4, 1, 64
-    for name, kk in LONG_KEYS_TIMING:
-        key_pos = small_kv_key_pos("decode_pools", b, s, kk, device, gen)
+    d = 64
+    for name, b, h, s, kk, kind in LONG_KEYS_TIMING:
+        key_pos = small_kv_key_pos(kind, b, s, kk, device, gen)
         copies = max(2, -(-200_000_000 // ((b * h * s * d + 2 * b * h * kk * d) * 4)))
         inputs = [(torch.randn(b, h, s, d, device=device, generator=gen),
                    *(torch.randn(b, h, kk, d, device=device, generator=gen) for _ in range(2)))
@@ -7085,6 +7118,7 @@ def long_keys_timing(device) -> dict:
         qpos = torch.arange(s, device=device)[None, None, :, None]
         kpos = key_pos[:, None, None, :]
         add = torch.where(qpos >= kpos, 0.0, nsa.NEG_BIG)
+        add = torch.where(kpos >= nsa.INVALID_KEY_POS, -float("inf"), add)
         scale = d ** -0.5
         with torch.inference_mode():
             t = time_kernel(
@@ -7096,7 +7130,8 @@ def long_keys_timing(device) -> dict:
                 *small_kv_bound(inputs[0][0], inputs[0][1], key_pos, "float32"),
                 B=b, H=h, S=s, K=kk, D=d)
         out[name] = {**t, "dtype": "float32"}
-        del inputs
+        del inputs, add
+        torch.cuda.empty_cache()
     return out
 
 
@@ -7110,8 +7145,8 @@ def phase_benchmarks(device) -> dict:
     main in-process at reduced counts: bench.main, decoder.main,
     serving_bench.main twice (NSA, window 512; dense with its prefix mode),
     quant_decode.main, decode_scaling.main; each last line held
-    (drive_benchmark); int8_matmul's padding at batch 1; small_kv_fwd at
-    decode_scaling's decode pools (LONG_KEYS_TIMING)."""
+    (drive_benchmark); int8_matmul's padding at batch 1; small_kv_fwd's
+    fp32 route at LONG_KEYS_TIMING."""
     from forde_tpu_torch import bench
     from forde_tpu_torch.benchmarks import decode_scaling, decoder, quant_decode, serving_bench
     from forde_tpu_torch.core.config import DTypePolicy

@@ -14,8 +14,10 @@ captures the decode graph), then one timed call ending in
 ``torch.cuda.synchronize()``.
 
 At 16,384 positions the compressed branch holds 4,096 pools: the decode
-step's small-KV call takes them (``small_kv_fwd`` takes up to
-``FWD_MAX_KEYS`` keys).
+step's small-KV call takes them all (``small_kv_fwd`` takes up to
+``FWD_MAX_KEYS`` keys), its fp32 route cutting them into chunks over the
+card's blocks (``fwd_chunks``), so the pools' growth costs bytes, not
+more walks.
 
 Substitutions: ``scan_layers`` is a checkpoint layout in the port, not a
 loop; the weights come from a ``torch.Generator`` seeded 0.

@@ -16,12 +16,13 @@ JAX package's ``_small_kv_pallas`` custom_vjp): the forward wrapper
 ``small_kv_bwd`` launches ``csrc/small_kv_bwd.cu`` on every CUDA tensor;
 on a CPU tensor they run their plain versions ``small_kv_fwd_reference``
 and ``small_kv_bwd_reference``. bf16 runs on the tensor cores, fp32 on
-the CUDA cores. The backward is a dq kernel and a dk/dv kernel over
-chunks of the queries, whose partials are summed in chunk order: dk and
-dv are summed in a fixed order, and the result is the same from run to
-run. The JAX package picks its TPU kernels only when S*K >= 2M, a
-threshold measured on a TPU v5e; the port has no threshold. "reference"
-runs ``small_kv_attention_ref``, differentiated by autograd.
+the CUDA cores. The fp32 forward cuts the keys into chunks over blocks
+and merges the chunks' partial softmaxes in chunk order; the backward is
+a dq kernel and a dk/dv kernel over chunks of the queries, whose partials
+are summed in chunk order. Every sum has a fixed order, and the result is
+the same from run to run. The JAX package picks its TPU kernels only when
+S*K >= 2M, a threshold measured on a TPU v5e; the port has no threshold.
+"reference" runs ``small_kv_attention_ref``, differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -41,16 +42,18 @@ INVALID_KEY_POS = 2**30
 KERNEL_IMPLS = ("auto", "pallas", "interpret")
 # The backward kernels keep the key thresholds in shared memory, which
 # bounds K (the decoder LM's sets are 64 to 256 keys at its 2048 positions;
-# 960 pools at 8192 positions). The forward takes more: past 1,024 keys its
-# fp32 route walks the key tiles three times instead of keeping the scores
-# (a decode step's pools at a long max_seq_len: 4,096 at 16,384 positions,
-# ratio 4).
+# 960 pools at 8192 positions). The forward takes more (a decode step's
+# pools at a long max_seq_len: 4,096 at 16,384 positions, ratio 4).
 MAX_KEYS = 1024
 FWD_MAX_KEYS = 8192
-# The dk/dv kernel starts one block per 64 keys of a (sample, head) and
-# per chunk of the queries; chunks are added until about this many blocks
-# (two per SM of an H100) are in flight.
-DKDV_TARGET_BLOCKS = 264
+# The dk/dv kernel starts one block per 64 keys of a (sample, head) and per
+# chunk of the queries, the fp32 forward one per query tile of a (sample,
+# head) and per chunk of the keys; chunks are added until about this many
+# blocks (two per SM of an H100) are in flight.
+TARGET_BLOCKS = 264
+# The fp32 forward's query tile: one row up to this many rows (a decode
+# step), else 32 rows.
+FWD_ROW_MAX_S = 8
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -115,17 +118,42 @@ def _check_kernel_args(name, max_keys, q, k, v, key_pos, *others):
     return (*tensors, key_pos.to(torch.int32).contiguous())
 
 
+def _chunks(tiles: int, blocks: int) -> int:
+    """How many chunks of ``tiles`` tiles a kernel that starts ``blocks``
+    blocks per chunk needs to start about ``TARGET_BLOCKS``; no chunk is
+    empty."""
+    want = min(tiles, max(1, -(-TARGET_BLOCKS // blocks)))
+    per = -(-tiles // want)
+    return -(-tiles // per)
+
+
 def dkdv_chunks(b: int, h: int, s: int, kk: int) -> int:
     """How many chunks of 64-query tiles the backward's dk/dv kernel cuts
     S into: a function of the shapes alone, so that the order of the sums
-    (and with it the result) does not change from run to run. Chunks are
-    added until the kernel starts about ``DKDV_TARGET_BLOCKS`` blocks; no
-    chunk is empty."""
-    tiles = -(-s // 64)
-    blocks = -(-kk // 64) * b * h
-    want = min(tiles, max(1, -(-DKDV_TARGET_BLOCKS // blocks)))
-    per = -(-tiles // want)
-    return -(-tiles // per)
+    (and with it the result) does not change from run to run."""
+    return _chunks(-(-s // 64), -(-kk // 64) * b * h)
+
+
+def fwd_chunks(b: int, h: int, s: int, kk: int) -> int:
+    """How many chunks of 64-key tiles the fp32 forward cuts K into (1 where
+    the query tiles already fill the card, as a 2,048-row prefill does;
+    ~64 at a decode step of 4 heads against 4,096 pools): a function of the
+    shapes alone, so that a captured decode graph stays valid and the
+    order of the sums does not change from run to run."""
+    q_tiles = s if s <= FWD_ROW_MAX_S else -(-s // 32)
+    return _chunks(-(-kk // 64), q_tiles * b * h)
+
+
+def _c_function(lib, name: str, pointers: int, ints: int):
+    """``lib.name`` with its arguments declared: ``pointers`` pointers,
+    ``ints`` ints, the scale and the stream."""
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
@@ -134,8 +162,12 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
     q (B, H, S, D), k and v (B, H, K, D) of one dtype (float32 or
     bfloat16), D 64 or 128 on CUDA (``small_kv_attention`` pads), K <=
     ``FWD_MAX_KEYS``; key_pos (B, K) integer. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel on the current stream (bf16
-    on the tensor cores, fp32 on the CUDA cores), or raises.
+    version; a CUDA tensor launches the kernel on the current stream, or
+    raises: bf16 on the tensor cores; fp32 on the CUDA cores, its keys cut
+    into ``fwd_chunks`` chunks, with more than one the chunks' (m, l, acc)
+    in fp32 scratch (B * H * S * chunks * (D + 2)) that a second CUDA kernel
+    merges in chunk order (``forde_small_kv_fwd_split``). One call counts
+    one launch.
     """
     if q.device.type == "cpu":
         return small_kv_fwd_reference(q, k, v, key_pos, scale)
@@ -143,20 +175,23 @@ def small_kv_fwd(q, k, v, key_pos, scale: float) -> torch.Tensor:
     b, h, s, d = q.shape
     kk = k.shape[2]
     out = torch.empty_like(q)
+    chunks = fwd_chunks(b, h, s, kk) if q.dtype == torch.float32 else 1
 
     lib = build.load("small_kv_fwd")
-    fn = lib.forde_small_kv_fwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        err = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            b, h, s, kk, d, _DTYPE_CODES[q.dtype], scale,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if chunks == 1:
+            err = _c_function(lib, "forde_small_kv_fwd", 5, 6)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                b, h, s, kk, d, _DTYPE_CODES[q.dtype], scale, stream,
+            )
+        else:
+            scratch = torch.empty(b * h * s * chunks * (d + 2), dtype=torch.float32,
+                                  device=q.device)
+            err = _c_function(lib, "forde_small_kv_fwd_split", 6, 6)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                scratch.data_ptr(), b, h, s, kk, d, chunks, scale, stream,
+            )
     build.check(lib, err, "small_kv_fwd")
     kernels.count("small_kv_fwd")
     return out
@@ -211,14 +246,8 @@ def small_kv_bwd(q, k, v, key_pos, do, scale: float):
             if chunks > 1 else None)
 
     lib = build.load("small_kv_bwd")
-    fn = lib.forde_small_kv_bwd
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
-        err = fn(
+        err = _c_function(lib, "forde_small_kv_bwd", 10, 7)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(), do.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
             None if part is None else part.data_ptr(),

@@ -1,8 +1,9 @@
-"""The arithmetic of the bf16 tensor-core routes of ``csrc/small_kv_fwd.cu``
-and ``csrc/small_kv_bwd.cu``, held to the bars that chip_smoke.py holds
-the kernels to on the card.
+"""The arithmetic of the routes of ``csrc/small_kv_fwd.cu`` and the bf16
+route of ``csrc/small_kv_bwd.cu``, held to the bars that chip_smoke.py
+holds the kernels to on the card.
 
-``_tile_forward`` walks 64-key tiles twice, as the forward kernel does:
+``_tile_forward`` walks 64-key tiles twice, as the forward's bf16 route
+does:
 walk 1 keeps each row's running max m and sum l in log2 units (masked
 scores -1e9, padding keys -inf); walk 2 forms w = 2^(s - m) / l, rounds it
 to bf16 (the TPU's rounding point: w normalised, then rounded) and sums
@@ -10,15 +11,18 @@ w v in fp32. ``_tile_backward`` runs the backward's split: the dq kernel's
 online m, l and delta = sum(2^(s - m) dw) / l, then ds rounded to bf16 and
 dq = ds k; the dk/dv kernel's round(w)^T do and ds^T q summed per chunk of
 64-query tiles (the wrapper's own ``dkdv_chunks``), then over the chunks
-in order.
+in order. ``_split_fp32_forward`` runs the forward's fp32 route: the keys
+cut into the wrapper's own ``fwd_chunks`` chunks of 64-key tiles, an
+online softmax per chunk, the chunks merged in chunk order.
 
 Each is held against the port's plain version run in fp32 on the same
 values at phase 3's bars: forward |Δ| <= 1e-4 + 2^-8 (|plain| + mag), mag
 = sum_c w_c |v_c| (rounding w moves each term by at most 2^-8 of it,
-rounding out the value by 2^-8); backward chip_smoke's TOL_SKV_BWD in bf16,
+rounding out the value by 2^-8), and 1e-4 + 1e-5 (|plain| + mag) in fp32;
+backward chip_smoke's TOL_SKV_BWD in bf16,
 1e-4 + (2^-8 + 1e-4)(|plain| + mag). And against the JAX package's
 ``small_kv_attention(impl="interpret")`` and its ``jax.grad`` on the same
-bf16 inputs: the forward at the same bar, the gradients within 2^-6 of the
+inputs: the forward at the same bar, the gradients within 2^-6 of the
 largest |gradient| (as tests/test_torch_small_kv_bwd.py).
 """
 
@@ -248,8 +252,8 @@ def test_row_with_no_visible_key_is_uniform():
 def test_dkdv_chunks_depend_on_shape_and_cover_s(shape):
     """The chunk count is a function of (B, H, S, K) alone; the kernel's
     split of the query tiles into that many chunks covers S once, with no
-    chunk empty, and starts about DKDV_TARGET_BLOCKS blocks where S has
-    the tiles for it."""
+    chunk empty, and starts about TARGET_BLOCKS blocks where S has the
+    tiles for it."""
     b, h, s, kk = shape
     chunks = nsa.dkdv_chunks(b, h, s, kk)
     assert chunks == nsa.dkdv_chunks(b, h, s, kk)
@@ -259,8 +263,8 @@ def test_dkdv_chunks_depend_on_shape_and_cover_s(shape):
     assert all(len(r) > 0 for r in spans)
     assert [i for r in spans for i in r] == list(range(tiles))
     blocks = -(-kk // 64) * b * h
-    assert blocks * chunks >= min(nsa.DKDV_TARGET_BLOCKS, blocks * tiles) * 0.5
-    if blocks >= nsa.DKDV_TARGET_BLOCKS:
+    assert blocks * chunks >= min(nsa.TARGET_BLOCKS, blocks * tiles) * 0.5
+    if blocks >= nsa.TARGET_BLOCKS:
         assert chunks == 1
 
 
@@ -276,50 +280,171 @@ def test_kernel_args_reject_unaligned_pointers():
     nsa._check_aligned("small_kv_bwd", do=buf[8:].view(1, 2, 64, 64))
 
 
-def _long_fp32_forward(q, k, v, key_pos, scale):
-    """The fp32 route past ``MAX_KEYS`` keys: three walks over the 64-key
-    tiles, each recomputing the fp32 scores (natural units): the row max,
-    the sum of exp(s - m), then w = exp(s - m) / sum and out += w v."""
-    s = nsa._masked_scores(q, k, key_pos, scale)
-    tiles = range(0, k.shape[2], BLOCK)
-    m = torch.stack([s[..., k0:k0 + BLOCK].amax(-1) for k0 in tiles]).amax(0)[..., None]
-    total = sum(torch.exp(s[..., k0:k0 + BLOCK] - m).sum(-1, keepdim=True) for k0 in tiles)
-    out = torch.zeros(q.shape)
-    for k0 in tiles:
-        w = torch.exp(s[..., k0:k0 + BLOCK] - m) / total
-        out = out + w @ v[:, :, k0:k0 + BLOCK]
-    return out
+FP32_ATOL, FP32_RTOL = 1e-4, 1e-5
 
 
-@pytest.mark.parametrize("b,h,s,kk,kind", [
-    (1, 4, 1, 4096, "decode_pools"),  # decode at max_seq_len 16,384, ratio 4
-    (2, 2, 70, 1100, "pools"),  # past MAX_KEYS, not a multiple of the tile
+def _split_fp32_forward(q, k, v, key_pos, scale):
+    """The fp32 route: the keys cut into ``fwd_chunks`` chunks of whole
+    64-key tiles; per chunk one walk over its tiles with an online softmax
+    in natural units (running max m_c, a max still -inf taken as 0; sum l_c
+    of exp(s - m_c); acc_c = sum exp(s - m_c) v); then the chunks in order:
+    m = max m_c, out = sum e^(m_c - m) acc_c / sum e^(m_c - m) l_c. Returns
+    out and the chunks' m_c."""
+    b, h, s, _ = q.shape
+    kk = k.shape[2]
+    x = nsa._masked_scores(q, k, key_pos, scale)
+    tiles = -(-kk // BLOCK)
+    chunks = nsa.fwd_chunks(b, h, s, kk)
+    per = -(-tiles // chunks)
+    neg_inf = -float("inf")
+
+    def finite(m):
+        return torch.where(m == neg_inf, torch.zeros_like(m), m)
+
+    parts = []
+    for c in range(chunks):
+        m = torch.full((b, h, s, 1), neg_inf)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape)
+        spans = range(c * per, min(tiles, (c + 1) * per))
+        assert len(spans) > 0
+        for t in spans:
+            keys = slice(t * BLOCK, (t + 1) * BLOCK)
+            xt = x[..., keys]
+            mn = torch.maximum(m, xt.amax(-1, keepdim=True))
+            ms = finite(mn)
+            alpha = torch.exp(m - ms)
+            p = torch.exp(xt - ms)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            acc = acc * alpha + p @ v[:, :, keys]
+            m = mn
+        parts.append((m, l, acc))
+    ms = finite(torch.stack([m for m, _, _ in parts]).amax(0))
+    num, den = torch.zeros(q.shape), torch.zeros(b, h, s, 1)
+    for m, l, acc in parts:
+        w = torch.exp(m - ms)
+        num = num + w * acc
+        den = den + w * l
+    return num / den, [m for m, _, _ in parts]
+
+
+# (B, H, S, K, keys) of the fp32 route: decode_scaling's decode pools at
+# 16,384 positions; K past 1,024 and not a multiple of the tile, with and
+# without padding keys; the default serve's decode pools (8 rows of 8
+# heads, 256 pools); a decode row that sees no key (the uniform quirk
+# across chunks); padding keys that fill whole chunks; K = FWD_MAX_KEYS;
+# a few query rows (one block each); a prefill whose query tiles fill the
+# card (one chunk).
+FP32_CASES = [
+    (1, 4, 1, 4096, "decode_pools"),
+    (2, 2, 70, 1100, "pools"),
     (2, 2, 70, 1100, "invalid"),
-])
-def test_long_fp32_forward_matches_plain(b, h, s, kk, kind):
-    """Past ``MAX_KEYS`` keys the fp32 forward walks the tiles three times
-    (csrc/small_kv_fwd.cu ``small_kv_fwd_long_kernel``); held to phase 3's
-    fp32 bar against the plain version. The wrapper takes such K up to
-    ``FWD_MAX_KEYS``; the backward stays at ``MAX_KEYS``."""
-    rng = np.random.RandomState(5)
+    (8, 8, 1, 256, "decode_pools"),
+    (1, 4, 1, 4096, "future"),
+    (2, 4, 1, 4096, "padded"),
+    (1, 4, 1, 8192, "decode_pools"),
+    (1, 2, 5, 300, "pools"),
+    (8, 4, 512, 192, "pools"),
+]
+
+
+def _fp32_inputs(b, h, s, kk, kind, seed):
+    """fp32 q, k, v (D = 64) and int32 key_pos of one FP32_CASES entry."""
+    rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(b, h, s, 64).astype(np.float32))
     k, v = (torch.from_numpy(rng.randn(b, h, kk, 64).astype(np.float32)) for _ in range(2))
     j = np.arange(kk)
-    if kind == "decode_pools":  # pool p joins once cur >= 4 (p + 1) + 511
-        key_pos = np.broadcast_to(4 * (j + 1) + 511 - 9000, (b, kk))
+    if kind in ("decode_pools", "padded"):  # pool p joins once cur >= 4 (p + 1) + 511
+        cur = rng.randint(515, 511 + 4 * kk, size=(b, 1))
+        key_pos = 4 * (j + 1) + 511 - cur
+        if kind == "padded":  # a row's pools past its count
+            key_pos[j[None, :] >= np.array([1000, 70])[:b, None]] = nsa.INVALID_KEY_POS
+    elif kind == "future":
+        key_pos = np.full((b, kk), s + 10)
     else:
         key_pos = np.broadcast_to((j + 1) * 2, (b, kk)).copy()
         if kind == "invalid":
             key_pos[1, 700:] = nsa.INVALID_KEY_POS
-    key_pos = torch.from_numpy(np.ascontiguousarray(key_pos, np.int32))
+    return q, k, v, torch.from_numpy(np.ascontiguousarray(key_pos, np.int32))
+
+
+def _assert_fp32_bar(got, want, plain, mag):
+    diff = (got - want).abs()
+    worst = (diff / (FP32_ATOL + FP32_RTOL * (plain.abs() + mag))).max().item()
+    assert worst <= 1.0, f"worst |Δ| / (1e-4 + 1e-5 (|plain| + mag)) = {worst:.3f}"
+
+
+@pytest.mark.parametrize("b,h,s,kk,kind", FP32_CASES)
+def test_long_fp32_forward_matches_plain(b, h, s, kk, kind):
+    """The fp32 route (csrc/small_kv_fwd.cu ``small_kv_fwd_split_kernel``
+    and ``small_kv_fwd_merge_kernel``) held to phase 3's fp32 bar against
+    the plain version, for every K up to ``FWD_MAX_KEYS`` (the backward
+    stays at ``MAX_KEYS``). A chunk of padding adds nothing; a row that
+    sees no key averages v over the real keys, whatever the chunks."""
+    q, k, v, key_pos = _fp32_inputs(b, h, s, kk, kind, seed=5)
     scale = 64 ** -0.5
-    got = _long_fp32_forward(q, k, v, key_pos, scale)
+    got, maxes = _split_fp32_forward(q, k, v, key_pos, scale)
     want = nsa.small_kv_fwd_reference(q, k, v, key_pos, scale)
     mag = _fwd_magnitude(q, k, v, key_pos, scale)
-    diff = (got - want).abs()
-    assert (diff / (1e-4 + 1e-5 * (want.abs() + mag))).max().item() <= 1.0
-    assert nsa.MAX_KEYS < kk <= nsa.FWD_MAX_KEYS
-    assert nsa.MAX_KEYS == 1024
+    assert torch.isfinite(got).all()
+    _assert_fp32_bar(got, want, want, mag)
+    assert kk <= nsa.FWD_MAX_KEYS and nsa.MAX_KEYS == 1024
+    if kind == "future":
+        assert len(maxes) > 1
+        mean = v.mean(dim=2, keepdim=True).expand(got.shape)
+        _assert_fp32_bar(got, mean, mean, mag)
+    if kind == "padded":  # row 1's chunks past its 70 pools hold padding alone
+        padding = [m[1].amax().item() == -float("inf") for m in maxes]
+        assert sum(padding) >= len(maxes) // 2
+
+
+@pytest.mark.parametrize("b,h,s,kk,kind", FP32_CASES)
+def test_long_fp32_forward_matches_jax_kernel(b, h, s, kk, kind):
+    """The same fp32 values through the Pallas kernel (interpret mode):
+    one straight softmax per block of queries over all the keys."""
+    q, k, v, key_pos = _fp32_inputs(b, h, s, kk, kind, seed=6)
+    scale = 64 ** -0.5
+    want = jnsa.small_kv_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v, key_pos)),
+                                   impl="interpret")
+    want = torch.from_numpy(np.array(want))
+    got, _ = _split_fp32_forward(q, k, v, key_pos, scale)
+    plain = nsa.small_kv_fwd_reference(q, k, v, key_pos, scale)
+    assert want.shape == got.shape
+    _assert_fp32_bar(got, want, plain, _fwd_magnitude(q, k, v, key_pos, scale))
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((1, 4, 1, 4096), 64),  # decode_scaling at 16,384 positions
+    ((1, 4, 1, 512), 8),  # and at 2,048
+    ((8, 8, 1, 256), 4),  # the default serve's decode pools
+    ((8, 8, 1, 64), 1),  # its kept rows: one tile
+    ((1, 8, 1, 256), 4),
+    ((1, 4, 1, 8192), 64),
+    ((2, 4, 1, 4096), 32),
+    ((1, 2, 5, 300), 5),
+    ((8, 8, 2048, 192), 1),  # the default serve's prefill pools
+    ((8, 4, 512, 192), 1),
+    ((2, 2, 70, 1100), 18),
+])
+def test_fwd_chunks_depend_on_shape_and_cover_k(shape, want):
+    """The fp32 forward's chunk count is a function of (B, H, S, K) alone;
+    its split of the key tiles covers K once with no chunk empty, gives 1
+    chunk where the query tiles reach TARGET_BLOCKS blocks and more than 1
+    at a decode step with more than one tile."""
+    b, h, s, kk = shape
+    chunks = nsa.fwd_chunks(b, h, s, kk)
+    assert chunks == nsa.fwd_chunks(b, h, s, kk) == want
+    tiles = -(-kk // 64)
+    per = -(-tiles // chunks)  # the kernel's tiles per chunk
+    spans = [range(c * per, min(tiles, (c + 1) * per)) for c in range(chunks)]
+    assert all(len(r) > 0 for r in spans)
+    assert [i for r in spans for i in r] == list(range(tiles))
+    blocks = (s if s <= nsa.FWD_ROW_MAX_S else -(-s // 32)) * b * h
+    assert blocks * chunks >= min(nsa.TARGET_BLOCKS, blocks * tiles) * 0.5
+    if blocks >= nsa.TARGET_BLOCKS:
+        assert chunks == 1
+    if s == 1 and tiles > 1:
+        assert chunks > 1
 
 
 def test_decode_pools_at_16384_positions_fit_the_forward():
