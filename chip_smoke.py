@@ -59,7 +59,9 @@ Phases:
      spill bytes in every tensor-core kernel, and the HMMA (tensor-core)
      count of the libraries with a bf16 tensor-core route (flash_mha_fwd,
      flash_mha_bwd, flash_fwd, flash_bwd, small_kv_fwd, small_kv_bwd),
-     which must not be 0;
+     which must not be 0; flash_mha_fwd's and flash_mha_bwd's fp32 route
+     on the tensor cores too (three TF32 passes a product: their TF32
+     kernels among the tensor-core kernels, TF32 HMMA in their SASS);
   3. each kernel against its plain version on the card, fp32 and bf16, at
      the shapes of the paths (the training CLIs' shapes; the serving
      prefill and decode shapes, the streaming S = 8192, an odd S and a
@@ -68,7 +70,8 @@ Phases:
      multiple of 64, padding keys that fill whole key chunks, up to 8,192
      keys; an lse cotangent; a window that is not a multiple of
      the tile), each backward kernel's bf16 error against its plain
-     version's, flash_fwd, small_kv_fwd, flash_bwd_dq, flash_bwd_dkv,
+     version's, flash_mha_fwd and flash_mha_bwd in fp32 (every case),
+     flash_fwd, small_kv_fwd, flash_bwd_dq, flash_bwd_dkv,
      small_kv_bwd and moment_sums bit-identical across two calls, a misaligned tensor
      refused by the 4-D wrappers (bf16) and by moment_sums, an F of
      moment_sums that is not a multiple of its 8-column vector, and the
@@ -94,7 +97,11 @@ Phases:
      version's, PyTorch's one-call equivalent where there is one (timed as
      a yardstick only, the port never calls it) and the least time the
      card could take; the attention kernels also at ``vit_b16``'s D = 64
-     shapes;
+     shapes; each kernel also in fp32 (the route of every run without
+     --bf16; the fused-qkv kernels' bound at both fp32 peaks: the CUDA
+     cores' and three TF32 passes'), and the fp32 sensed and unsensed step
+     (kernel path and all-plain path) with one fp32 sensed step under
+     torch.profiler;
   8. the serving path: ``serve.main`` from the checkpoint, ids in the
      vocabulary, the prompts kept, and exact launches (per prefill 12
      flash_fwd, 24 small_kv_fwd and 1 topk_replay, per decode step 0, 24
@@ -107,7 +114,7 @@ Phases:
      8-prompt batch (kernel path vs all-plain path in turns), output
      tokens/s, one prefill and one decode step under torch.profiler, and
      per kernel its time, its plain version's, SDPA's with the same mask,
-     and the bound;
+     and the bound (flash_fwd in fp32 too, at the prefill and S = 8192);
  11. the LM training path: finite loss, exact launches (per step 12
      flash_fwd, 12 flash_bwd_dq, 12 flash_bwd_dkv, 24 small_kv_fwd, 24
      small_kv_bwd), two MoE slow loops that moved all 12 router biases,
@@ -118,7 +125,7 @@ Phases:
  13. LM training time (bf16, 8 x 2,048): step time, tokens/s, the MoE slow
      loop, one step under torch.profiler, and per backward kernel its
      time, its plain version's, SDPA's backward with the same mask, and the
-     bound;
+     bound, in bf16 and in fp32;
  14. topk_replay against its plain version, exactly (scores and positions,
      slot order included): the serving prefill's 96 rows x 2,048 positions
      with the prompts' -inf pads, P = 1, every score tied, and 6,000
@@ -320,6 +327,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import re
@@ -334,7 +342,10 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor; fp32 non-tensor
+# Dense bf16 tensor cores; fp32 on the CUDA cores; fp32 as three TF32
+# passes on the tensor cores (a third of TF32's 495 TFLOP/s), the fused-qkv
+# attention kernels' fp32 route.
+PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 
 # Phase 3 tolerances on o, per element: |o - plain| <= atol + rtol *
 # (|plain| + mag), where the plain version runs in fp32 on the same input
@@ -465,23 +476,56 @@ TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "flash_fwd", "flash_bwd
                        "small_kv_fwd", "small_kv_bwd")
 
 
-def hmma_count(name: str) -> int:
-    """HMMA instructions in the SASS of lib<name>, by the cuobjdump beside
-    nvcc."""
+# Libraries whose fp32 route runs on the tensor cores in three TF32 passes,
+# and its kernels: each must be listed among the tensor-core kernels at
+# D = 64 and D = 128, and the library's SASS must hold TF32 HMMA
+# instructions.
+TF32_KERNELS = {
+    "flash_mha_fwd": ("flash_mha_fwd_tf32_tc_kernel",),
+    "flash_mha_bwd": ("mha_bwd_dq_tf32_tc_kernel", "mha_bwd_dkdv_tf32_tc_kernel"),
+}
+
+
+def sass(name: str) -> str:
+    """The SASS of lib<name>, by the cuobjdump beside nvcc."""
     from forde_tpu_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    out = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
-                         capture_output=True, text=True, check=True).stdout
-    return sum("HMMA" in line for line in out.splitlines())
+    return subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def hmma_count(name: str, tf32: bool = False) -> int:
+    """HMMA instructions in the SASS of lib<name> (with ``tf32``, those
+    that take TF32 operands)."""
+    return sum("HMMA" in line and (not tf32 or ".TF32" in line)
+               for line in sass(name).splitlines())
+
+
+def sass_mix(name: str, kernel: str) -> dict:
+    """{function: Counter of opcodes} of each function of lib<name> whose
+    mangled name holds ``kernel``: the static instruction mix, e.g. how
+    many instructions the fp32 route issues beside its TF32 HMMA."""
+    mix, func = {}, None
+    for line in sass(name).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m[1] if kernel in m[1] else None
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and func:
+            mix.setdefault(func, Counter())[m[1]] += 1
+    return mix
 
 
 def tc_kernel_resources(ptxas_log: str) -> list:
     """(kernel, registers, spill bytes) of each tensor-core kernel
-    (``*_tc_kernel``) in an ``nvcc -Xptxas -v`` log."""
+    (``*_tc_kernel``, the fp32 routes' ``*_tf32_tc_kernel`` among them) in
+    an ``nvcc -Xptxas -v`` log."""
     out, current = [], None
     for line in ptxas_log.splitlines():
-        m = re.search(r"Function properties for \S*?([a-z][a-z_]*_tc_kernel)(?:ILi(\d+)E)?", line)
+        m = re.search(r"Function properties for \S*?([a-z][a-z_]*?(?:_tf32)?_tc_kernel)(?:ILi(\d+)E)?",
+                      line)
         if m:
             current = [m[1] + (f"<{m[2]}>" if m[2] else ""), None, 0]
             continue
@@ -528,10 +572,27 @@ def phase_build():
             raise AssertionError(f"lib{name} has no tensor-core (HMMA) instruction")
         if name not in build.build_log:
             raise AssertionError(f"lib{name} was not built in this run: no ptxas log to read")
-        for kernel, regs, spilled in tc_kernel_resources(build.build_log[name][1]):
+        resources = tc_kernel_resources(build.build_log[name][1])
+        for kernel, regs, spilled in resources:
             log(f"[build] {name} {kernel}: {regs} registers, {spilled} spill bytes")
             if spilled:
                 raise AssertionError(f"{kernel} of lib{name} spills {spilled} bytes")
+        if name in TF32_KERNELS:
+            tf32 = hmma_count(name, tf32=True)
+            log(f"[build] lib{name}: {tf32} TF32 HMMA instructions in its SASS")
+            if tf32 == 0:
+                raise AssertionError(f"lib{name} has no TF32 HMMA instruction: its fp32 route "
+                                     "is not on the tensor cores")
+            found = {kernel for kernel, _, _ in resources}
+            for kernel in TF32_KERNELS[name]:
+                for d in (64, 128):
+                    if f"{kernel}<{d}>" not in found:
+                        raise AssertionError(f"lib{name}: no ptxas record of {kernel}<{d}>")
+                for func, mix in sass_mix(name, kernel).items():
+                    d = re.search(r"ILi(\d+)E", func)
+                    log(f"[build] {kernel}<{d[1] if d else '?'}> SASS: {sum(mix.values())} "
+                        f"instructions, {mix['HMMA.1688.F32.TF32']} TF32 HMMA; "
+                        + ", ".join(f"{op} {n}" for op, n in mix.most_common(8)))
 
 
 # (name, B, S, H, D, kv_lens, causal, window): the vision and text shapes
@@ -668,6 +729,18 @@ def phase_check_attention(device) -> tuple:
             if not ok:
                 raise AssertionError(f"flash_mha_bwd disagrees with its plain version: {name} {dtype_name}")
             worst_bwd = max(worst_bwd, err)
+
+            if dtype_name == "float32":
+                # Each output summed in a fixed order, no atomics: a second
+                # call gives the same bits.
+                o2, lse2 = fa.flash_mha_fwd(qkv, lens_t, *args)
+                dqkv2 = fa.flash_mha_bwd(qkv, lens_t, lse, do, *args)
+                same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                        and torch.equal(dqkv, dqkv2))
+                log(f"[check] {name} float32: two calls bit-identical {same} "
+                    f"{'ok' if same else 'FAIL'}")
+                if not same:
+                    raise AssertionError(f"{name}: two fp32 calls of flash_mha_fwd/bwd differ")
 
             if lens is not None and 0 in lens:
                 empty = lens_t == 0
@@ -1223,6 +1296,30 @@ def phase_step_parity(device, cfg=None, label="parity", bf16_as_precise=False) -
     return {"readings": readings, "launches_per_step": per_step}
 
 
+def median_step_ms(state, step, batch, plain=False, reps=5) -> float:
+    """Median host ms of ``step(state, batch)`` over ``reps`` synchronised
+    calls after two warm-up calls; ``plain`` runs it with the plain moment
+    sums (the all-plain path)."""
+    import torch
+
+    def run():
+        if plain:
+            with plain_moment_sums():
+                step(state, batch)
+        else:
+            step(state, batch)
+    for _ in range(2):
+        run()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def phase_train_timing(device) -> dict:
     """Step times at vit_b16_hd128, bf16, batch 128 (kernel path vs
     all-plain path in turns), pairs/s with sensing every 8th step, the
@@ -1241,31 +1338,13 @@ def phase_train_timing(device) -> dict:
     kernel_state = train_state(cfg, weights, device)
     plain_state = train_state(cfg, weights, device, impl="reference")
 
-    def step_ms(state, step, plain=False, reps=5):
-        def run():
-            if plain:
-                with plain_moment_sums():
-                    step(state, batch)
-            else:
-                step(state, batch)
-        for _ in range(2):
-            run()
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return float(np.median(times))
-
-    p1 = step_ms(plain_state, clip_train_step, plain=True)
-    k1 = step_ms(kernel_state, clip_train_step)
-    k2 = step_ms(kernel_state, clip_train_step)
-    p2 = step_ms(plain_state, clip_train_step, plain=True)
+    p1 = median_step_ms(plain_state, clip_train_step, batch, plain=True)
+    k1 = median_step_ms(kernel_state, clip_train_step, batch)
+    k2 = median_step_ms(kernel_state, clip_train_step, batch)
+    p2 = median_step_ms(plain_state, clip_train_step, batch, plain=True)
     sensed_ms, plain_sensed_ms = min(k1, k2), min(p1, p2)
-    unsensed_ms = step_ms(kernel_state, nosense)
-    plain_unsensed_ms = step_ms(plain_state, nosense, plain=True)
+    unsensed_ms = median_step_ms(kernel_state, nosense, batch)
+    plain_unsensed_ms = median_step_ms(plain_state, nosense, batch, plain=True)
     pairs = 128 * 8 / (sensed_ms + 7 * unsensed_ms) * 1e3
     plain_pairs = 128 * 8 / (plain_sensed_ms + 7 * plain_unsensed_ms) * 1e3
     log(f"[time] train step, batch 128: sensed {k1:.2f} / {k2:.2f} ms (plain path "
@@ -1302,6 +1381,39 @@ def phase_train_timing(device) -> dict:
             "slow_loop_ms": float(np.median(slow)), "sensed_step_idle_share": prof["idle_share"]}
 
 
+def fp32_step_timing(device) -> dict:
+    """Step times at vit_b16_hd128 in fp32 (the training CLI without
+    --bf16: fp32 compute, fp32 moments), batch 128: sensed and unsensed,
+    kernel path against the all-plain path in turns, and one sensed step
+    under torch.profiler (its top list of kernels)."""
+    import torch
+
+    from forde_tpu_torch.core.config import vit_b16_hd128_config
+    from forde_tpu_torch.train.clip_step import clip_train_step, make_nosense_step
+
+    cfg = vit_b16_hd128_config().replace(sense=True)
+    weights = build_model(cfg, device).state_dict()
+    batch = training_batch(cfg, 128, device, SEED + 6)
+    nosense = make_nosense_step(cfg)
+    kernel_state = train_state(cfg, weights, device, moment_dtype=None)
+    plain_state = train_state(cfg, weights, device, impl="reference", moment_dtype=None)
+
+    p1 = median_step_ms(plain_state, clip_train_step, batch, plain=True)
+    k1 = median_step_ms(kernel_state, clip_train_step, batch)
+    k2 = median_step_ms(kernel_state, clip_train_step, batch)
+    p2 = median_step_ms(plain_state, clip_train_step, batch, plain=True)
+    unsensed_ms = median_step_ms(kernel_state, nosense, batch)
+    plain_unsensed_ms = median_step_ms(plain_state, nosense, batch, plain=True)
+    log(f"[time] fp32 train step, batch 128: sensed {k1:.2f} / {k2:.2f} ms (plain path "
+        f"{p1:.2f} / {p2:.2f} ms), unsensed {unsensed_ms:.2f} ms (plain path "
+        f"{plain_unsensed_ms:.2f} ms); median of 5 each")
+    prof = profile_device(lambda: clip_train_step(kernel_state, batch),
+                          "one fp32 sensed train step (batch 128)", top=16)
+    return {"sensed_step_ms": min(k1, k2), "unsensed_step_ms": unsensed_ms,
+            "plain_sensed_step_ms": min(p1, p2), "plain_unsensed_step_ms": plain_unsensed_ms,
+            "sensed_step_idle_share": prof["idle_share"], "sensed_step_busy_ms": prof["busy_ms"]}
+
+
 def moment_bound(n, f, dtype_name) -> tuple:
     """(ms by bytes, ms by operations) of one moment_sums: x read once and
     (3, F) fp32 written; 4 fp32 operations per element (abs-add, fused
@@ -1311,37 +1423,46 @@ def moment_bound(n, f, dtype_name) -> tuple:
     return moved / HBM_BYTES_PER_S * 1e3, 4.0 * n * f / PEAK_OPS_PER_S["float32"] * 1e3
 
 
-def time_kernel(label, kernel_fns, plain_fns, library_fns, bytes_ms, ops_ms, **shape) -> dict:
+def time_kernel(label, kernel_fns, plain_fns, library_fns, bytes_ms, ops_ms,
+                dtype="bfloat16", **shape) -> dict:
     """CUDA-event ms of a kernel, its plain version and PyTorch's one-call
     equivalent (None: there is none), each cycling through its closures,
-    beside the bound; and the kernel's device time alone (device_ms)."""
+    beside the bound; and the kernel's device time alone (device_ms).
+    ``dtype`` names the inputs' type in the row."""
     k_ms, p_ms = cuda_ms(kernel_fns), cuda_ms(plain_fns)
     l_ms = None if library_fns is None else cuda_ms(library_fns)
     k_dev = device_ms(kernel_fns)
     b_ms, b_by = bound(bytes_ms, ops_ms)
     log(f"[time] {label}: kernel {k_ms:.4f} ms (device {k_dev:.4f}), plain {p_ms:.4f} ms, "
         f"library {'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
-    return {**shape, "dtype": "bfloat16", "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+    return {**shape, "dtype": dtype, "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
             "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
             "operations_ms": ops_ms}
 
 
-def phase_kernel_timing(device, cfg, encode_ms) -> dict:
-    """Per call of each kernel at the training shapes of vit_b16_hd128
-    (bf16, batch 128, text lengths 4-64): kernel, plain version, the
-    library yardstick (scaled_dot_product_attention's forward and its
-    backward on the same q/k/v; none for the moment sums) and the bound;
-    the attention kernels also at vit_b16's D = 64 shapes (the training
-    CLI's preset; keys "vision_d64", "text_d64"). Inputs cycle through
-    copies that together exceed the 50 MB L2."""
+MHA_TIMING_BATCH = 128  # the training CLI's batch
+
+
+def mha_timing(device, cfg, dtype_name) -> dict:
+    """flash_mha_fwd and flash_mha_bwd per call in ``dtype_name`` at the
+    dual encoder's four training shapes at batch 128 (vit_b16_hd128's
+    vision and text, ``cfg``; vit_b16's D = 64 ones, keys "vision_d64" and
+    "text_d64"; text lengths 4-64): kernel, plain version, the library
+    yardstick (scaled_dot_product_attention's forward, and its backward on
+    the same q/k/v, in the same dtype) and the bound. fp32 rows carry the
+    bound by operations at both fp32 peaks: the CUDA cores'
+    (``operations_ms``) and three TF32 passes' (``operations_tf32x3_ms``).
+    Inputs cycle through copies that together exceed the 50 MB L2."""
     import torch
     import torch.nn.functional as F
 
     from forde_tpu_torch.core.config import vit_b16_config
     from forde_tpu_torch.ops import flash_attention as fa
-    from forde_tpu_torch.ops import stat_sums
 
-    batch = 128
+    batch = MHA_TIMING_BATCH
+    dt = getattr(torch, dtype_name)
+    elem = 2 if dt == torch.bfloat16 else 4
+    tag = "bf16" if dt == torch.bfloat16 else "fp32"
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     lens = torch.randint(4, cfg.max_text_len + 1, (batch,), device=device,
                          generator=gen).to(torch.int32)
@@ -1349,7 +1470,7 @@ def phase_kernel_timing(device, cfg, encode_ms) -> dict:
     s_vision = (cfg.image_size // cfg.patch_size) ** 2 + 1
     s_vision = -(-s_vision // 8) * 8  # CLS + patches + registers
     d64 = vit_b16_config()
-    out = {"flash_mha_fwd": {}, "flash_mha_bwd": {}, "moment_sums": {}}
+    out = {"flash_mha_fwd": {}, "flash_mha_bwd": {}}
     for name, tw, s, shape_lens in (
         ("vision", cfg.vision, s_vision, None),
         ("text", cfg.text, cfg.max_text_len, lens),
@@ -1358,15 +1479,15 @@ def phase_kernel_timing(device, cfg, encode_ms) -> dict:
     ):
         h, d = tw.num_heads, tw.head_dim
         scale = d ** -0.5
-        copies = max(2, -(-200_000_000 // (batch * s * 3 * h * d * 2)))
+        copies = max(2, -(-200_000_000 // (batch * s * 3 * h * d * elem)))
         args = (h, d, scale, None, False, None)
         attn_mask = None if shape_lens is None else (
             pos[None, None, None, :s] < shape_lens[:, None, None, None]
         )
         inputs = []
         for _ in range(copies):
-            qkv = (torch.randn(batch, s, 3 * h * d, device=device, generator=gen) * 0.5).to(torch.bfloat16)
-            do = torch.randn(batch, s, h * d, device=device, generator=gen).to(torch.bfloat16)
+            qkv = (torch.randn(batch, s, 3 * h * d, device=device, generator=gen) * 0.5).to(dt)
+            do = torch.randn(batch, s, h * d, device=device, generator=gen).to(dt)
             _, lse = fa.flash_mha_fwd(qkv, shape_lens, *args)
             q, k, v = (t.transpose(1, 2).detach().requires_grad_(True)
                        for t in qkv.view(batch, s, 3, h, d).unbind(2))
@@ -1378,38 +1499,84 @@ def phase_kernel_timing(device, cfg, encode_ms) -> dict:
                 return F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask, scale=scale)
 
         shape = {"B": batch, "S": s, "H": h, "D": d}
-        label = f"{name} (B={batch}, S={s}, H={h}, D={d}, bf16)"
-        out["flash_mha_fwd"][name] = time_kernel(
-            f"flash_mha_fwd {label}",
-            [lambda i=i: fa.flash_mha_fwd(i[0], shape_lens, *args) for i in inputs],
-            [lambda i=i: fa.flash_mha_fwd_reference(i[0], shape_lens, *args) for i in inputs],
-            [lambda i=i: sdpa(*i[3]) for i in inputs],
-            *attention_bound(batch, s, h, d, "bfloat16", shape_lens), **shape)
-        out["flash_mha_bwd"][name] = time_kernel(
-            f"flash_mha_bwd {label}",
-            [lambda i=i: fa.flash_mha_bwd(i[0], shape_lens, i[2], i[1], *args) for i in inputs],
-            [lambda i=i: fa.flash_mha_bwd_reference(i[0], shape_lens, i[2], i[1], *args)
-             for i in inputs],
-            [lambda i=i: i[4].backward(i[5], retain_graph=True) for i in inputs],
-            *attention_bound(batch, s, h, d, "bfloat16", shape_lens, backward=True), **shape)
+        label = f"{name} (B={batch}, S={s}, H={h}, D={d}, {tag})"
+        for kernel, backward, kernel_fns, plain_fns, library_fns in (
+            ("flash_mha_fwd", False,
+             [lambda i=i: fa.flash_mha_fwd(i[0], shape_lens, *args) for i in inputs],
+             [lambda i=i: fa.flash_mha_fwd_reference(i[0], shape_lens, *args) for i in inputs],
+             [lambda i=i: sdpa(*i[3]) for i in inputs]),
+            ("flash_mha_bwd", True,
+             [lambda i=i: fa.flash_mha_bwd(i[0], shape_lens, i[2], i[1], *args) for i in inputs],
+             [lambda i=i: fa.flash_mha_bwd_reference(i[0], shape_lens, i[2], i[1], *args)
+              for i in inputs],
+             [lambda i=i: i[4].backward(i[5], retain_graph=True) for i in inputs]),
+        ):
+            bytes_ms, ops_ms = attention_bound(batch, s, h, d, dtype_name, shape_lens, backward)
+            extra = {}
+            if dt == torch.float32:
+                extra["operations_tf32x3_ms"] = ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"]
+            row = time_kernel(f"{kernel} {label}", kernel_fns, plain_fns, library_fns,
+                              bytes_ms, ops_ms, dtype=dtype_name, **shape, **extra)
+            if extra:
+                tc_ms, tc_by = bound(bytes_ms, extra["operations_tf32x3_ms"])
+                log(f"[time] {kernel} {label}: bound at three TF32 passes (165 TFLOP/s) "
+                    f"{tc_ms:.4f} ms ({tc_by}); at the CUDA cores (67 TFLOP/s) "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+            out[kernel][name] = row
         del inputs
-        if name.endswith("_d64"):
-            continue
+        torch.cuda.empty_cache()
+    return out
 
-        n, f = batch * s, tw.mlp_hidden_dim
-        xs = [torch.randn(n, f, device=device, generator=gen).to(torch.bfloat16)
-              for _ in range(max(2, -(-200_000_000 // (n * f * 2))))]
-        out["moment_sums"][name] = time_kernel(
-            f"moment_sums {name} z ({n} x {f}, bf16)",
-            [lambda x=x: stat_sums.moment_sums(x) for x in xs],
-            [lambda x=x: stat_sums.moment_sums_reference(x) for x in xs],
-            None, *moment_bound(n, f, "bfloat16"), N=n, F=f)
-        del xs
+
+def phase_kernel_timing(device, cfg, encode_ms) -> dict:
+    """Per call of each kernel at the training shapes of vit_b16_hd128
+    (batch 128, text lengths 4-64), bf16 and fp32 (the route of every run
+    without --bf16; keys with "_fp32"): kernel, plain version, the library
+    yardstick (scaled_dot_product_attention's forward and its backward on
+    the same q/k/v; none for the moment sums) and the bound; the attention
+    kernels also at vit_b16's D = 64 shapes (mha_timing). Inputs cycle
+    through copies that together exceed the 50 MB L2."""
+    import torch
+
+    from forde_tpu_torch.ops import stat_sums
+
+    out = {"flash_mha_fwd": {}, "flash_mha_bwd": {}, "moment_sums": {}}
+    for dtype_name, suffix in (("bfloat16", ""), ("float32", "_fp32")):
+        for kernel, rows in mha_timing(device, cfg, dtype_name).items():
+            out[kernel].update({name + suffix: row for name, row in rows.items()})
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    s_vision = -(-((cfg.image_size // cfg.patch_size) ** 2 + 1) // 8) * 8
+    for name, tw, s in (("vision", cfg.vision, s_vision), ("text", cfg.text, cfg.max_text_len)):
+        n, f = MHA_TIMING_BATCH * s, tw.mlp_hidden_dim
+        for dtype_name, suffix in (("bfloat16", ""), ("float32", "_fp32")):
+            dt = getattr(torch, dtype_name)
+            elem = 2 if dt == torch.bfloat16 else 4
+            xs = [torch.randn(n, f, device=device, generator=gen).to(dt)
+                  for _ in range(max(2, -(-200_000_000 // (n * f * elem))))]
+            out["moment_sums"][name + suffix] = time_kernel(
+                f"moment_sums {name} z ({n} x {f}, {'bf16' if suffix == '' else 'fp32'})",
+                [lambda x=x: stat_sums.moment_sums(x) for x in xs],
+                [lambda x=x: stat_sums.moment_sums_reference(x) for x in xs],
+                None, *moment_bound(n, f, dtype_name), dtype=dtype_name, N=n, F=f)
+            del xs
     fwd = out["flash_mha_fwd"]
     attn_share = (cfg.vision.num_layers * fwd["vision"]["ms"]
                   + cfg.text.num_layers * fwd["text"]["ms"]) / encode_ms
     log(f"[time] attention kernel share of the kernel-path encode: {attn_share:.3f}")
     return out
+
+
+def fused_qkv_turns(device, path: str) -> None:
+    """mha_timing of this checkout's flash_mha_fwd and flash_mha_bwd, bf16
+    then fp32, at vit_b16_hd128 (main_path_config), written as JSON to
+    ``path``: one turn of a comparison of two checkouts inside one chip
+    call (parent, change, change, parent), this file copied into each."""
+    cfg = main_path_config()
+    rows = {dtype_name: mha_timing(device, cfg, dtype_name)
+            for dtype_name in ("bfloat16", "float32")}
+    with open(path, "w") as f:
+        json.dump({"card": nvidia_smi(), "rows": rows}, f)
 
 
 # ---------------------------------------------------------------------------
@@ -2181,6 +2348,7 @@ FLASH_FWD_TIMING = [
     ("serve_prefill_s2048_window512", 8, 8, 2048, 64, WINDOW, "bfloat16"),
     ("stream_s8192_window512", 1, 8, 8192, 64, WINDOW, "bfloat16"),
     ("serve_prefill_s2048_window512_fp32", 8, 8, 2048, 64, WINDOW, "float32"),
+    ("stream_s8192_window512_fp32", 1, 8, 8192, 64, WINDOW, "float32"),
 ]
 SMALL_KV_TIMING = [
     ("prefill_pools_s2048_k192", 8, 8, 2048, 192, "pools"),
@@ -2646,11 +2814,12 @@ SMALL_KV_BWD_TIMING = [
 
 def phase_training_kernel_timing(device) -> dict:
     """Per call of flash_bwd_dq, flash_bwd_dkv and small_kv_bwd at the
-    training shapes (bf16, D 64): kernel, plain version, the backward of
-    SDPA with the same mask (a yardstick only: the port never calls it;
-    it computes dq, dk and dv in one call, so both 4-D kernels carry it)
-    and the bound. Inputs cycle through copies that together exceed the
-    50 MB L2."""
+    training shapes (D 64), bf16 and fp32 (the route of every run without
+    --bf16; names with "_fp32"): kernel, plain version, the backward of
+    SDPA with the same mask in the same dtype (a yardstick only: the port
+    never calls it; it computes dq, dk and dv in one call, so both 4-D
+    kernels carry it) and the bound. Inputs cycle through copies that
+    together exceed the 50 MB L2."""
     import torch
     import torch.nn.functional as F
 
@@ -2658,16 +2827,20 @@ def phase_training_kernel_timing(device) -> dict:
     from forde_tpu_torch.ops import nsa_attention as nsa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 44)
-    bf16, d = torch.bfloat16, 64
+    d = 64
     scale = d ** -0.5
     out = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}, "small_kv_bwd": {}}
-    for name, b, h, s, window in FLASH_BWD_TIMING:
-        copies = max(2, -(-200_000_000 // (4 * b * h * s * d * 2)))
+    for (name, b, h, s, window), (dtype_name, suffix) in itertools.product(
+            FLASH_BWD_TIMING, (("bfloat16", ""), ("float32", "_fp32"))):
+        dt = getattr(torch, dtype_name)
+        elem = 2 if dt == torch.bfloat16 else 4
+        tag = suffix[1:] or "bf16"
+        copies = max(2, -(-200_000_000 // (4 * b * h * s * d * elem)))
         pos = torch.arange(s, device=device)
         mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
         inputs = []
         for _ in range(copies):
-            q, k, v, do = (torch.randn(b, h, s, d, device=device, generator=gen).to(bf16)
+            q, k, v, do = (torch.randn(b, h, s, d, device=device, generator=gen).to(dt)
                            for _ in range(4))
             o, lse = fa.flash_fwd(q, k, v, scale, window, True, None)
             delta = fa._delta(o, do, None)
@@ -2678,36 +2851,41 @@ def phase_training_kernel_timing(device) -> dict:
         library = [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs]
         for part, kernel, plain in (("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
                                     ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
-            out[f"flash_bwd_{part}"][name] = time_kernel(
-                f"flash_bwd_{part} {name} (B={b}, H={h}, S={s}, D={d}, bf16)",
+            out[f"flash_bwd_{part}"][name + suffix] = time_kernel(
+                f"flash_bwd_{part} {name} (B={b}, H={h}, S={s}, D={d}, {tag})",
                 [lambda i=i: kernel(*i[0]) for i in inputs],
                 [lambda i=i: plain(*i[0]) for i in inputs[:2]],
-                library, *flash_bwd_bound(b, h, s, d, window, True, part, "bfloat16"), **shape)
+                library, *flash_bwd_bound(b, h, s, d, window, True, part, dtype_name),
+                dtype=dtype_name, **shape)
         del inputs, library
         torch.cuda.empty_cache()
 
-    for name, b, h, s, kk, kind in SMALL_KV_BWD_TIMING:
-        per_copy = (2 * b * h * s * d + 2 * b * h * kk * d) * 2
+    for (name, b, h, s, kk, kind), (dtype_name, suffix) in itertools.product(
+            SMALL_KV_BWD_TIMING, (("bfloat16", ""), ("float32", "_fp32"))):
+        dt = getattr(torch, dtype_name)
+        elem = 2 if dt == torch.bfloat16 else 4
+        tag = suffix[1:] or "bf16"
+        per_copy = (2 * b * h * s * d + 2 * b * h * kk * d) * elem
         copies = max(2, -(-200_000_000 // per_copy))
         key_pos = small_kv_key_pos(kind, b, s, kk, device, gen)
         qpos = torch.arange(s, device=device)[None, None, :, None]
         kpos = key_pos[:, None, None, :]
         add = torch.where(qpos >= kpos, 0.0, nsa.NEG_BIG)
-        add = torch.where(kpos >= nsa.INVALID_KEY_POS, -float("inf"), add).to(bf16)
+        add = torch.where(kpos >= nsa.INVALID_KEY_POS, -float("inf"), add).to(dt)
         inputs = []
         for _ in range(copies):
-            q, do = (torch.randn(b, h, s, d, device=device, generator=gen).to(bf16) for _ in range(2))
-            k, v = (torch.randn(b, h, kk, d, device=device, generator=gen).to(bf16) for _ in range(2))
+            q, do = (torch.randn(b, h, s, d, device=device, generator=gen).to(dt) for _ in range(2))
+            k, v = (torch.randn(b, h, kk, d, device=device, generator=gen).to(dt) for _ in range(2))
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=add, scale=scale)
             inputs.append(((q, k, v, key_pos, do, scale), o_lib, do))
-        out["small_kv_bwd"][name] = time_kernel(
-            f"small_kv_bwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, bf16)",
+        out["small_kv_bwd"][name + suffix] = time_kernel(
+            f"small_kv_bwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, {tag})",
             [lambda i=i: nsa.small_kv_bwd(*i[0]) for i in inputs],
             [lambda i=i: nsa.small_kv_bwd_reference(*i[0]) for i in inputs[:2]],
             [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs],
-            *small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos, "bfloat16"),
-            B=b, H=h, S=s, K=kk, D=d)
+            *small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos, dtype_name),
+            dtype=dtype_name, B=b, H=h, S=s, K=kk, D=d)
         del inputs
         torch.cuda.empty_cache()
     return out
@@ -7224,6 +7402,7 @@ def main() -> int:
     timing = timed(phase_encode_timing, device, main_run["model"], main_run["cfg"])
     shapes = timed(phase_kernel_timing, device, main_run["cfg"], timing["encode_ms"])
     train_timing = timed(phase_train_timing, device)
+    train_timing_fp32 = timed(fp32_step_timing, device)
     fused_steps = timed(phase_fused_steps, device)
     serve_parity = timed(phase_serve_parity, device, serve_run["state"])
     decode_graph = timed(phase_decode_graph, device, serve_run["state"], serve_parity)
@@ -7395,6 +7574,7 @@ def main() -> int:
         },
         "train_path": {k: train_run[k] for k in ("seconds", "final_loss", "brain_update_ms")},
         "train_step_batch128": train_timing,
+        "train_step_batch128_fp32": train_timing_fp32,
         "step_parity": parity,
         "serve_path": {"seconds": serve_run["seconds"], "launches": serve_run["launches"],
                        "launches_sampled": serve_run["launches_sampled"]},

@@ -100,9 +100,11 @@
 // fp32 (both kernels): the CUDA cores, with one block of 16 x 16
 // threads; tiles sit in shared memory as fp32 with row pitch D + 1
 // (conflict-free column reads), and p and ds go through shared memory
-// (`probs`, `tile_dot`, `tile_mac` of common.cuh). fp32 stays there since
-// the tensor cores would round it to TF32; it runs only in checks and
-// parity runs.
+// (`probs`, `tile_dot`, `tile_mac` of common.cuh). It is the route of every
+// LM training run without --bf16 (DTypePolicy's compute type defaults to
+// fp32) and of every checkpoint trained that way, besides checks and parity
+// runs. flash_mha_bwd.cu's three-pass TF32 route is the pattern for taking
+// it to the tensor cores.
 
 #include <math.h>
 #include <stdint.h>

@@ -73,12 +73,14 @@
 // neither bounds it. mma.sync from 12 warps an SM, with the softmax between
 // a tile's two products, is latency-bound; wgmma with TMA is the next step.
 //
-// fp32 route (flash_fwd_kernel): the CUDA cores, since the tensor cores
-// would round fp32 to TF32. One block per (q tile of 64 rows, head,
-// sample); the q tile is held in shared memory as fp32 with row pitch
-// D + 1, K and then V of a tile share one buffer, and the 64 x D output
-// stays in registers. It runs only in checks and parity runs; its fmaf
-// loops bound it.
+// fp32 route (flash_fwd_kernel): the CUDA cores. One block per (q tile of
+// 64 rows, head, sample); the q tile is held in shared memory as fp32 with
+// row pitch D + 1, K and then V of a tile share one buffer, and the 64 x D
+// output stays in registers; its fmaf loops bound it. It is the route of
+// every LM run without --bf16 (DTypePolicy's compute type defaults to
+// fp32: serve and train.loop) and of every checkpoint trained that way,
+// besides checks and parity runs. flash_mha_fwd.cu's three-pass TF32 route
+// is the pattern for taking it to the tensor cores.
 
 #include <math.h>
 #include <stdint.h>

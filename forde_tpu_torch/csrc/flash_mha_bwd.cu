@@ -19,8 +19,9 @@
 //   dq = ds k, dk = ds^T q, dv = round(p)^T do, p rounded to the input type;
 // and writes dq, dk, dv into one dqkv (B, S, 3*H*D) at the columns of q, k
 // and v. Products are exact multiplies of the (rounded) input values summed
-// in fp32, as the TPU kernel's `_dot` accumulates in fp32. The mask is the
-// forward's (common.cuh `visible`).
+// in fp32, as the TPU kernel's `_dot` accumulates in fp32 (in fp32, to
+// 2^-19 of each product: the fp32 route below). The mask is the forward's
+// (common.cuh `visible`).
 //
 // Bound on the H100 at the training shapes (batch 128, bf16): vision
 // (S=200, H=6, D=128) moves about 276 MB (qkv and do read, dqkv written):
@@ -28,8 +29,8 @@
 // TFLOP/s. Text (S=64, H=4, D=128) moves about 59 MB: ~18 us. So memory
 // bounds it.
 //
-// Both routes keep FA-2's split into two kernels, one block per (tile of
-// 64 rows, head, sample):
+// Both routes keep FA-2's split into two kernels, one block per (64 rows,
+// head, sample):
 //   * dq: the block owns 64 query rows. A first walk over the key tiles sums
 //     delta for its rows and writes it for the second kernel; a second walk
 //     recomputes p and dp, forms ds and accumulates dq = ds k in registers.
@@ -40,9 +41,10 @@
 // skipped. delta stays the TPU kernel's sum of p * dp: FA-2's rowsum(do * o)
 // would read o rounded to bf16 and carry that rounding into every ds.
 //
-// bf16 route (the *_tc kernels): the tensor cores (mma.sync.m16n8k16, fp32
-// accumulators: exact bf16 products, only the order of summation changes).
-// 4 warps, each owning 16 rows of the block's tile. Tiles stream through a
+// bf16 route (mha_bwd_dq_tc_kernel, mha_bwd_dkdv_tc_kernel): the tensor
+// cores (mma.sync.m16n8k16, fp32 accumulators: exact bf16 products, only
+// the order of summation changes). 4 warps, each owning 16 rows of the
+// block's tile. Tiles stream through a
 // two-stage cp.async ring into XOR-swizzled bf16 shared memory and are read
 // with ldmatrix, both ways round (mma.cuh), so one copy of a tile serves
 // as the B operand of q k^T and of ds k.
@@ -69,11 +71,39 @@
 // and the dq kernel, whose first walk only sums delta, takes more than
 // half of the backward's time (PERF.md).
 //
-// fp32 route: the CUDA cores, since the tensor cores would round fp32 to
-// TF32. Tiles sit in shared memory as fp32 with row pitch D + 1
-// (conflict-free column reads), p and ds go through shared memory, and the
-// walks do 9 tile products per (query tile, key tile). It runs only in
-// checks and parity runs; shared-memory bandwidth bounds it.
+// fp32 route (mha_bwd_dq_tf32_tc_kernel, mha_bwd_dkdv_tf32_tc_kernel): the
+// tensor cores too, every product three TF32 passes (mma.cuh). It is the
+// route of every training run without --bf16 (DTypePolicy's compute type
+// defaults to fp32: clip_loop and train.loop) and of every checkpoint
+// trained that way, not only of checks and parity runs. It replaces the
+// same TPU kernel in fp32, whose `_dot` products the TPU takes at full
+// precision in several bf16 passes. Bound on the H100 at the vision shape
+// (batch 128): 39.3 GFLOP, 0.587 ms at the CUDA cores' 67 TFLOP/s, 0.238
+// ms at a third of TF32's 495 TFLOP/s; 552 MB of bytes, 0.165 ms. So the
+// products bound it, and the CUDA-core kernels this route replaced (p and
+// ds through shared memory, 9 tile products per tile pair, bound by
+// shared-memory reads) ran 10.8x the CUDA cores' bound (6.34 ms of device
+// time; chip_smoke.py on an NVIDIA H100 80GB HBM3, 700 W). The split keeps
+// fp32-class products on the tensor cores: x = hi + lo, hi x rounded to
+// TF32 and lo = x - hi, and a b = lo_a hi_b + hi_a lo_b + hi_a hi_b into
+// the fp32 accumulator, within 2^-19 of |a b| (mma.cuh). The kernels are the bf16 route's two, walk for walk: dq with its delta walk (4 warps of 16 query
+// rows), dk/dv (4 warps of 16 keys) with Q and dO tiles, their lse and
+// delta through the ring. p and ds are split in registers and used, as
+// they stand in the accumulators, as the A operands of ds k, p^T do and
+// ds^T q (accumulator column 2t to k slot t, 2t + 1 to slot t + 4, and the
+// B operand read at rows 2t, 2t + 1): they never touch shared memory. What
+// changes for fp32: the tiles stay fp32 in shared memory with row pitch
+// D + 4, and every operand is split as its fragment is loaded, so the
+// planes of hi and lo never take shared memory. At D = 128 the block's own
+// tiles (q and do for dq, K and V for dk/dv) take 66 KB, so the ring holds
+// 16-row tiles (16 keys for dq, 32 at D = 64; 16 queries for dk/dv) and
+// two blocks fit an SM; the dk and dv accumulators take 128 registers a
+// thread, so the dv and dk updates of a tile go in two passes (no spills).
+// Each output is summed in a fixed order with no atomics: two calls give
+// the same bits. What bounds it now is issue slots, as in the forward (a
+// split of three instructions an element, every operand split again each
+// tile): 1.83 ms of device time at the vision shape, 3.1x the CUDA cores'
+// bound and 0.83x SDPA's fp32 backward (PERF.md).
 
 #include <math.h>
 #include <stdint.h>
@@ -83,29 +113,39 @@
 
 namespace {
 
-using forde::from_float;
-using forde::load_tile;
-using forde::probs;
-using forde::round_to;
-using forde::tile_dot;
-using forde::tile_mac;
 using forde::visible;
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid (fp32 route)
-constexpr int TC_THREADS = 128;  // 4 warps of 16 rows (bf16 route)
-constexpr int LP = BK + 1;    // pitch of a 64 x 64 tile of p or ds
+constexpr int BQ = 64;        // query rows of a dq block (and bf16 tile)
+constexpr int BK = 64;        // keys of a dk/dv block (and bf16 tile)
+constexpr int TC_THREADS = 128;  // 4 warps of 16 rows
+
+// The fp32 route: keys per tile of the dq kernel's ring, queries per tile
+// of the dk/dv kernel's (two stages each), and blocks an SM. At D = 128
+// the block's own two fp32 tiles (q and do, or K and V: 66 KB at pitch
+// D + 4) and two stages of two 16-row tiles (33 KB) fit two blocks an SM;
+// 32-row tiles would take 132 KB, one block of 4 warps an SM. The dk/dv
+// kernel takes 16 queries at D = 64 too: beside the dk and dv
+// accumulators, 32 queries' s^T and dp^T would not fit its registers.
+template <int D>
+__host__ __device__ constexpr int f32_dq_keys() {
+  return D == 128 ? 16 : 32;
+}
+constexpr int F32_DKDV_QUERIES = 16;
 
 template <int D>
-constexpr size_t dq_smem_bytes() {
-  return (2 * BQ * (D + 1) + BK * (D + 1) + BQ * LP + 2 * BQ) * sizeof(float);
+constexpr int f32_blocks_per_sm() {
+  return D == 128 ? 2 : 3;
 }
 
 template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return (2 * BQ * (D + 1) + 2 * BK * (D + 1) + BQ * LP + 2 * BQ) *
-         sizeof(float);
+constexpr size_t f32_dq_smem_bytes() {
+  return (2 * BQ + 2 * 2 * f32_dq_keys<D>()) * (D + 4) * sizeof(float);
+}
+
+template <int D>
+constexpr size_t f32_dkdv_smem_bytes() {
+  return (2 * BK + 2 * 2 * F32_DKDV_QUERIES) * (D + 4) * sizeof(float) +
+         2 * 2 * F32_DKDV_QUERIES * sizeof(float);
 }
 
 // Two stages of two 64 x D bf16 tiles: K and V (dq), or Q and dO plus
@@ -128,239 +168,30 @@ __device__ __forceinline__ int key_count(const int* lens, int b, int S,
   return kv_len;
 }
 
-// Key tiles [j_begin, j_end) hold every key some row of the q tile at q0
-// sees; with none, dq is 0 and so is delta.
+// Key tiles of TILE keys [j_begin, j_end) hold every key some row of the q
+// tile at q0 sees; with none, dq is 0 and so is delta.
+template <int TILE = BK>
 __device__ __forceinline__ void key_tiles(int q0, int S, int kv_len,
                                           int causal, int window,
                                           int& j_begin, int& j_end) {
   const int q_last = min(q0 + BQ, S) - 1;
   int end_col = kv_len;
   if (causal) end_col = min(end_col, q_last + 1);
-  j_begin = window >= 0 ? max(0, q0 - window + 1) / BK : 0;
-  j_end = (end_col + BK - 1) / BK;
+  j_begin = window >= 0 ? max(0, q0 - window + 1) / TILE : 0;
+  j_end = (end_col + TILE - 1) / TILE;
 }
 
-// Query tiles [i_begin, i_end) hold every row that sees some key of the
-// key tile at k0; with none (all keys past kv_len), dk and dv are 0.
+// Query tiles of TILE rows [i_begin, i_end) hold every row that sees some
+// key of the BK keys at k0; with none (all keys past kv_len), dk and dv
+// are 0.
+template <int TILE = BQ>
 __device__ __forceinline__ void query_tiles(int k0, int S, int kv_len,
                                             int causal, int window,
                                             int& i_begin, int& i_end) {
-  i_begin = causal ? k0 / BQ : 0;
-  i_end = k0 < kv_len ? (S + BQ - 1) / BQ : 0;
+  i_begin = causal ? k0 / TILE : 0;
+  i_end = k0 < kv_len ? (S + TILE - 1) / TILE : 0;
   if (window >= 0)
-    i_end = min(i_end, (min(S, k0 + BK - 1 + window) + BQ - 1) / BQ);
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mha_bwd_dq_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                  const float* __restrict__ lse, const int* __restrict__ lens,
-                  T* __restrict__ dqkv, float* __restrict__ delta, int S,
-                  int H, float scale, int causal, int window, int kv_bound) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;               // BQ x LD
-  float* do_s = q_s + BQ * LD;     // BQ x LD
-  float* kv_s = do_s + BQ * LD;    // BK x LD: K, then V, then K of a tile
-  float* ds_s = kv_s + BK * LD;    // BQ x LP
-  float* lse_s = ds_s + BQ * LP;   // BQ
-  float* delta_s = lse_s + BQ;     // BQ
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  const long long stride = 3LL * H * D;
-  const long long hd = (long long)H * D;
-  const T* base = qkv + (long long)b * S * stride;
-  const T* q_g = base + (long long)h * D;
-  const T* k_g = base + (long long)(H + h) * D;
-  const T* v_g = base + (long long)(2 * H + h) * D;
-  const T* do_g = dout + (long long)b * S * hd + (long long)h * D;
-  const long long row_bh = ((long long)b * H + h) * S;
-
-  const int kv_len = key_count(lens, b, S, kv_bound);
-  int j_begin, j_end;
-  key_tiles(q0, S, kv_len, causal, window, j_begin, j_end);
-
-  load_tile<T, D, THREADS>(q_s, q_g, q0, S, stride);
-  load_tile<T, D, THREADS>(do_s, do_g, q0, S, hd);
-  if (tid < BQ) lse_s[tid] = q0 + tid < S ? lse[row_bh + q0 + tid] : 0.f;
-
-  // Walk 1: delta = sum_c p * dp of rows ty + 16i.
-  float dsum[4] = {0.f, 0.f, 0.f, 0.f};
-  float p[4][4], dp[4][4];
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();
-    load_tile<T, D, THREADS>(kv_s, k_g, k0, S, stride);
-    __syncthreads();
-    probs<D>(p, q_s, kv_s, lse_s, q0, k0, S, kv_len, causal, window, scale,
-             tx, ty);
-    __syncthreads();
-    load_tile<T, D, THREADS>(kv_s, v_g, k0, S, stride);
-    __syncthreads();
-    tile_dot<D>(dp, do_s, kv_s, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dsum[i] = fmaf(p[i][j], dp[i][j], dsum[i]);
-  }
-  // The 16 threads of a row are lanes tx = 0..15 of one half-warp.
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      dsum[i] += __shfl_xor_sync(0xffffffffu, dsum[i], off);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      delta_s[r] = dsum[i];
-      if (q0 + r < S) delta[row_bh + q0 + r] = dsum[i];
-    }
-  }
-
-  // Walk 2: ds, and dq = ds k for rows ty + 16i, columns tx + 16j.
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // delta_s is written; the last tile is done with kv_s
-    load_tile<T, D, THREADS>(kv_s, k_g, k0, S, stride);
-    __syncthreads();
-    probs<D>(p, q_s, kv_s, lse_s, q0, k0, S, kv_len, causal, window, scale,
-             tx, ty);
-    __syncthreads();
-    load_tile<T, D, THREADS>(kv_s, v_g, k0, S, stride);
-    __syncthreads();
-    tile_dot<D>(dp, do_s, kv_s, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ds_s[r * LP + tx + 16 * j] =
-            round_to<T>(p[i][j] * (dp[i][j] - delta_s[r]) * scale);
-    }
-    __syncthreads();
-    load_tile<T, D, THREADS>(kv_s, k_g, k0, S, stride);
-    __syncthreads();
-    tile_mac<D, LP, 1>(acc, ds_s, kv_s, tx, ty);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qr = q0 + ty + 16 * i;
-    if (qr >= S) continue;
-    T* row = dqkv + ((long long)b * S + qr) * stride + (long long)h * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = from_float<T>(acc[i][j]);
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mha_bwd_dkdv_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta,
-                    const int* __restrict__ lens, T* __restrict__ dqkv, int S,
-                    int H, float scale, int causal, int window, int kv_bound) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;                // BK x LD
-  float* v_s = k_s + BK * LD;       // BK x LD
-  float* q_s = v_s + BK * LD;       // BQ x LD
-  float* do_s = q_s + BQ * LD;      // BQ x LD
-  float* p_s = do_s + BQ * LD;      // BQ x LP: round(p), then ds
-  float* lse_s = p_s + BQ * LP;     // BQ
-  float* delta_s = lse_s + BQ;      // BQ
-
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-
-  const long long stride = 3LL * H * D;
-  const long long hd = (long long)H * D;
-  const T* base = qkv + (long long)b * S * stride;
-  const T* q_g = base + (long long)h * D;
-  const T* k_g = base + (long long)(H + h) * D;
-  const T* v_g = base + (long long)(2 * H + h) * D;
-  const T* do_g = dout + (long long)b * S * hd + (long long)h * D;
-  const long long row_bh = ((long long)b * H + h) * S;
-
-  const int kv_len = key_count(lens, b, S, kv_bound);
-  int i_begin, i_end;
-  query_tiles(k0, S, kv_len, causal, window, i_begin, i_end);
-
-  load_tile<T, D, THREADS>(k_s, k_g, k0, S, stride);
-  load_tile<T, D, THREADS>(v_s, v_g, k0, S, stride);
-
-  // dk and dv of keys ty + 16i, columns tx + 16j.
-  float acc_dk[4][DJ], acc_dv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
-
-  float p[4][4], ds[4][4];
-  for (int it = i_begin; it < i_end; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();  // the last tile is done with q_s, do_s and p_s
-    load_tile<T, D, THREADS>(q_s, q_g, q0, S, stride);
-    load_tile<T, D, THREADS>(do_s, do_g, q0, S, hd);
-    if (tid < BQ) {
-      const bool in = q0 + tid < S;
-      lse_s[tid] = in ? lse[row_bh + q0 + tid] : 0.f;
-      delta_s[tid] = in ? delta[row_bh + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-    // Rows q0 + ty + 16i, keys k0 + tx + 16j.
-    probs<D>(p, q_s, k_s, lse_s, q0, k0, S, kv_len, causal, window, scale,
-             tx, ty);
-    tile_dot<D>(ds, do_s, v_s, tx, ty);  // dp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ds[i][j] = round_to<T>(p[i][j] * (ds[i][j] - delta_s[r]) * scale);
-        p_s[r * LP + tx + 16 * j] = round_to<T>(p[i][j]);
-      }
-    }
-    __syncthreads();
-    tile_mac<D, 1, LP>(acc_dv, p_s, do_s, tx, ty);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(ty + 16 * i) * LP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    tile_mac<D, 1, LP>(acc_dk, p_s, q_s, tx, ty);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= S) continue;
-    T* row = dqkv + ((long long)b * S + kr) * stride;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      row[(long long)(H + h) * D + tx + 16 * j] = from_float<T>(acc_dk[i][j]);
-      row[(long long)(2 * H + h) * D + tx + 16 * j] = from_float<T>(acc_dv[i][j]);
-    }
-  }
+    i_end = min(i_end, (min(S, k0 + BK - 1 + window) + TILE - 1) / TILE);
 }
 
 // The bf16 route's dq kernel. Warp w owns query rows q0 + 16w ..
@@ -751,6 +582,373 @@ mha_bwd_dkdv_tc_kernel(const __nv_bfloat16* __restrict__ qkv,
                 k0 + wrow, S, lane);
 }
 
+// The fp32 route's dq kernel: the bf16 dq kernel's two walks, every
+// product three TF32 passes (mma.cuh). Warp w owns query rows q0 + 16w ..
+// q0 + 16w + 15; lane (g, t) holds rows r0 = q0 + 16w + g and r1 = r0 + 8
+// and, of each n8 tile j of a product, cols 8j + 2t and 8j + 2t + 1. q and
+// do stay in shared memory and are split as their fragments are loaded.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, f32_blocks_per_sm<D>())
+mha_bwd_dq_tf32_tc_kernel(const float* __restrict__ qkv,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const int* __restrict__ lens,
+                          float* __restrict__ dqkv, float* __restrict__ delta,
+                          int S, int H, float scale, int causal, int window,
+                          int kv_bound) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;           // row pitch of the fp32 tiles
+  constexpr int KD = D / 8;           // k8 steps over the head dim
+  constexpr int ND = D / 8;           // n8 tiles of dq
+  constexpr int KT = f32_dq_keys<D>();  // keys per tile
+  constexpr int NJ = KT / 8;          // n8 tiles of s and dp
+  constexpr int STAGE = 2 * KT * LD;  // a K tile, then a V tile
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const q_s = reinterpret_cast<float*>(smem_raw);
+  float* const do_s = q_s + BQ * LD;
+  float* const ring = do_s + BQ * LD;
+
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const long long stride = 3LL * H * D;
+  const long long hd = (long long)H * D;
+  const float* base = qkv + (long long)b * S * stride;
+  const float* q_g = base + (long long)h * D;
+  const float* k_g = base + (long long)(H + h) * D;
+  const float* v_g = base + (long long)(2 * H + h) * D;
+  const float* do_g = dout + (long long)b * S * hd + (long long)h * D;
+  const long long row_bh = ((long long)b * H + h) * S;
+
+  const int kv_len = key_count(lens, b, S, kv_bound);
+  int j_begin, j_end;
+  key_tiles<KT>(q0, S, kv_len, causal, window, j_begin, j_end);
+  const int n = max(0, j_end - j_begin);
+  const int steps = 2 * n;  // walk 1, then walk 2, over the same tiles
+
+  // Step i's key tile into stage i % 2, as one commit group.
+  auto fetch = [&](int i) {
+    float* const dst = ring + (i & 1) * STAGE;
+    const int k0 = (j_begin + i % n) * KT;
+    load_tile_f32_async<KT, D, TC_THREADS>(dst, k_g, k0, S, stride);
+    load_tile_f32_async<KT, D, TC_THREADS>(dst + KT * LD, v_g, k0, S, stride);
+    cp_async_commit();
+  };
+  load_tile_f32_async<BQ, D, TC_THREADS>(q_s, q_g, q0, S, stride);
+  load_tile_f32_async<BQ, D, TC_THREADS>(do_s, do_g, q0, S, hd);
+  if (n > 0)
+    fetch(0);  // with q and do
+  else
+    cp_async_commit();
+
+  const int wrow = 16 * warp;
+  // A warp whose rows all lie at or past S does no products.
+  const bool active = q0 + wrow < S;
+  const int r0 = q0 + wrow + g, r1 = r0 + 8;
+  // p = exp(s * scale - lse) = 2^(s * scale * log2(e) - lse * log2(e)).
+  const float scale_log2 = scale * LOG2E;
+  float lse0 = 0.f, lse1 = 0.f;  // log2 units
+  if (active) {
+    if (r0 < S) lse0 = lse[row_bh + r0] * LOG2E;
+    if (r1 < S) lse1 = lse[row_bh + r1] * LOG2E;
+  }
+
+  float dsum0 = 0.f, dsum1 = 0.f;  // walk 1: this lane's part of delta
+  float delta0 = 0.f, delta1 = 0.f;
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    // Step i's tile has landed; after the barrier every warp is done with
+    // step i - 1, whose stage takes step i + 1.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < steps) fetch(i + 1);
+    if (i == n) {  // walk 1 is done: delta of rows r0, r1
+      delta0 = quad_sum(dsum0);
+      delta1 = quad_sum(dsum1);
+    }
+
+    if (active) {
+      const int k0 = (j_begin + i % n) * KT;
+      const bool walk2 = i >= n;
+      const float* const k_t = ring + (i & 1) * STAGE;
+      const float* const v_t = k_t + KT * LD;
+      // Every key of the tile visible to every row: no select needed
+      // (rows at or past S are never written).
+      const bool full = !causal && window < 0 && k0 + KT <= kv_len;
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t fa[4], ah[4], al[4];
+        load_a_f32<D>(fa, q_s, wrow, kk, lane);
+        split_tf32(fa, ah, al);
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t bb[4], bh[4], bl[4];
+          load_b_f32<D>(bb, k_t, 16 * np, kk, lane);
+          split_tf32(bb, bh, bl);
+          mma_tf32x3(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+        load_a_f32<D>(fa, do_s, wrow, kk, lane);
+        split_tf32(fa, ah, al);
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t bb[4], bh[4], bl[4];
+          load_b_f32<D>(bb, v_t, 16 * np, kk, lane);
+          split_tf32(bb, bh, bl);
+          mma_tf32x3(dp[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(dp[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+      // p = exp(s * scale - lse), SELECTED to 0 where masked (lse is -1e30
+      // on a row with no visible key: exp() is inf there).
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = k0 + 8 * j + 2 * t + e;
+          const float p0 = exp2_approx(fmaf(s[j][e], scale_log2, -lse0));
+          const float p1 = exp2_approx(fmaf(s[j][2 + e], scale_log2, -lse1));
+          s[j][e] = full || (r0 < S && visible(r0, kc, kv_len, causal, window)) ? p0 : 0.f;
+          s[j][2 + e] = full || (r1 < S && visible(r1, kc, kv_len, causal, window)) ? p1 : 0.f;
+        }
+      }
+      if (!walk2) {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          dsum0 += s[j][0] * dp[j][0] + s[j][1] * dp[j][1];
+          dsum1 += s[j][2] * dp[j][2] + s[j][3] * dp[j][3];
+        }
+      } else {
+        // ds = p (dp - delta) scale, n8 tile kk split into TF32: the A
+        // operand of k8 step kk of ds k, k read at rows 2t, 2t + 1.
+#pragma unroll
+        for (int kk = 0; kk < NJ; ++kk) {
+          const float ds[4] = {s[kk][0] * (dp[kk][0] - delta0) * scale,
+                               s[kk][1] * (dp[kk][1] - delta0) * scale,
+                               s[kk][2] * (dp[kk][2] - delta1) * scale,
+                               s[kk][3] * (dp[kk][3] - delta1) * scale};
+          uint32_t dh[4], dl[4];
+          acc_to_a_tf32(dh, dl, ds);
+#pragma unroll
+          for (int np = 0; np < ND; ++np) {
+            uint32_t bh[2], bl[2];
+            load_bt_f32<D>(bh, bl, k_t, 8 * kk, 8 * np, lane);
+            mma_tf32x3(acc[np], dh, dl, bh[0], bh[1], bl[0], bl[1]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // q and do when no key tile is walked
+
+  if (!active) return;
+  if (t == 0) {
+    if (r0 < S) delta[row_bh + r0] = delta0;
+    if (r1 < S) delta[row_bh + r1] = delta1;
+  }
+  store_rows_f32<D>(dqkv + (long long)b * S * stride + (long long)h * D, stride,
+                    acc, r0, S, 1.f, 1.f, lane);
+}
+
+// Q and dO of the query tile at q0 (ROWS rows), with their lse and delta,
+// into stage st of the fp32 dk/dv kernel's ring (rows at or past S zero).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_query_stage_f32(
+    float* ring, float* stat, int st, const float* q_g, const float* do_g,
+    const float* lse_bh, const float* delta_bh, int q0, int S,
+    long long stride, long long hd) {
+  using namespace forde::mma;
+  float* const q_t = ring + st * 2 * ROWS * (D + 4);
+  load_tile_f32_async<ROWS, D, TC_THREADS>(q_t, q_g, q0, S, stride);
+  load_tile_f32_async<ROWS, D, TC_THREADS>(q_t + ROWS * (D + 4), do_g, q0, S, hd);
+  float* const stat_t = stat + st * 2 * ROWS;
+  const int r = threadIdx.x;
+  if (r < ROWS) {
+    const bool ok = q0 + r < S;
+    cp_async_4(stat_t + r, ok ? lse_bh + q0 + r : lse_bh, ok);
+    cp_async_4(stat_t + ROWS + r, ok ? delta_bh + q0 + r : delta_bh, ok);
+  }
+}
+
+// The fp32 route's dk/dv kernel: the bf16 dk/dv kernel's walk, every
+// product three TF32 passes. Warp w owns keys k0 + 16w .. k0 + 16w + 15;
+// lane (g, t) holds keys kr0 = k0 + 16w + g and kr1 = kr0 + 8 and, of each
+// n8 tile j of a transposed product, query cols 8j + 2t, 8j + 2t + 1. K and
+// V stay in shared memory and are split as their fragments are loaded.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, f32_blocks_per_sm<D>())
+mha_bwd_dkdv_tf32_tc_kernel(const float* __restrict__ qkv,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ lens,
+                            float* __restrict__ dqkv, int S, int H,
+                            float scale, int causal, int window, int kv_bound) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;
+  constexpr int KD = D / 8;           // k8 steps over the head dim
+  constexpr int ND = D / 8;           // n8 tiles of dk and dv
+  constexpr int QT = F32_DKDV_QUERIES;  // queries per tile
+  constexpr int NJ = QT / 8;          // n8 tiles of s^T and dp^T
+  constexpr int STAGE = 2 * QT * LD;  // a Q tile, then a dO tile
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const k_s = reinterpret_cast<float*>(smem_raw);
+  float* const v_s = k_s + BK * LD;
+  float* const ring = v_s + BK * LD;
+  float* const stat = ring + 2 * STAGE;  // per stage: lse, then delta
+
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  const long long stride = 3LL * H * D;
+  const long long hd = (long long)H * D;
+  const float* base = qkv + (long long)b * S * stride;
+  const float* q_g = base + (long long)h * D;
+  const float* k_g = base + (long long)(H + h) * D;
+  const float* v_g = base + (long long)(2 * H + h) * D;
+  const float* do_g = dout + (long long)b * S * hd + (long long)h * D;
+  const long long row_bh = ((long long)b * H + h) * S;
+  const float* lse_bh = lse + row_bh;
+  const float* delta_bh = delta + row_bh;
+
+  const int kv_len = key_count(lens, b, S, kv_bound);
+  int i_begin, i_end;
+  query_tiles<QT>(k0, S, kv_len, causal, window, i_begin, i_end);
+  const int n = max(0, i_end - i_begin);
+
+  load_tile_f32_async<BK, D, TC_THREADS>(k_s, k_g, k0, S, stride);
+  load_tile_f32_async<BK, D, TC_THREADS>(v_s, v_g, k0, S, stride);
+  if (n > 0)
+    load_query_stage_f32<D, QT>(ring, stat, 0, q_g, do_g, lse_bh, delta_bh,
+                                i_begin * QT, S, stride, hd);
+  cp_async_commit();
+
+  const int wrow = 16 * warp;
+  // A warp whose keys all lie at or past S does no products.
+  const bool active = k0 + wrow < S;
+  const int kr0 = k0 + wrow + g, kr1 = kr0 + 8;
+  const float scale_log2 = scale * LOG2E;
+  float dk[ND][4], dv[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    dk[j][0] = dk[j][1] = dk[j][2] = dk[j][3] = 0.f;
+    dv[j][0] = dv[j][1] = dv[j][2] = dv[j][3] = 0.f;
+  }
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    // Tile i has landed; after the barrier every warp is done with tile
+    // i - 1, whose stage takes tile i + 1.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < n) {
+      load_query_stage_f32<D, QT>(ring, stat, st ^ 1, q_g, do_g, lse_bh,
+                                  delta_bh, (i_begin + i + 1) * QT, S, stride,
+                                  hd);
+      cp_async_commit();
+    }
+
+    if (active) {
+      const int q0 = (i_begin + i) * QT;
+      const float* const q_t = ring + st * STAGE;
+      const float* const do_t = q_t + QT * LD;
+      const float* const lse_t = stat + st * 2 * QT;
+      const float* const dl_t = lse_t + QT;
+      // Every row of the tile sees every key of this block: no select.
+      const bool full = !causal && window < 0 && k0 + BK <= kv_len && q0 + QT <= S;
+      float s[NJ][4], dp[NJ][4];  // s^T and dp^T: keys x queries
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        uint32_t fa[4], ah[4], al[4];
+        load_a_f32<D>(fa, k_s, wrow, kk, lane);
+        split_tf32(fa, ah, al);
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t bb[4], bh[4], bl[4];
+          load_b_f32<D>(bb, q_t, 16 * np, kk, lane);
+          split_tf32(bb, bh, bl);
+          mma_tf32x3(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+        load_a_f32<D>(fa, v_s, wrow, kk, lane);
+        split_tf32(fa, ah, al);
+#pragma unroll
+        for (int np = 0; np < NJ / 2; ++np) {
+          uint32_t bb[4], bh[4], bl[4];
+          load_b_f32<D>(bb, do_t, 16 * np, kk, lane);
+          split_tf32(bb, bh, bl);
+          mma_tf32x3(dp[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_tf32x3(dp[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+      // p^T = exp(s^T * scale - lse), SELECTED to 0 where masked, and
+      // ds^T = p^T (dp^T - delta) scale; n8 tile kk of each, split into
+      // TF32, is the A operand of k8 step kk of p^T do and ds^T q.
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cl = 8 * kk + 2 * t + e;  // query within the tile
+          const int qr = q0 + cl;
+          const float lq = lse_t[cl] * LOG2E, dq = dl_t[cl];
+          const bool in = qr < S;
+          const float e0 = exp2_approx(fmaf(s[kk][e], scale_log2, -lq));
+          const float e1 = exp2_approx(fmaf(s[kk][2 + e], scale_log2, -lq));
+          p[e] = full || (in && visible(qr, kr0, kv_len, causal, window)) ? e0 : 0.f;
+          p[2 + e] = full || (in && visible(qr, kr1, kv_len, causal, window)) ? e1 : 0.f;
+          ds[e] = p[e] * (dp[kk][e] - dq) * scale;
+          ds[2 + e] = p[2 + e] * (dp[kk][2 + e] - dq) * scale;
+        }
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        acc_to_a_tf32(ph, pl, p);
+        acc_to_a_tf32(dh, dl, ds);
+#pragma unroll
+        for (int np = 0; np < ND; ++np) {
+          uint32_t bh[2], bl[2];
+          load_bt_f32<D>(bh, bl, do_t, 8 * kk, 8 * np, lane);
+          mma_tf32x3(dv[np], ph, pl, bh[0], bh[1], bl[0], bl[1]);
+        }
+#pragma unroll
+        for (int np = 0; np < ND; ++np) {
+          uint32_t bh[2], bl[2];
+          load_bt_f32<D>(bh, bl, q_t, 8 * kk, 8 * np, lane);
+          mma_tf32x3(dk[np], dh, dl, bh[0], bh[1], bl[0], bl[1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // K and V when no query tile sees this block
+
+  if (!active) return;
+  float* const out = dqkv + (long long)b * S * stride;
+  store_rows_f32<D>(out + (long long)(H + h) * D, stride, dk, kr0, S, 1.f, 1.f, lane);
+  store_rows_f32<D>(out + (long long)(2 * H + h) * D, stride, dv, kr0, S, 1.f, 1.f,
+                    lane);
+}
+
 template <int D>
 cudaError_t launch_tc(const void* qkv, const void* dout, const void* lse,
                       const void* lens, void* dqkv, void* delta, int batch,
@@ -783,34 +981,34 @@ cudaError_t launch_tc(const void* qkv, const void* dout, const void* lse,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* qkv, const void* dout, const void* lse,
-                   const void* lens, void* dqkv, void* delta, int batch,
-                   int seq, int heads, float scale, int causal, int window,
-                   int kv_bound, cudaStream_t stream) {
-  constexpr size_t smem_dq = dq_smem_bytes<D>();
-  constexpr size_t smem_dkdv = dkdv_smem_bytes<D>();
+template <int D>
+cudaError_t launch_tf32(const void* qkv, const void* dout, const void* lse,
+                        const void* lens, void* dqkv, void* delta, int batch,
+                        int seq, int heads, float scale, int causal,
+                        int window, int kv_bound, cudaStream_t stream) {
+  constexpr size_t smem_dq = f32_dq_smem_bytes<D>();
+  constexpr size_t smem_dkdv = f32_dkdv_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      mha_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_bwd_dq_tf32_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_dq);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(mha_bwd_dkdv_kernel<T, D>,
+  err = cudaFuncSetAttribute(mha_bwd_dkdv_tf32_tc_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_dkdv);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + 63) / 64, heads, batch);
-  mha_bwd_dq_kernel<T, D><<<grid, THREADS, smem_dq, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
+  mha_bwd_dq_tf32_tc_kernel<D><<<grid, TC_THREADS, smem_dq, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const int*>(lens),
-      static_cast<T*>(dqkv), static_cast<float*>(delta), seq, heads, scale,
-      causal, window, kv_bound);
+      static_cast<float*>(dqkv), static_cast<float*>(delta), seq, heads,
+      scale, causal, window, kv_bound);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mha_bwd_dkdv_kernel<T, D><<<grid, THREADS, smem_dkdv, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(dout),
+  mha_bwd_dkdv_tf32_tc_kernel<D><<<grid, TC_THREADS, smem_dkdv, stream>>>(
+      static_cast<const float*>(qkv), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(lens), static_cast<T*>(dqkv), seq, heads, scale,
-      causal, window, kv_bound);
+      static_cast<const int*>(lens), static_cast<float*>(dqkv), seq, heads,
+      scale, causal, window, kv_bound);
   return cudaGetLastError();
 }
 
@@ -818,8 +1016,8 @@ cudaError_t launch(const void* qkv, const void* dout, const void* lse,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route;
-// qkv, do and dqkv 16-byte aligned). qkv, do and dqkv are in that type;
+// dtype: 0 = float32 (three-pass TF32 route), 1 = bfloat16 (both on the
+// tensor cores; qkv, do and dqkv 16-byte aligned). qkv, do and dqkv are in that type;
 // lse and the delta scratch are (B, H, S) fp32. lens may be null (no
 // per-sample lengths); window < 0 and kv_bound < 0 mean none. Returns the
 // CUDA error code of the launches (0 on success).
@@ -829,17 +1027,17 @@ int forde_flash_mha_bwd(const void* qkv, const void* dout, const void* lse,
                         float scale, int causal, int window, int kv_bound,
                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FORDE_BWD_LAUNCH(T, D)                                             \
-  return launch<T, D>(qkv, dout, lse, lens, dqkv, delta, batch, seq, heads, \
-                      scale, causal, window, kv_bound, st)
+#define FORDE_BWD_LAUNCH_TF32(D)                                            \
+  return launch_tf32<D>(qkv, dout, lse, lens, dqkv, delta, batch, seq, heads, \
+                        scale, causal, window, kv_bound, st)
 #define FORDE_BWD_LAUNCH_TC(D)                                            \
   return launch_tc<D>(qkv, dout, lse, lens, dqkv, delta, batch, seq, heads, \
                       scale, causal, window, kv_bound, st)
-  if (dtype == 0 && head_dim == 64) FORDE_BWD_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) FORDE_BWD_LAUNCH(float, 128);
+  if (dtype == 0 && head_dim == 64) FORDE_BWD_LAUNCH_TF32(64);
+  if (dtype == 0 && head_dim == 128) FORDE_BWD_LAUNCH_TF32(128);
   if (dtype == 1 && head_dim == 64) FORDE_BWD_LAUNCH_TC(64);
   if (dtype == 1 && head_dim == 128) FORDE_BWD_LAUNCH_TC(128);
-#undef FORDE_BWD_LAUNCH
+#undef FORDE_BWD_LAUNCH_TF32
 #undef FORDE_BWD_LAUNCH_TC
   return (int)cudaErrorInvalidValue;
 }

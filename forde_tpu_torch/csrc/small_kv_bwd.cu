@@ -65,10 +65,12 @@
 // from shared memory. -1e9 (masked) and -inf (padding) stay apart on the
 // fragments, and a row past S is selected to 0, never multiplied by 0.
 //
-// fp32 route: the same split and order on the CUDA cores (the tensor cores
-// would round fp32 to TF32), with the tile products of common.cuh on a
-// 16 x 16 thread grid and fp32 tiles of pitch D + 1. It runs only in checks
-// and parity runs.
+// fp32 route: the same split and order on the CUDA cores, with the tile
+// products of common.cuh on a 16 x 16 thread grid and fp32 tiles of pitch
+// D + 1. It is the route of every LM training run without --bf16
+// (DTypePolicy's compute type defaults to fp32) and of every checkpoint
+// trained that way, besides checks and parity runs. flash_mha_bwd.cu's
+// three-pass TF32 route is the pattern for taking it to the tensor cores.
 
 #include <math.h>
 #include <stdint.h>

@@ -11,11 +11,11 @@ launch the hand-written kernels ``csrc/flash_mha_fwd.cu``
 (``flash_mha_fwd``) and ``csrc/flash_mha_bwd.cu`` (``flash_mha_bwd``); on a
 CPU tensor they run the kernels' plain versions
 (``flash_mha_fwd_reference``, ``flash_mha_bwd_reference``). The input
-dtype picks the kernels' route: bf16 runs on the tensor cores (``mma.sync``
-with fp32 accumulators), fp32 on the CUDA cores (the tensor cores would
-round it to TF32). The bf16 route copies tiles with 16-byte ``cp.async``,
-so the wrappers refuse a tensor that does not start on a 16-byte
-boundary.
+dtype picks the kernels' route; both run on the tensor cores (``mma.sync``
+with fp32 accumulators): bf16 as it is, fp32 split into TF32 pairs, three
+passes a product, which keeps each product to 2^-19 of its fp32 value.
+Both routes copy tiles with 16-byte ``cp.async``, so the wrappers refuse a
+tensor that does not start on a 16-byte boundary.
 ``flash_mha_reference`` is the plain masked attention path the JAX package
 runs as ``impl="reference"``, differentiated by autograd.
 
@@ -190,8 +190,8 @@ def flash_mha_fwd(
     (B,) count of visible keys per sample; ``kv_bound`` an optional static
     count of visible keys; ``window`` an optional ``q - k < window`` bound.
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream (bf16 on the tensor cores, fp32 on the
-    CUDA cores), or raises.
+    kernel on the current stream (on the tensor cores; fp32 in three TF32
+    passes a product), or raises.
     """
     if qkv.device.type == "cpu":
         return flash_mha_fwd_reference(
@@ -269,8 +269,8 @@ def flash_mha_bwd(
     dtype, from qkv, the forward's lse (B, H, S, 1) fp32 and the output
     gradient ``do`` (B, S, H*D) in the input dtype. Arguments as
     ``flash_mha_fwd``. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernels on the current stream (bf16 on the tensor cores,
-    fp32 on the CUDA cores), or raises."""
+    launches the kernels on the current stream (on the tensor cores; fp32
+    in three TF32 passes a product), or raises."""
     if qkv.device.type == "cpu":
         return flash_mha_bwd_reference(
             qkv, lens, lse, do, num_heads, head_dim, scale, window, causal, kv_bound
