@@ -483,6 +483,7 @@ TENSOR_CORE_SOURCES = ("flash_mha_fwd", "flash_mha_bwd", "flash_fwd", "flash_bwd
 TF32_KERNELS = {
     "flash_mha_fwd": ("flash_mha_fwd_tf32_tc_kernel",),
     "flash_mha_bwd": ("mha_bwd_dq_tf32_tc_kernel", "mha_bwd_dkdv_tf32_tc_kernel"),
+    "small_kv_bwd": ("skv_bwd_dq_tf32_tc_kernel", "skv_bwd_dkdv_tf32_tc_kernel"),
 }
 
 
@@ -1579,6 +1580,30 @@ def fused_qkv_turns(device, path: str) -> None:
         json.dump({"card": nvidia_smi(), "rows": rows}, f)
 
 
+def small_kv_bwd_turns(device, path: str) -> None:
+    """small_kv_bwd_timing of this checkout (bf16 and fp32), the fp32 LM
+    training step (lm_fp32_step_timing) and phase 12's fp32 readings
+    (kernel path against the all-plain and the plain attention paths),
+    written as JSON to ``path``: one turn of a comparison of two checkouts
+    inside one chip call (parent, change, change, parent), this file copied
+    into each."""
+    cfg = serve_config()
+    weights = lm_weights(cfg, device)
+    launches = {}
+    outs = {name: lm_step_outputs(cfg, weights, device, name, LM_PARITY_SEEDS[0], launches)
+            for name in ("kernel32", "plain32", "reference32")}
+    parity = {"fp32": rel_l2s(outs["kernel32"], outs["plain32"]),
+              "reference_fp32": rel_l2s(outs["kernel32"], outs["reference32"])}
+    del outs, weights
+    for name, r in parity.items():
+        log(f"[lm parity] {name}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
+    rows = small_kv_bwd_timing(device)
+    step = lm_fp32_step_timing(device)
+    with open(path, "w") as f:
+        json.dump({"card": nvidia_smi(), "small_kv_bwd": rows, "lm_fp32_step": step,
+                   "lm_fp32_parity": parity}, f)
+
+
 # ---------------------------------------------------------------------------
 # The decoder LM's serving path: kernels flash_fwd and small_kv_fwd
 # ---------------------------------------------------------------------------
@@ -1855,8 +1880,8 @@ FLASH_BWD_CASES = [
 # (name, B, H, S, K, D, keys): the compressed and top-k branches of the
 # training step (S = 2048: 192 pools, 64 selected), 960 pools at S = 8192,
 # pools a row does not have (INVALID_KEY_POS), every key in the future (the
-# uniform quirk: dq = dk = 0), D = 128, and K = 200, not a multiple of the
-# kernels' 64-key tiles.
+# uniform quirk: dq = dk = 0), D = 128, K = 200, not a multiple of the
+# kernels' 64-key tiles, and MAX_KEYS at D = 128.
 SMALL_KV_BWD_CASES = [
     ("train_pools_s2048_k192", 8, 8, 2048, 192, 64, "pools"),
     ("train_topk_s2048_k64", 8, 8, 2048, 64, 64, "topk"),
@@ -1865,6 +1890,7 @@ SMALL_KV_BWD_CASES = [
     ("all_future_s64_k40", 2, 4, 64, 40, 64, "future"),
     ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
     ("pools_s2048_k200", 2, 4, 2048, 200, 64, "pools"),
+    ("max_keys_s256_k1024_d128", 2, 2, 256, 1024, 128, "pools"),
 ]
 
 
@@ -2632,60 +2658,68 @@ LM_PARITY_TOL_FP32 = {"loss": 1e-4, "grads": 5e-2, "params": 2e-3}
 LM_PARITY_OF_CONTROL = 1.5
 
 
-def phase_lm_step_parity(device) -> dict:
-    """One training step of the reference-default decoder on the kernel
-    path, the all-plain path (the kernels' plain versions) and the plain
-    attention path (attention_impl="reference"): fp32 and bf16 on the
-    first batch, bf16 and its control on every batch of LM_PARITY_SEEDS;
-    and the launches of the kernel path's step."""
-    import contextlib as ctx
-
+def lm_step_outputs(cfg, weights, device, name, seed, launches) -> dict:
+    """One training step of the decoder ``cfg`` from ``weights`` on path
+    ``name`` (kernel / plain / reference, then 32 or 16 for the dtype) on
+    the batch of ``seed``: the loss, the gradients (Adam's first moment)
+    and the parameters after it, flat fp32; the step's launches go into
+    ``launches[name]``."""
     import torch
 
     from forde_tpu_torch import kernels
     from forde_tpu_torch.core.config import DTypePolicy
     from forde_tpu_torch.train.step import train_step
 
+    dtypes = DTypePolicy.fp32() if name.endswith("32") else DTypePolicy.bf16()
+    impl = "reference" if name.startswith("reference") else "auto"
+    state = lm_train_state(cfg, weights, device, dtypes, impl)
+    batch = lm_batch(LM_PARITY_BATCH, LM_SEQ, cfg.vocab_size, device, seed)
+    kernels.reset_launches()
+    with plain_lm_kernels() if name.startswith("plain") else contextlib.nullcontext():
+        state, m = train_step(state, batch, aux_loss_weight=0.01)
+    torch.cuda.synchronize()
+    launches[name] = dict(kernels.launches)
+    out = {"loss": m["loss/total"].reshape(1).float(),
+           "grads": torch.cat([t.flatten().float() for t in state.optimizer.mu]),
+           "params": torch.cat([t.detach().flatten().float() for t in state.optimizer.params])}
+    del state
+    torch.cuda.empty_cache()
+    if not all(bool(torch.isfinite(v).all()) for v in out.values()):
+        raise AssertionError(f"non-finite step on the {name} path")
+    return out
+
+
+def rel_l2s(a: dict, b: dict) -> dict:
+    return {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in a}
+
+
+def phase_lm_step_parity(device) -> dict:
+    """One training step of the reference-default decoder on the kernel
+    path, the all-plain path (the kernels' plain versions) and the plain
+    attention path (attention_impl="reference"): fp32 and bf16 on the
+    first batch, bf16 and its control on every batch of LM_PARITY_SEEDS;
+    and the launches of the kernel path's step."""
     cfg = serve_config()
     weights = lm_weights(cfg, device)
     launches = {}
 
     def one_step(name, seed):
-        """The step of path ``name`` (kernel / plain / reference + 32 / 16)
-        on the batch of ``seed``."""
-        dtypes = DTypePolicy.fp32() if name.endswith("32") else DTypePolicy.bf16()
-        impl = "reference" if name.startswith("reference") else "auto"
-        state = lm_train_state(cfg, weights, device, dtypes, impl)
-        batch = lm_batch(LM_PARITY_BATCH, LM_SEQ, cfg.vocab_size, device, seed)
-        kernels.reset_launches()
-        with plain_lm_kernels() if name.startswith("plain") else ctx.nullcontext():
-            state, m = train_step(state, batch, aux_loss_weight=0.01)
-        torch.cuda.synchronize()
-        launches[name] = dict(kernels.launches)
-        out = {"loss": m["loss/total"].reshape(1).float(),
-               "grads": torch.cat([t.flatten().float() for t in state.optimizer.mu]),
-               "params": torch.cat([t.detach().flatten().float() for t in state.optimizer.params])}
-        del state
-        torch.cuda.empty_cache()
-        if not all(bool(torch.isfinite(v).all()) for v in out.values()):
-            raise AssertionError(f"non-finite step on the {name} path")
-        return out
-
-    def rel(a, b):
-        return {k: float((a[k] - b[k]).norm() / b[k].norm()) for k in a}
+        return lm_step_outputs(cfg, weights, device, name, seed, launches)
 
     readings = {}
     first = {name: one_step(name, LM_PARITY_SEEDS[0]) for name in (
         "kernel32", "plain32", "reference32", "kernel16", "plain16", "reference16")}
-    readings["fp32"] = rel(first["kernel32"], first["plain32"])
-    readings["reference_fp32"] = rel(first["kernel32"], first["reference32"])
-    readings["reference_bf16"] = rel(first["kernel16"], first["reference16"])
-    readings["reference_control"] = rel(first["reference16"], first["reference32"])
-    per_batch = [(rel(first["kernel16"], first["plain16"]), rel(first["plain16"], first["plain32"]))]
+    readings["fp32"] = rel_l2s(first["kernel32"], first["plain32"])
+    readings["reference_fp32"] = rel_l2s(first["kernel32"], first["reference32"])
+    readings["reference_bf16"] = rel_l2s(first["kernel16"], first["reference16"])
+    readings["reference_control"] = rel_l2s(first["reference16"], first["reference32"])
+    per_batch = [(rel_l2s(first["kernel16"], first["plain16"]),
+                  rel_l2s(first["plain16"], first["plain32"]))]
     del first
     for seed in LM_PARITY_SEEDS[1:]:
         run = {name: one_step(name, seed) for name in ("kernel16", "plain16", "plain32")}
-        per_batch.append((rel(run["kernel16"], run["plain16"]), rel(run["plain16"], run["plain32"])))
+        per_batch.append((rel_l2s(run["kernel16"], run["plain16"]),
+                          rel_l2s(run["plain16"], run["plain32"])))
         del run
     for i, (bf16, control) in enumerate(per_batch):
         readings[f"bf16_batch{i}"], readings[f"control_batch{i}"] = bf16, control
@@ -2761,6 +2795,72 @@ def phase_lm_train_timing(device) -> dict:
             "busy_ms": prof["busy_ms"]}
 
 
+# The fp32 LM step's rows: 8 x 2,048 if the step's peak stays under this
+# many GiB on both paths, else 4 x 2,048.
+LM_FP32_PEAK_GIB = 70.0
+
+
+def lm_fp32_step_timing(device) -> dict:
+    """The reference-default decoder's training step with DTypePolicy.fp32()
+    (every train.loop run without --bf16): median of 5 after a warm-up,
+    the kernel path against the all-plain path (plain_lm_kernels), at 8 x
+    2,048 if both paths' peaks stay under LM_FP32_PEAK_GIB, else at 4 x
+    2,048; and one kernel-path step under the profiler (its top kernels)."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.train.step import train_step
+
+    cfg = serve_config()
+    state = lm_train_state(cfg, lm_weights(cfg, device), device, DTypePolicy.fp32())
+
+    def step(batch, plain=False):
+        with plain_lm_kernels() if plain else contextlib.nullcontext():
+            train_step(state, batch, aux_loss_weight=0.01)
+
+    def peak_gib(batch, plain):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step(batch, plain)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            return float("inf")
+        return torch.cuda.max_memory_allocated() / 2 ** 30
+
+    batch = lm_batch(8, LM_SEQ, cfg.vocab_size, device, SEED + 45)
+    peaks = {"kernel": peak_gib(batch, False), "plain": peak_gib(batch, True)}
+    rows = 8
+    if max(peaks.values()) >= LM_FP32_PEAK_GIB:
+        rows = 4
+        batch = lm_batch(rows, LM_SEQ, cfg.vocab_size, device, SEED + 45)
+        peaks = {"kernel": peak_gib(batch, False), "plain": peak_gib(batch, True)}
+    times = {}
+    for name, plain in (("kernel", False), ("plain", True)):
+        step(batch, plain)
+        times[name] = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(batch, plain)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    medians = {name: float(np.median(ts)) for name, ts in times.items()}
+    log(f"[time] LM train step fp32 ({rows} x {LM_SEQ}, peak kernel path "
+        f"{peaks['kernel']:.2f} GiB, all-plain path {peaks['plain']:.2f} GiB; 8 rows if both "
+        f"stay under {LM_FP32_PEAK_GIB:g} GiB, else 4): kernel path "
+        f"{' / '.join(f'{t:.1f}' for t in times['kernel'])} ms, median {medians['kernel']:.2f}; "
+        f"all-plain path {' / '.join(f'{t:.1f}' for t in times['plain'])} ms, median "
+        f"{medians['plain']:.2f}")
+    prof = profile_device(lambda: step(batch), f"one fp32 LM train step ({rows} x {LM_SEQ})",
+                          top=16)
+    return {"rows": rows, "step_ms": medians["kernel"], "plain_step_ms": medians["plain"],
+            "step_ms_all": times["kernel"], "plain_step_ms_all": times["plain"],
+            "peak_gib": peaks, "tokens_per_s": rows * LM_SEQ / medians["kernel"] * 1e3,
+            "idle_share": prof["idle_share"], "busy_ms": prof["busy_ms"]}
+
+
 def flash_bwd_bound(b, h, s, d, window, causal, part, dtype_name) -> tuple:
     """(ms by bytes, ms by operations) of one flash_bwd_dq or
     flash_bwd_dkv call: q, k, v, do, lse and delta read once, dq (or dk and
@@ -2824,12 +2924,11 @@ def phase_training_kernel_timing(device) -> dict:
     import torch.nn.functional as F
 
     from forde_tpu_torch.ops import flash_attention as fa
-    from forde_tpu_torch.ops import nsa_attention as nsa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 44)
     d = 64
     scale = d ** -0.5
-    out = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}, "small_kv_bwd": {}}
+    out = {"flash_bwd_dq": {}, "flash_bwd_dkv": {}}
     for (name, b, h, s, window), (dtype_name, suffix) in itertools.product(
             FLASH_BWD_TIMING, (("bfloat16", ""), ("float32", "_fp32"))):
         dt = getattr(torch, dtype_name)
@@ -2859,7 +2958,27 @@ def phase_training_kernel_timing(device) -> dict:
                 dtype=dtype_name, **shape)
         del inputs, library
         torch.cuda.empty_cache()
+    out["small_kv_bwd"] = small_kv_bwd_timing(device)
+    return out
 
+
+def small_kv_bwd_timing(device) -> dict:
+    """small_kv_bwd per call at SMALL_KV_BWD_TIMING (D 64), bf16 and fp32
+    (names with "_fp32"): kernel, plain version, SDPA's backward with the
+    same -1e9/-inf mask in the same dtype (a yardstick only) and the bound;
+    fp32 rows also carry the bound by operations at three TF32 passes
+    (``operations_tf32x3_ms``), and five fp32 calls are profiled (their
+    CUDA kernels' device times). Inputs cycle through copies that together
+    exceed the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from forde_tpu_torch.ops import nsa_attention as nsa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 46)
+    d = 64
+    scale = d ** -0.5
+    out = {}
     for (name, b, h, s, kk, kind), (dtype_name, suffix) in itertools.product(
             SMALL_KV_BWD_TIMING, (("bfloat16", ""), ("float32", "_fp32"))):
         dt = getattr(torch, dtype_name)
@@ -2879,13 +2998,29 @@ def phase_training_kernel_timing(device) -> dict:
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=add, scale=scale)
             inputs.append(((q, k, v, key_pos, do, scale), o_lib, do))
-        out["small_kv_bwd"][name + suffix] = time_kernel(
-            f"small_kv_bwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, {tag})",
-            [lambda i=i: nsa.small_kv_bwd(*i[0]) for i in inputs],
+        bytes_ms, ops_ms = small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos,
+                                              dtype_name)
+        extra = {}
+        if dt == torch.float32:
+            extra["operations_tf32x3_ms"] = ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"]
+        label = f"small_kv_bwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, {tag})"
+        row = time_kernel(
+            label, [lambda i=i: nsa.small_kv_bwd(*i[0]) for i in inputs],
             [lambda i=i: nsa.small_kv_bwd_reference(*i[0]) for i in inputs[:2]],
             [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs],
-            *small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos, dtype_name),
-            dtype=dtype_name, B=b, H=h, S=s, K=kk, D=d)
+            bytes_ms, ops_ms, dtype=dtype_name, B=b, H=h, S=s, K=kk, D=d, **extra)
+        if extra:
+            tc_ms, tc_by = bound(bytes_ms, extra["operations_tf32x3_ms"])
+            log(f"[time] {label}: bound at three TF32 passes (165 TFLOP/s) {tc_ms:.4f} ms "
+                f"({tc_by}); at the CUDA cores (67 TFLOP/s) {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            # The dq, dk/dv and chunk-sum kernels' shares, over five calls: after
+            # a large profile session (the fp32 LM step's) the profiler drops a
+            # new session's first kernel records, so a one-call window can
+            # read no device time; the counts say how many calls it kept.
+            profile_device(lambda: [nsa.small_kv_bwd(*inputs[j % len(inputs)][0])
+                                    for j in range(5)], f"five calls, {label}", top=4)
+        out[name + suffix] = row
         del inputs
         torch.cuda.empty_cache()
     return out
@@ -7424,6 +7559,7 @@ def main() -> int:
     shapes["topk_replay"] = topk["shapes"]
     lm_parity = timed(phase_lm_step_parity, device)
     lm_timing = timed(phase_lm_train_timing, device)
+    lm_timing_fp32 = timed(lm_fp32_step_timing, device)
     shapes.update(timed(phase_training_kernel_timing, device))
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
         parallel = timed(phase_parallel, device, workdir)
@@ -7584,6 +7720,7 @@ def main() -> int:
                           ("seconds", "final_loss", "peak_gib", "brain_update_ms")},
         "train_lm_s8192": {k: long_run[k] for k in ("seconds", "loss", "peak_gib")},
         "train_lm_step_8x2048": lm_timing,
+        "train_lm_step_fp32": lm_timing_fp32,
         "train_lm_step_parity": lm_parity,
         "train_fused_path": {k: fused_run[k] for k in ("seconds", "final_loss")},
         "fused_steps_batch128": fused_steps,

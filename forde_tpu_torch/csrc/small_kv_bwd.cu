@@ -65,12 +65,45 @@
 // from shared memory. -1e9 (masked) and -inf (padding) stay apart on the
 // fragments, and a row past S is selected to 0, never multiplied by 0.
 //
-// fp32 route: the same split and order on the CUDA cores, with the tile
-// products of common.cuh on a 16 x 16 thread grid and fp32 tiles of pitch
-// D + 1. It is the route of every LM training run without --bf16
-// (DTypePolicy's compute type defaults to fp32) and of every checkpoint
-// trained that way, besides checks and parity runs. flash_mha_bwd.cu's
-// three-pass TF32 route is the pattern for taking it to the tensor cores.
+// fp32 route (skv_bwd_dq_tf32_tc_kernel, skv_bwd_dkdv_tf32_tc_kernel, then
+// with more than one chunk the same chunk sum): the tensor cores too, every
+// product three TF32 passes (mma.sync.m16n8k8; mma.cuh), as
+// flash_mha_bwd.cu's fp32 route. It is the route of every LM training run
+// without --bf16 (DTypePolicy's compute type defaults to fp32) and of every
+// checkpoint trained that way. It replaces the same TPU kernel in fp32,
+// whose products the TPU takes at full precision. Bound on the H100 (D 64;
+// products at 67 TFLOP/s on the CUDA cores, or a third of TF32's 495 on
+// the tensor cores; bytes at 3.35 TB/s):
+//   pools B 8, H 8, S 2,048, K 192: 10.05 GFLOP, 0.150 / 0.061 ms; 0.034 ms
+//   top-k K 64:                      2.79 GFLOP, 0.042 / 0.017 ms; 0.031 ms
+//   pools B 1, S 8,192, K 960:       21.4 GFLOP, 0.319 / 0.130 ms; 0.017 ms
+// The CUDA-core pair it replaced (16 x 16 thread grids, w and ds through
+// shared memory) took 1.400 / 0.534-0.535 / 3.403-3.405 ms of device time
+// there, 1.6x SDPA's fp32 backward at the pools. The kernels are the bf16 route's
+// two, walk for walk: dq (4 warps of 16 query rows; key tiles of 32, 16 at
+// D = 128) with its online m, l and delta, dk/dv (4 warps of 16 keys;
+// query tiles of 16) with the queries' m, l and delta through the ring.
+// ds, and w^T and ds^T, are split in registers and used, as they stand in
+// the accumulators, as the A operands of ds k, w^T do and ds^T q
+// (accumulator column 2t to k slot t, 2t + 1 to slot t + 4; the B operand
+// read at rows 2t, 2t + 1): they never touch shared memory. Every tile
+// stays fp32 in shared memory with row pitch D + 4, filled by a cp.async
+// ring (zero past S and K), and every operand is split as its fragment is
+// loaded. Splitting each shared tile once per block into hi and lo planes
+// in shared memory instead (K and V for dq; K, V, Q and dO for dk/dv) ran
+// 1.24-1.26x these times: its planes and its second barrier a step held
+// the blocks to 2 an SM, where this form's 156-158 registers and 53-74 KB
+// at D = 64 fit 3 (chip_smoke.small_kv_bwd_timing of both forms in one
+// call; PERF.md). At D = 128 (158 and 233 registers, 2 blocks an SM) the
+// dk and dv accumulators take 128 registers a thread, so their updates go
+// in two passes. 0 spill bytes at D = 64 and 128. Each output is summed in
+// a fixed order with no atomics: two calls give the same bits. Measured on
+// an NVIDIA H100 80GB HBM3 at 700 W: 0.585-0.587 / 0.227 / 1.450-1.451 ms
+// of device time at the three shapes, 0.67x SDPA's fp32 backward at the
+// pools; the dq kernel takes 53-54% of a call. What bounds it is issue
+// slots, as in flash_mha_bwd.cu: at D = 64 the dq kernel's SASS holds 3,312
+// instructions for its 288 TF32 HMMA, the dk/dv kernel's 2,544 for 192
+// (PERF.md).
 
 #include <math.h>
 #include <stdint.h>
@@ -81,21 +114,16 @@
 namespace {
 
 using forde::from_float;
-using forde::load_tile;
 using forde::skv_score;
 using forde::skv_visible;
 using forde::SKV_INVALID_KEY_POS;
-using forde::tile_dot;
-using forde::tile_mac;
 using forde::mma::exp2_approx;
 using forde::mma::LOG2E;
 
-constexpr int BQ = 64;           // query rows per tile
-constexpr int BK = 64;           // keys per tile
-constexpr int THREADS = 256;     // 16 x 16 thread grid (fp32 route)
-constexpr int TC_THREADS = 128;  // 4 warps of 16 rows (bf16 route)
+constexpr int BQ = 64;           // query rows per block (dq) and bf16 tile
+constexpr int BK = 64;           // keys per block (dk/dv) and bf16 tile
+constexpr int TC_THREADS = 128;  // 4 warps of 16 rows or keys
 constexpr int MAX_KEYS = 1024;
-constexpr int LP = BK + 1;       // pitch of a 64 x 64 tile of w or ds
 
 // The row statistics the dq kernel leaves for the dk/dv kernel: m (log2
 // units), l and delta, each B * H * S fp32, one after the other.
@@ -116,267 +144,425 @@ __device__ __forceinline__ void chunk_tiles(int S, int z, int chunks,
   i_end = min(tiles, i_begin + per);
 }
 
-// Max and sum over the 16 threads (tx = 0..15, one half-warp) of a row of
-// the fp32 route's thread grid.
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------------------
-// fp32 route
+// fp32 route: three TF32 passes a product on the tensor cores
 // ---------------------------------------------------------------------------
 
+// Keys per tile of the dq kernel's ring; queries per tile of the dk/dv
+// kernel's ring.
 template <int D>
-size_t dq_smem_bytes(int kp) {
-  return (4 * BQ * (D + 1) + BQ * LP) * sizeof(float) + kp * sizeof(int);
+__host__ __device__ constexpr int tf32_dq_keys() {
+  return D == 128 ? 16 : 32;
+}
+constexpr int TF32_DKDV_QUERIES = 16;
+
+template <int D>
+constexpr int tf32_blocks_per_sm() {
+  return D == 128 ? 2 : 3;
 }
 
+// q and do, two ring stages of a K and a V tile (fp32, pitch D + 4) and
+// the key thresholds.
 template <int D>
-constexpr size_t dkdv_smem_bytes() {
-  return (4 * BQ * (D + 1) + BQ * LP + 3 * BQ) * sizeof(float) + BK * sizeof(int);
+size_t tf32_dq_smem_bytes(int kp) {
+  return (2 * BQ + 2 * 2 * tf32_dq_keys<D>()) * (D + 4) * sizeof(float) + kp * sizeof(int);
 }
 
+// The block's K and V, two ring stages of a Q and a dO tile (fp32, pitch
+// D + 4) and the stages' query statistics (m, l, delta).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-skv_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const int* __restrict__ key_pos,
-                  const float* __restrict__ dout, float* __restrict__ dq,
-                  float* __restrict__ stats, int H, int S, int K, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-  const int n = (K + BK - 1) / BK;
+constexpr size_t tf32_dkdv_smem_bytes() {
+  return (2 * BK + 2 * 2 * TF32_DKDV_QUERIES) * (D + 4) * sizeof(float) +
+         2 * 3 * TF32_DKDV_QUERIES * sizeof(float);
+}
 
-  extern __shared__ float smem[];
-  float* q_s = smem;              // BQ x LD
-  float* do_s = q_s + BQ * LD;    // BQ x LD
-  float* k_s = do_s + BQ * LD;    // BK x LD
-  float* v_s = k_s + BK * LD;     // BK x LD
-  float* ds_s = v_s + BK * LD;    // BQ x LP
-  int* pos_s = reinterpret_cast<int*>(ds_s + BQ * LP);  // n * BK thresholds
+// The dq kernel of the fp32 route: the bf16 dq kernel's two walks, every
+// product three TF32 passes (mma.cuh). Warp w owns query rows q0 + 16w ..
+// q0 + 16w + 15; lane (g, t) holds rows r0 = q0 + 16w + g and r1 = r0 + 8
+// and, of each n8 tile j of a product, cols 8j + 2t and 8j + 2t + 1. Every
+// tile stays fp32 in shared memory and is split as its fragments are
+// loaded; step i of the 2n steps takes key tile i % n: walk 1 for i < n,
+// walk 2 after.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, tf32_blocks_per_sm<D>())
+skv_bwd_dq_tf32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const int* __restrict__ key_pos,
+                          const float* __restrict__ dout, float* __restrict__ dq,
+                          float* __restrict__ stats, int H, int S, int K, float scale) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;
+  constexpr int KD = D / 8;  // k8 steps over the head dim
+  constexpr int ND = D / 8;  // n8 tiles of dq
+  constexpr int KT = tf32_dq_keys<D>();
+  constexpr int NJ = KT / 8;  // n8 tiles of s and dw
+  constexpr int STAGE = 2 * KT * LD;  // a K tile, then a V tile
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const q_s = reinterpret_cast<float*>(smem_raw);
+  float* const do_s = q_s + BQ * LD;
+  float* const ring = do_s + BQ * LD;
+  int* const pos_s = reinterpret_cast<int*>(ring + 2 * STAGE);
 
   const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.y;  // b * H + h
+  const int bh = blockIdx.y;
   const int b = bh / H;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const float scale_log2 = scale * LOG2E;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = (K + KT - 1) / KT;
+  const int steps = 2 * n;  // walk 1, then walk 2, over the same tiles
 
   const float* k_g = k + (long long)bh * K * D;
   const float* v_g = v + (long long)bh * K * D;
-  load_tile<float, D, THREADS>(q_s, q + (long long)bh * S * D, q0, S, D);
-  load_tile<float, D, THREADS>(do_s, dout + (long long)bh * S * D, q0, S, D);
-  for (int j = tid; j < n * BK; j += THREADS)
-    pos_s[j] = j < K ? key_pos[(long long)b * K + j] : SKV_INVALID_KEY_POS;
-
-  // Rows ty + 16i (positions p[i]) against keys k0 + tx + 16j.
-  int p[4];
-  float m[4], l[4], u[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    p[i] = q0 + ty + 16 * i;
-    m[i] = -INFINITY;
-    l[i] = u[i] = 0.f;
+  // Step i's K and V tiles into stage i % 2, as one commit group.
+  auto fetch = [&](int i) {
+    float* const dst = ring + (i & 1) * STAGE;
+    const int k0 = (i % n) * KT;
+    load_tile_f32_async<KT, D, TC_THREADS>(dst, k_g, k0, K, D);
+    load_tile_f32_async<KT, D, TC_THREADS>(dst + KT * LD, v_g, k0, K, D);
+    cp_async_commit();
+  };
+  load_tile_f32_async<BQ, D, TC_THREADS>(q_s, q + (long long)bh * S * D, q0, S, D);
+  load_tile_f32_async<BQ, D, TC_THREADS>(do_s, dout + (long long)bh * S * D, q0, S, D);
+  // Columns past K are zero-filled; skv_score tells them by c >= K.
+  for (int j = threadIdx.x; j < n * KT; j += TC_THREADS) {
+    const bool ok = j < K;
+    cp_async_4(pos_s + j, ok ? key_pos + (long long)b * K + j : key_pos, ok);
   }
-  float x[4][4], dw[4][4];
+  fetch(0);  // with q, do and the thresholds
 
-  // Walk 1: the online max m, sum l and sum u of 2^(s - m) dw.
-  for (int k0 = 0; k0 < n * BK; k0 += BK) {
+  const int wrow = 16 * warp;
+  // A warp whose rows all lie at or past S does no products.
+  const bool active = q0 + wrow < S;
+  const int r0 = q0 + wrow + g, r1 = r0 + 8;
+  const float scale_log2 = scale * LOG2E;
+  float m0 = -INFINITY, m1 = -INFINITY;  // running max (log2 units)
+  float l0 = 0.f, l1 = 0.f;  // this lane's part of the sums of 2^(s - m), then 1 / l
+  float u0 = 0.f, u1 = 0.f;  // ... of 2^(s - m) dw, then delta
+  float lt0 = 0.f, lt1 = 0.f;  // l of the rows
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < steps; ++i) {
+    // Step i's tiles have landed; after the barrier every warp is done
+    // with step i - 1, whose stage takes step i + 1.
+    cp_async_wait<0>();
     __syncthreads();
-    load_tile<float, D, THREADS>(k_s, k_g, k0, K, D);
-    load_tile<float, D, THREADS>(v_s, v_g, k0, K, D);
-    __syncthreads();
-    tile_dot<D>(x, q_s, k_s, tx, ty);
-    tile_dot<D>(dw, do_s, v_s, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        x[i][j] = skv_score(x[i][j] * scale_log2, p[i], c, K, pos_s[c]);
-        mx = fmaxf(mx, x[i][j]);
-      }
-      const float mn = fmaxf(m[i], half_max(mx));
-      const float ms = mn == -INFINITY ? 0.f : mn;  // no -inf - -inf
-      const float alpha = exp2_approx(m[i] - ms);
-      l[i] *= alpha;
-      u[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = exp2_approx(x[i][j] - ms);
-        l[i] += e;
-        u[i] = fmaf(e, dw[i][j], u[i]);
-      }
-      m[i] = mn;
+    if (i + 1 < steps) fetch(i + 1);
+    if (i == n) {  // walk 1 is done: l, 1 / l and delta = u / l of rows r0, r1
+      lt0 = quad_sum(l0);
+      lt1 = quad_sum(l1);
+      u0 = quad_sum(u0) / lt0;
+      u1 = quad_sum(u1) / lt1;
+      l0 = 1.f / lt0;
+      l1 = 1.f / lt1;
     }
-  }
-  // l becomes 1 / l, u becomes delta = u / l; written for rows < S.
-  const RowStats st(stats, (long long)gridDim.y * S);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lt = half_sum(l[i]);
-    u[i] = half_sum(u[i]) / lt;
-    l[i] = 1.f / lt;
-    if (tx == 0 && p[i] < S) {
-      const long long row = (long long)bh * S + p[i];
-      st.m[row] = m[i];
-      st.l[row] = lt;
-      st.delta[row] = u[i];
-    }
-  }
+    if (!active) continue;
 
-  // Walk 2: ds, and dq = ds k for rows ty + 16i, columns tx + 16j.
-  float acc[4][DJ];
+    const int k0 = (i % n) * KT;
+    const float* const k_t = ring + (i & 1) * STAGE;
+    const float* const v_t = k_t + KT * LD;
+    float s[NJ][4], dw[NJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      dw[j][0] = dw[j][1] = dw[j][2] = dw[j][3] = 0.f;
+    }
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < n * BK; k0 += BK) {
-    __syncthreads();  // the last tile is done with k_s, v_s and ds_s
-    load_tile<float, D, THREADS>(k_s, k_g, k0, K, D);
-    load_tile<float, D, THREADS>(v_s, v_g, k0, K, D);
-    __syncthreads();
-    tile_dot<D>(x, q_s, k_s, tx, ty);
-    tile_dot<D>(dw, do_s, v_s, tx, ty);
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t fa[4], ah[4], al[4];
+      load_a_f32<D>(fa, q_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t fb[4], fh[4], fl[4];
+        load_b_f32<D>(fb, k_t, 16 * np, kk, lane);
+        split_tf32(fb, fh, fl);
+        mma_tf32x3(s[2 * np], ah, al, fh[0], fh[1], fl[0], fl[1]);
+        mma_tf32x3(s[2 * np + 1], ah, al, fh[2], fh[3], fl[2], fl[3]);
+      }
+      load_a_f32<D>(fa, do_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = k0 + tx + 16 * j;
-        const int kpos = pos_s[c];
-        const float w = exp2_approx(skv_score(x[i][j] * scale_log2, p[i], c, K, kpos) - m[i]) * l[i];
-        ds_s[(ty + 16 * i) * LP + tx + 16 * j] =
-            skv_visible(p[i], c, K, kpos) ? w * (dw[i][j] - u[i]) * scale : 0.f;
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t fb[4], fh[4], fl[4];
+        load_b_f32<D>(fb, v_t, 16 * np, kk, lane);
+        split_tf32(fb, fh, fl);
+        mma_tf32x3(dw[2 * np], ah, al, fh[0], fh[1], fl[0], fl[1]);
+        mma_tf32x3(dw[2 * np + 1], ah, al, fh[2], fh[3], fl[2], fl[3]);
       }
     }
-    __syncthreads();
-    tile_mac<D, LP, 1>(acc, ds_s, k_s, tx, ty);
+    if (i < n) {
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * j + 2 * t + e;
+          const int kpos = pos_s[col];
+          s[j][e] = skv_score(s[j][e] * scale_log2, r0, col, K, kpos);
+          s[j][2 + e] = skv_score(s[j][2 + e] * scale_log2, r1, col, K, kpos);
+          mx0 = fmaxf(mx0, s[j][e]);
+          mx1 = fmaxf(mx1, s[j][2 + e]);
+        }
+      }
+      // A row whose keys so far are all padding keeps m = -inf and
+      // subtracts 0 instead (no -inf - -inf).
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float ms0 = mn0 == -INFINITY ? 0.f : mn0;
+      const float ms1 = mn1 == -INFINITY ? 0.f : mn1;
+      const float a0 = exp2_approx(m0 - ms0), a1 = exp2_approx(m1 - ms1);
+      l0 *= a0;
+      u0 *= a0;
+      l1 *= a1;
+      u1 *= a1;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p0 = exp2_approx(s[j][e] - ms0);
+          const float p1 = exp2_approx(s[j][2 + e] - ms1);
+          l0 += p0;
+          l1 += p1;
+          u0 = fmaf(p0, dw[j][e], u0);
+          u1 = fmaf(p1, dw[j][2 + e], u1);
+        }
+      }
+      m0 = mn0;
+      m1 = mn1;
+    } else {
+      // ds = w (dw - delta) scale, zero where not visible; n8 tile kk,
+      // split into TF32, is the A operand of k8 step kk of ds k, k read at
+      // rows 2t, 2t + 1.
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = k0 + 8 * kk + 2 * t + e;
+          const int kpos = pos_s[col];
+          const float w0 =
+              exp2_approx(skv_score(s[kk][e] * scale_log2, r0, col, K, kpos) - m0) * l0;
+          const float w1 =
+              exp2_approx(skv_score(s[kk][2 + e] * scale_log2, r1, col, K, kpos) - m1) * l1;
+          ds[e] = skv_visible(r0, col, K, kpos) ? w0 * (dw[kk][e] - u0) * scale : 0.f;
+          ds[2 + e] = skv_visible(r1, col, K, kpos) ? w1 * (dw[kk][2 + e] - u1) * scale : 0.f;
+        }
+        uint32_t dh[4], dl[4];
+        acc_to_a_tf32(dh, dl, ds);
+#pragma unroll
+        for (int np = 0; np < ND; ++np) {
+          uint32_t fh[2], fl[2];
+          load_bt_f32<D>(fh, fl, k_t, 8 * kk, 8 * np, lane);
+          mma_tf32x3(acc[np], dh, dl, fh[0], fh[1], fl[0], fl[1]);
+        }
+      }
+    }
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (p[i] >= S) continue;
-    float* row = dq + ((long long)bh * S + p[i]) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
+  if (!active) return;
+  if (t == 0) {
+    const RowStats rs(stats, (long long)gridDim.y * S);
+    const long long row = (long long)bh * S;
+    if (r0 < S) {
+      rs.m[row + r0] = m0;
+      rs.l[row + r0] = lt0;
+      rs.delta[row + r0] = u0;
+    }
+    if (r1 < S) {
+      rs.m[row + r1] = m1;
+      rs.l[row + r1] = lt1;
+      rs.delta[row + r1] = u1;
+    }
+  }
+  store_rows_f32<D>(dq + (long long)bh * S * D, D, acc, r0, S, 1.f, 1.f, lane);
+}
+
+// Q and dO of the QT queries at q0, with their m, l and delta, into stage
+// st of the fp32 dk/dv kernel's ring (rows at or past S zero).
+template <int D>
+__device__ __forceinline__ void load_query_stage_tf32(float* ring, float* stat, int st,
+                                                      const float* q_g, const float* do_g,
+                                                      const RowStats& rs, long long row_bh,
+                                                      int q0, int S) {
+  using namespace forde::mma;
+  constexpr int QT = TF32_DKDV_QUERIES;
+  float* const q_t = ring + st * 2 * QT * (D + 4);
+  load_tile_f32_async<QT, D, TC_THREADS>(q_t, q_g, q0, S, D);
+  load_tile_f32_async<QT, D, TC_THREADS>(q_t + QT * (D + 4), do_g, q0, S, D);
+  float* const stat_t = stat + st * 3 * QT;
+  const int r = threadIdx.x;
+  if (r < QT) {
+    const bool ok = q0 + r < S;
+    const long long row = row_bh + (ok ? q0 + r : 0);
+    cp_async_4(stat_t + r, rs.m + row, ok);
+    cp_async_4(stat_t + QT + r, rs.l + row, ok);
+    cp_async_4(stat_t + 2 * QT + r, rs.delta + row, ok);
   }
 }
 
-// dk and dv of keys k0 + ty + 16i, columns tx + 16j, over the query tiles of
-// chunk blockIdx.z: into dk and dv when `part` is null, else into the
-// chunk's fp32 partials part[0][z] and part[1][z] (each B * H * K * D).
+// The dk/dv kernel of the fp32 route: the bf16 dk/dv kernel's walk over
+// the queries of chunk blockIdx.z, in tiles of QT queries, every product
+// three TF32 passes. Warp w owns keys k0 + 16w .. k0 + 16w + 15; lane
+// (g, t) holds keys kr0 = k0 + 16w + g and kr1 = kr0 + 8 and, of each n8
+// tile j of a transposed product, query cols 8j + 2t, 8j + 2t + 1. Writes
+// dk and dv when `part` is null, else the chunk's fp32 partials part[0][z]
+// and part[1][z] (each B * H * K * D).
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-skv_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ key_pos,
-                    const float* __restrict__ dout, const float* __restrict__ stats,
-                    float* __restrict__ dk, float* __restrict__ dv,
-                    float* __restrict__ part, int H, int S, int K, float scale) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
+__global__ void __launch_bounds__(TC_THREADS, tf32_blocks_per_sm<D>())
+skv_bwd_dkdv_tf32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const int* __restrict__ key_pos,
+                            const float* __restrict__ dout, const float* __restrict__ stats,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            float* __restrict__ part, int H, int S, int K, float scale) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;
+  constexpr int KD = D / 8;  // k8 steps over the head dim
+  constexpr int ND = D / 8;  // n8 tiles of dk and dv
+  constexpr int QT = TF32_DKDV_QUERIES;
+  constexpr int NJ = QT / 8;  // n8 tiles of s^T and dw^T
+  constexpr int STAGE = 2 * QT * LD;  // a Q tile, then a dO tile
 
-  extern __shared__ float smem[];
-  float* k_s = smem;               // BK x LD
-  float* v_s = k_s + BK * LD;      // BK x LD
-  float* q_s = v_s + BK * LD;      // BQ x LD
-  float* do_s = q_s + BQ * LD;     // BQ x LD
-  float* p_s = do_s + BQ * LD;     // BQ x LP: round(w), then ds
-  float* m_s = p_s + BQ * LP;      // BQ: m of the tile's queries
-  float* il_s = m_s + BQ;          // BQ: 1 / l
-  float* dl_s = il_s + BQ;         // BQ: delta
-  int* kpos_s = reinterpret_cast<int*>(dl_s + BQ);  // BK thresholds
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const k_s = reinterpret_cast<float*>(smem_raw);
+  float* const v_s = k_s + BK * LD;
+  float* const ring = v_s + BK * LD;
+  float* const stat = ring + 2 * STAGE;  // per stage: m, l, delta
 
   const int k0 = blockIdx.x * BK;
   const int bh = blockIdx.y;
   const int b = bh / H;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const float scale_log2 = scale * LOG2E;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   int i_begin, i_end;
   chunk_tiles(S, blockIdx.z, gridDim.z, i_begin, i_end);
+  // The chunk's queries [qa, qb), in tiles of QT.
+  const int qa = i_begin * BQ, qb = min(S, i_end * BQ);
+  const int n = qb > qa ? (qb - qa + QT - 1) / QT : 0;
 
   const float* q_g = q + (long long)bh * S * D;
   const float* do_g = dout + (long long)bh * S * D;
-  const RowStats st(const_cast<float*>(stats), (long long)gridDim.y * S);
-  load_tile<float, D, THREADS>(k_s, k + (long long)bh * K * D, k0, K, D);
-  load_tile<float, D, THREADS>(v_s, v + (long long)bh * K * D, k0, K, D);
-  if (tid < BK)
-    kpos_s[tid] = k0 + tid < K ? key_pos[(long long)b * K + k0 + tid] : SKV_INVALID_KEY_POS;
+  const RowStats rs(const_cast<float*>(stats), (long long)gridDim.y * S);
+  const long long row_bh = (long long)bh * S;
 
-  float acc_dk[4][DJ], acc_dv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
+  load_tile_f32_async<BK, D, TC_THREADS>(k_s, k + (long long)bh * K * D, k0, K, D);
+  load_tile_f32_async<BK, D, TC_THREADS>(v_s, v + (long long)bh * K * D, k0, K, D);
+  if (n > 0) load_query_stage_tf32<D>(ring, stat, 0, q_g, do_g, rs, row_bh, qa, S);
+  cp_async_commit();
 
-  float x[4][4], dw[4][4];
-  for (int it = i_begin; it < i_end; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();  // the last tile is done with q_s, do_s and p_s
-    load_tile<float, D, THREADS>(q_s, q_g, q0, S, D);
-    load_tile<float, D, THREADS>(do_s, do_g, q0, S, D);
-    if (tid < BQ) {
-      const bool in = q0 + tid < S;
-      const long long row = (long long)bh * S + q0 + tid;
-      m_s[tid] = in ? st.m[row] : 0.f;
-      il_s[tid] = in ? 1.f / st.l[row] : 0.f;
-      dl_s[tid] = in ? st.delta[row] : 0.f;
-    }
+  const int wrow = 16 * warp;
+  // A warp whose keys all lie at or past K does no products.
+  const bool active = k0 + wrow < K;
+  const int kr0 = k0 + wrow + g, kr1 = kr0 + 8;
+  const int kp0 = kr0 < K ? key_pos[(long long)b * K + kr0] : SKV_INVALID_KEY_POS;
+  const int kp1 = kr1 < K ? key_pos[(long long)b * K + kr1] : SKV_INVALID_KEY_POS;
+  const float scale_log2 = scale * LOG2E;
+  float dkacc[ND][4], dvacc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) {
+    dkacc[j][0] = dkacc[j][1] = dkacc[j][2] = dkacc[j][3] = 0.f;
+    dvacc[j][0] = dvacc[j][1] = dvacc[j][2] = dvacc[j][3] = 0.f;
+  }
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    // Tile i has landed; after the barrier every warp is done with tile
+    // i - 1, whose stage takes tile i + 1.
+    cp_async_wait<0>();
     __syncthreads();
-    // Rows (queries) q0 + ty + 16i, keys k0 + tx + 16j; a row past S gets
-    // w = ds = 0.
-    tile_dot<D>(x, q_s, k_s, tx, ty);
-    tile_dot<D>(dw, do_s, v_s, tx, ty);
+    if (i + 1 < n) {
+      load_query_stage_tf32<D>(ring, stat, st ^ 1, q_g, do_g, rs, row_bh, qa + (i + 1) * QT, S);
+      cp_async_commit();
+    }
+    if (!active) continue;
+
+    const int qt0 = qa + i * QT;
+    const float* const q_t = ring + st * STAGE;
+    const float* const do_t = q_t + QT * LD;
+    const float* const m_t = stat + st * 3 * QT;
+    const float* const l_t = m_t + QT;
+    const float* const d_t = l_t + QT;
+    float s[NJ][4], dw[NJ][4];  // s^T and dw^T: keys x queries
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qr = q0 + r;
-      const bool in = qr < S;
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      dw[j][0] = dw[j][1] = dw[j][2] = dw[j][3] = 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kpos = kpos_s[c];
-        const float w =
-            in ? exp2_approx(skv_score(x[i][j] * scale_log2, qr, k0 + c, K, kpos) - m_s[r]) *
-                     il_s[r]
-               : 0.f;
-        x[i][j] = in && skv_visible(qr, k0 + c, K, kpos) ? w * (dw[i][j] - dl_s[r]) * scale : 0.f;
-        p_s[r * LP + c] = w;
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t fa[4], ah[4], al[4];
+      load_a_f32<D>(fa, k_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t fb[4], fh[4], fl[4];
+        load_b_f32<D>(fb, q_t, 16 * np, kk, lane);
+        split_tf32(fb, fh, fl);
+        mma_tf32x3(s[2 * np], ah, al, fh[0], fh[1], fl[0], fl[1]);
+        mma_tf32x3(s[2 * np + 1], ah, al, fh[2], fh[3], fl[2], fl[3]);
+      }
+      load_a_f32<D>(fa, v_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t fb[4], fh[4], fl[4];
+        load_b_f32<D>(fb, do_t, 16 * np, kk, lane);
+        split_tf32(fb, fh, fl);
+        mma_tf32x3(dw[2 * np], ah, al, fh[0], fh[1], fl[0], fl[1]);
+        mma_tf32x3(dw[2 * np + 1], ah, al, fh[2], fh[3], fl[2], fl[3]);
       }
     }
-    __syncthreads();
-    tile_mac<D, 1, LP>(acc_dv, p_s, do_s, tx, ty);
-    __syncthreads();
+    // w^T = 2^(s^T - m) / l, SELECTED to 0 on a query past S, and ds^T =
+    // w^T (dw^T - delta) scale where visible; n8 tile kk of each, split
+    // into TF32, is the A operand of k8 step kk of w^T do and ds^T q. The
+    // dv and dk updates go in two passes, so that only one B operand is
+    // live beside the two accumulators.
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < NJ; ++kk) {
+      float w[4], ds[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(ty + 16 * i) * LP + tx + 16 * j] = x[i][j];
-    __syncthreads();
-    tile_mac<D, 1, LP>(acc_dk, p_s, q_s, tx, ty);
-  }
-
-  const long long n_out = (long long)gridDim.y * K * D;
-  float* out_k = part == nullptr ? dk : part + (long long)blockIdx.z * n_out;
-  float* out_v = part == nullptr ? dv : part + (long long)(gridDim.z + blockIdx.z) * n_out;
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 8 * kk + 2 * t + e;  // query within the tile
+        const int qr = qt0 + cl;
+        const bool in = qr < S;
+        const float mq = m_t[cl], il = 1.f / l_t[cl], dl = d_t[cl];
+        const float e0 = exp2_approx(skv_score(s[kk][e] * scale_log2, qr, kr0, K, kp0) - mq) * il;
+        const float e1 =
+            exp2_approx(skv_score(s[kk][2 + e] * scale_log2, qr, kr1, K, kp1) - mq) * il;
+        w[e] = in ? e0 : 0.f;
+        w[2 + e] = in ? e1 : 0.f;
+        ds[e] = in && skv_visible(qr, kr0, K, kp0) ? e0 * (dw[kk][e] - dl) * scale : 0.f;
+        ds[2 + e] = in && skv_visible(qr, kr1, K, kp1) ? e1 * (dw[kk][2 + e] - dl) * scale : 0.f;
+      }
+      uint32_t wh[4], wl[4], sh[4], sl[4];
+      acc_to_a_tf32(wh, wl, w);
+      acc_to_a_tf32(sh, sl, ds);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    if (kr >= K) continue;
-    const long long row = ((long long)bh * K + kr) * D;
+      for (int np = 0; np < ND; ++np) {
+        uint32_t fh[2], fl[2];
+        load_bt_f32<D>(fh, fl, do_t, 8 * kk, 8 * np, lane);
+        mma_tf32x3(dvacc[np], wh, wl, fh[0], fh[1], fl[0], fl[1]);
+      }
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      out_k[row + tx + 16 * j] = acc_dk[i][j];
-      out_v[row + tx + 16 * j] = acc_dv[i][j];
+      for (int np = 0; np < ND; ++np) {
+        uint32_t fh[2], fl[2];
+        load_bt_f32<D>(fh, fl, q_t, 8 * kk, 8 * np, lane);
+        mma_tf32x3(dkacc[np], sh, sl, fh[0], fh[1], fl[0], fl[1]);
+      }
     }
   }
+  cp_async_wait<0>();  // K and V when the chunk has no query tile
+
+  if (!active) return;
+  float* out_k = dk + (long long)bh * K * D;
+  float* out_v = dv + (long long)bh * K * D;
+  if (part != nullptr) {
+    const long long n_out = (long long)gridDim.y * K * D;
+    out_k = part + (long long)blockIdx.z * n_out + (long long)bh * K * D;
+    out_v = part + (long long)(gridDim.z + blockIdx.z) * n_out + (long long)bh * K * D;
+  }
+  store_rows_f32<D>(out_k, D, dkacc, kr0, K, 1.f, 1.f, lane);
+  store_rows_f32<D>(out_v, D, dvacc, kr0, K, 1.f, 1.f, lane);
 }
 
 // ---------------------------------------------------------------------------
@@ -913,23 +1099,24 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* key_pos, const void* dout, void* dq, void* dk,
-                   void* dv, void* stats, void* part, int batch, int heads,
-                   int seq, int keys, int chunks, float scale,
-                   cudaStream_t stream) {
-  const int kp = (keys + BK - 1) / BK * BK;
+cudaError_t launch_tf32(const void* q, const void* k, const void* v,
+                        const void* key_pos, const void* dout, void* dq, void* dk,
+                        void* dv, void* stats, void* part, int batch, int heads,
+                        int seq, int keys, int chunks, float scale,
+                        cudaStream_t stream) {
+  constexpr int KT = tf32_dq_keys<D>();
+  const int kp = (keys + KT - 1) / KT * KT;
   cudaError_t err = cudaFuncSetAttribute(
-      skv_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dq_smem_bytes<D>(MAX_KEYS));
+      skv_bwd_dq_tf32_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)tf32_dq_smem_bytes<D>(MAX_KEYS));
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(skv_bwd_dkdv_kernel<D>,
+  err = cudaFuncSetAttribute(skv_bwd_dkdv_tf32_tc_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)dkdv_smem_bytes<D>());
+                             (int)tf32_dkdv_smem_bytes<D>());
   if (err != cudaSuccess) return err;
   const int bh = batch * heads;
-  skv_bwd_dq_kernel<D><<<dim3((seq + BQ - 1) / BQ, bh), THREADS, dq_smem_bytes<D>(kp),
-                         stream>>>(
+  skv_bwd_dq_tf32_tc_kernel<D><<<dim3((seq + BQ - 1) / BQ, bh), TC_THREADS,
+                                 tf32_dq_smem_bytes<D>(kp), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(key_pos),
       static_cast<const float*>(dout), static_cast<float*>(dq),
@@ -937,8 +1124,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   float* const p = chunks > 1 ? static_cast<float*>(part) : nullptr;
-  skv_bwd_dkdv_kernel<D><<<dim3(kp / BK, bh, chunks), THREADS, dkdv_smem_bytes<D>(),
-                           stream>>>(
+  skv_bwd_dkdv_tf32_tc_kernel<D><<<dim3((keys + BK - 1) / BK, bh, chunks), TC_THREADS,
+                                   tf32_dkdv_smem_bytes<D>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(key_pos),
       static_cast<const float*>(dout), static_cast<const float*>(stats),
@@ -952,8 +1139,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route;
-// q, k, v, do, dq, dk and dv 16-byte aligned). q, k, v, do, dq, dk and dv
+// dtype: 0 = float32 (three-pass TF32 route), 1 = bfloat16 (both on the
+// tensor cores; q, k, v, do, dq, dk and dv 16-byte aligned). q, k, v, do, dq, dk and dv
 // are in that type; stats is scratch of 3 * B * H * S fp32; with chunks > 1,
 // part is scratch of 2 * chunks * B * H * K * D fp32 (else unused);
 // 0 < keys <= 1024, chunks >= 1. Returns the CUDA error code of the
@@ -970,8 +1157,8 @@ int forde_small_kv_bwd(const void* q, const void* k, const void* v,
 #define FORDE_SKV_BWD(LAUNCH, DIM)                                                 \
   return LAUNCH<DIM>(q, k, v, key_pos, dout, dq, dk, dv, stats, part, batch, heads, \
                      seq, keys, chunks, scale, st)
-  if (dtype == 0 && head_dim == 64) FORDE_SKV_BWD(launch, 64);
-  if (dtype == 0 && head_dim == 128) FORDE_SKV_BWD(launch, 128);
+  if (dtype == 0 && head_dim == 64) FORDE_SKV_BWD(launch_tf32, 64);
+  if (dtype == 0 && head_dim == 128) FORDE_SKV_BWD(launch_tf32, 128);
   if (dtype == 1 && head_dim == 64) FORDE_SKV_BWD(launch_tc, 64);
   if (dtype == 1 && head_dim == 128) FORDE_SKV_BWD(launch_tc, 128);
 #undef FORDE_SKV_BWD

@@ -15,11 +15,12 @@ JAX package's ``_small_kv_pallas`` custom_vjp): the forward wrapper
 ``small_kv_fwd`` launches ``csrc/small_kv_fwd.cu`` and the backward wrapper
 ``small_kv_bwd`` launches ``csrc/small_kv_bwd.cu`` on every CUDA tensor;
 on a CPU tensor they run their plain versions ``small_kv_fwd_reference``
-and ``small_kv_bwd_reference``. bf16 runs on the tensor cores, fp32 on
-the CUDA cores. The fp32 forward cuts the keys into chunks over blocks
-and merges the chunks' partial softmaxes in chunk order; the backward is
-a dq kernel and a dk/dv kernel over chunks of the queries, whose partials
-are summed in chunk order. Every sum has a fixed order, and the result is
+and ``small_kv_bwd_reference``. bf16 runs on the tensor cores, and so
+does the fp32 backward, each product three TF32 passes; the fp32 forward
+runs on the CUDA cores, its keys cut into chunks over blocks and the
+chunks' partial softmaxes merged in chunk order. The backward is a dq
+kernel and a dk/dv kernel over chunks of the queries, whose partials are
+summed in chunk order. Every sum has a fixed order, and the result is
 the same from run to run. The JAX package picks its TPU kernels only when
 S*K >= 2M, a threshold measured on a TPU v5e; the port has no threshold.
 "reference" runs ``small_kv_attention_ref``, differentiated by autograd.
@@ -227,13 +228,13 @@ def small_kv_bwd(q, k, v, key_pos, do, scale: float):
     the forward's inputs and the output gradient ``do`` (B, H, S, D).
     Arguments as ``small_kv_fwd``, K <= ``MAX_KEYS``. A CPU tensor takes the
     plain version; a CUDA tensor launches the kernels on the current stream
-    (bf16 on the tensor cores, fp32 on the CUDA cores), or raises. It allocates their
-    scratch: the dq kernel's row statistics (m, l, delta: 3 * B * H * S
-    fp32) and, with more than one chunk (``dkdv_chunks``), the dk/dv
-    partials (2 * chunks * B * H * K * D fp32), which a last kernel sums in
-    chunk order. The order of every sum is fixed: the result is the same
-    from run to run. One call counts one launch, whatever number of CUDA
-    kernels it runs."""
+    (on the tensor cores: bf16 products, or fp32 ones as three TF32
+    passes), or raises. It allocates their scratch: the dq kernel's row
+    statistics (m, l, delta: 3 * B * H * S fp32) and, with more than one
+    chunk (``dkdv_chunks``), the dk/dv partials (2 * chunks * B * H * K * D
+    fp32), which a last kernel sums in chunk order. The order of every sum
+    is fixed: the result is the same from run to run. One call counts one
+    launch, whatever number of CUDA kernels it runs."""
     if q.device.type == "cpu":
         return small_kv_bwd_reference(q, k, v, key_pos, do, scale)
     q, k, v, do, pos = _check_kernel_args("small_kv_bwd", MAX_KEYS, q, k, v, key_pos, do)
