@@ -59,9 +59,10 @@ Phases:
      spill bytes in every tensor-core kernel, and the HMMA (tensor-core)
      count of the libraries with a bf16 tensor-core route (flash_mha_fwd,
      flash_mha_bwd, flash_fwd, flash_bwd, small_kv_fwd, small_kv_bwd),
-     which must not be 0; flash_mha_fwd's and flash_mha_bwd's fp32 route
-     on the tensor cores too (three TF32 passes a product: their TF32
-     kernels among the tensor-core kernels, TF32 HMMA in their SASS);
+     which must not be 0; the fp32 route of flash_mha_fwd, flash_mha_bwd,
+     small_kv_bwd and flash_bwd on the tensor cores too (three TF32
+     passes a product: their TF32 kernels among the tensor-core kernels,
+     TF32 HMMA in their SASS);
   3. each kernel against its plain version on the card, fp32 and bf16, at
      the shapes of the paths (the training CLIs' shapes; the serving
      prefill and decode shapes, the streaming S = 8192, an odd S and a
@@ -73,7 +74,8 @@ Phases:
      version's, flash_mha_fwd and flash_mha_bwd in fp32 (every case),
      flash_fwd, small_kv_fwd, flash_bwd_dq, flash_bwd_dkv,
      small_kv_bwd and moment_sums bit-identical across two calls, a misaligned tensor
-     refused by the 4-D wrappers (bf16) and by moment_sums, an F of
+     refused by the 4-D wrappers (bf16; the backward's fp32 too) and by
+     moment_sums, an F of
      moment_sums that is not a multiple of its 8-column vector, and the
      output and gradients of ``flash_mha``,
      ``flash_attention`` and ``small_kv_attention`` on CUDA tensors
@@ -125,7 +127,8 @@ Phases:
  13. LM training time (bf16, 8 x 2,048): step time, tokens/s, the MoE slow
      loop, one step under torch.profiler, and per backward kernel its
      time, its plain version's, SDPA's backward with the same mask, and the
-     bound, in bf16 and in fp32;
+     bound, in bf16 and in fp32 (fp32 rows: the bound at both fp32 peaks
+     and five calls of each TF32 kernel under torch.profiler);
  14. topk_replay against its plain version, exactly (scores and positions,
      slot order included): the serving prefill's 96 rows x 2,048 positions
      with the prompts' -inf pads, P = 1, every score tied, and 6,000
@@ -484,6 +487,7 @@ TF32_KERNELS = {
     "flash_mha_fwd": ("flash_mha_fwd_tf32_tc_kernel",),
     "flash_mha_bwd": ("mha_bwd_dq_tf32_tc_kernel", "mha_bwd_dkdv_tf32_tc_kernel"),
     "small_kv_bwd": ("skv_bwd_dq_tf32_tc_kernel", "skv_bwd_dkdv_tf32_tc_kernel"),
+    "flash_bwd": ("flash_bwd_dq_tf32_tc_kernel", "flash_bwd_dkv_tf32_tc_kernel"),
 }
 
 
@@ -1580,13 +1584,10 @@ def fused_qkv_turns(device, path: str) -> None:
         json.dump({"card": nvidia_smi(), "rows": rows}, f)
 
 
-def small_kv_bwd_turns(device, path: str) -> None:
-    """small_kv_bwd_timing of this checkout (bf16 and fp32), the fp32 LM
-    training step (lm_fp32_step_timing) and phase 12's fp32 readings
-    (kernel path against the all-plain and the plain attention paths),
-    written as JSON to ``path``: one turn of a comparison of two checkouts
-    inside one chip call (parent, change, change, parent), this file copied
-    into each."""
+def lm_fp32_parity(device) -> dict:
+    """Phase 12's fp32 readings: the fp32 LM step's kernel path against the
+    all-plain and the plain attention paths (relative L2 of the grads and
+    params), on the first of LM_PARITY_SEEDS' batches."""
     cfg = serve_config()
     weights = lm_weights(cfg, device)
     launches = {}
@@ -1594,13 +1595,37 @@ def small_kv_bwd_turns(device, path: str) -> None:
             for name in ("kernel32", "plain32", "reference32")}
     parity = {"fp32": rel_l2s(outs["kernel32"], outs["plain32"]),
               "reference_fp32": rel_l2s(outs["kernel32"], outs["reference32"])}
-    del outs, weights
     for name, r in parity.items():
         log(f"[lm parity] {name}: relative L2 " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()))
+    return parity
+
+
+def small_kv_bwd_turns(device, path: str) -> None:
+    """small_kv_bwd_timing of this checkout (bf16 and fp32), the fp32 LM
+    training step (lm_fp32_step_timing) and phase 12's fp32 readings
+    (lm_fp32_parity), written as JSON to ``path``: one turn of a comparison
+    of two checkouts inside one chip call (parent, change, change, parent),
+    this file copied into each."""
+    parity = lm_fp32_parity(device)
     rows = small_kv_bwd_timing(device)
     step = lm_fp32_step_timing(device)
     with open(path, "w") as f:
         json.dump({"card": nvidia_smi(), "small_kv_bwd": rows, "lm_fp32_step": step,
+                   "lm_fp32_parity": parity}, f)
+
+
+def flash_bwd_turns(device, path: str) -> None:
+    """flash_bwd_timing of this checkout (flash_bwd_dq and flash_bwd_dkv,
+    bf16 and fp32, a profile of each kernel's fp32 calls), the fp32 LM
+    training step (lm_fp32_step_timing) and phase 12's fp32 readings
+    (lm_fp32_parity), written as JSON to ``path``: one turn of a comparison
+    of two checkouts inside one chip call (parent, change, change, parent),
+    this file copied into each."""
+    parity = lm_fp32_parity(device)
+    rows = flash_bwd_timing(device)
+    step = lm_fp32_step_timing(device)
+    with open(path, "w") as f:
+        json.dump({"card": nvidia_smi(), "flash_bwd": rows, "lm_fp32_step": step,
                    "lm_fp32_parity": parity}, f)
 
 
@@ -1731,13 +1756,13 @@ def small_kv_magnitude(q, k, v, key_pos, scale):
     return torch.matmul(weights, v.abs())
 
 
-def check_misaligned_refused(name, call, device) -> None:
-    """A bf16 tensor that starts off a 16-byte boundary makes the wrapper
+def check_misaligned_refused(name, call, device, dtype_name="bfloat16") -> None:
+    """A tensor that starts off a 16-byte boundary makes the wrapper
     ``name`` raise before any launch: ``call(x, lse)`` gets x (1, 1, 64,
-    64) bf16 one element past an aligned start."""
+    64) of ``dtype_name`` one element past an aligned start."""
     import torch
 
-    buf = torch.zeros(64 * 64 + 8, dtype=torch.bfloat16, device=device)
+    buf = torch.zeros(64 * 64 + 8, dtype=getattr(torch, dtype_name), device=device)
     x = buf[1:1 + 64 * 64].view(1, 1, 64, 64)
     lse = torch.zeros(1, 1, 64, 1, device=device)
     try:
@@ -1745,9 +1770,9 @@ def check_misaligned_refused(name, call, device) -> None:
     except ValueError as err:
         if "16-byte aligned" not in str(err):
             raise
-        log(f"[check] {name}: a misaligned bf16 tensor is refused ({err}) ok")
+        log(f"[check] {name}: a misaligned {dtype_name} tensor is refused ({err}) ok")
         return
-    raise AssertionError(f"{name} launched on a misaligned bf16 tensor")
+    raise AssertionError(f"{name} launched on a misaligned {dtype_name} tensor")
 
 
 def phase_check_serving_kernels(device) -> dict:
@@ -2007,12 +2032,16 @@ def phase_check_training_kernels(device) -> dict:
             del o, lse, do, got, want, mags, f32
         del x, q, k, v
         torch.cuda.empty_cache()
-    check_misaligned_refused(
-        "flash_bwd_dq",
-        lambda x, lse: fa.flash_bwd_dq(x, x, x, x, lse, lse, 0.125, None, True, None), device)
-    check_misaligned_refused(
-        "flash_bwd_dkv",
-        lambda x, lse: fa.flash_bwd_dkv(x, x, x, x, lse, lse, 0.125, None, True, None), device)
+    # Both routes copy tiles with 16-byte cp.async.
+    for dtype_name in ("bfloat16", "float32"):
+        check_misaligned_refused(
+            "flash_bwd_dq",
+            lambda x, lse: fa.flash_bwd_dq(x, x, x, x, lse, lse, 0.125, None, True, None),
+            device, dtype_name)
+        check_misaligned_refused(
+            "flash_bwd_dkv",
+            lambda x, lse: fa.flash_bwd_dkv(x, x, x, x, lse, lse, 0.125, None, True, None),
+            device, dtype_name)
 
     for case, b, h, s, kk, d, kind in SMALL_KV_BWD_CASES:
         q, g_out = (torch.randn(b, h, s, d, device=device, generator=gen) for _ in range(2))
@@ -2913,13 +2942,22 @@ SMALL_KV_BWD_TIMING = [
 
 
 def phase_training_kernel_timing(device) -> dict:
-    """Per call of flash_bwd_dq, flash_bwd_dkv and small_kv_bwd at the
-    training shapes (D 64), bf16 and fp32 (the route of every run without
-    --bf16; names with "_fp32"): kernel, plain version, the backward of
-    SDPA with the same mask in the same dtype (a yardstick only: the port
-    never calls it; it computes dq, dk and dv in one call, so both 4-D
-    kernels carry it) and the bound. Inputs cycle through copies that
-    together exceed the 50 MB L2."""
+    """Per call of flash_bwd_dq, flash_bwd_dkv (flash_bwd_timing) and
+    small_kv_bwd (small_kv_bwd_timing) at the training shapes, bf16 and
+    fp32."""
+    return {**flash_bwd_timing(device), "small_kv_bwd": small_kv_bwd_timing(device)}
+
+
+def flash_bwd_timing(device) -> dict:
+    """Per call of flash_bwd_dq and flash_bwd_dkv at FLASH_BWD_TIMING (D
+    64), bf16 and fp32 (the route of every run without --bf16; names with
+    "_fp32"): kernel, plain version, the backward of SDPA with the same
+    mask in the same dtype (a yardstick only: the port never calls it; it
+    computes dq, dk and dv in one call, so both kernels carry it) and the
+    bound. fp32 rows also carry the bound by operations at three TF32
+    passes (``operations_tf32x3_ms``), and five fp32 calls of each kernel
+    are profiled. Inputs cycle through copies that together exceed the
+    50 MB L2."""
     import torch
     import torch.nn.functional as F
 
@@ -2950,15 +2988,27 @@ def phase_training_kernel_timing(device) -> dict:
         library = [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs]
         for part, kernel, plain in (("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
                                     ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
-            out[f"flash_bwd_{part}"][name + suffix] = time_kernel(
-                f"flash_bwd_{part} {name} (B={b}, H={h}, S={s}, D={d}, {tag})",
-                [lambda i=i: kernel(*i[0]) for i in inputs],
+            bytes_ms, ops_ms = flash_bwd_bound(b, h, s, d, window, True, part, dtype_name)
+            extra = {}
+            if dt == torch.float32:
+                extra["operations_tf32x3_ms"] = ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"]
+            label = f"flash_bwd_{part} {name} (B={b}, H={h}, S={s}, D={d}, {tag})"
+            row = time_kernel(
+                label, [lambda i=i: kernel(*i[0]) for i in inputs],
                 [lambda i=i: plain(*i[0]) for i in inputs[:2]],
-                library, *flash_bwd_bound(b, h, s, d, window, True, part, dtype_name),
-                dtype=dtype_name, **shape)
+                library, bytes_ms, ops_ms, dtype=dtype_name, **shape, **extra)
+            if extra:
+                tc_ms, tc_by = bound(bytes_ms, extra["operations_tf32x3_ms"])
+                log(f"[time] {label}: bound at three TF32 passes (165 TFLOP/s) {tc_ms:.4f} ms "
+                    f"({tc_by}); at the CUDA cores (67 TFLOP/s) {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']})")
+                # Five calls: a one-call window after a large profile session
+                # can read no device time (PERF.md §7.7).
+                profile_device(lambda: [kernel(*inputs[j % len(inputs)][0]) for j in range(5)],
+                               f"five calls, {label}", top=4)
+            out[f"flash_bwd_{part}"][name + suffix] = row
         del inputs, library
         torch.cuda.empty_cache()
-    out["small_kv_bwd"] = small_kv_bwd_timing(device)
     return out
 
 

@@ -97,14 +97,48 @@
 // backward; useful products at ~189 TFLOP/s, bytes at ~19% of the HBM
 // rate. As in the forward, mma.sync from 12 warps an SM is latency-bound.
 //
-// fp32 (both kernels): the CUDA cores, with one block of 16 x 16
-// threads; tiles sit in shared memory as fp32 with row pitch D + 1
-// (conflict-free column reads), and p and ds go through shared memory
-// (`probs`, `tile_dot`, `tile_mac` of common.cuh). It is the route of every
-// LM training run without --bf16 (DTypePolicy's compute type defaults to
-// fp32) and of every checkpoint trained that way, besides checks and parity
-// runs. flash_mha_bwd.cu's three-pass TF32 route is the pattern for taking
-// it to the tensor cores.
+// fp32 route (flash_bwd_dq_tf32_tc_kernel, flash_bwd_dkv_tf32_tc_kernel):
+// the tensor cores too, every product three TF32 passes (mma.sync.m16n8k8;
+// mma.cuh), as flash_mha_bwd.cu's and small_kv_bwd.cu's fp32 routes. It
+// replaces the same four TPU kernels in fp32, whose products the TPU takes
+// at full precision, and it is the route of every LM training run without
+// --bf16 (DTypePolicy's compute type defaults to fp32) and of every
+// checkpoint trained that way. Bound on the H100 at the training shape (D
+// 64; products at 67 TFLOP/s on the CUDA cores, or a third of TF32's 495
+// on the tensor cores; bytes at 3.35 TB/s): dq 22.6 GFLOP, 0.337 / 0.137
+// ms, bytes 0.051 ms; dk/dv 30.1 GFLOP, 0.449 / 0.182 ms, bytes 0.061 ms.
+// The kernels are the bf16 route's two, walk for walk: dq (4 warps of 16
+// query rows) over `key_tiles`, dk/dv (4 warps of 16 keys) over
+// `query_tiles`, each with its per-warp interior split, so the select runs
+// only on a warp's edge tiles. Every tile stays fp32 in shared memory with
+// row pitch D + 4, filled by a two-stage cp.async ring, and every operand
+// is split into TF32 hi and lo as its fragment is loaded. A 64-key tile
+// goes through the dq kernel's ring in pieces of 32 keys (16 at D = 128),
+// a 64-query tile through the dk/dv kernel's in pieces of 16 queries, with
+// their lse and delta; q and do (dq) or K and V (dk/dv) stay in shared
+// memory for the block's walk. p and ds, and p^T and ds^T, are split in
+// registers and used, as they stand in the accumulators, as the A operands
+// of ds k, p^T do and ds^T q (accumulator column 2t to k slot t, 2t + 1 to
+// slot t + 4; the B operand read at rows 2t, 2t + 1 by load_bt_f32): they
+// never touch shared memory. dv = p^T do takes p unrounded. Each step's
+// product is summed in a fresh accumulator and added to dq (dk, dv) on the
+// CUDA cores, rounded to nearest (mma_step_tf32x3): chained through the
+// tensor cores' accumulation over the whole walk, the error grew with S in
+// one direction, to 1.07 of the fp32 bar in chip_smoke.py's ring at S =
+// 8,192 (0.02 with the step sums; PERF.md). At D = 128 the dk and dv
+// accumulators take 128 registers a thread, so the dv and dk updates of a
+// step go in two passes (as at D = 64). Registers (ptxas): dq 164 / 198,
+// dk/dv 167 / 255 at D = 64 / 128, so 3 blocks an SM at D = 64 and 2 at D
+// = 128; no spills. Each output is summed in a fixed order with no
+// atomics: two calls give the same bits. Measured (chip_smoke.py
+// flash_bwd_turns, NVIDIA H100 80GB HBM3, 700.00 W): 0.452-0.455 ms of
+// device time for dq and 0.690-0.691 for dk/dv at the training shape,
+// 0.265-0.266 and 0.396-0.400 at S = 8,192 (the CUDA-core pair it
+// replaced, 16 x 16 thread grids with p and ds through shared memory, took
+// 1.084-1.089, 1.387-1.388, 0.620-0.625 and 0.800-0.807 in the same call):
+// 3.3x and 3.8x the three-pass bound, 0.08x and 0.12x SDPA's whole fp32
+// backward. As in the other TF32 routes, issue slots bound it (the split:
+// three instructions an element, every operand split again at each load).
 
 #include <math.h>
 #include <stdint.h>
@@ -117,23 +151,43 @@ namespace {
 using forde::floor_div;
 using forde::interior_tiles;
 using forde::key_tiles;
-using forde::load_tile;
-using forde::probs;
-using forde::tile_dot;
-using forde::tile_mac;
 using forde::visible;
 
 constexpr int BQ = 64;               // query rows per tile
 constexpr int BK = forde::FLASH_BK;  // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid (CUDA-core kernels)
-constexpr int TC_THREADS = 128;  // 4 warps of 16 keys or query rows (bf16)
-constexpr int LP = BK + 1;    // pitch of a 64 x 64 tile of p or ds
+constexpr int TC_THREADS = 128;      // 4 warps of 16 keys or query rows
 
-// Both CUDA-core kernels: four 64 x (D + 1) tiles, one 64 x 65 tile, lse
-// and delta.
+// The fp32 route: keys per ring stage of the dq kernel, queries per ring
+// stage of the dk/dv kernel (two stages each), and blocks an SM. At D = 64
+// the dq kernel's q and do (35 KB at pitch D + 4) and two stages of a
+// 32-key K and V piece (35 KB) fit three blocks an SM; at D = 128 the
+// block's own two tiles take 66 KB, so the pieces are 16 keys and two
+// blocks fit. The dk/dv kernel takes 16 queries a step at either D:
+// beside the dk and dv accumulators, 32 queries' s^T and dp^T would not fit
+// 168 registers.
 template <int D>
-constexpr size_t smem_bytes() {
-  return (4 * 64 * (D + 1) + 64 * LP + 2 * 64) * sizeof(float);
+__host__ __device__ constexpr int tf32_dq_keys() {
+  return D == 128 ? 16 : 32;
+}
+constexpr int TF32_DKV_QUERIES = 16;
+
+template <int D>
+constexpr int tf32_blocks_per_sm() {
+  return D == 128 ? 2 : 3;
+}
+
+// q and do, then two stages of a K and a V piece (fp32, pitch D + 4).
+template <int D>
+constexpr size_t tf32_dq_smem_bytes() {
+  return (2 * BQ + 2 * 2 * tf32_dq_keys<D>()) * (D + 4) * sizeof(float);
+}
+
+// K and V, then two stages of a Q and a dO piece (fp32, pitch D + 4) and
+// the stages' lse and delta.
+template <int D>
+constexpr size_t tf32_dkv_smem_bytes() {
+  return (2 * BK + 2 * 2 * TF32_DKV_QUERIES) * (D + 4) * sizeof(float) +
+         2 * 2 * TF32_DKV_QUERIES * sizeof(float);
 }
 
 // The bf16 kernels: stages of their rings; the dk/dv kernel's shared
@@ -191,163 +245,352 @@ __device__ __forceinline__ void interior_query_tiles(int c0, int cols,
   fe = min(max(fe, fs), i_end);
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int S, float scale, int causal, int window, int kv_len) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;              // BQ x LD
-  float* do_s = q_s + BQ * LD;    // BQ x LD
-  float* k_s = do_s + BQ * LD;    // BK x LD
-  float* v_s = k_s + BK * LD;     // BK x LD
-  float* ds_s = v_s + BK * LD;    // BQ x LP
-  float* lse_s = ds_s + BQ * LP;  // BQ
-  float* delta_s = lse_s + BQ;    // BQ
-
-  const int q0 = blockIdx.x * BQ;
-  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const long long base = bh * S * D;
-
-  const int keys = kv_len >= 0 ? min(kv_len, S) : S;
-  int j_begin, j_end;
-  key_tiles(q0, BQ, S, causal, window, kv_len, j_begin, j_end);
-
-  load_tile<float, D, THREADS>(q_s, q + base, q0, S, D);
-  load_tile<float, D, THREADS>(do_s, dout + base, q0, S, D);
-  if (tid < BQ) {
-    lse_s[tid] = lse[bh * S + q0 + tid];
-    delta_s[tid] = delta[bh * S + q0 + tid];
-  }
-
-  // dq of rows ty + 16i, columns tx + 16j.
-  float acc[4][DJ];
+// acc += a b for one step of a walk: a, 16 x 8 NJ, split into TF32 (hi,
+// lo) as it stands in the accumulators, times rows 0 .. 8 NJ - 1 of
+// `tile` (fp32, pitch D + 4, k along its rows, read by load_bt_f32). Each
+// n8 tile is summed in a fresh accumulator and then added to acc on the
+// CUDA cores, rounded to nearest. The tensor cores' fp32 accumulation does
+// not round to nearest: chained across every step of a walk (dk and dv sum
+// over up to S queries, dq over up to S keys), its error grew with the
+// walk's length in one direction (PERF.md).
+template <int D, int NJ>
+__device__ __forceinline__ void mma_step_tf32x3(float (&acc)[D / 8][4],
+                                                const uint32_t (&hi)[NJ][4],
+                                                const uint32_t (&lo)[NJ][4],
+                                                const float* tile, int lane) {
+  using namespace forde::mma;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int np = 0; np < D / 8; ++np) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  float p[4][4], dp[4][4];
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // the previous tile is done with k_s, v_s and ds_s
-    load_tile<float, D, THREADS>(k_s, k + base, k0, S, D);
-    load_tile<float, D, THREADS>(v_s, v + base, k0, S, D);
-    __syncthreads();
-    probs<D>(p, q_s, k_s, lse_s, q0, k0, S, keys, causal, window, scale, tx,
-             ty);
-    tile_dot<D>(dp, do_s, v_s, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ds_s[r * LP + tx + 16 * j] = p[i][j] * (dp[i][j] - delta_s[r]) * scale;
+    for (int kk = 0; kk < NJ; ++kk) {
+      uint32_t bh[2], bl[2];
+      load_bt_f32<D>(bh, bl, tile, 8 * kk, 8 * np, lane);
+      mma_tf32x3(part, hi[kk], lo[kk], bh[0], bh[1], bl[0], bl[1]);
     }
-    __syncthreads();
-    tile_mac<D, LP, 1>(acc, ds_s, k_s, tx, ty);
-  }
-
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = dq + base + (long long)(q0 + ty + 16 * i) * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) row[tx + 16 * j] = acc[i][j];
+    for (int e = 0; e < 4; ++e) acc[np][e] += part[e];
   }
 }
 
+// The fp32 route's dq kernel: the bf16 dq kernel's walk over the key tiles
+// of `key_tiles`, every product three TF32 passes (mma.cuh). Warp w owns
+// query rows q0 + 16w .. q0 + 16w + 15; lane (g, t) holds rows r0 = q0 +
+// 16w + g and r1 = r0 + 8 and, of each n8 tile j of a product, cols 8j + 2t
+// and 8j + 2t + 1. q and do stay fp32 in shared memory and are split as
+// their fragments are loaded; a 64-key tile comes through the ring in
+// pieces of KT keys, one step each.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int S, float scale, int causal,
-                     int window, int kv_len) {
-  constexpr int LD = D + 1;
-  constexpr int DJ = D / 16;
+__global__ void __launch_bounds__(TC_THREADS, tf32_blocks_per_sm<D>())
+flash_bwd_dq_tf32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int S, float scale, int causal,
+                            int window, int kv_len) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;              // row pitch of the fp32 tiles
+  constexpr int KD = D / 8;              // k8 steps over the head dim
+  constexpr int ND = D / 8;              // n8 tiles of dq
+  constexpr int KT = tf32_dq_keys<D>();  // keys per step
+  constexpr int NJ = KT / 8;             // n8 tiles of s and dp
+  constexpr int PIECES = BK / KT;        // steps per key tile
+  constexpr int STAGE = 2 * KT * LD;     // a K piece, then a V piece
 
-  extern __shared__ float smem[];
-  float* k_s = smem;              // BK x LD
-  float* v_s = k_s + BK * LD;     // BK x LD
-  float* q_s = v_s + BK * LD;     // BQ x LD
-  float* do_s = q_s + BQ * LD;    // BQ x LD
-  float* p_s = do_s + BQ * LD;    // BQ x LP: round(p), then ds
-  float* lse_s = p_s + BQ * LP;   // BQ
-  float* delta_s = lse_s + BQ;    // BQ
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const q_s = reinterpret_cast<float*>(smem_raw);
+  float* const do_s = q_s + BQ * LD;
+  float* const ring = do_s + BQ * LD;
+
+  const int q0 = blockIdx.x * BQ;
+  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long base = bh * S * D;
+  const float* k_g = k + base;
+  const float* v_g = v + base;
+
+  int j_begin, j_end;
+  key_tiles(q0, BQ, S, causal, window, kv_len, j_begin, j_end);
+  const int n = (j_end - j_begin) * PIECES;  // at least one tile
+  const int keys = kv_len >= 0 ? min(kv_len, S) : S;
+
+  const int wrow = 16 * warp;
+  // Key tiles [fs, fe) need no select for this warp's rows.
+  int fs, fe;
+  interior_tiles(q0 + wrow, 16, j_begin, j_end, causal, window, kv_len, fs, fe);
+
+  // Step i's K and V pieces into stage i % 2, as one commit group.
+  auto fetch = [&](int i) {
+    float* const dst = ring + (i & 1) * STAGE;
+    const int k0 = j_begin * BK + i * KT;
+    load_tile_f32_async<KT, D, TC_THREADS>(dst, k_g, k0, S, D);
+    load_tile_f32_async<KT, D, TC_THREADS>(dst + KT * LD, v_g, k0, S, D);
+    cp_async_commit();
+  };
+  load_tile_f32_async<BQ, D, TC_THREADS>(q_s, q + base, q0, S, D);
+  load_tile_f32_async<BQ, D, TC_THREADS>(do_s, dout + base, q0, S, D);
+  fetch(0);  // with q and do
+
+  const int r0 = q0 + wrow + g, r1 = r0 + 8;
+  // The keys visible to rows r0 and r1: [lo, hi] (common.cuh `visible`).
+  const int lo0 = window >= 0 ? r0 - window + 1 : 0;
+  const int lo1 = window >= 0 ? r1 - window + 1 : 0;
+  const int hi0 = causal ? min(r0, keys - 1) : keys - 1;
+  const int hi1 = causal ? min(r1, keys - 1) : keys - 1;
+  // p = exp(s * scale - lse) = 2^(s * scale * log2(e) - lse * log2(e)).
+  const float scale_log2 = scale * LOG2E;
+  const float lq0 = lse[bh * S + r0] * LOG2E, lq1 = lse[bh * S + r1] * LOG2E;
+  const float dl0 = delta[bh * S + r0], dl1 = delta[bh * S + r1];
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    // Step i's pieces have landed; after the barrier every warp is done
+    // with step i - 1, whose stage takes step i + 1.
+    cp_async_wait<0>();
+    __syncthreads();
+    if (i + 1 < n) fetch(i + 1);
+
+    const int k0 = j_begin * BK + i * KT;
+    const int jt = j_begin + i / PIECES;
+    const bool edge = jt < fs || jt >= fe;
+    const float* const k_t = ring + (i & 1) * STAGE;
+    const float* const v_t = k_t + KT * LD;
+    float s[NJ][4], dp[NJ][4];  // s = q k^T and dp = do v^T: rows x keys
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t fa[4], ah[4], al[4];
+      load_a_f32<D>(fa, q_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t bb[4], bh[4], bl[4];
+        load_b_f32<D>(bb, k_t, 16 * np, kk, lane);
+        split_tf32(bb, bh, bl);
+        mma_tf32x3(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+      load_a_f32<D>(fa, do_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t bb[4], bh[4], bl[4];
+        load_b_f32<D>(bb, v_t, 16 * np, kk, lane);
+        split_tf32(bb, bh, bl);
+        mma_tf32x3(dp[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(dp[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+    // p = 2^(s scale log2(e) - lse log2(e)), SELECTED to 0 where masked (a
+    // row with no visible key has lse = -1e30, and p is inf there); ds =
+    // p (dp - delta) scale. n8 tile kk of ds, split into TF32, is the A
+    // operand of k8 step kk of ds k, k read at rows 2t, 2t + 1.
+    uint32_t dh[NJ][4], dl[NJ][4];
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      float p[4];
+      p[0] = exp2_approx(fmaf(s[kk][0], scale_log2, -lq0));
+      p[1] = exp2_approx(fmaf(s[kk][1], scale_log2, -lq0));
+      p[2] = exp2_approx(fmaf(s[kk][2], scale_log2, -lq1));
+      p[3] = exp2_approx(fmaf(s[kk][3], scale_log2, -lq1));
+      if (edge) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kc = k0 + 8 * kk + 2 * t + e;
+          if (kc < lo0 || kc > hi0) p[e] = 0.f;
+          if (kc < lo1 || kc > hi1) p[2 + e] = 0.f;
+        }
+      }
+      const float ds[4] = {p[0] * (dp[kk][0] - dl0) * scale, p[1] * (dp[kk][1] - dl0) * scale,
+                           p[2] * (dp[kk][2] - dl1) * scale, p[3] * (dp[kk][3] - dl1) * scale};
+      acc_to_a_tf32(dh[kk], dl[kk], ds);
+    }
+    mma_step_tf32x3<D, NJ>(acc, dh, dl, k_t, lane);  // dq += ds k
+  }
+
+  store_rows_f32<D>(dq + base, D, acc, r0, S, 1.f, 1.f, lane);
+}
+
+// Q and dO of the QT queries at q0, with their lse and delta, into stage
+// st of the fp32 dk/dv kernel's ring, as one commit group.
+template <int D>
+__device__ __forceinline__ void load_query_stage_tf32(float* ring, float* stat, int st,
+                                                      const float* q_g, const float* do_g,
+                                                      const float* lse_bh,
+                                                      const float* delta_bh, int q0, int S) {
+  using namespace forde::mma;
+  constexpr int QT = TF32_DKV_QUERIES;
+  float* const q_t = ring + st * 2 * QT * (D + 4);
+  load_tile_f32_async<QT, D, TC_THREADS>(q_t, q_g, q0, S, D);
+  load_tile_f32_async<QT, D, TC_THREADS>(q_t + QT * (D + 4), do_g, q0, S, D);
+  float* const stat_t = stat + st * 2 * QT;
+  const int r = threadIdx.x;
+  if (r < QT) {
+    cp_async_4(stat_t + r, lse_bh + q0 + r, true);
+    cp_async_4(stat_t + QT + r, delta_bh + q0 + r, true);
+  }
+  cp_async_commit();
+}
+
+// The fp32 route's dk/dv kernel: the bf16 dk/dv kernel's walk over the
+// query tiles of `query_tiles`, every product three TF32 passes. Warp w
+// owns keys k0 + 16w .. k0 + 16w + 15; lane (g, t) holds keys kr0 = k0 +
+// 16w + g and kr1 = kr0 + 8 and, of each n8 tile j of a transposed product,
+// query cols 8j + 2t, 8j + 2t + 1. K and V stay fp32 in shared memory and
+// are split as their fragments are loaded; a 64-query tile comes through
+// the ring in pieces of QT queries, one step each.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, tf32_blocks_per_sm<D>())
+flash_bwd_dkv_tf32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv, int S,
+                             float scale, int causal, int window, int kv_len) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;
+  constexpr int KD = D / 8;              // k8 steps over the head dim
+  constexpr int ND = D / 8;              // n8 tiles of dk and dv
+  constexpr int QT = TF32_DKV_QUERIES;   // queries per step
+  constexpr int NJ = QT / 8;             // n8 tiles of s^T and dp^T
+  constexpr int PIECES = BQ / QT;        // steps per query tile
+  constexpr int STAGE = 2 * QT * LD;     // a Q piece, then a dO piece
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const k_s = reinterpret_cast<float*>(smem_raw);
+  float* const v_s = k_s + BK * LD;
+  float* const ring = v_s + BK * LD;
+  float* const stat = ring + 2 * STAGE;  // per stage: lse, then delta
 
   const int k0 = blockIdx.x * BK;
   const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const long long base = bh * S * D;
+  const float* q_g = q + base;
+  const float* do_g = dout + base;
+  const float* lse_bh = lse + bh * S;
+  const float* delta_bh = delta + bh * S;
 
   const int keys = kv_len >= 0 ? min(kv_len, S) : S;
   int i_begin, i_end;
   query_tiles(k0, S, keys, causal, window, i_begin, i_end);
+  const int n = max(0, i_end - i_begin) * PIECES;
 
-  load_tile<float, D, THREADS>(k_s, k + base, k0, S, D);
-  load_tile<float, D, THREADS>(v_s, v + base, k0, S, D);
+  const int wrow = 16 * warp;
+  // Query tiles [fs, fe) need no select for this warp's keys.
+  int fs, fe;
+  interior_query_tiles(k0 + wrow, 16, i_begin, i_end, keys, causal, window, fs, fe);
 
-  // dk and dv of keys ty + 16i, columns tx + 16j.
-  float acc_dk[4][DJ], acc_dv[4][DJ];
+  load_tile_f32_async<BK, D, TC_THREADS>(k_s, k + base, k0, S, D);
+  load_tile_f32_async<BK, D, TC_THREADS>(v_s, v + base, k0, S, D);
+  if (n > 0)  // with K and V
+    load_query_stage_tf32<D>(ring, stat, 0, q_g, do_g, lse_bh, delta_bh, i_begin * BQ, S);
+  else
+    cp_async_commit();
+
+  const int kr0 = k0 + wrow + g, kr1 = kr0 + 8;
+  const float scale_log2 = scale * LOG2E;
+  float dkacc[ND][4], dvacc[ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
+  for (int j = 0; j < ND; ++j) {
+    dkacc[j][0] = dkacc[j][1] = dkacc[j][2] = dkacc[j][3] = 0.f;
+    dvacc[j][0] = dvacc[j][1] = dvacc[j][2] = dvacc[j][3] = 0.f;
+  }
 
-  float p[4][4], ds[4][4];
-  for (int it = i_begin; it < i_end; ++it) {
-    const int q0 = it * BQ;
-    __syncthreads();  // the last tile is done with q_s, do_s and p_s
-    load_tile<float, D, THREADS>(q_s, q + base, q0, S, D);
-    load_tile<float, D, THREADS>(do_s, dout + base, q0, S, D);
-    if (tid < BQ) {
-      lse_s[tid] = lse[bh * S + q0 + tid];
-      delta_s[tid] = delta[bh * S + q0 + tid];
-    }
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    // Step i's pieces have landed; after the barrier every warp is done
+    // with step i - 1, whose stage takes step i + 1.
+    cp_async_wait<0>();
     __syncthreads();
-    // Rows q0 + ty + 16i, keys k0 + tx + 16j.
-    probs<D>(p, q_s, k_s, lse_s, q0, k0, S, keys, causal, window, scale, tx,
-             ty);
-    tile_dot<D>(ds, do_s, v_s, tx, ty);  // dp
+    if (i + 1 < n)
+      load_query_stage_tf32<D>(ring, stat, st ^ 1, q_g, do_g, lse_bh, delta_bh,
+                               i_begin * BQ + (i + 1) * QT, S);
+
+    const int q0 = i_begin * BQ + i * QT;
+    const int it = i_begin + i / PIECES;
+    const bool edge = it < fs || it >= fe;
+    const float* const q_t = ring + st * STAGE;
+    const float* const do_t = q_t + QT * LD;
+    const float* const lse_t = stat + st * 2 * QT;
+    const float* const dl_t = lse_t + QT;
+    float s[NJ][4], dp[NJ][4];  // s^T and dp^T: keys x queries
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
+    for (int j = 0; j < NJ; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ds[i][j] = p[i][j] * (ds[i][j] - delta_s[r]) * scale;
-        p_s[r * LP + tx + 16 * j] = p[i][j];
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t fa[4], ah[4], al[4];
+      load_a_f32<D>(fa, k_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t bb[4], bh[4], bl[4];
+        load_b_f32<D>(bb, q_t, 16 * np, kk, lane);
+        split_tf32(bb, bh, bl);
+        mma_tf32x3(s[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(s[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+      }
+      load_a_f32<D>(fa, v_s, wrow, kk, lane);
+      split_tf32(fa, ah, al);
+#pragma unroll
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t bb[4], bh[4], bl[4];
+        load_b_f32<D>(bb, do_t, 16 * np, kk, lane);
+        split_tf32(bb, bh, bl);
+        mma_tf32x3(dp[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
+        mma_tf32x3(dp[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
       }
     }
-    __syncthreads();
-    tile_mac<D, 1, LP>(acc_dv, p_s, do_s, tx, ty);
-    __syncthreads();
+    // p^T = exp(s^T * scale - lse), SELECTED to 0 where masked, and ds^T =
+    // p^T (dp^T - delta) scale; n8 tile kk of each, split into TF32, is
+    // the A operand of k8 step kk of p^T do and ds^T q. The dv and dk
+    // updates go in two passes, so that only one operand's split is live
+    // beside the two accumulators.
+    float p[NJ][4], ds[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int kk = 0; kk < NJ; ++kk) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(ty + 16 * i) * LP + tx + 16 * j] = ds[i][j];
-    __syncthreads();
-    tile_mac<D, 1, LP>(acc_dk, p_s, q_s, tx, ty);
-  }
-
+      for (int e = 0; e < 2; ++e) {
+        const int cl = 8 * kk + 2 * t + e;  // query within the piece
+        const int qr = q0 + cl;
+        const float lq = lse_t[cl] * LOG2E, dq = dl_t[cl];
+        p[kk][e] = exp2_approx(fmaf(s[kk][e], scale_log2, -lq));
+        p[kk][2 + e] = exp2_approx(fmaf(s[kk][2 + e], scale_log2, -lq));
+        if (edge) {
+          if (!visible(qr, kr0, keys, causal, window)) p[kk][e] = 0.f;
+          if (!visible(qr, kr1, keys, causal, window)) p[kk][2 + e] = 0.f;
+        }
+        ds[kk][e] = p[kk][e] * (dp[kk][e] - dq) * scale;
+        ds[kk][2 + e] = p[kk][2 + e] * (dp[kk][2 + e] - dq) * scale;
+      }
+    }
+    {
+      uint32_t h[NJ][4], l[NJ][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = base + (long long)(k0 + ty + 16 * i) * D;
+      for (int kk = 0; kk < NJ; ++kk) acc_to_a_tf32(h[kk], l[kk], p[kk]);
+      mma_step_tf32x3<D, NJ>(dvacc, h, l, do_t, lane);  // dv += p^T do
+    }
+    {
+      uint32_t h[NJ][4], l[NJ][4];
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      dk[row + tx + 16 * j] = acc_dk[i][j];
-      dv[row + tx + 16 * j] = acc_dv[i][j];
+      for (int kk = 0; kk < NJ; ++kk) acc_to_a_tf32(h[kk], l[kk], ds[kk]);
+      mma_step_tf32x3<D, NJ>(dkacc, h, l, q_t, lane);  // dk += ds^T q
     }
   }
+  cp_async_wait<0>();  // K and V when no query tile sees this block
+
+  store_rows_f32<D>(dk + base, D, dkacc, kr0, S, 1.f, 1.f, lane);
+  store_rows_f32<D>(dv + base, D, dvacc, kr0, S, 1.f, 1.f, lane);
 }
 
 // Q and dO of the query tile at q0, with its lse and delta, into stage st
@@ -745,14 +988,13 @@ struct Args {
 };
 
 template <int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+cudaError_t launch_dq_tf32(const Args& a, void* dq) {
+  constexpr size_t smem = tf32_dq_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tf32_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.seq / BQ, a.heads, a.batch);
-  flash_bwd_dq_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+  flash_bwd_dq_tf32_tc_kernel<D><<<grid, TC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -778,19 +1020,18 @@ cudaError_t launch_dq_tc(const Args& a, void* dq) {
 }
 
 template <int D>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+cudaError_t launch_dkv_tf32(const Args& a, void* dk, void* dv) {
+  constexpr size_t smem = tf32_dkv_smem_bytes<D>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_tc_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.seq / BK, a.heads, a.batch);
-  flash_bwd_dkv_kernel<D><<<grid, THREADS, smem, a.stream>>>(
+  flash_bwd_dkv_tf32_tc_kernel<D><<<grid, TC_THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), a.seq, a.scale,
-      a.causal, a.window, a.kv_len);
+      static_cast<float*>(dk), static_cast<float*>(dv), a.seq, a.scale, a.causal, a.window,
+      a.kv_len);
   return cudaGetLastError();
 }
 
@@ -818,8 +1059,8 @@ extern "C" {
 
 // Both entry points: q, k, v, do (B, H, S, D) of one dtype (0 = float32,
 // 1 = bfloat16), head_dim 64 or 128, seq a multiple of 64; lse and delta
-// (B, H, S) fp32; window < 0 and kv_len < 0 mean none. The bf16 kernels
-// (tensor cores) need q, k, v, do and the outputs 16-byte aligned. Each
+// (B, H, S) fp32; window < 0 and kv_len < 0 mean none. Both routes (the
+// tensor cores) need q, k, v, do and the outputs 16-byte aligned. Each
 // returns the CUDA error code of its launch (0 on success).
 
 int forde_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -830,8 +1071,8 @@ int forde_flash_bwd_dq(const void* q, const void* k, const void* v,
   if (seq % BQ != 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, delta, batch, heads, seq, scale, causal,
                window, kv_len, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0 && head_dim == 64) return launch_dq<64>(a, dq);
-  if (dtype == 0 && head_dim == 128) return launch_dq<128>(a, dq);
+  if (dtype == 0 && head_dim == 64) return launch_dq_tf32<64>(a, dq);
+  if (dtype == 0 && head_dim == 128) return launch_dq_tf32<128>(a, dq);
   if (dtype == 1 && head_dim == 64) return launch_dq_tc<64>(a, dq);
   if (dtype == 1 && head_dim == 128) return launch_dq_tc<128>(a, dq);
   return (int)cudaErrorInvalidValue;
@@ -845,8 +1086,8 @@ int forde_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (seq % BK != 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, lse, delta, batch, heads, seq, scale, causal,
                window, kv_len, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0 && head_dim == 64) return launch_dkv<64>(a, dk, dv);
-  if (dtype == 0 && head_dim == 128) return launch_dkv<128>(a, dk, dv);
+  if (dtype == 0 && head_dim == 64) return launch_dkv_tf32<64>(a, dk, dv);
+  if (dtype == 0 && head_dim == 128) return launch_dkv_tf32<128>(a, dk, dv);
   if (dtype == 1 && head_dim == 64) return launch_dkv_tc<64>(a, dk, dv);
   if (dtype == 1 && head_dim == 128) return launch_dkv_tc<128>(a, dk, dv);
   return (int)cudaErrorInvalidValue;

@@ -32,7 +32,9 @@ tensor every wrapper runs its kernel's plain version
 ``flash_bwd_dkv_reference``). The input dtype picks the route here too:
 bf16 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` run on the
 tensor cores (``mma.sync``, 16-byte ``cp.async``, so their wrappers refuse
-a tensor off a 16-byte boundary), fp32 on the CUDA cores.
+a tensor off a 16-byte boundary); in fp32 ``flash_bwd_dq`` and
+``flash_bwd_dkv`` do too, in three TF32 passes a product (so they refuse
+such a tensor in fp32 as well), and ``flash_fwd`` runs on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -583,8 +585,11 @@ def flash_bwd_reference(q, k, v, o, lse, do, scale, window, causal, kv_len, dlse
 
 def _bwd_launch(name: str, outputs, q, k, v, do, lse, delta, scale, window, causal, kv_len):
     """Launch ``forde_<name>`` of ``csrc/flash_bwd.cu`` on the current
-    stream and count it."""
+    stream and count it. ``outputs`` names the output tensors. Both routes
+    copy q, k, v and do in 16-byte ``cp.async`` pieces, and lse and delta
+    4 bytes at a time."""
     _check_4d(name, q, k, v, do)
+    _check_aligned(name, q=q, k=k, v=v, do=do, **outputs)
     b, h, s, d = q.shape
     if lse.shape != (b, h, s, 1) or lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"lse must be ({b}, {h}, {s}, 1) float32 on {q.device}")
@@ -601,7 +606,7 @@ def _bwd_launch(name: str, outputs, q, k, v, do, lse, delta, scale, window, caus
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(t.data_ptr() for t in outputs),
+            delta.data_ptr(), *(t.data_ptr() for t in outputs.values()),
             b, h, s, d, _DTYPE_CODES[q.dtype], scale, *_mask_args(window, causal, kv_len),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
@@ -616,9 +621,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, window, causal, kv_len) -> torc
     if q.device.type == "cpu":
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len)
     dq = torch.empty_like(q)
-    if q.dtype == torch.bfloat16:  # lse and delta are read 4 bytes at a time
-        _check_aligned("flash_bwd_dq", q=q, k=k, v=v, do=do, dq=dq)
-    _bwd_launch("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale, window, causal, kv_len)
+    _bwd_launch("flash_bwd_dq", {"dq": dq}, q, k, v, do, lse, delta, scale, window, causal,
+                kv_len)
     return dq
 
 
@@ -628,10 +632,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, scale, window, causal, kv_len):
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, scale, window, causal, kv_len)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    if q.dtype == torch.bfloat16:  # lse and delta are read 4 bytes at a time
-        _check_aligned("flash_bwd_dkv", q=q, k=k, v=v, do=do, dk=dk, dv=dv)
-    _bwd_launch("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale, window, causal,
-                kv_len)
+    _bwd_launch("flash_bwd_dkv", {"dk": dk, "dv": dv}, q, k, v, do, lse, delta, scale, window,
+                causal, kv_len)
     return dk, dv
 
 
