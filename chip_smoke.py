@@ -488,6 +488,7 @@ TF32_KERNELS = {
     "flash_mha_bwd": ("mha_bwd_dq_tf32_tc_kernel", "mha_bwd_dkdv_tf32_tc_kernel"),
     "small_kv_bwd": ("skv_bwd_dq_tf32_tc_kernel", "skv_bwd_dkdv_tf32_tc_kernel"),
     "flash_bwd": ("flash_bwd_dq_tf32_tc_kernel", "flash_bwd_dkv_tf32_tc_kernel"),
+    "flash_fwd": ("flash_fwd_tf32_tc_kernel",),
 }
 
 
@@ -1445,6 +1446,17 @@ def time_kernel(label, kernel_fns, plain_fns, library_fns, bytes_ms, ops_ms,
             "operations_ms": ops_ms}
 
 
+def add_tf32x3_bound(label, row) -> None:
+    """An fp32 row of time_kernel whose kernel runs three TF32 passes a
+    product: its bound by operations at that rate (``operations_tf32x3_ms``)
+    beside the CUDA cores', logged."""
+    row["operations_tf32x3_ms"] = (row["operations_ms"] * PEAK_OPS_PER_S["float32"]
+                                   / PEAK_OPS_PER_S["tf32x3"])
+    tc_ms, tc_by = bound(row["bytes_ms"], row["operations_tf32x3_ms"])
+    log(f"[time] {label}: bound at three TF32 passes (165 TFLOP/s) {tc_ms:.4f} ms ({tc_by}); "
+        f"at the CUDA cores (67 TFLOP/s) {row['bound_ms']:.4f} ms ({row['bound_by']})")
+
+
 MHA_TIMING_BATCH = 128  # the training CLI's batch
 
 
@@ -1517,16 +1529,10 @@ def mha_timing(device, cfg, dtype_name) -> dict:
              [lambda i=i: i[4].backward(i[5], retain_graph=True) for i in inputs]),
         ):
             bytes_ms, ops_ms = attention_bound(batch, s, h, d, dtype_name, shape_lens, backward)
-            extra = {}
-            if dt == torch.float32:
-                extra["operations_tf32x3_ms"] = ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"]
             row = time_kernel(f"{kernel} {label}", kernel_fns, plain_fns, library_fns,
-                              bytes_ms, ops_ms, dtype=dtype_name, **shape, **extra)
-            if extra:
-                tc_ms, tc_by = bound(bytes_ms, extra["operations_tf32x3_ms"])
-                log(f"[time] {kernel} {label}: bound at three TF32 passes (165 TFLOP/s) "
-                    f"{tc_ms:.4f} ms ({tc_by}); at the CUDA cores (67 TFLOP/s) "
-                    f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+                              bytes_ms, ops_ms, dtype=dtype_name, **shape)
+            if dt == torch.float32:
+                add_tf32x3_bound(f"{kernel} {label}", row)
             out[kernel][name] = row
         del inputs
         torch.cuda.empty_cache()
@@ -1629,6 +1635,70 @@ def flash_bwd_turns(device, path: str) -> None:
                    "lm_fp32_parity": parity}, f)
 
 
+def fp32_prefill_timing(device, state) -> dict:
+    """The serving batch's prefill (nsa_prefill of the 8 prompts) with
+    DTypePolicy.fp32(), as serve runs without --bf16: median of 5 after a
+    warm-up, the kernel path and the all-plain path in turns (kernel,
+    plain, kernel, plain), and one kernel-path prefill under the profiler
+    (its top kernels)."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models.generate import nsa_prefill
+
+    cfg = serve_config()
+    padded, lens = serve_batch(serve_prompts(cfg.vocab_size), device)
+    models = {impl: build_lm(cfg, state, device, DTypePolicy.fp32(), impl)
+              for impl in ("auto", "reference")}
+
+    def prefill(impl):
+        with torch.inference_mode():
+            nsa_prefill(models[impl], padded, lens)
+
+    times = {"auto": [], "reference": []}
+    for impl in ("auto", "reference", "auto", "reference"):
+        prefill(impl)
+        times[impl].append(float(np.median([wall_ms(lambda: prefill(impl)) for _ in range(5)])))
+    log(f"[time] fp32 prefill of the serving batch ({len(SERVE_PROMPT_LENS)} prompts of "
+        f"{SERVE_PROMPT_LENS[0]}-{SERVE_PROMPT_LENS[-1]} tokens), median of 5: kernel path "
+        f"{' / '.join(f'{t:.2f}' for t in times['auto'])} ms, all-plain path "
+        f"{' / '.join(f'{t:.2f}' for t in times['reference'])} ms")
+    del models["reference"]
+    torch.cuda.empty_cache()
+    prof = profile_device(lambda: prefill("auto"),
+                          f"one fp32 prefill ({len(SERVE_PROMPT_LENS)} prompts)", top=12)
+    return {"prefill_ms": times["auto"], "plain_prefill_ms": times["reference"],
+            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"]}
+
+
+def flash_fwd_turns(device, path: str) -> None:
+    """flash_fwd_timing of this checkout (bf16 and fp32 at FLASH_FWD_TIMING,
+    five fp32 calls of each row profiled), the fp32 prefill of the serving
+    batch (fp32_prefill_timing), phase 9's fp32 readings
+    (serve_fp32_readings), phase 12's fp32 readings (lm_fp32_parity) and
+    the fp32 LM training step (lm_fp32_step_timing), written as JSON to
+    ``path``: one turn of a comparison of two checkouts inside one chip call
+    (parent, change, change, parent), this file copied into each. The
+    kernels' profiles come first: after a large profile session the next
+    ones can read no device time (PERF.md §7.7)."""
+    import torch
+
+    rows = flash_fwd_timing(device, torch.Generator(device=device).manual_seed(SEED + 21))
+    state = seeded_state(serve_config(), device, SEED)
+    prefill = fp32_prefill_timing(device, state)
+    out, last = serve_parity_paths(device, state, ("kernel32", "plain32"))
+    serve = serve_fp32_readings(device, state, out, last)
+    log("[serve parity] fp32: " + ", ".join(f"{k} {v}" for k, v in serve.items()))
+    del state, out, last
+    torch.cuda.empty_cache()
+    parity = lm_fp32_parity(device)
+    step = lm_fp32_step_timing(device)
+    with open(path, "w") as f:
+        json.dump({"card": nvidia_smi(), "flash_fwd": rows, "fp32_prefill": prefill,
+                   "serve_fp32_parity": serve, "lm_fp32_parity": parity,
+                   "lm_fp32_step": step}, f)
+
+
 # ---------------------------------------------------------------------------
 # The decoder LM's serving path: kernels flash_fwd and small_kv_fwd
 # ---------------------------------------------------------------------------
@@ -1648,8 +1718,10 @@ TOL_ATTN = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 2.0 ** -8)}
 # static kv_len bound). The serving prefill (the ragged batch pads to its
 # longest prompt; 2048 is the configuration's longest), the streaming side
 # of the JAX package's split (S = 8192), an odd S and a padded D, D = 128,
-# and a window that is not a multiple of the tile (the interior boundary
-# mid-tile).
+# a window that is not a multiple of the tile (the interior boundary
+# mid-tile), and padded rows that see no key (non-causal, window 16, kv_len
+# 100 of 128: rows 115-127), whose blocks walk every key tile, so the
+# kernel's mean of the walked v is the plain version's mean of all v.
 FLASH_FWD_CASES = [
     ("serve_b8_s2048_window512", 8, 8, 2048, 64, True, 512),
     ("serve_b8_s2048_causal", 8, 8, 2048, 64, True, None),
@@ -1659,6 +1731,7 @@ FLASH_FWD_CASES = [
     ("odd_s1000_d48_noncausal_kv_len", 2, 4, 1000, 48, False, None),
     ("s512_d128_window128", 2, 4, 512, 128, True, 128),
     ("s1024_window100", 2, 4, 1024, 64, True, 100),
+    ("blind_rows_s100_noncausal_window16", 4, 8, 100, 64, False, 16),
 ]
 # (name, B, H, S, K, D, keys): the compressed and top-k branches of the
 # serving prefill (S = 2048: 192 pools, 64 selected) and of a decode step
@@ -1823,6 +1896,10 @@ def phase_check_serving_kernels(device) -> dict:
             lse_err = (lse - lse_ref).abs().max().item()
             if not lse_err <= TOL_LSE:
                 raise AssertionError(f"flash_fwd lse {case} {dtype_name}: {lse_err:.3e}")
+            blind = int((lse_ref < fa.MASK_VALUE * 0.5).sum())
+            if blind:
+                log(f"[check] flash_fwd {case} {dtype_name}: {blind} rows see no key, their "
+                    f"lse {lse[lse_ref < fa.MASK_VALUE * 0.5].max().item():.3e}")
             with torch.inference_mode():
                 whole = fa.flash_attention(*(t.to(dt) for t in x), causal=causal,
                                            window_size=window, scale=scale)
@@ -1831,8 +1908,10 @@ def phase_check_serving_kernels(device) -> dict:
             del o, lse, o_ref, lse_ref, mag, whole
         del x, q, k, v
         torch.cuda.empty_cache()
-    check_misaligned_refused(
-        "flash_fwd", lambda x, lse: fa.flash_fwd(x, x, x, 0.125, None, True, None), device)
+    for dtype_name in ("bfloat16", "float32"):
+        check_misaligned_refused(
+            "flash_fwd", lambda x, lse: fa.flash_fwd(x, x, x, 0.125, None, True, None), device,
+            dtype_name)
 
     for case, b, h, s, kk, d, kind in SMALL_KV_CASES:
         q = torch.randn(b, h, s, d, device=device, generator=gen)
@@ -1906,7 +1985,9 @@ FLASH_BWD_CASES = [
 # training step (S = 2048: 192 pools, 64 selected), 960 pools at S = 8192,
 # pools a row does not have (INVALID_KEY_POS), every key in the future (the
 # uniform quirk: dq = dk = 0), D = 128, K = 200, not a multiple of the
-# kernels' 64-key tiles, and MAX_KEYS at D = 128.
+# kernels' 64-key tiles, MAX_KEYS at D = 128, and one dk/dv chunk at
+# S = 8192 (dkdv_chunks(4, 8, 8192, 576) = 1: the fp32 dk/dv kernel's
+# longest chain, 8,192 queries into one key row).
 SMALL_KV_BWD_CASES = [
     ("train_pools_s2048_k192", 8, 8, 2048, 192, 64, "pools"),
     ("train_topk_s2048_k64", 8, 8, 2048, 64, 64, "topk"),
@@ -1916,6 +1997,7 @@ SMALL_KV_BWD_CASES = [
     ("pools_s256_k100_d128", 2, 2, 256, 100, 128, "pools"),
     ("pools_s2048_k200", 2, 4, 2048, 200, 64, "pools"),
     ("max_keys_s256_k1024_d128", 2, 2, 256, 1024, 128, "pools"),
+    ("one_chunk_pools_s8192_k576", 4, 8, 8192, 576, 64, "pools"),
 ]
 
 
@@ -2219,11 +2301,11 @@ SERVE_PARITY_OF_CONTROL = 0.75
 SERVE_PARITY_NEW = 16
 
 
-def phase_serve_parity(device, state) -> dict:
-    """The greedy batch on the kernel path against the all-plain path from
-    the same weights: identical tokens in fp32; in bf16 the relative L2
-    of the prefill's last logits beside the plain-bf16-vs-plain-fp32
-    control."""
+def serve_parity_paths(device, state, names) -> tuple:
+    """The serving batch from the same weights on each path of ``names``
+    (kernel32, plain32, kernel16, plain16: DTypePolicy fp32 or bf16, the
+    kernels or the all-plain path): ({fp32 name: greedy tokens, SERVE_PARITY_NEW
+    new}, {name: the prefill's last logits})."""
     import torch
 
     from forde_tpu_torch.core.config import DTypePolicy
@@ -2232,18 +2314,14 @@ def phase_serve_parity(device, state) -> dict:
 
     cfg = serve_config()
     padded, lens = serve_batch(serve_prompts(cfg.vocab_size), device)
-
-    def build(dtypes, impl):
+    paths = {"kernel32": (DTypePolicy.fp32(), "auto"), "plain32": (DTypePolicy.fp32(), "reference"),
+             "kernel16": (DTypePolicy.bf16(), "auto"), "plain16": (DTypePolicy.bf16(), "reference")}
+    out, last = {}, {}
+    for name in names:
+        dtypes, impl = paths[name]
         m = FORDEDecoderLM(cfg.replace(dtypes=dtypes, attention_impl=impl), device=device)
         m.load_state_dict(state)
-        return m.eval()
-
-    out, last = {}, {}
-    for name, dtypes, impl in (("kernel32", DTypePolicy.fp32(), "auto"),
-                               ("plain32", DTypePolicy.fp32(), "reference"),
-                               ("kernel16", DTypePolicy.bf16(), "auto"),
-                               ("plain16", DTypePolicy.bf16(), "reference")):
-        m = build(dtypes, impl)
+        m.eval()
         _, last[name] = nsa_prefill(m, padded, lens)
         if name.endswith("32"):
             out[name] = generate_ragged(m, padded, lens, None, max_new_tokens=SERVE_PARITY_NEW,
@@ -2253,21 +2331,63 @@ def phase_serve_parity(device, state) -> dict:
     for name, t in last.items():
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"non-finite last logits on the {name} path")
+    return out, last
+
+
+def serve_fp32_readings(device, state, out, last) -> dict:
+    """Phase 9's fp32 readings from serve_parity_paths' kernel32 and
+    plain32: whether the greedy tokens are identical, where they first
+    differ ((row, column) of the batch, and the top-2 logit margin of the
+    all-plain model at the first differing new position of that row), and
+    the relative L2 of the prefill's last logits."""
+    import torch
+
+    from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+
+    got, want = out["kernel32"], out["plain32"]
+    differ = (got != want).nonzero().tolist()
+    readings = {"fp32_tokens_identical": not differ, "fp32_first_differing": differ[:4],
+                "fp32_last_logits": rel_l2(last["kernel32"], last["plain32"])}
+    if differ:
+        cfg = serve_config()
+        row = differ[0][0]
+        prompt = serve_prompts(cfg.vocab_size)[row]
+        m = FORDEDecoderLM(cfg.replace(dtypes=DTypePolicy.fp32(), attention_impl="reference"),
+                           device=device)
+        m.load_state_dict(state)
+        n = len(prompt) + SERVE_PARITY_NEW
+        pos, margin = top2_margin(m.eval(), prompt, got[row, :n].tolist(), want[row, :n].tolist())
+        readings.update({"fp32_first_differing_new_position": pos, "fp32_top2_margin": margin})
+        del m
+        torch.cuda.empty_cache()
+    return readings
+
+
+def phase_serve_parity(device, state) -> dict:
+    """The greedy batch on the kernel path against the all-plain path from
+    the same weights: identical tokens in fp32; in bf16 the relative L2
+    of the prefill's last logits beside the plain-bf16-vs-plain-fp32
+    control."""
+    out, last = serve_parity_paths(device, state, ("kernel32", "plain32", "kernel16", "plain16"))
 
     def rel(a, b):
         return float((a - b).norm() / b.norm())
 
-    same = bool(torch.equal(out["kernel32"], out["plain32"]))
-    differ = (out["kernel32"] != out["plain32"]).nonzero().tolist()
+    fp32 = serve_fp32_readings(device, state, out, last)
+    same = fp32["fp32_tokens_identical"]
     readings = {
-        "fp32_last_logits": rel(last["kernel32"], last["plain32"]),
+        "fp32_last_logits": fp32["fp32_last_logits"],
         "bf16_last_logits": rel(last["kernel16"], last["plain16"]),
         "control_plain_bf16_vs_fp32": rel(last["plain16"], last["plain32"]),
         "kernel_bf16_vs_plain_fp32": rel(last["kernel16"], last["plain32"]),
     }
     bar = SERVE_PARITY_OF_CONTROL * readings["control_plain_bf16_vs_fp32"]
-    log(f"[serve parity] fp32 greedy tokens ({SERVE_PARITY_NEW} new x {len(lens)} rows), kernel path vs "
-        f"all-plain path: identical {same}" + ("" if same else f", first differing {differ[:4]}"))
+    log(f"[serve parity] fp32 greedy tokens ({SERVE_PARITY_NEW} new x {len(SERVE_PROMPT_LENS)} "
+        f"rows), kernel path vs all-plain path: identical {same}" + ("" if same else
+        f", first differing {fp32['fp32_first_differing']}, new position "
+        f"{fp32['fp32_first_differing_new_position']}, top-2 margin "
+        f"{fp32['fp32_top2_margin']:.3e}"))
     log("[serve parity] relative L2 of the prefill's last logits: " + ", ".join(
         f"{k} {v:.3e}" for k, v in readings.items()) + f"; bf16 bar {bar:.3e} "
         f"({SERVE_PARITY_OF_CONTROL:g} x control)")
@@ -2413,23 +2533,21 @@ SMALL_KV_TIMING = [
 ]
 
 
-def phase_serving_kernel_timing(device) -> dict:
-    """Per call of flash_fwd and small_kv_fwd at the serving shapes (bf16;
-    flash_fwd's serving prefill in fp32 too): kernel, plain version, SDPA
-    with the same mask (a yardstick only: the port never calls it) and the
-    bound. Inputs cycle through copies that together exceed the 50 MB L2."""
+def flash_fwd_timing(device, gen) -> dict:
+    """Per call of flash_fwd at FLASH_FWD_TIMING: kernel, plain version, SDPA
+    with the same mask in the same dtype and the bound; fp32 rows also carry
+    the bound by operations at three TF32 passes (``operations_tf32x3_ms``),
+    and five fp32 calls are profiled. Inputs from ``gen`` cycle through
+    copies that together exceed the 50 MB L2."""
     import torch
     import torch.nn.functional as F
 
     from forde_tpu_torch.ops import flash_attention as fa
-    from forde_tpu_torch.ops import nsa_attention as nsa
 
-    gen = torch.Generator(device=device).manual_seed(SEED + 21)
-    bf16 = torch.bfloat16
-    out = {"flash_fwd": {}, "small_kv_fwd": {}}
+    out = {}
     for name, b, h, s, d, window, dtype_name in FLASH_FWD_TIMING:
         dt = getattr(torch, dtype_name)
-        elem = 2 if dt == bf16 else 4
+        elem = 2 if dt == torch.bfloat16 else 4
         copies = max(2, -(-200_000_000 // (3 * b * h * s * d * elem)))
         inputs = [[torch.randn(b, h, s, d, device=device, generator=gen).to(dt)
                    for _ in range(3)] for _ in range(copies)]
@@ -2440,19 +2558,42 @@ def phase_serving_kernel_timing(device) -> dict:
         def sdpa(q, k, v, mask=mask, scale=scale):
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
+        label = f"flash_fwd {name} (B={b}, H={h}, S={s}, D={d}, {dtype_name})"
+        kernel = [lambda i=i: fa.flash_fwd(*i, scale, window, True, None) for i in inputs]
         with torch.inference_mode():
             t = time_kernel(
-                f"flash_fwd {name} (B={b}, H={h}, S={s}, D={d}, {dtype_name})",
-                [lambda i=i: fa.flash_fwd(*i, scale, window, True, None) for i in inputs],
+                label, kernel,
                 [lambda i=i: fa.flash_fwd_reference(*i, scale, window, True, None)
                  for i in inputs[:2]],
                 [lambda i=i: sdpa(*i) for i in inputs],
-                *flash_fwd_bound(b, h, s, d, window, True, None, dtype_name),
+                *flash_fwd_bound(b, h, s, d, window, True, None, dtype_name), dtype=dtype_name,
                 B=b, H=h, S=s, D=d, window=window)
-        out["flash_fwd"][name] = {**t, "dtype": dtype_name}
-        del inputs
+            if dt == torch.float32:
+                add_tf32x3_bound(label, t)
+                # Five calls: a one-call window after a large profile session
+                # can read no device time (PERF.md §7.7).
+                profile_device(lambda: [kernel[j % len(kernel)]() for j in range(5)],
+                               f"five calls, {label}", top=4)
+        out[name] = t
+        del inputs, kernel
         torch.cuda.empty_cache()
+    return out
 
+
+def phase_serving_kernel_timing(device) -> dict:
+    """Per call of flash_fwd (flash_fwd_timing) and small_kv_fwd at the
+    serving shapes (bf16; flash_fwd's serving prefill and streaming side in
+    fp32 too): kernel, plain version, SDPA with the same mask (a yardstick
+    only: the port never calls it) and the bound. Inputs cycle through
+    copies that together exceed the 50 MB L2."""
+    import torch
+    import torch.nn.functional as F
+
+    from forde_tpu_torch.ops import nsa_attention as nsa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    bf16 = torch.bfloat16
+    out = {"flash_fwd": flash_fwd_timing(device, gen), "small_kv_fwd": {}}
     for name, b, h, s, kk, kind in SMALL_KV_TIMING:
         d = 64
         per_copy = (b * h * s * d + 2 * b * h * kk * d) * 2
@@ -2988,20 +3129,14 @@ def flash_bwd_timing(device) -> dict:
         library = [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs]
         for part, kernel, plain in (("dq", fa.flash_bwd_dq, fa.flash_bwd_dq_reference),
                                     ("dkv", fa.flash_bwd_dkv, fa.flash_bwd_dkv_reference)):
-            bytes_ms, ops_ms = flash_bwd_bound(b, h, s, d, window, True, part, dtype_name)
-            extra = {}
-            if dt == torch.float32:
-                extra["operations_tf32x3_ms"] = ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"]
             label = f"flash_bwd_{part} {name} (B={b}, H={h}, S={s}, D={d}, {tag})"
             row = time_kernel(
                 label, [lambda i=i: kernel(*i[0]) for i in inputs],
                 [lambda i=i: plain(*i[0]) for i in inputs[:2]],
-                library, bytes_ms, ops_ms, dtype=dtype_name, **shape, **extra)
-            if extra:
-                tc_ms, tc_by = bound(bytes_ms, extra["operations_tf32x3_ms"])
-                log(f"[time] {label}: bound at three TF32 passes (165 TFLOP/s) {tc_ms:.4f} ms "
-                    f"({tc_by}); at the CUDA cores (67 TFLOP/s) {row['bound_ms']:.4f} ms "
-                    f"({row['bound_by']})")
+                library, *flash_bwd_bound(b, h, s, d, window, True, part, dtype_name),
+                dtype=dtype_name, **shape)
+            if dt == torch.float32:
+                add_tf32x3_bound(label, row)
                 # Five calls: a one-call window after a large profile session
                 # can read no device time (PERF.md §7.7).
                 profile_device(lambda: [kernel(*inputs[j % len(inputs)][0]) for j in range(5)],
@@ -3048,22 +3183,15 @@ def small_kv_bwd_timing(device) -> dict:
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
             o_lib = F.scaled_dot_product_attention(*leaves, attn_mask=add, scale=scale)
             inputs.append(((q, k, v, key_pos, do, scale), o_lib, do))
-        bytes_ms, ops_ms = small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos,
-                                              dtype_name)
-        extra = {}
-        if dt == torch.float32:
-            extra["operations_tf32x3_ms"] = ops_ms * PEAK_OPS_PER_S["float32"] / PEAK_OPS_PER_S["tf32x3"]
         label = f"small_kv_bwd {name} (B={b}, H={h}, S={s}, K={kk}, D={d}, {tag})"
         row = time_kernel(
             label, [lambda i=i: nsa.small_kv_bwd(*i[0]) for i in inputs],
             [lambda i=i: nsa.small_kv_bwd_reference(*i[0]) for i in inputs[:2]],
             [lambda i=i: i[1].backward(i[2], retain_graph=True) for i in inputs],
-            bytes_ms, ops_ms, dtype=dtype_name, B=b, H=h, S=s, K=kk, D=d, **extra)
-        if extra:
-            tc_ms, tc_by = bound(bytes_ms, extra["operations_tf32x3_ms"])
-            log(f"[time] {label}: bound at three TF32 passes (165 TFLOP/s) {tc_ms:.4f} ms "
-                f"({tc_by}); at the CUDA cores (67 TFLOP/s) {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']})")
+            *small_kv_bwd_bound(inputs[0][0][0], inputs[0][0][1], key_pos, dtype_name),
+            dtype=dtype_name, B=b, H=h, S=s, K=kk, D=d)
+        if dt == torch.float32:
+            add_tf32x3_bound(label, row)
             # The dq, dk/dv and chunk-sum kernels' shares, over five calls: after
             # a large profile session (the fp32 LM step's) the profiler drops a
             # new session's first kernel records, so a one-call window can

@@ -1,8 +1,7 @@
 // Pieces shared by the hand-written kernels under csrc/: conversions
-// between the storage types and fp32, the staging of a 64-row fp32 tile in
-// shared memory, the mask contracts of the flash and the small-KV kernels,
-// the key-tile walk of the 4-D flash kernels, and the error-string export
-// every kernel library has.
+// between the storage types and fp32, the mask contracts of the flash and
+// the small-KV kernels, the key-tile walk of the 4-D flash kernels, and
+// the error-string export every kernel library has.
 //
 // Each csrc/<name>.cu is compiled on its own into lib<name>.so, so the
 // definitions here land once in each library.
@@ -31,27 +30,6 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
-}
-
-// An fp32 value rounded through T and widened back: the TPU kernels'
-// `.astype(dtype)` of an fp32 intermediate.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float<T>(from_float<T>(x));
-}
-
-// Rows [0, 64) of a tile from a strided (row stride `stride`) D-wide slice
-// into fp32 shared memory with row pitch D + 1; rows at or past `limit`
-// are zero. Every one of the block's NT threads takes part (NT a
-// compile-time constant, so the loop's trip count is known).
-template <typename T, int D, int NT>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
-                                          int limit, long long stride) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int g = row0 + r;
-    dst[r * (D + 1) + d] = g < limit ? to_float(src[g * stride + d]) : 0.f;
-  }
 }
 
 // a / b rounded towards -inf (b > 0), as jnp.floor_divide: the interior

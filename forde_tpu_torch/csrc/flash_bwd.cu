@@ -122,12 +122,12 @@
 // slot t + 4; the B operand read at rows 2t, 2t + 1 by load_bt_f32): they
 // never touch shared memory. dv = p^T do takes p unrounded. Each step's
 // product is summed in a fresh accumulator and added to dq (dk, dv) on the
-// CUDA cores, rounded to nearest (mma_step_tf32x3): chained through the
-// tensor cores' accumulation over the whole walk, the error grew with S in
-// one direction, to 1.07 of the fp32 bar in chip_smoke.py's ring at S =
-// 8,192 (0.02 with the step sums; PERF.md). At D = 128 the dk and dv
-// accumulators take 128 registers a thread, so the dv and dk updates of a
-// step go in two passes (as at D = 64). Registers (ptxas): dq 164 / 198,
+// CUDA cores, rounded to nearest (mma_step_tf32x3 of mma.cuh): chained
+// through the tensor cores' accumulation over the whole walk, the error
+// grew with S in one direction, to 1.07 of the fp32 bar in chip_smoke.py's
+// ring at S = 8,192 (0.02 with the step sums; PERF.md). At D = 128 the dk
+// and dv accumulators take 128 registers a thread, so the dv and dk
+// updates of a step go in two passes (as at D = 64). Registers (ptxas): dq 164 / 198,
 // dk/dv 167 / 255 at D = 64 / 128, so 3 blocks an SM at D = 64 and 2 at D
 // = 128; no spills. Each output is summed in a fixed order with no
 // atomics: two calls give the same bits. Measured (chip_smoke.py
@@ -243,34 +243,6 @@ __device__ __forceinline__ void interior_query_tiles(int c0, int cols,
   if (c0 + cols > keys) fe = fs;
   fs = min(max(fs, i_begin), i_end);
   fe = min(max(fe, fs), i_end);
-}
-
-// acc += a b for one step of a walk: a, 16 x 8 NJ, split into TF32 (hi,
-// lo) as it stands in the accumulators, times rows 0 .. 8 NJ - 1 of
-// `tile` (fp32, pitch D + 4, k along its rows, read by load_bt_f32). Each
-// n8 tile is summed in a fresh accumulator and then added to acc on the
-// CUDA cores, rounded to nearest. The tensor cores' fp32 accumulation does
-// not round to nearest: chained across every step of a walk (dk and dv sum
-// over up to S queries, dq over up to S keys), its error grew with the
-// walk's length in one direction (PERF.md).
-template <int D, int NJ>
-__device__ __forceinline__ void mma_step_tf32x3(float (&acc)[D / 8][4],
-                                                const uint32_t (&hi)[NJ][4],
-                                                const uint32_t (&lo)[NJ][4],
-                                                const float* tile, int lane) {
-  using namespace forde::mma;
-#pragma unroll
-  for (int np = 0; np < D / 8; ++np) {
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < NJ; ++kk) {
-      uint32_t bh[2], bl[2];
-      load_bt_f32<D>(bh, bl, tile, 8 * kk, 8 * np, lane);
-      mma_tf32x3(part, hi[kk], lo[kk], bh[0], bh[1], bl[0], bl[1]);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[np][e] += part[e];
-  }
 }
 
 // The fp32 route's dq kernel: the bf16 dq kernel's walk over the key tiles

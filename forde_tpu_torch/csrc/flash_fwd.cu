@@ -17,11 +17,12 @@
 //   * a masked score is -1e30 and the running max starts at -1e30, as in
 //     the TPU kernel (a tile whose keys are all masked for a row adds
 //     exp(0) = 1 terms until a visible key rescales them away);
-//   * scores are fp32 products of the input values summed in fp32; p is
-//     summed into l in fp32 and rounded to the input type before the
-//     product with v (`p.astype(v.dtype)`), against the running max of
-//     64-key tiles; o = acc / l in the input type, lse = m + log(l) in
-//     fp32, l == 0 guarded.
+//   * scores are fp32 products of the input values summed in fp32 (in
+//     fp32, three TF32 passes a product: within 2^-19 of it); p is summed
+//     into l in fp32 and rounded to the input type before the product
+//     with v (`p.astype(v.dtype)`: in fp32 not at all), against the
+//     running max of the walked keys; o = acc / l in the input type,
+//     lse = m + log(l) in fp32, l == 0 guarded.
 //
 // Bound on the H100: at the serving prefill (B=8, H=8, S=2048, D=64, bf16,
 // causal, window 512) q, k, v are read once and o, lse written once:
@@ -73,14 +74,46 @@
 // neither bounds it. mma.sync from 12 warps an SM, with the softmax between
 // a tile's two products, is latency-bound; wgmma with TMA is the next step.
 //
-// fp32 route (flash_fwd_kernel): the CUDA cores. One block per (q tile of
-// 64 rows, head, sample); the q tile is held in shared memory as fp32 with
-// row pitch D + 1, K and then V of a tile share one buffer, and the 64 x D
-// output stays in registers; its fmaf loops bound it. It is the route of
-// every LM run without --bf16 (DTypePolicy's compute type defaults to
-// fp32: serve and train.loop) and of every checkpoint trained that way,
-// besides checks and parity runs. flash_mha_fwd.cu's three-pass TF32 route
-// is the pattern for taking it to the tensor cores.
+// fp32 route (flash_fwd_tf32_tc_kernel): the tensor cores too, every
+// product three TF32 passes (mma.sync.m16n8k8; mma.cuh), as the fp32
+// routes of flash_mha_fwd.cu and flash_bwd.cu. It replaces the same two
+// TPU kernels in fp32, whose products the TPU takes at full precision, and
+// it is the route of every LM run without --bf16 (DTypePolicy's compute
+// type defaults to fp32: each serve prefill and train.loop step launches
+// it once per layer) and of every checkpoint trained that way. Bound on
+// the H100 at the serving prefill (fp32: ~135 MB, 0.040 ms at 3.35 TB/s;
+// ~15 GFLOP, 0.224 ms at the CUDA cores' 67 TFLOP/s, 0.091 ms at a third
+// of TF32's 495 on the tensor cores): the products bound it, and the
+// CUDA-core kernel this route replaced (a 16 x 16 thread grid, scores and
+// probabilities through shared memory, fmaf loops) ran 0.94 ms, 4.2x even
+// the CUDA cores' bound. The walk is the bf16 route's: 4 warps of 16 query
+// rows, 64-row blocks, the 64-key tiles of `key_tiles` with the per-warp
+// interior split `interior_tiles`, so the mask runs only on a warp's edge
+// tiles, and the online softmax in log2 units on the accumulator fragments
+// with the -1e30 sentinel as it is. What changes for fp32 is
+// flash_mha_fwd.cu's fp32 pattern: the q tile stays fp32 in shared memory
+// with row pitch D + 4 for the block's walk, a 64-key tile comes through a
+// two-stage cp.async ring in pieces of TF32_KEYS keys (the edge test stays
+// per 64-key tile and warp), q and K are split into TF32 hi and lo as
+// their fragments are loaded (the planes never take shared memory: split
+// once per block they cost occupancy, PERF.md), and p, split in registers,
+// is the A operand of p v as it stands in the accumulators (column 2t to k
+// slot t, 2t + 1 to slot t + 4; V read at rows 2t, 2t + 1 by load_bt_f32).
+// p is not rounded before p v: l and the product take the same p. Each
+// piece's p v is summed in a fresh accumulator and added to the rescaled o
+// on the CUDA cores (mma_step_tf32x3): chained through the tensor cores'
+// accumulation over a walk of up to S keys, the error drifts one way
+// (PERF.md). o = acc / l and lse as the bf16 route; two calls give the
+// same bits. Registers (ptxas): 168 at D = 64 (3 blocks an SM), 241 at
+// D = 128 (2 blocks); no spills. Measured (chip_smoke.py flash_fwd_turns,
+// NVIDIA H100 80GB HBM3, 700.00 W): 0.3511-0.3518 ms of device time at the
+// serving prefill and 0.2086-0.2093 at S = 8,192 (the CUDA-core kernel
+// took 0.9408-0.9426 and 0.5288-0.5304 in the same call): 3.9x the
+// three-pass bound, 1.6x the CUDA cores', 3.4x the bf16 route's time and
+// 0.15x SDPA's fp32 call; useful products at ~43 TFLOP/s. As in the other
+// TF32 routes, issue slots bound it: the D = 64 kernel's SASS holds 2,264
+// instructions for 192 TF32 HMMA (the split, three instructions an
+// element, taken again by every warp at every load).
 
 #include <math.h>
 #include <stdint.h>
@@ -92,20 +125,18 @@ namespace {
 
 using forde::interior_tiles;
 using forde::key_tiles;
-using forde::load_tile;
 
 constexpr int BQ = 64;               // query rows per block
 constexpr int BK = forde::FLASH_BK;  // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 thread grid (fp32 route)
 constexpr float MASK_VALUE = -1e30f;
+constexpr int TC_THREADS = 128;      // 4 warps of 16 query rows
 
-constexpr int TC_THREADS = 128;  // 4 warps of 16 query rows (bf16 route)
-// Stages of the ring: tiles i + 1 and i + 2 are in flight while tile i is
-// multiplied.
+// The bf16 route: stages of its ring (tiles i + 1 and i + 2 are in flight
+// while tile i is multiplied), and blocks an SM, which caps the registers a
+// thread at 65,536 / 128 / blocks; at D = 128 the kernel takes ~220
+// registers a thread.
 constexpr int TC_STAGES = 3;
 
-// Blocks an SM, which caps the registers a thread at 65,536 / 128 / blocks;
-// at D = 128 the kernel takes ~220 registers a thread.
 template <int D>
 constexpr int tc_blocks_per_sm() {
   return D == 128 ? 1 : 3;
@@ -117,157 +148,184 @@ constexpr size_t tc_smem_bytes() {
   return (BQ + 2 * TC_STAGES * BK) * D * sizeof(__nv_bfloat16);
 }
 
+// The fp32 route: keys per step (a piece of a 64-key tile; two stages of
+// the ring) and blocks an SM. The q tile and two stages of a 32-key K and
+// V piece take 51 KB at D = 64 (pitch D + 4), three blocks an SM under 168
+// registers a thread; 99 KB at D = 128, two blocks. A whole 64-key tile a
+// step would hold 64 registers of p's hi and lo beside the accumulators.
+constexpr int TF32_KEYS = 32;
+
 template <int D>
-constexpr size_t smem_bytes() {
-  return ((BQ + BK) * (D + 1) + BQ * (BK + 1) + 3 * BQ) * sizeof(float);
+constexpr int tf32_blocks_per_sm() {
+  return D == 128 ? 2 : 3;
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int S, float scale, int causal,
-                 int window, int kv_len) {
-  constexpr int LD = D + 1;   // pitch of q/kv rows: conflict-free column reads
-  constexpr int LP = BK + 1;  // pitch of score rows
-  constexpr int DJ = D / 16;  // output columns per thread
+constexpr size_t tf32_smem_bytes() {
+  return (BQ + 2 * 2 * TF32_KEYS) * (D + 4) * sizeof(float);
+}
 
-  extern __shared__ float smem[];
-  float* q_s = smem;             // BQ x LD
-  float* kv_s = q_s + BQ * LD;   // BK x LD: K of the tile, then its V
-  float* p_s = kv_s + BK * LD;   // BQ x LP: scores, then probabilities
-  float* m_s = p_s + BQ * LP;    // running row max
-  float* l_s = m_s + BQ;         // running row sum
-  float* a_s = l_s + BQ;         // rescale factor of the current tile
+// The fp32 route. Warp w owns rows q0 + 16w .. q0 + 16w + 15; lane (g, t)
+// holds rows g and g + 8 of them (r0, r1) and, of each n8 tile j of a
+// product, cols 8j + 2t and 8j + 2t + 1. Every product is three TF32 passes
+// (mma.cuh); q and K are split as their fragments are loaded. Step i takes
+// keys j_begin * BK + i * KT .. + KT - 1 of key tile j_begin + i / PIECES.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS, tf32_blocks_per_sm<D>())
+flash_fwd_tf32_tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int S, float scale, int causal,
+                         int window, int kv_len) {
+  using namespace forde::mma;
+  constexpr int LD = D + 4;          // row pitch of the fp32 tiles
+  constexpr int KD = D / 8;          // k8 steps over the head dim
+  constexpr int ND = D / 8;          // n8 tiles of the output
+  constexpr int KT = TF32_KEYS;      // keys per step
+  constexpr int NJ = KT / 8;         // n8 tiles of s
+  constexpr int PIECES = BK / KT;    // steps per key tile
+  constexpr int STAGE = 2 * KT * LD; // a K piece, then a V piece
+
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* const q_s = reinterpret_cast<float*>(smem_raw);
+  float* const ring = q_s + BQ * LD;
 
   const int q0 = blockIdx.x * BQ;
-  const int bh = blockIdx.z * gridDim.y + blockIdx.y;  // b * H + h
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int warp = tid / 32, lane = tid % 32;
-
-  const long long base = (long long)bh * S * D;
-  const float* q_g = q + base;
+  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const long long base = bh * S * D;
   const float* k_g = k + base;
   const float* v_g = v + base;
 
   int j_begin, j_end;
   key_tiles(q0, BQ, S, causal, window, kv_len, j_begin, j_end);
+  const int n = (j_end - j_begin) * PIECES;  // at least one tile
+  const int keys = kv_len >= 0 ? min(kv_len, S) : S;
 
-  load_tile<float, D, THREADS>(q_s, q_g, q0, S, D);
-  if (tid < BQ) {
-    m_s[tid] = MASK_VALUE;
-    l_s[tid] = 0.f;
-  }
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
+  const int wrow = 16 * warp;
+  // Key tiles [fs, fe) need no mask for this warp's rows.
+  int fs, fe;
+  interior_tiles(q0 + wrow, 16, j_begin, j_end, causal, window, kv_len, fs, fe);
 
-  for (int jt = j_begin; jt < j_end; ++jt) {
-    const int k0 = jt * BK;
-    __syncthreads();  // the previous tile is done with kv_s and p_s
-    load_tile<float, D, THREADS>(kv_s, k_g, k0, S, D);
+  // Step i's K and V pieces into stage i % 2, as one commit group.
+  auto fetch = [&](int i) {
+    float* const dst = ring + (i & 1) * STAGE;
+    const int k0 = j_begin * BK + i * KT;
+    load_tile_f32_async<KT, D, TC_THREADS>(dst, k_g, k0, S, D);
+    load_tile_f32_async<KT, D, TC_THREADS>(dst + KT * LD, v_g, k0, S, D);
+    cp_async_commit();
+  };
+  load_tile_f32_async<BQ, D, TC_THREADS>(q_s, q + base, q0, S, D);
+  fetch(0);  // with q
+
+  const int r0 = q0 + wrow + g, r1 = r0 + 8;
+  // The keys visible to rows r0 and r1: [lo, hi] (common.cuh `visible`).
+  const int lo0 = window >= 0 ? r0 - window + 1 : 0;
+  const int lo1 = window >= 0 ? r1 - window + 1 : 0;
+  const int hi0 = causal ? min(r0, keys - 1) : keys - 1;
+  const int hi1 = causal ? min(r1, keys - 1) : keys - 1;
+  // Scores in log2 units: exp(s * scale - m) = 2^(s * scale * log2(e) - m').
+  const float scale_log2 = scale * LOG2E;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // Running max of rows r0, r1 (log2 units; -1e30 as on the TPU), and this
+  // lane's part of the running sums.
+  float m0 = MASK_VALUE, m1 = MASK_VALUE;
+  float l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    // Step i's pieces have landed; after the barrier every warp is done
+    // with step i - 1, whose stage takes step i + 1.
+    cp_async_wait<0>();
     __syncthreads();
+    if (i + 1 < n) fetch(i + 1);
 
-    // Scores of rows ty + 16i, keys tx + 16j.
-    float sc[4][4];
+    const int k0 = j_begin * BK + i * KT;
+    const int jt = j_begin + i / PIECES;
+    const bool edge = jt < fs || jt >= fe;
+    const float* const k_t = ring + (i & 1) * STAGE;
+    const float* const v_t = k_t + KT * LD;
+    float s[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], qh[4], ql[4];
+      load_a_f32<D>(qa, q_s, wrow, kk, lane);
+      split_tf32(qa, qh, ql);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = q_s[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = kv_s[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int qr = q0 + r;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kc = k0 + c;
-        bool vis = kv_len < 0 || kc < kv_len;
-        if (causal) vis = vis && qr >= kc;
-        if (window >= 0) vis = vis && (qr - kc) < window;
-        p_s[r * LP + c] = vis ? sc[i][j] * scale : MASK_VALUE;
+      for (int np = 0; np < NJ / 2; ++np) {
+        uint32_t kb[4], kh[4], kl[4];
+        load_b_f32<D>(kb, k_t, 16 * np, kk, lane);
+        split_tf32(kb, kh, kl);
+        mma_tf32x3(s[2 * np], qh, ql, kh[0], kh[1], kl[0], kl[1]);
+        mma_tf32x3(s[2 * np + 1], qh, ql, kh[2], kh[3], kl[2], kl[3]);
       }
     }
-    __syncthreads();
 
-    // Online softmax: each warp owns 8 rows, each lane 2 keys of a row.
-    for (int rr = 0; rr < BQ / 8; ++rr) {
-      const int r = warp * (BQ / 8) + rr;
-      const float s0 = p_s[r * LP + lane];
-      const float s1 = p_s[r * LP + lane + 32];
-      float mx = fmaxf(s0, s1);
+    // Scale, and on an edge tile mask to -1e30.
+    float mx0 = MASK_VALUE, mx1 = MASK_VALUE;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
+    for (int j = 0; j < NJ; ++j) {
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      p_s[r * LP + lane] = p0;
-      p_s[r * LP + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
+      for (int e = 0; e < 2; ++e) {
+        const int kc = k0 + 8 * j + 2 * t + e;
+        float x0 = s[j][e] * scale_log2, x1 = s[j][2 + e] * scale_log2;
+        if (edge) {
+          if (kc < lo0 || kc > hi0) x0 = MASK_VALUE;
+          if (kc < lo1 || kc > hi1) x1 = MASK_VALUE;
+        }
+        s[j][e] = x0;
+        s[j][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
       }
     }
-    // K is no longer read: the same buffer takes V.
-    load_tile<float, D, THREADS>(kv_s, v_g, k0, S, D);
-    __syncthreads();
+    const float mn0 = fmaxf(m0, quad_max(mx0));
+    const float mn1 = fmaxf(m1, quad_max(mx1));
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    l0 *= a0;
+    l1 *= a1;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      acc[j][0] *= a0;
+      acc[j][1] *= a0;
+      acc[j][2] *= a1;
+      acc[j][3] *= a1;
+    }
 
-    // acc = alpha * acc + P V for rows ty + 16i, columns tx + 16j.
+    // p = 2^(s - m), summed into l; n8 tile kk of p, split into TF32, is
+    // the A operand of k8 step kk of p v, summed apart and added to o.
+    uint32_t ph[NJ][4], pl[NJ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float alpha = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) acc[i][j] *= alpha;
+    for (int kk = 0; kk < NJ; ++kk) {
+      float p[4];
+      p[0] = exp2_approx(s[kk][0] - m0);
+      p[1] = exp2_approx(s[kk][1] - m0);
+      p[2] = exp2_approx(s[kk][2] - m1);
+      p[3] = exp2_approx(s[kk][3] - m1);
+      l0 += p[0] + p[1];
+      l1 += p[2] + p[3];
+      acc_to_a_tf32(ph[kk], pl[kk], p);
     }
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * LP + c];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) vv[j] = kv_s[c * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+    mma_step_tf32x3<D, NJ>(acc, ph, pl, v_t, lane);  // o += p v
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qr = q0 + r;
-    if (qr >= S) continue;
-    const float l = l_s[r];
-    const float l_safe = l == 0.f ? 1.f : l;
-    float* orow = o + base + (long long)qr * D;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) orow[tx + 16 * j] = acc[i][j] / l_safe;
-    if (tx == 0) lse[(long long)bh * S + qr] = m_s[r] + logf(l_safe);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float ls0 = l0 == 0.f ? 1.f : l0, ls1 = l1 == 0.f ? 1.f : l1;
+  store_rows_f32<D>(o + base, D, acc, r0, S, 1.f / ls0, 1.f / ls1, lane);
+  if (t == 0) {
+    float* lse_bh = lse + bh * S;
+    // lse = m + log(l) in natural units; a row with every walked key
+    // masked keeps m = -1e30 as it is.
+    const bool valid0 = m0 > MASK_VALUE * 0.5f, valid1 = m1 > MASK_VALUE * 0.5f;
+    lse_bh[r0] = (valid0 ? m0 * LN2 : m0) + logf(ls0);
+    lse_bh[r1] = (valid1 ? m1 * LN2 : m1) + logf(ls1);
   }
 }
 
@@ -472,16 +530,16 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int batch, int heads, int seq, float scale,
-                   int causal, int window, int kv_len, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        void* lse, int batch, int heads, int seq, float scale,
+                        int causal, int window, int kv_len, cudaStream_t stream) {
+  constexpr size_t smem = tf32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_tf32_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(seq / BQ, heads, batch);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_tf32_tc_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(lse), seq, scale, causal, window, kv_len);
@@ -492,9 +550,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// dtype: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core route;
-// q, k, v and o 16-byte aligned); seq a multiple of 64; window < 0 and
-// kv_len < 0 mean none. Returns the CUDA error code of the launch (0 on
+// dtype: 0 = float32 (three TF32 passes a product), 1 = bfloat16; both on
+// the tensor cores, q, k, v and o 16-byte aligned; seq a multiple of 64;
+// window < 0 and kv_len < 0 mean none. Returns the CUDA error code of the launch (0 on
 // success).
 int forde_flash_fwd(const void* q, const void* k, const void* v, void* o,
                     void* lse, int batch, int heads, int seq, int head_dim,
@@ -503,11 +561,11 @@ int forde_flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (seq % BQ != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0 && head_dim == 64)
-    return launch<64>(q, k, v, o, lse, batch, heads, seq, scale, causal,
-                      window, kv_len, st);
+    return launch_tf32<64>(q, k, v, o, lse, batch, heads, seq, scale, causal,
+                           window, kv_len, st);
   if (dtype == 0 && head_dim == 128)
-    return launch<128>(q, k, v, o, lse, batch, heads, seq, scale, causal,
-                       window, kv_len, st);
+    return launch_tf32<128>(q, k, v, o, lse, batch, heads, seq, scale, causal,
+                            window, kv_len, st);
   if (dtype == 1 && head_dim == 64)
     return launch_tc<64>(q, k, v, o, lse, batch, heads, seq, scale, causal,
                          window, kv_len, st);

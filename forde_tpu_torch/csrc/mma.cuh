@@ -316,6 +316,34 @@ __device__ __forceinline__ void acc_to_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[
   split_tf32(c[3], hi[3], lo[3]);
 }
 
+// acc += a b for one step of a walk: a, 16 x 8 NJ, split into TF32 (hi,
+// lo) as it stands in the accumulators, times rows 0 .. 8 NJ - 1 of
+// `tile` (fp32, pitch D + 4, k along its rows, read by load_bt_f32). Each
+// n8 tile is summed in a fresh accumulator and then added to acc on the
+// CUDA cores, rounded to nearest. The tensor cores' fp32 accumulation does
+// not round to nearest: chained across every step of a walk (the 4-D
+// backward's dk and dv sum over up to S queries, its dq and the forward's
+// o over up to S keys), its error grew with the walk's length in one
+// direction (PERF.md).
+template <int D, int NJ>
+__device__ __forceinline__ void mma_step_tf32x3(float (&acc)[D / 8][4],
+                                                const uint32_t (&hi)[NJ][4],
+                                                const uint32_t (&lo)[NJ][4],
+                                                const float* tile, int lane) {
+#pragma unroll
+  for (int np = 0; np < D / 8; ++np) {
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kk = 0; kk < NJ; ++kk) {
+      uint32_t bh[2], bl[2];
+      load_bt_f32<D>(bh, bl, tile, 8 * kk, 8 * np, lane);
+      mma_tf32x3(part, hi[kk], lo[kk], bh[0], bh[1], bl[0], bl[1]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[np][e] += part[e];
+  }
+}
+
 // A warp's 16 x D fp32 accumulator, rows scaled by s0 (row g) and s1 (row
 // g + 8), to global rows r0 and r0 + 8 of dst (row stride `stride`
 // elements) in 8-byte stores; rows at or past `limit` are not written.

@@ -30,11 +30,10 @@ launches ``csrc/flash_fwd.cu`` and saves q, k, v, o and the fp32 lse;
 tensor every wrapper runs its kernel's plain version
 (``flash_fwd_reference``, ``flash_bwd_dq_reference``,
 ``flash_bwd_dkv_reference``). The input dtype picks the route here too:
-bf16 ``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` run on the
-tensor cores (``mma.sync``, 16-byte ``cp.async``, so their wrappers refuse
-a tensor off a 16-byte boundary); in fp32 ``flash_bwd_dq`` and
-``flash_bwd_dkv`` do too, in three TF32 passes a product (so they refuse
-such a tensor in fp32 as well), and ``flash_fwd`` runs on the CUDA cores.
+``flash_fwd``, ``flash_bwd_dq`` and ``flash_bwd_dkv`` run on the tensor
+cores in both, bf16 as it is and fp32 in three TF32 passes a product
+(``mma.sync``, 16-byte ``cp.async``, so their wrappers refuse a tensor off
+a 16-byte boundary in either dtype).
 """
 
 from __future__ import annotations
@@ -498,8 +497,9 @@ def flash_fwd(
     q, k and v are (B, H, S, D), float32 or bfloat16, with S a multiple of
     ``BLOCK`` and D 64 or 128 on CUDA (``flash_attention`` pads). A CPU
     tensor takes the plain version; a CUDA tensor launches the kernel on
-    the current stream (bf16 on the tensor cores, fp32 on the CUDA
-    cores), or raises.
+    the current stream (on the tensor cores: bf16 as it is, fp32 in three
+    TF32 passes a product), or raises. Both routes copy q, k and v in
+    16-byte ``cp.async`` pieces.
     """
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, scale, window, causal, kv_len)
@@ -509,8 +509,7 @@ def flash_fwd(
     b, h, s, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty(b, h, s, 1, dtype=torch.float32, device=q.device)
-    if q.dtype == torch.bfloat16:  # lse is written 4 bytes at a time
-        _check_aligned("flash_fwd", q=q, k=k, v=v, o=o)
+    _check_aligned("flash_fwd", q=q, k=k, v=v, o=o)  # lse is written 4 bytes at a time
 
     lib = build.load("flash_fwd")
     fn = lib.forde_flash_fwd
