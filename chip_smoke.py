@@ -51,6 +51,9 @@ holds every CUDA kernel of them against its plain PyTorch version:
     expert, model and pipe axes; FSDP), and the port's benchmark drivers
     (``forde_tpu_torch.bench`` and ``forde_tpu_torch.benchmarks``), each
     ending in its one JSON line.
+  * a train state written on the CPU resumed on the card (``clip_loop
+    --resume``, the move of a converted JAX run): the Forde-lite tiny
+    preset at its full width in fp32, through a Forde-lite update.
 
 Phases:
   1. device: name, and name + power limit from nvidia-smi;
@@ -64,7 +67,8 @@ Phases:
      passes a product: their TF32 kernels among the tensor-core kernels,
      TF32 HMMA in their SASS);
   3. each kernel against its plain version on the card, fp32 and bf16, at
-     the shapes of the paths (the training CLIs' shapes; the serving
+     the shapes of the paths (the training CLIs' shapes, vit_tiny's 3 heads
+     of 64 among them; the serving
      prefill and decode shapes, the streaming S = 8192, an odd S and a
      padded D) and the mask options (kv_lens with 0, kv_bound, causal +
      window; kv_len; INVALID_KEY_POS keys, keys all in the future, K not a
@@ -159,7 +163,7 @@ Phases:
  21. full-recompute generate (NSA, fp32, 2 x 256, 16 new): tokens =
      generate_cached's, 16 x 12 launches of flash_fwd and of each
      small_kv_fwd branch, MoE stat buffers kept; bf16 agreement;
- 22. speculative decoding (dense target, 512-token prompt, 64 new, gamma
+ 22. speculative decoding (dense target, 512-token prompt, 32 new, gamma
      4): fp32 tokens = generate_cached's with the target as its own draft
      (every proposal accepted) and with a 2-layer draft, both loaded from
      checkpoints; bf16 tokens/forward and ms per output token beside
@@ -275,16 +279,17 @@ Phases:
      H 2,048, top-2, factor 8, over data 2 x expert 2) equal to one rank's
      capacity dispatch; the sharded contrastive loss at vit_b16's batch of
      128 over data 4 against clip_contrastive_loss; one full-width fp32
-     train_step of the reference-default decoder (12 layers, 8 experts,
-     NSA, mHC, carried weights) over (context 4) at 1 x 8,192 and over
+     train_step of the reference-default decoder (cut to 8 layers, 8
+     experts, NSA, mHC, carried weights) over (context 4) at 1 x 8,192 and over
      (data 2, expert 2) with ep dispatch at 4 x 2,048, against one rank's
-     step to phase 12's fp32 bars, its kernels counted; then train.loop (8
+     step to phase 12's fp32 bars, its kernels counted; then train.loop (2
      x 2,048, 2 steps) and clip_loop (vit_b16, --fuse_steps 2) in fp32
      under a one-rank NCCL group (torchrun's variables), their final losses
-     bit-identical to the same CLIs alone.
+     bit-identical to the same CLIs alone, run beside it.
  32. tensor parallelism, FSDP and the GPipe pipeline on thread ranks of
-     this process on the one card (fp32, the reference-default decoder at
-     capacity factor 8, carried weights): one LM train_step over (model 4)
+     this process on the one card (fp32, the reference-default decoder cut
+     to 8 layers, at capacity factor 8, carried weights): one LM train_step
+     over (model 4)
      at 2 x 2,048, (data 2, model 2) with fsdp at 4 x 2,048, GPipe over
      (pipe 4) with 4 microbatches and (data 2, pipe 2) with 2 at 4 x 1,024,
      each against one rank's step to phase 31's LM bars, with per-rank
@@ -296,20 +301,23 @@ Phases:
      (data 2, model 2) with fsdp at batch 128 to phase 12's fp32 bars, the
      specialist units whose binary step flips against one rank counted per
      layer and the act_stats of the layers no flip reaches held at 1e-5;
-     greedy generate_cached over (model 2), eager, on the serving prompts:
-     fp32 (NSA) and int8 dense-causal (16 new) tokens exactly one rank's,
-     int8 NSA the share that match, each row's first differing position,
+     greedy generate_cached over (model 2), eager, 8 new tokens on the
+     first 2 serving prompts: fp32 (NSA) and int8 dense-causal tokens
+     exactly one rank's, int8 NSA the share that match, each row's first
+     differing position,
      each rank's int8 arrays its slices of one rank's, and the
      teacher-forced argmax agreement at 0.95 (NSA int8: 0.9 of a control,
-     one rank with fp32 noise in its weights).
+     one rank with fp32 noise in its weights) at every position of one
+     rank's graphed decode (32 new on each of the 8 prompts; dense-causal
+     16).
  33. the benchmark drivers (forde_tpu_torch/bench.py and
      forde_tpu_torch/benchmarks/*.py), each main called in-process at
      reduced counts after tiny_hd128's step is held against its plain
      version (phase 6's check; bf16 against the plain fp32 step):
      bench.main (4 steps a preset, the
-     fused sense 32 x 32 run once), decoder.main (2 timed steps a
+     fused sense 8 x 8 run once), decoder.main (2 timed steps a
      dispatch), serving_bench.main at the reference-default decoder's
-     widths with 6 requests and Poisson arrivals (NSA at window 512, then
+     widths with 4 requests and Poisson arrivals (NSA at window 512, then
      dense-causal with its prefix mode), quant_decode.main (16 new tokens)
      and decode_scaling.main (16 new tokens at 2,048 and 16,384 positions);
      each last line one JSON object of bench.py's keys with a finite
@@ -318,10 +326,26 @@ Phases:
      small_kv_fwd's fp32 route timed at decode_scaling's decode pools
      (512 and 4,096 keys) and at the default serve's decode and prefill
      shapes (LONG_KEYS_TIMING).
+ 34. resume on the card (vit_tiny: ViT-Ti/16 at 224 px, vision 12 x (3 x
+     64), text 2 x (3 x 64), Forde-lite; fp32, batch 16, dummy data,
+     sensing every step): ``clip_loop --device cpu`` for 2 steps and a
+     checkpoint, restored onto the card bit for bit; ``clip_loop --resume``
+     on the card for 4 steps with a Forde-lite update at step 4, exact
+     launches (per step 14 flash_mha_fwd, 14 flash_mha_bwd, 28 moment_sums);
+     the same 4 steps on the CPU, and a control (the CPU run with fp32
+     noise in its parameters): steps 3-4's losses within phase 6's fp32
+     bar; steps 5-6's losses, the final parameters and Adam's moments
+     within that bar or 1.5x the control's reading; the units assigned
+     otherwise after the update at most 4x the control's count (or 4);
+     the card's sensed step ms, its busy time and idle share, its
+     launches per step.
 
 Prints the kernels' JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises: exit code != 0.
-Run with no arguments on a machine with one GPU (about 14 minutes):
+Run with no arguments on a machine with one GPU (about 12 minutes; host
+code sets much of it, so a slower host takes longer; each ``[phase]``
+line gives the phase's seconds and the run's so far, and stderr names
+each phase as it starts):
 
   python3 chip_smoke.py
 """
@@ -329,6 +353,7 @@ Run with no arguments on a machine with one GPU (about 14 minutes):
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import itertools
 import json
@@ -492,8 +517,10 @@ TF32_KERNELS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def sass(name: str) -> str:
-    """The SASS of lib<name>, by the cuobjdump beside nvcc."""
+    """The SASS of lib<name>, by the cuobjdump beside nvcc (once a run: the
+    libraries are built once)."""
     from forde_tpu_torch.kernels import build
 
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
@@ -571,6 +598,8 @@ def phase_build():
             if ("Function properties for" in line or "registers" in line or "spill" in line
                     or "error" in line):
                 log(f"[build]   {line.strip()}")
+    with ThreadPoolExecutor(len(TENSOR_CORE_SOURCES)) as pool:
+        list(pool.map(sass, TENSOR_CORE_SOURCES))
     for name in TENSOR_CORE_SOURCES:
         count = hmma_count(name)
         log(f"[build] lib{name}: {count} HMMA instructions in its SASS")
@@ -620,6 +649,9 @@ CHECK_CASES = [
     ("text_b128_s64_h4_d128_lens", 128, 64, 4, 128, [0, 1, 17, 64] * 32, False, None),
     ("s8_h2_d128_lens", 3, 8, 2, 128, [8, 0, 3], False, None),
     ("s512_h2_d128_lens", 2, 512, 2, 128, [512, 300], False, None),
+    # vit_tiny (phase 34): 3 heads of 64 at batch 16
+    ("tiny_vision_b16_s197_h3_d64", 16, 197, 3, 64, None, False, None),
+    ("tiny_text_b16_s64_h3_d64_lens", 16, 64, 3, 64, [0, 1, 17, 64] * 4, False, None),
 ]
 # flash_mha on CUDA tensors against the plain attention path: (name, B, S,
 # H, D, kv_lens); S=197 goes through the entry point's padding to 200.
@@ -628,6 +660,7 @@ GRAD_CASES = [
     ("text_s64_h4_d128_lens", 4, 64, 4, 128, [0, 1, 17, 64]),
     ("text_s64_h8_d64_lens", 4, 64, 8, 64, [0, 1, 17, 64]),
     ("s197_h12_d64", 2, 197, 12, 64, None),
+    ("tiny_s197_h3_d64", 2, 197, 3, 64, None),
 ]
 
 
@@ -791,6 +824,7 @@ MOMENT_CASES = [
     ("odd_n", 12345, 3072, "bfloat16"),
     ("odd_f", 8192, 2051, "bfloat16"),
     ("odd_f_fp32", 1000, 1001, "float32"),
+    ("tiny_vision_z_fp32", 3152, 768, "float32"),  # vit_tiny at batch 16 (phase 34)
 ]
 
 
@@ -1056,7 +1090,9 @@ TRAIN_ARGV = [
 def launches_per_step(cfg, sensed: bool) -> dict:
     """Kernel launches of one training step: attention forward and
     backward once per layer of both towers; two moment sums per
-    StatefulLayer (activations, gradient tap) on a sensed step."""
+    StatefulLayer (activations, gradient tap) on a sensed step. vit_b16
+    (12 + 8 layers): 20, 20 and 40 sensed; vit_tiny (12 + 2, phase 34): 14,
+    14 and 28 sensed."""
     layers = cfg.vision.num_layers + cfg.text.num_layers
     return {"flash_mha_fwd": layers, "flash_mha_bwd": layers,
             "moment_sums": 2 * layers if sensed else 0}
@@ -2440,8 +2476,8 @@ def phase_serve_timing(device, state) -> dict:
     with its decode steps replayed from a CUDA graph (plain, kernel,
     kernel, plain) and eager (cuda_graph=False, the control: kernel,
     plain); ms per output token = (whole - first) / (new - 1); output
-    tokens/s. One prefill, one replayed decode step and one eager decode
-    step under the profiler."""
+    tokens/s; median of 3 graphed, one eager. One prefill, one replayed
+    decode step and one eager decode step under the profiler."""
     import torch
 
     from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
@@ -2472,7 +2508,8 @@ def phase_serve_timing(device, state) -> dict:
 
     # plain, kernel, kernel, plain: the two paths share the card in turns.
     g_p1, g_k1, g_k2, g_p2 = (measure(i, True) for i in ("reference", "auto", "auto", "reference"))
-    e_k, e_p = measure("auto", False), measure("reference", False)
+    # the eager control once each: its decode is ~3 s a generation
+    e_k, e_p = measure("auto", False, reps=1), measure("reference", False, reps=1)
     n_out = len(SERVE_PROMPT_LENS) * SERVE_NEW_TOKENS
 
     def summary(first_whole):
@@ -2483,7 +2520,8 @@ def phase_serve_timing(device, state) -> dict:
     out = {"graph": summary(min(g_k1, g_k2)), "plain_graph": summary(min(g_p1, g_p2)),
            "eager": summary(e_k), "plain_eager": summary(e_p)}
     log(f"[time] serving, {len(SERVE_PROMPT_LENS)} prompts of {SERVE_PROMPT_LENS[0]}-"
-        f"{SERVE_PROMPT_LENS[-1]} tokens (bf16), median of 3: time to first token kernel path "
+        f"{SERVE_PROMPT_LENS[-1]} tokens (bf16), graphed median of 3, eager once: time to first "
+        f"token kernel path "
         f"{g_k1[0]:.2f} / {g_k2[0]:.2f} / {e_k[0]:.2f} ms, plain path {g_p1[0]:.2f} / "
         f"{g_p2[0]:.2f} / {e_p[0]:.2f} ms; {SERVE_NEW_TOKENS} new tokens, decode graphed: kernel "
         f"path {g_k1[1]:.2f} / {g_k2[1]:.2f} ms, plain path {g_p1[1]:.2f} / {g_p2[1]:.2f} ms; "
@@ -4011,10 +4049,10 @@ def phase_full_recompute(device, state) -> dict:
 
 
 # Speculative decoding: the dense variant as the target, a 512-token
-# prompt, 64 new, gamma 4, greedy; drafts: (i) the target's own weights,
+# prompt, 32 new, gamma 4, greedy; drafts: (i) the target's own weights,
 # (ii) a seeded 2-layer dense draft, each from a checkpoint.
 SPEC_PROMPT = 512
-SPEC_NEW = 64
+SPEC_NEW = 32
 SPEC_GAMMA = 4
 SPEC_DRAFT_LAYERS = 2
 
@@ -4024,7 +4062,7 @@ def phase_speculative(device) -> dict:
     (train.checkpoint.load_lm_params, as serve loads them): in fp32 the
     tokens identical to the target's generate_cached for both, and the
     draft that is the target accepts every proposal (rounds =
-    ceil(64 / (gamma + 1))); no csrc kernel launched; bf16 with the target
+    ceil(SPEC_NEW / (gamma + 1))); no csrc kernel launched; bf16 with the target
     as its own draft: tokens' agreement, tokens/forward and ms per output
     token beside generate_cached's, graphed and eager."""
     import torch
@@ -6270,8 +6308,8 @@ PAR_RANKS = 4
 PAR_SKV = (("pools_k960", 960), ("topk_k64", 64))
 PAR_EP = dict(b=8, s=2048, d=512, h=2048, e=8, k=2, factor=8.0)
 PAR_CLIP = dict(b=128, d=512)
-# The full-width LM step (fp32, the reference-default decoder at 12
-# layers, NSA and mHC on, carried weights): 1 x 8,192 over (context 4),
+# The full-width LM step (fp32, the reference-default decoder at
+# PAR_LM_LAYERS, NSA and mHC on, carried weights): 1 x 8,192 over (context 4),
 # and over (data 2, expert 2) with ep dispatch at capacity factor 8
 # against one rank's capacity dispatch at the same factor. The EP batch is
 # 4 x 2,048, not 8 x 2,048: four fp32 replicas on one card, each with its
@@ -6280,11 +6318,16 @@ PAR_CLIP = dict(b=128, d=512)
 PAR_LM_CASES = (("context4", {"context": 4}, 1, 8192, "capacity"),
                 ("data2_expert2_ep", {"data": 2, "expert": 2}, 4, 2048, "ep"))
 PAR_LM_FACTOR = 8.0
-# The CLIs under a one-rank NCCL group against the same CLIs alone, fp32:
-# the LM loop 2 steps at full width (8 x 2,048), and clip_loop at vit_b16
-# with --fuse_steps 2 (its NCCL all-reduce inside the CUDA graph).
+# The depth of the LM in phases 31 and 32, cut from the reference-default
+# 12 layers for the run's time; pipe 4 and pipe 2 still split it evenly.
+PAR_LM_LAYERS = 8
+# The CLIs under a one-rank NCCL group against the same CLIs alone, fp32,
+# the two processes of a pair side by side on the card: the LM loop 2
+# steps at full width (2 x 2,048: two processes at 8 rows would not fit
+# the card together), and clip_loop at vit_b16 with --fuse_steps 2 (its
+# NCCL all-reduce inside the CUDA graph).
 PAR_CLI_LM = [a for a in SERVE_FLAGS if a != "--bf16"] + [
-    "--batch_size", "8", "--use_markov_data", "--steps_per_epoch", "2",
+    "--batch_size", "2", "--use_markov_data", "--steps_per_epoch", "2",
     "--slow_loop_interval", "0", "--log_interval", "1"]
 PAR_CLI_CLIP = ["--preset", "vit_b16", "--use_dummy_data", "--dummy_pool", "2",
                 "--batch_size", "128", "--num_steps", "2", "--fuse_steps", "2",
@@ -6634,7 +6677,8 @@ def par_lm_step(device, launches) -> dict:
     from forde_tpu_torch.train.step import lm_batch as split_batch, train_step
 
     base = serve_config().replace(dtypes=DTypePolicy.fp32(), moe_capacity_factor=PAR_LM_FACTOR,
-                                  max_seq_len=max(s for *_, s, _ in PAR_LM_CASES))
+                                  max_seq_len=max(s for *_, s, _ in PAR_LM_CASES),
+                                  num_layers=PAR_LM_LAYERS)
     weights = lm_weights(base, device)
     out = {}
     for name, shape, b, s, dispatch in PAR_LM_CASES:
@@ -6708,8 +6752,9 @@ def par_lm_step(device, launches) -> dict:
 
 def par_clis(workdir) -> dict:
     """The LM loop and clip_loop under a one-rank NCCL group (torchrun's
-    variables, WORLD_SIZE=1) and alone, each in a subprocess:
-    the final losses equal bit for bit, the log naming the NCCL group."""
+    variables, WORLD_SIZE=1) and alone, each in a subprocess, the two of
+    a pair at once: the final losses equal bit for bit, the log naming
+    the NCCL group."""
     import socket
 
     from forde_tpu_torch.obs.metrics import REFERENCE_TAGS
@@ -6720,15 +6765,21 @@ def par_clis(workdir) -> dict:
             return str(s.getsockname()[1])
 
     def start(module, argv, name, group):
+        """The process and its log file (a file, not a pipe: the pair runs
+        at once and neither may block on output the other's wait leaves
+        unread)."""
         env = {k: v for k, v in os.environ.items()
                if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
         env["PYTHONPATH"] = REPO
         if group:
             env.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
                        MASTER_PORT=port())
-        return subprocess.Popen([sys.executable, "-m", module, *argv, "--experiment_name", name],
-                                cwd=workdir, env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
+        path = os.path.join(workdir, f"{name}.log")
+        with open(path, "w") as f:
+            proc = subprocess.Popen([sys.executable, "-m", module, *argv, "--experiment_name",
+                                     name], cwd=workdir, env=env, stdout=f,
+                                    stderr=subprocess.STDOUT, text=True)
+        return proc, path
 
     def final(name, tag):
         import glob
@@ -6745,9 +6796,19 @@ def par_clis(workdir) -> dict:
         short = module.rsplit(".", 1)[1]
         t0 = time.perf_counter()
         procs, logs = {}, {}
-        for group in (True, False):  # one after the other: each fills much of the card
+        for group in (True, False):
             procs[group] = start(module, argv, f"par_{short}_{group}", group)
-            logs[group] = procs[group].communicate(timeout=600)[0]
+        try:
+            for group, (proc, path) in procs.items():
+                proc.wait(timeout=600)
+                with open(path) as f:
+                    logs[group] = f.read()
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        procs = {g: p for g, (p, _) in procs.items()}
         secs = time.perf_counter() - t0
         for g, p in procs.items():
             if p.returncode != 0:
@@ -6807,13 +6868,14 @@ def phase_parallel(device, workdir) -> dict:
 
 # Phase 32: tensor parallelism, FSDP and the GPipe pipeline on
 # thread ranks of one process on the one card, at full width, fp32. The LM
-# of SERVE_FLAGS (capacity dispatch at factor 8, so that no token drops and
-# the ranks' capacity plans equal one rank's): (a) model 4 at 2 x 2,048;
+# of SERVE_FLAGS at PAR_LM_LAYERS (capacity dispatch at factor 8, so that
+# no token drops and the ranks' capacity plans equal one rank's): (a)
+# model 4 at 2 x 2,048;
 # (b) data 2 x model 2 with fsdp at 4 x 2,048; (c) GPipe over pipe 4 with 4
 # microbatches and over data 2 x pipe 2 with 2, at 4 x 1,024: at 4 x 2,048
 # the four stages' activations of all M + S - 1 ticks (the bubble is
 # computed) did not fit the 80 GB beside each other (pipe 4 ran out at 77.7
-# GiB), and 2 rows would not split into 4 microbatches, so the rows keep
+# GiB, at 12 layers), and 2 rows would not split into 4 microbatches, so the rows keep
 # their number and their length halves. Each case: (name, mesh, rows,
 # tokens a row, param_sharding, GPipe microbatches or 0).
 PAR2_LM_CASES = (("model4", {"model": 4}, 2, 2048, "replicated", 0),
@@ -7269,22 +7331,30 @@ def par2_clip(device, launches) -> dict:
 PAR2_TEACHER_FORCED = 0.95
 PAR2_TEACHER_FORCED_OF_CONTROL = 0.9
 PAR2_CONTROL_NOISE = 2.0 ** -23
-# The dense-causal int8 decode's new tokens: half of SERVE_NEW_TOKENS, for
-# the run's time (the eager decode on two thread ranks takes ~0.22 s a
-# token).
+# The dense-causal int8 model's new tokens (one rank's graphed decode and
+# the teacher-forced positions): half of SERVE_NEW_TOKENS.
 PAR2_DENSE_NEW_TOKENS = 16
+# The ranks' eager decode: PAR2_EAGER_NEW_TOKENS new tokens on the first
+# PAR2_EAGER_PROMPTS prompts, held against the first ones of one rank's. An
+# eager forward on two thread ranks takes 0.3-0.4 s, so the whole
+# SERVE_NEW_TOKENS on the 8 prompts took 80-100 s a model. The
+# teacher-forced agreement still reads every position one rank decoded.
+PAR2_EAGER_NEW_TOKENS = 8
+PAR2_EAGER_PROMPTS = 2
 
 
 def par2_serving(device, launches) -> dict:
     """(e): generate_cached over model 2, greedy, eager (the thread
-    transport cannot be captured in a CUDA graph), on the 8 prompts of
-    SERVE_PROMPT_LENS with SERVE_NEW_TOKENS each (PAR2_DENSE_NEW_TOKENS
-    for the dense-causal int8 model), against one rank's
-    graphed decode (its tokens are its eager decode's, phase 17): fp32
-    (NSA) and int8 dense-causal tokens exactly one rank's; int8 NSA the
-    share of tokens that match; each row's first differing position; each
-    rank's int8 arrays exactly its slices of one rank's; and the
-    teacher-forced argmax agreement (PAR2_TEACHER_FORCED)."""
+    transport cannot be captured in a CUDA graph), on the first
+    PAR2_EAGER_PROMPTS prompts of SERVE_PROMPT_LENS with
+    PAR2_EAGER_NEW_TOKENS each, against the first tokens of one rank's
+    graphed decode of SERVE_NEW_TOKENS on all 8
+    (PAR2_DENSE_NEW_TOKENS for the dense-causal int8 model; its tokens are
+    its eager decode's, phase 17): fp32 (NSA) and int8 dense-causal tokens
+    exactly one rank's; int8 NSA the share of tokens that match; each
+    row's first differing position; each rank's int8 arrays exactly its
+    slices of one rank's; and the teacher-forced argmax agreement
+    (PAR2_TEACHER_FORCED) at every position one rank decoded."""
     import torch
 
     from forde_tpu_torch import kernels
@@ -7350,7 +7420,7 @@ def par2_serving(device, launches) -> dict:
                 if sh.axes and not torch.equal(own[n], sh(whole[n])):
                     raise AssertionError(f"TP serving {n}: a rank's slice differs")
             t0 = time.perf_counter()
-            toks = decode(model, False)
+            toks = decode(model, False, prompts[:PAR2_EAGER_PROMPTS], PAR2_EAGER_NEW_TOKENS)
             secs = time.perf_counter() - t0
             return toks, secs, forced(model, one)
 
@@ -7359,10 +7429,11 @@ def par2_serving(device, launches) -> dict:
             for k, c in counts.items():
                 launches[k] += c
         got, secs, got_forced = ranks[0][0]
-        same = [a == b for g, w in zip(got, one) for a, b in zip(g, w)]
+        one_head = [w[:PAR2_EAGER_NEW_TOKENS] for w in one[:PAR2_EAGER_PROMPTS]]
+        same = [a == b for g, w in zip(got, one_head) for a, b in zip(g, w)]
         share = sum(same) / len(same)
         first = [next((i for i, (a, b) in enumerate(zip(g, w)) if a != b), None)
-                 for g, w in zip(got, one)]
+                 for g, w in zip(got, one_head)]
         def agreement(a_rows, b_rows):
             hits = [a == b for g, w in zip(a_rows, b_rows) for a, b in zip(g, w)]
             return sum(hits) / len(hits)
@@ -7373,11 +7444,14 @@ def par2_serving(device, launches) -> dict:
                else PAR2_TEACHER_FORCED)
         log(f"[parallel2] TP serving {label} over model 2 (eager): {share:.4f} of "
             f"{len(same)} greedy tokens equal one rank's; each row's first differing new "
-            f"position {first}; teacher-forced argmax agreement {forced_share:.4f} (bar "
+            f"position {first}; teacher-forced argmax agreement over "
+            f"{sum(map(len, one))} positions {forced_share:.4f} (bar "
             f"{bar:.4f}; the control, one rank with fp32 noise in its weights: "
-            f"{control_share:.4f}); {secs:.1f} s against {one_s:.1f} s on one rank "
-            f"(graphed); launches per rank " + "; ".join(str(dict(c)) for _, c in ranks))
-        if label != "int8" and got != one:
+            f"{control_share:.4f}); {secs:.1f} s for {PAR2_EAGER_NEW_TOKENS} new tokens on "
+            f"{len(got)} prompts against {one_s:.1f} s for {new} on {len(one)} on one rank "
+            f"(graphed); launches per rank "
+            + "; ".join(str(dict(c)) for _, c in ranks))
+        if label != "int8" and got != one_head:
             raise AssertionError(f"TP serving {label}: tokens differ from one rank's")
         if ranks[1][0][0] != got:
             raise AssertionError(f"TP serving {label}: the ranks' tokens differ")
@@ -7406,7 +7480,7 @@ def phase_parallel_2(device) -> dict:
     launches: Counter = Counter()
     secs, cases = {}, {}
     base = serve_config().replace(dtypes=DTypePolicy.fp32(), moe_capacity_factor=PAR_LM_FACTOR,
-                                  moe_dispatch="capacity")
+                                  moe_dispatch="capacity", num_layers=PAR_LM_LAYERS)
     weights = lm_weights(base, device)
     for case in PAR2_LM_CASES:
         t0 = time.perf_counter()
@@ -7433,15 +7507,17 @@ def phase_parallel_2(device) -> dict:
 # ---------------------------------------------------------------------------
 
 # bench.py: 4 timed steps a preset (16 at the headline's stride 8: the
-# reference's max(steps, 2 * stride)), the fused sense 32 x 32 run once
-# (its 96 steps: 3 replays after the capture).
-BENCH_SMOKE_ENV = {"BENCH_STEPS": "4", "BENCH_SCAN_REPS": "1"}
+# reference's max(steps, 2 * stride)), the fused sense 8 x 8 run once
+# (its 24 steps: 3 replays after the capture; the full-size run's 32 x 32
+# took 96).
+BENCH_SMOKE_ENV = {"BENCH_STEPS": "4", "BENCH_SCAN_REPS": "1", "BENCH_SCAN_EXTRA": "8",
+                   "BENCH_SCAN_STRIDE": "8"}
 BENCH_DECODER_STEPS = 2
 # serving_bench at the reference-default decoder's widths (ISSUE: the same
-# flags as the full-size runs), 6 requests, with its open-loop arrivals.
+# flags as the full-size runs), 4 requests, with its open-loop arrivals.
 SERVING_BENCH_FLAGS = ["--d_model", "512", "--num_layers", "12", "--num_heads", "8",
                        "--num_experts", "8", "--max_seq_len", "2048", "--bf16"]
-SERVING_BENCH_SMOKE = ["--requests", "6", "--load_rate", "4"]
+SERVING_BENCH_SMOKE = ["--requests", "4", "--load_rate", "4"]
 QUANT_SMOKE = ["--new", "16", "--reps", "1"]
 SCALING_SMOKE = ["--new", "16"]
 # The kernels each driver's timed sections must launch. Dense-causal cached
@@ -7667,17 +7743,250 @@ def phase_benchmarks(device) -> dict:
             "small_kv_fwd_long_keys": long_keys}
 
 
+# Phase 34: a train state written on the CPU resumed on the card, as a
+# converted JAX run is (scripts/orbax_to_npz.py --train_state writes the
+# same files): the Forde-lite tiny preset (vit_tiny_config: ViT-Ti/16 at
+# 224 px, vision 12 x (3 heads x 64), text 2 x (3 x 64)) in fp32, batch 16,
+# dummy data, sensing every step. RESUME_FIRST steps on the CPU end in a
+# checkpoint; RESUME_STEPS more from it on the card and, for reference, on
+# the CPU, with a Forde-lite update at step 4 that reads the statistics of
+# steps 1-2 carried in the checkpoint. The control: the same CPU run from
+# the checkpoint with every parameter moved by fp32 noise (relative 2^-23).
+# Bars, card against CPU (kernels against their plain versions): the
+# losses of steps 3-4 within PARITY_TOL["fp32"]'s loss (phases 6 and 16).
+# After the update a third of the units are binary steps, which turn fp32
+# noise in a pre-activation near 0 into a whole unit of change (phase 6's
+# note), and the control alone reads past phase 6's bars there (in the
+# first run: step 6's loss 2.9e-3, Adam's first moment 0.119 relative L2,
+# on an H100): the losses of steps 5-6, the final parameters and Adam's
+# moments (its grads bar) within phase 6's bar or RESUME_OF_CONTROL x the
+# control's reading, whichever is larger (phase 33's rule for bf16). The
+# neuron assignments after the update: a unit whose Forde-lite statistic
+# sits within fp32 noise of a threshold may take the other class, so the
+# count of units that differ is at most RESUME_FLIPS_OF_CONTROL x the
+# control's count, or that many units where the control's count is 0.
+RESUME_FIRST = 2
+RESUME_STEPS = 4
+RESUME_UPDATE_AT = 4  # the Forde-lite update, after this step
+RESUME_ARGV = ["--preset", "tiny", "--forde_lite", "--use_dummy_data", "--batch_size", "16",
+               "--sense_interval", "1", "--slow_loop_interval", str(RESUME_UPDATE_AT),
+               "--log_interval", "1", "--seed", str(SEED)]
+RESUME_FLIPS_OF_CONTROL = 4
+RESUME_OF_CONTROL = 1.5
+RESUME_CONTROL_NOISE = 2.0 ** -23
+
+
+def resume_run(workdir, name, num_steps, ckpt_dir, *extra) -> dict:
+    """clip_loop.main on RESUME_ARGV for ``num_steps`` with ``ckpt_dir``;
+    its return, seconds and per-step losses (its metrics.jsonl)."""
+    import glob
+
+    from forde_tpu_torch.train import clip_loop
+
+    argv = RESUME_ARGV + ["--num_steps", str(num_steps), "--checkpoint_dir", ckpt_dir,
+                          "--experiment_name", f"resume_{name}", *extra]
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the loop's metrics land in ./runs
+    try:
+        t0 = time.perf_counter()
+        out = clip_loop.main(argv)
+        out["seconds"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    (path,) = glob.glob(os.path.join(workdir, "runs", f"resume_{name}_*", "metrics.jsonl"))
+    with open(path) as f:
+        rows = [json.loads(line) for line in f]
+    out["losses"] = {r["step"]: r["value"] for r in rows if r["tag"] == "loss/contrastive"}
+    return out
+
+
+def resume_readings(state) -> dict:
+    """The final parameters, Adam's moments (flat fp32, on the host) and
+    the neuron assignments of a clip train state."""
+    import torch
+
+    from forde_tpu_torch.nn.stateful import stateful_layers
+
+    opt = state.optimizer
+
+    def cat(ts):
+        return torch.cat([t.detach().flatten().float().cpu() for t in ts])
+
+    return {"params": cat(opt.params), "mu": cat(opt.mu), "nu": cat(opt.nu),
+            "assignments": torch.cat([layer.neuron_assignments.flatten().cpu() for layer in
+                                      stateful_layers(state.model).values()])}
+
+
+def phase_resume(device, workdir) -> dict:
+    """Phase 34: clip_loop --device cpu for RESUME_FIRST steps and a
+    checkpoint; the checkpoint restored onto the card bit for bit; clip_loop
+    --resume on the card for RESUME_STEPS steps through a Forde-lite update,
+    with exact launches; the same on the CPU, and the control; the card's
+    sensed step time, its busy time and idle share, its launches."""
+    import shutil
+
+    import torch
+
+    from forde_tpu_torch import kernels
+    from forde_tpu_torch.train import checkpoint as ckpt
+    from forde_tpu_torch.train import clip_loop
+    from forde_tpu_torch.train.clip_step import clip_train_step, create_clip_train_state
+
+    cfg = clip_loop.config_from_args(clip_loop.build_parser().parse_args(RESUME_ARGV))
+    last = RESUME_FIRST + RESUME_STEPS
+    first_dir = os.path.join(workdir, "resume_first")
+    first = resume_run(workdir, "first", RESUME_FIRST, first_dir, "--device", "cpu")
+    if first["step"] != RESUME_FIRST or first["brain_updates"]:
+        raise AssertionError(f"resume: the CPU run took {first['step']} steps, brain updates "
+                             f"{first['brain_updates']}")
+
+    # The CPU's files restored onto the card: every tensor bit for bit.
+    state = create_clip_train_state(cfg, None, 1e-4, 0.01, device=device)
+    ckpt.restore_train_state(first_dir, state)
+    saved = {**ckpt.read_npz(os.path.join(first_dir, ckpt.PARAMS_FILENAME)),
+             **ckpt.read_npz(os.path.join(first_dir, ckpt.OPT_STATE_FILENAME))}
+    params_t, extra_t = ckpt._state_tensors(state)
+    tensors = {k: ckpt._to_numpy(t, tr) for k, (t, tr) in {**params_t, **extra_t}.items()}
+    differ = sorted(k for k, v in tensors.items() if not np.array_equal(v, saved[k]))
+    if differ or state.step != RESUME_FIRST:
+        raise AssertionError(f"resume: restored on the card, step {state.step}, differ {differ}")
+    del state, params_t, extra_t, tensors
+
+    dirs = {}
+    for name in ("card", "cpu", "control"):
+        dirs[name] = os.path.join(workdir, f"resume_{name}")
+        shutil.copytree(first_dir, dirs[name])
+    params_path = os.path.join(dirs["control"], ckpt.PARAMS_FILENAME)
+    arrays = ckpt.read_npz(params_path)
+    rng = np.random.RandomState(SEED + 35)
+    for k, v in arrays.items():
+        if k.startswith("params/") and v.dtype == np.float32:
+            arrays[k] = (v * (1.0 + RESUME_CONTROL_NOISE * rng.randn(*v.shape))).astype(np.float32)
+    np.savez(params_path, **arrays)
+
+    kernels.reset_launches()
+    card = resume_run(workdir, "card", last, dirs["card"], "--resume")
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    cpu = resume_run(workdir, "cpu", last, dirs["cpu"], "--device", "cpu", "--resume")
+    control = resume_run(workdir, "control", last, dirs["control"], "--device", "cpu", "--resume")
+    steps = list(range(RESUME_FIRST + 1, last + 1))
+    for name, run in (("card", card), ("cpu", cpu), ("control", control)):
+        updates = [(u["step"], u["skipped"], u["sensed_steps_before"])
+                   for u in run["brain_updates"]]
+        layers = cfg.vision.num_layers + cfg.text.num_layers
+        if (run["step"] != last or sorted(run["losses"]) != steps
+                or updates != [(RESUME_UPDATE_AT, False, RESUME_UPDATE_AT * layers)]):
+            raise AssertionError(f"resume {name}: step {run['step']}, logged steps "
+                                 f"{sorted(run['losses'])}, brain updates {updates}")
+    per_step = launches_per_step(cfg, True)
+    want = {k: RESUME_STEPS * v for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"resume: launches on the card {launches}, expected {want}")
+
+    got, ref, noise = (resume_readings(r["state"]) for r in (card, cpu, control))
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    loss_rel = {t: abs(card["losses"][t] - cpu["losses"][t]) / abs(cpu["losses"][t])
+                for t in steps}
+    readings = {k: rel(got[k], ref[k]) for k in ("params", "mu", "nu")}
+    control_readings = {k: rel(noise[k], ref[k]) for k in ("params", "mu", "nu")}
+    control_loss = {t: abs(control["losses"][t] - cpu["losses"][t]) / abs(cpu["losses"][t])
+                    for t in steps}
+    flips = int((got["assignments"] != ref["assignments"]).sum())
+    control_flips = int((noise["assignments"] != ref["assignments"]).sum())
+    units = got["assignments"].numel()
+    flip_bar = RESUME_FLIPS_OF_CONTROL * max(control_flips, 1)
+    tol = PARITY_TOL["fp32"]
+    loss_bars = {t: tol["loss"] if t <= RESUME_UPDATE_AT
+                 else max(tol["loss"], RESUME_OF_CONTROL * control_loss[t]) for t in steps}
+    bars = {k: max(tol["params" if k == "params" else "grads"],
+                   RESUME_OF_CONTROL * control_readings[k]) for k in readings}
+
+    # The card's sensed step at this width, from the resumed state.
+    batch = training_batch(cfg, 16, device, SEED + 36)
+    step_state = card["state"]
+    kernels.reset_launches()
+    clip_train_step(step_state, batch)
+    torch.cuda.synchronize()
+    one_step = dict(kernels.launches)
+    ms = median_step_ms(step_state, clip_train_step, batch)
+    prof = profile_device(lambda: clip_train_step(step_state, batch),
+                          "resume: vit_tiny fp32 sensed step, batch 16")
+    if not prof["busy_ms"] > 0:
+        log("[resume] the profiler read no device time: busy time and idle share not measured")
+        prof.update(busy_ms=None, idle_share=None)
+    log(f"[resume] clip_loop --preset tiny (fp32, batch 16, sensing every step, Forde-lite): "
+        f"{RESUME_FIRST} CPU steps ({first['seconds']:.1f} s) -> checkpoint restored on the "
+        f"card bit for bit -> {RESUME_STEPS} steps on the card ({card['seconds']:.1f} s, "
+        f"launches {launches}), on the CPU ({cpu['seconds']:.1f} s) and the control "
+        f"({control['seconds']:.1f} s)")
+    log("[resume] card vs CPU: loss relative difference per step "
+        + ", ".join(f"{t} {v:.3e} (bar {loss_bars[t]:.3e})" for t, v in loss_rel.items())
+        + "; relative L2 "
+        + ", ".join(f"{k} {v:.3e} (bar {bars[k]:.3e})" for k, v in readings.items())
+        + f"; units assigned otherwise after the update at {RESUME_UPDATE_AT}: {flips} of "
+        f"{units} (bar {flip_bar})")
+    log("[resume] control, the CPU run with fp32 noise in its parameters, vs CPU: loss "
+        + ", ".join(f"{t} {v:.3e}" for t, v in control_loss.items()) + "; relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in control_readings.items())
+        + f"; units assigned otherwise {control_flips}")
+    busy = ("not measured" if prof["busy_ms"] is None else
+            f"{prof['busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms, idle share "
+            f"{prof['idle_share']:.3f}")
+    log(f"[resume] card: sensed step {ms:.3f} ms (median of 5), device busy {busy}; "
+        f"launches per step {one_step}")
+    if one_step != per_step:
+        raise AssertionError(f"resume: launches of one step {one_step}, expected {per_step}")
+    for t, v in loss_rel.items():
+        if not v <= loss_bars[t]:
+            raise AssertionError(f"resume: step {t} loss, card vs CPU {v:.3e} > "
+                                 f"{loss_bars[t]:.3e}")
+    for k, v in readings.items():
+        if not v <= bars[k]:
+            raise AssertionError(f"resume: {k}, card vs CPU {v:.3e} > {bars[k]:.3e}")
+    if not flips <= flip_bar:
+        raise AssertionError(f"resume: {flips} units assigned otherwise on the card, "
+                             f"bar {flip_bar} (control {control_flips})")
+    return {"launches": launches, "launches_per_step": one_step, "step_ms": ms,
+            "loss_bars": loss_bars, "bars": bars,
+            "busy_ms": prof["busy_ms"], "wall_ms": prof["wall_ms"],
+            "idle_share": prof["idle_share"], "loss_rel": loss_rel, "rel_l2": readings,
+            "control_loss_rel": control_loss, "control_rel_l2": control_readings,
+            "assignment_flips": flips, "control_flips": control_flips, "units": units,
+            "seconds": {"first_cpu": first["seconds"], "card": card["seconds"],
+                        "cpu": cpu["seconds"], "control": control["seconds"]}}
+
+
+# The run's start (main sets it) and, past STACKS_AFTER_S of it, every
+# thread's stack on stderr: a run that nears the time limit then says where
+# it is, as a run cut at the limit shows only the end of its stderr.
+RUN_START = time.perf_counter()
+STACKS_AFTER_S = 1000
+
+
 def timed(phase, *args):
-    """phase(*args), its wall time logged."""
+    """phase(*args), its wall time and the run's so far logged; its name on
+    stderr as it starts."""
+    print(f"chip_smoke: {phase.__name__} at {time.perf_counter() - RUN_START:.0f} s",
+          file=sys.stderr, flush=True)
     t0 = time.perf_counter()
     out = phase(*args)
-    log(f"[phase] {phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    now = time.perf_counter()
+    log(f"[phase] {phase.__name__}: {now - t0:.1f} s (run {now - RUN_START:.1f} s)")
     return out
 
 
 def main() -> int:
+    global RUN_START
+    import faulthandler
+
     import torch
 
+    RUN_START = time.perf_counter()
+    faulthandler.dump_traceback_later(STACKS_AFTER_S, exit=False)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
@@ -7694,15 +8003,18 @@ def main() -> int:
     log(f"[device] {kind}; nvidia-smi: {smi}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, Python {sys.version.split()[0]}")
 
-    phase_build()
-    max_err = dict(zip(("flash_mha_fwd", "flash_mha_bwd"), phase_check_attention(device)))
-    max_err["moment_sums"] = phase_check_moments(device)
-    max_err.update(phase_check_serving_kernels(device))
-    max_err.update(phase_check_training_kernels(device))
-    topk = phase_topk_replay(device)
+    timed(phase_build)
+    max_err = dict(zip(("flash_mha_fwd", "flash_mha_bwd"), timed(phase_check_attention, device)))
+    max_err["moment_sums"] = timed(phase_check_moments, device)
+    max_err.update(timed(phase_check_serving_kernels, device))
+    max_err.update(timed(phase_check_training_kernels, device))
+    topk = timed(phase_topk_replay, device)
     max_err["topk_replay"] = topk["max_abs_err"]
 
     with tempfile.TemporaryDirectory(dir=os.environ.get("TMPDIR")) as workdir:
+        # phase 34 first: its profile of one step is the run's first (a
+        # profiler session after a large one may read no device time)
+        resume = timed(phase_resume, device, workdir)
         main_run = timed(phase_main_path, device, workdir)
         train_run = timed(phase_train_path, workdir)
         fused_run = timed(phase_train_fused_cli, workdir)
@@ -7765,6 +8077,7 @@ def main() -> int:
                 "observe": observe["launches"].get(name, 0),
                 "parallel": parallel["launches"].get(name, 0),
                 "parallel_2": parallel_2["launches"].get(name, 0),
+                "resume": resume["launches"].get(name, 0),
                 **{path: benchmarks["launches"][path].get(name, 0)
                    for path in ("bench", "bench_decoder", "bench_serving", "bench_quant",
                                 "bench_scaling")}}
@@ -7919,10 +8232,13 @@ def main() -> int:
         "parallel": {k: v for k, v in parallel.items() if k != "launches"},
         "parallel_2": {k: v for k, v in parallel_2.items() if k != "launches"},
         "benchmarks": benchmarks["lines"],
+        "resume": {k: v for k, v in resume.items() if k != "launches"},
         "benchmarks_phase": {k: v for k, v in benchmarks.items()
                              if k not in ("launches", "lines")},
         "card": smi,
     }
+    faulthandler.cancel_dump_traceback_later()
+    log(f"[run] {time.perf_counter() - RUN_START:.1f} s")
     print(smi)
     print(json.dumps(result))
     print(json.dumps({"ok": True, "device": {

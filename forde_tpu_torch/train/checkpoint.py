@@ -14,7 +14,9 @@ schema (``{"model": config_to_dict(cfg), "train": {...}}``) and
 config has ``scan_layers`` is written in that layout, and read in either),
 and ``ema_params`` beside ``params`` where the run kept an EMA. The JAX
 package's Orbax train-state directories need JAX to read:
-``scripts/orbax_to_npz.py`` converts one into this layout.
+``scripts/orbax_to_npz.py`` converts one into this layout, and with
+``--train_state`` into a whole train state (``opt_state.npz`` below,
+a LoRA run's adapters unmerged) that ``--resume`` continues.
 
 A training run's checkpoint (``save_train_state``) adds ``opt_state.npz``:
 Adam's moments and count, the host step and the dual encoder's gradient

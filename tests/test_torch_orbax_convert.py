@@ -17,6 +17,10 @@ port's loaders:
 
 Tolerance 1e-5 (atol and rtol): the same fp32 weights through each
 framework's sums in other orders (one or two layers).
+
+The whole train state (``--train_state``: Adam's state, the step, the
+gradient statistics, LoRA adapters unmerged) and the port's ``--resume``
+of it: ``tests/test_torch_resume_jax.py``.
 """
 
 import json
