@@ -4489,8 +4489,11 @@ def drive_pool(pool, prompts, budgets, **submit) -> tuple:
     the pool is idle); tick until every request finished. Returns (outputs
     in request order, host times (submitted, first token, last token) per
     request, seconds, the host time of each tick that admitted no
-    request)."""
+    request). The pooled steps are read from the process-wide counter
+    ``pool.steps``: no other pool may step while this one runs."""
     import torch
+
+    from forde_tpu_torch.obs import spans
 
     n = len(prompts)
     times = [[0.0, None, None] for _ in range(n)]
@@ -4502,11 +4505,11 @@ def drive_pool(pool, prompts, budgets, **submit) -> tuple:
             times[i][2] = now
         return record
 
-    index, out, base, steady = {}, {}, pool._steps, []
+    index, out, base, steady = {}, {}, spans.counters["pool.steps"], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     while len(out) < n:
-        due = min(n, POOL_FIRST + (pool._steps - base) // POOL_EVERY)
+        due = min(n, POOL_FIRST + (spans.counters["pool.steps"] - base) // POOL_EVERY)
         if not pool.pending():
             due = max(due, len(index) + 1)
         while len(index) < due:
@@ -4597,6 +4600,7 @@ def phase_pool(device, state) -> dict:
     from forde_tpu_torch.core.config import DTypePolicy
     from forde_tpu_torch.models import decode_pool as DP
     from forde_tpu_torch.models import generate as G
+    from forde_tpu_torch.obs import spans
 
     cfg = serve_config()
     gate_prompts, gate_new = pool_requests(*POOL_GATE, cfg.vocab_size, SEED + 110)
@@ -4605,19 +4609,21 @@ def phase_pool(device, state) -> dict:
 
     def run_pool(m, prompts, budgets, label, warm=False, **kw):
         pool = DP.DecodePool(m, rows=POOL_ROWS, temperature=0.0, **kw)
+        created = spans.counters["pool.steps"]
         if warm:  # capture the step's graph before the clock starts
             pool.submit(prompts[0], 2)
             while pool.pending():
                 pool.tick()
-        steps = pool._steps
+        before = spans.counters["pool.steps"]
         (ids, times, secs, steady), got = counted(lambda: drive_pool(pool, prompts, budgets))
-        want = pool_launches(cfg, len(prompts), pool._steps - steps)
+        steps = spans.counters["pool.steps"] - before
+        want = pool_launches(cfg, len(prompts), steps)
         if got != want:
             raise AssertionError(f"pool {label}: launches {got}, expected {want}")
         launches.update(got)
-        log(f"[pool] {label}: {len(prompts)} requests, {pool._steps - steps} pooled steps, "
+        log(f"[pool] {label}: {len(prompts)} requests, {steps} pooled steps, "
             f"{secs:.2f} s; launches {got}")
-        return pool, ids, (times, secs, steady)
+        return pool, ids, (times, secs, steady, spans.counters["pool.steps"] - created)
 
     # fp32: every request's tokens = its own generate_cached continuation on
     # the plain model
@@ -4653,9 +4659,9 @@ def phase_pool(device, state) -> dict:
         pool, ids, timing = run_pool(m, prompts, budgets, f"bf16 trace fuse {fuse}",
                                      warm=True, decode_fuse=fuse)
         traces[fuse] = (pool, ids)
-        times, secs, steady = timing
+        times, secs, steady, pooled = timing
         out[f"trace_fuse{fuse}"] = {**trace_readings(times, budgets, secs, steady, fuse),
-                                    "pooled_steps": pool._steps}
+                                    "pooled_steps": pooled}
     if traces[1][1] != traces[POOL_FUSE][1]:
         raise AssertionError(f"pool: decode_fuse {POOL_FUSE} tokens differ from decode_fuse 1")
     log(f"[pool] bf16: graphed = eager on the {len(gate_prompts)} requests; decode_fuse "
@@ -4840,6 +4846,7 @@ def phase_http(device) -> dict:
 
     from forde_tpu_torch import kernels, serve, serve_http
     from forde_tpu_torch.core.config import DTypePolicy
+    from forde_tpu_torch.obs import spans
 
     cfg = serve_config()
     rng = np.random.RandomState(SEED + 121)
@@ -4875,6 +4882,9 @@ def phase_http(device) -> dict:
         try:
             threads = [threading.Thread(target=client, args=(i,)) for i in range(HTTP_REQUESTS)]
             kernels.reset_launches()
+            # process-wide, like the launch counter: this server's pool is
+            # the only one stepping until the clients are done
+            steps_before = spans.counters["pool.steps"]
             t0 = time.perf_counter()
             for t in threads:
                 t.start()
@@ -4893,7 +4903,8 @@ def phase_http(device) -> dict:
             if mode == "continuous":
                 pool = batcher.pool
                 freed = not batcher._inflight and pool.active_rows() == 0 and not pool.pending()
-                want_launches = pool_launches(cfg, HTTP_REQUESTS, pool._steps)
+                want_launches = pool_launches(cfg, HTTP_REQUESTS,
+                                              spans.counters["pool.steps"] - steps_before)
             else:
                 freed = True
                 b = stats["batches"]

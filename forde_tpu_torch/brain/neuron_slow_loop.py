@@ -30,6 +30,7 @@ from forde_tpu_torch.brain.clustering import cluster_neurons_gmm
 from forde_tpu_torch.brain.smoothing import near_square_grid, smooth_assignments
 from forde_tpu_torch.core.config import BrainConfig
 from forde_tpu_torch.nn.stateful import stateful_layers
+from forde_tpu_torch.obs import spans
 
 
 def forde_lite_assignments(stats: torch.Tensor, brain: BrainConfig) -> torch.Tensor:
@@ -69,12 +70,13 @@ def layer_update(
         assignments = forde_lite_assignments(stats5, brain)
         info = {}
     else:
-        raw, params = cluster_neurons_gmm(
-            stats5, brain.num_clusters, generator,
-            num_iters=brain.gmm_iterations, kmeans_iters=brain.gmm_kmeans_iterations,
-            init_means=init_means,
-        )
-        assignments = canonicalize_labels(raw, stats5[..., 0], brain.num_clusters)
+        with spans.span("brain.gmm", device=stats5.device):
+            raw, params = cluster_neurons_gmm(
+                stats5, brain.num_clusters, generator,
+                num_iters=brain.gmm_iterations, kmeans_iters=brain.gmm_kmeans_iterations,
+                init_means=init_means,
+            )
+            assignments = canonicalize_labels(raw, stats5[..., 0], brain.num_clusters)
         info = {"gmm_weights": params["weights"]}
     gh, gw = near_square_grid(f)
     lead = stats5.shape[:-2]

@@ -32,6 +32,7 @@ from forde_tpu_torch.brain.actuation import (
 from forde_tpu_torch.brain.clustering import cluster_experts
 from forde_tpu_torch.brain.smoothing import near_square_grid, smooth_assignments_3d
 from forde_tpu_torch.core.config import BrainConfig
+from forde_tpu_torch.obs import spans
 
 
 def collect_moe_stats(
@@ -81,9 +82,10 @@ def moe_slow_loop_step(
     usage_mean = expert_usage.mean(0)
     usage_var = expert_usage.var(0, unbiased=False)
     cluster_features = torch.stack([usage_mean, usage_var], dim=-1)
-    assignments, gmm_params = cluster_experts(
-        cluster_features, brain.num_clusters, generator, init_means=init_means
-    )
+    with spans.span("brain.gmm", device=cluster_features.device):
+        assignments, gmm_params = cluster_experts(
+            cluster_features, brain.num_clusters, generator, init_means=init_means
+        )
 
     gh, gw = near_square_grid(num_experts)
     smoothed = smooth_assignments_3d(

@@ -36,6 +36,14 @@ per tick, its last chunk at the length left, so a chunk never spills past
 the cache's end. A prefix cache (``register_prefix``) is copied
 (``tile_prefix_cache``) before a suffix prefill writes into it.
 
+Spans and counters (``obs/spans.py``): ``pool.queue`` (a request's wait,
+from ``submit`` to its slot), ``pool.prefill`` (its prompt's upload, the
+prefill, its first token's sampling; ``prefill.forward`` and
+``prefill.cache`` inside), ``pool.insert`` (its cache row and settings
+into the slot, the first token's host read), each carrying the request's
+id; ``pool.step`` (a pooled step and its host read); counters ``pool.submitted``, ``pool.admitted``, ``pool.steps`` and
+``pool.rows_stepped`` (active rows times the steps they took).
+
 Serves dense-causal and NSA configs; NSA refuses chunked prefill and
 prefix caching, as in the reference. Sampling draws from a
 ``torch.Generator`` seeded from ``seed``: the same seed gives the same
@@ -46,6 +54,7 @@ are the point of comparison with it. Call every method from one thread.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -59,6 +68,7 @@ from forde_tpu_torch.models.generate import (
     sample_rows,
     tile_prefix_cache,
 )
+from forde_tpu_torch.obs import spans
 
 
 def _first_token(last, generator, temp: float, topk: int, topp: float) -> torch.Tensor:
@@ -77,7 +87,8 @@ def _first_token(last, generator, temp: float, topk: int, topp: float) -> torch.
 def _prefill_one(model, prompt, generator, temp, topk, topp):
     """Dense (1, P) prompt -> (its cache row, first token (1,))."""
     cache = model.init_cache(1, prompt.device)
-    logits, _ = model(prompt, cache=cache)
+    with spans.span("prefill.forward"):
+        logits, _ = model(prompt, cache=cache)
     return cache, _first_token(logits[:, -1], generator, temp, topk, topp)
 
 
@@ -245,7 +256,6 @@ class DecodePool:
         self._slot_req = [None] * rows  # per-slot request record
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self._graphs = {}  # (filtered, k) -> StepGraph
-        self._steps = 0
         self.queue: List[dict] = []
         self._next_id = 0
         self._prefixes: List[tuple] = []  # (cache, length) per prefix id
@@ -294,7 +304,9 @@ class DecodePool:
             "sampling": (d_temp if temperature is None else float(temperature),
                          d_topk if top_k is None else int(top_k),
                          d_topp if top_p is None else float(top_p)),
+            "submitted_ns": time.perf_counter_ns(),
         })
+        spans.count("pool.submitted")
         return rid
 
     def cancel(self, request_id: int) -> bool:
@@ -339,6 +351,9 @@ class DecodePool:
             if self.active[slot] or self._filling[slot] is not None or not self.queue:
                 continue
             req = self.queue.pop(0)
+            spans.interval("pool.queue", req["submitted_ns"], time.perf_counter_ns(),
+                           request=req["id"])
+            spans.count("pool.admitted")
             prefix = self._prefixes[req["prefix"]] if req["prefix"] is not None else None
             plen = prefix[1] if prefix is not None else 0
             if self.prefill_chunk is not None:
@@ -347,14 +362,15 @@ class DecodePool:
                          else _empty_row_cache(self.model))
                 self._filling[slot] = {"req": req, "cache": cache, "done": 0, "plen": plen}
                 continue
-            prompt = torch.tensor([req["prompt"]], device=self.device)
-            if prefix is not None:
-                # unreachable for NSA pools: register_prefix refuses them
-                row_cache, token = _prefill_suffix(self.model, prefix[0], prompt, self._gen,
-                                                   *req["sampling"])
-            else:
-                prefill = _prefill_one_nsa if self._nsa else _prefill_one
-                row_cache, token = prefill(self.model, prompt, self._gen, *req["sampling"])
+            with spans.span("pool.prefill", request=req["id"]):
+                prompt = torch.tensor([req["prompt"]], device=self.device)
+                if prefix is not None:
+                    # unreachable for NSA pools: register_prefix refuses them
+                    row_cache, token = _prefill_suffix(self.model, prefix[0], prompt,
+                                                       self._gen, *req["sampling"])
+                else:
+                    prefill = _prefill_one_nsa if self._nsa else _prefill_one
+                    row_cache, token = prefill(self.model, prompt, self._gen, *req["sampling"])
             self._activate_slot(slot, req, row_cache, token, plen)
 
     def _activate_slot(self, slot, req, row_cache, token, plen):
@@ -362,12 +378,13 @@ class DecodePool:
         pool and start decoding it."""
         p = req["prompt"]
         st = self.static
-        _insert_row(st.cache, row_cache, slot)
-        st.tokens[slot:slot + 1].copy_(token)
-        st.positions[slot] = plen + len(p)
-        self._set_sampling(slot, *req["sampling"])
-        self.active[slot] = True
-        first = int(token[0])  # the admission's one host read
+        with spans.span("pool.insert", request=req["id"]):
+            _insert_row(st.cache, row_cache, slot)
+            st.tokens[slot:slot + 1].copy_(token)
+            st.positions[slot] = plen + len(p)
+            self._set_sampling(slot, *req["sampling"])
+            self.active[slot] = True
+            first = int(token[0])  # the admission's one host read
         req["out"] = list(p) + [first]
         req["left"] = req["max_new"] - 1
         self._slot_req[slot] = req
@@ -409,16 +426,17 @@ class DecodePool:
         """Run k pooled steps (a graph replay on the card); their tokens
         (k, rows), read to the host once."""
         st = self.static
-        if not (self.cuda_graph and graphs.on_card(st.tokens)):
-            _step_pool_k(self.model, st, self._gen, filtered, k)
-        elif (filtered, k) in self._graphs:
-            self._graphs[filtered, k].replay()
-        else:
-            # the warm-up of the capture is this call's step
-            self._graphs[filtered, k] = graphs.StepGraph(
-                lambda: _step_pool_k(self.model, st, self._gen, filtered, k),
-                generators=(self._gen,))
-        return st.out[:k].cpu().numpy()
+        with spans.span("pool.step"):
+            if not (self.cuda_graph and graphs.on_card(st.tokens)):
+                _step_pool_k(self.model, st, self._gen, filtered, k)
+            elif (filtered, k) in self._graphs:
+                self._graphs[filtered, k].replay()
+            else:
+                # the warm-up of the capture is this call's step
+                self._graphs[filtered, k] = graphs.StepGraph(
+                    lambda: _step_pool_k(self.model, st, self._gen, filtered, k),
+                    generators=(self._gen,))
+            return st.out[:k].cpu().numpy()
 
     @torch.no_grad()
     def tick(self):
@@ -449,7 +467,8 @@ class DecodePool:
         if fuse > 1 and any(st is not None for st in self._filling):
             fuse = 1
         toks = self._step(filtered, fuse)
-        self._steps += fuse
+        spans.count("pool.steps", fuse)
+        spans.count("pool.rows_stepped", self.last_step_rows * fuse)
         for slot in range(self.rows):
             if not self.active[slot]:
                 continue

@@ -50,6 +50,7 @@ import torch
 
 from forde_tpu_torch.core import graphs
 from forde_tpu_torch.models.decoder_lm import FORDEDecoderLM
+from forde_tpu_torch.obs import spans
 from forde_tpu_torch.ops.moe_dispatch import top_k_desc
 from forde_tpu_torch.ops.topk_replay import topk_replay
 
@@ -347,91 +348,96 @@ def nsa_prefill(model: FORDEDecoderLM, prompt_ids: torch.Tensor,
     mixed lengths: batch 1 gets the true length, otherwise 0, and such a
     cache is decoded with per-row ``positions``. The logits are each
     row's last real token's.
+
+    Spans (``obs/spans.py``): ``prefill.forward``, the forward;
+    ``prefill.cache``, the cache built from what it captured.
     """
     cfg = model.config
     b, p = prompt_ids.shape
     dev = prompt_ids.device
     captured = []
-    logits, _ = model(prompt_ids, lengths=lengths, capture=captured)
-    cache = model.init_cache(b, dev)
-    if lengths is None:
-        counter = p
-    else:
-        lengths = lengths.to(torch.int64)
-        counter = lengths[0] if b == 1 else 0
-    cache["pos_index"].fill_(counter)
-
-    ratio = cfg.compression_ratio
-    pos = torch.arange(p, device=dev)
-    topk_scores, topk_rows = [], []
-    for i, (layer, x) in enumerate(zip(model.layers, captured)):
-        nsa = layer.sparse_attention
-        lc = cache[f"layer_{i}"]["sparse_attention"]
-        lc["nsa_pos"].fill_(counter)
-
-        # local branch: the ring of the last w k/v rows (slot = pos % w)
-        la = lc["local_attention"]
-        w = la["cached_key"].shape[2]
-        _, k, v = nsa.local_attention._qkv(x)  # (B, H, P, d)
+    with spans.span("prefill.forward"):
+        logits, _ = model(prompt_ids, lengths=lengths, capture=captured)
+    with spans.span("prefill.cache"):
+        cache = model.init_cache(b, dev)
         if lengths is None:
-            t = min(p, w)
-            slots = torch.remainder(torch.arange(p - t, p, device=dev), w)
-            la["cached_key"][:, :, slots] = k[:, :, p - t:].to(la["cached_key"].dtype)
-            la["cached_value"][:, :, slots] = v[:, :, p - t:].to(la["cached_value"].dtype)
+            counter = p
         else:
-            # slot j holds the last position < len congruent to j mod w;
-            # slots a short row never wrote stay zero
-            j = torch.arange(w, device=dev)
-            src = (lengths[:, None] - 1) - torch.remainder(lengths[:, None] - 1 - j[None, :], w)
-            valid = (src >= 0)[:, None, :, None]
-            idx = torch.clamp(src, 0, p - 1)[:, None, :, None].expand(-1, k.shape[1], -1, k.shape[3])
-            for name, rows in (("cached_key", k), ("cached_value", v)):
-                got = torch.gather(rows, 2, idx)
-                la[name] = torch.where(valid, got, torch.zeros_like(got)).to(la[name].dtype)
-        la["cache_index"].fill_(counter)
+            lengths = lengths.to(torch.int64)
+            counter = lengths[0] if b == 1 else 0
+        cache["pos_index"].fill_(counter)
 
-        # compressed branch: pools of the complete chunks, sum of the rest
-        n_complete = p // ratio  # the padded buffer's chunk capacity
-        if n_complete:
-            means = x[:, : n_complete * ratio].reshape(b, n_complete, ratio, -1)
-            means = means.float().mean(dim=2).to(x.dtype)
-            ck = nsa._heads(nsa.compressed_k_proj(means))
-            cv = nsa._heads(nsa.compressed_v_proj(means))
+        ratio = cfg.compression_ratio
+        pos = torch.arange(p, device=dev)
+        topk_scores, topk_rows = [], []
+        for i, (layer, x) in enumerate(zip(model.layers, captured)):
+            nsa = layer.sparse_attention
+            lc = cache[f"layer_{i}"]["sparse_attention"]
+            lc["nsa_pos"].fill_(counter)
+
+            # local branch: the ring of the last w k/v rows (slot = pos % w)
+            la = lc["local_attention"]
+            w = la["cached_key"].shape[2]
+            _, k, v = nsa.local_attention._qkv(x)  # (B, H, P, d)
+            if lengths is None:
+                t = min(p, w)
+                slots = torch.remainder(torch.arange(p - t, p, device=dev), w)
+                la["cached_key"][:, :, slots] = k[:, :, p - t:].to(la["cached_key"].dtype)
+                la["cached_value"][:, :, slots] = v[:, :, p - t:].to(la["cached_value"].dtype)
+            else:
+                # slot j holds the last position < len congruent to j mod w;
+                # slots a short row never wrote stay zero
+                j = torch.arange(w, device=dev)
+                src = (lengths[:, None] - 1) - torch.remainder(lengths[:, None] - 1 - j[None, :], w)
+                valid = (src >= 0)[:, None, :, None]
+                idx = torch.clamp(src, 0, p - 1)[:, None, :, None].expand(-1, k.shape[1], -1, k.shape[3])
+                for name, rows in (("cached_key", k), ("cached_value", v)):
+                    got = torch.gather(rows, 2, idx)
+                    la[name] = torch.where(valid, got, torch.zeros_like(got)).to(la[name].dtype)
+            la["cache_index"].fill_(counter)
+
+            # compressed branch: pools of the complete chunks, sum of the rest
+            n_complete = p // ratio  # the padded buffer's chunk capacity
+            if n_complete:
+                means = x[:, : n_complete * ratio].reshape(b, n_complete, ratio, -1)
+                means = means.float().mean(dim=2).to(x.dtype)
+                ck = nsa._heads(nsa.compressed_k_proj(means))
+                cv = nsa._heads(nsa.compressed_v_proj(means))
+                if lengths is not None:
+                    cmask = (torch.arange(n_complete, device=dev)[None, :]
+                             < (lengths // ratio)[:, None])[:, None, :, None]
+                    ck = torch.where(cmask, ck, torch.zeros_like(ck))
+                    cv = torch.where(cmask, cv, torch.zeros_like(cv))
+                lc["comp_k"][:, :, :n_complete] = ck.to(lc["comp_k"].dtype)
+                lc["comp_v"][:, :, :n_complete] = cv.to(lc["comp_v"].dtype)
+            if lengths is None:
+                lc["comp_chunk_sum"] = x[:, n_complete * ratio:].float().sum(dim=1)
+            else:
+                tmask = (pos[None, :] >= (lengths // ratio * ratio)[:, None]) & (
+                    pos[None, :] < lengths[:, None]
+                )
+                lc["comp_chunk_sum"] = torch.where(tmask[:, :, None], x, torch.zeros_like(x)).float().sum(dim=1)
+
+            # top-k branch: scores now, the replay below for every layer at once
+            scores = nsa.importance_scorer(x)[..., 0].float()  # (B, P)
             if lengths is not None:
-                cmask = (torch.arange(n_complete, device=dev)[None, :]
-                         < (lengths // ratio)[:, None])[:, None, :, None]
-                ck = torch.where(cmask, ck, torch.zeros_like(ck))
-                cv = torch.where(cmask, cv, torch.zeros_like(cv))
-            lc["comp_k"][:, :, :n_complete] = ck.to(lc["comp_k"].dtype)
-            lc["comp_v"][:, :, :n_complete] = cv.to(lc["comp_v"].dtype)
-        if lengths is None:
-            lc["comp_chunk_sum"] = x[:, n_complete * ratio:].float().sum(dim=1)
-        else:
-            tmask = (pos[None, :] >= (lengths // ratio * ratio)[:, None]) & (
-                pos[None, :] < lengths[:, None]
-            )
-            lc["comp_chunk_sum"] = torch.where(tmask[:, :, None], x, torch.zeros_like(x)).float().sum(dim=1)
+                scores = torch.where(pos[None, :] < lengths[:, None], scores,
+                                     torch.full_like(scores, -float("inf")))
+            topk_scores.append(scores)
+            topk_rows.append((nsa._heads(nsa.topk_k_proj(x)), nsa._heads(nsa.topk_v_proj(x))))
 
-        # top-k branch: scores now, the replay below for every layer at once
-        scores = nsa.importance_scorer(x)[..., 0].float()  # (B, P)
-        if lengths is not None:
-            scores = torch.where(pos[None, :] < lengths[:, None], scores,
-                                 torch.full_like(scores, -float("inf")))
-        topk_scores.append(scores)
-        topk_rows.append((nsa._heads(nsa.topk_k_proj(x)), nsa._heads(nsa.topk_v_proj(x))))
-
-    k_sel = cache["layer_0"]["sparse_attention"]["topk_scores"].shape[1]
-    kept, kept_idx = topk_replay(torch.stack(topk_scores).reshape(-1, p), k_sel, cfg.max_seq_len)
-    kept, kept_idx = kept.reshape(-1, b, k_sel), kept_idx.reshape(-1, b, k_sel)
-    for i, (tk, tv) in enumerate(topk_rows):
-        lc = cache[f"layer_{i}"]["sparse_attention"]
-        filled = (kept_idx[i] < p)[:, None, :, None]
-        gidx = torch.clamp(kept_idx[i].to(torch.int64), max=p - 1)[:, None, :, None]
-        gidx = gidx.expand(-1, tk.shape[1], -1, tk.shape[3])
-        lc["topk_scores"], lc["topk_idx"] = kept[i], kept_idx[i]
-        for name, rows in (("topk_k", tk), ("topk_v", tv)):
-            got = torch.gather(rows, 2, gidx).to(lc[name].dtype)
-            lc[name] = torch.where(filled, got, lc[name])
+        k_sel = cache["layer_0"]["sparse_attention"]["topk_scores"].shape[1]
+        kept, kept_idx = topk_replay(torch.stack(topk_scores).reshape(-1, p), k_sel, cfg.max_seq_len)
+        kept, kept_idx = kept.reshape(-1, b, k_sel), kept_idx.reshape(-1, b, k_sel)
+        for i, (tk, tv) in enumerate(topk_rows):
+            lc = cache[f"layer_{i}"]["sparse_attention"]
+            filled = (kept_idx[i] < p)[:, None, :, None]
+            gidx = torch.clamp(kept_idx[i].to(torch.int64), max=p - 1)[:, None, :, None]
+            gidx = gidx.expand(-1, tk.shape[1], -1, tk.shape[3])
+            lc["topk_scores"], lc["topk_idx"] = kept[i], kept_idx[i]
+            for name, rows in (("topk_k", tk), ("topk_v", tv)):
+                got = torch.gather(rows, 2, gidx).to(lc[name].dtype)
+                lc[name] = torch.where(filled, got, lc[name])
 
     if lengths is None:
         return cache, logits[:, -1, :]

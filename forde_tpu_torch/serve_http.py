@@ -8,7 +8,8 @@ on the standard library's ``http.server``:
                 -> {"output_ids": [...], "prompt_len": 3, "batch_rows": 4}
   POST /prefix     {"prefix_ids": [...]} -> {"prefix_id": 0, "prefix_len": 3}
   GET  /healthz -> {"status": "ok", ...model and config summary...}
-  GET  /stats   -> request, batch and token counters
+  GET  /stats   -> request, batch and token counters (continuous: and the
+                   pool's counters and span times, ``pool_stats``)
 
 Requests land in a queue and ONE worker thread drains it. It does all of
 the device work: every prefill, decode step and graph capture, and the
@@ -61,6 +62,7 @@ import numpy as np
 import torch
 
 from forde_tpu_torch import resolve_device
+from forde_tpu_torch.obs import spans
 from forde_tpu_torch.serve import _parse_ids, _refuse_unported, build_parser, load_serving_model
 
 
@@ -217,6 +219,26 @@ class Batcher:
         for i, r in enumerate(batch):
             r.output = out[i, : len(r.prompt) + r.max_new].tolist()
             r.batch_rows = rows
+
+
+# the decode pool's spans (obs/spans.py) that /stats reports
+POOL_SPANS = ("pool.queue", "pool.prefill", "prefill.forward", "prefill.cache", "pool.insert",
+              "pool.step")
+
+
+def pool_stats() -> dict:
+    """The process's decode-pool counters (``pool.submitted``,
+    ``pool.admitted``, ``pool.steps``, ``pool.rows_stepped``) and, for each
+    of ``POOL_SPANS`` seen, its count and mean and longest milliseconds on
+    the host clock: a request's wait in the queue, its prefill (of which
+    the forward and the cache build), the copy into its slot, a pooled
+    step."""
+    counters, aggregates = spans.snapshot()
+    return {
+        "pool": {k: n for k, n in counters.items() if k.startswith("pool.")},
+        "spans": {name: {"count": c, "mean_ms": total / c / 1e6, "max_ms": longest / 1e6}
+                  for name, (c, total, longest) in aggregates.items() if name in POOL_SPANS},
+    }
 
 
 class ContinuousBatcher:
@@ -424,6 +446,8 @@ class _Handler(BaseHTTPRequestHandler):
         elif self.path == "/stats":
             with b._lock:
                 stats = dict(b.stats)
+            if isinstance(b, ContinuousBatcher):
+                stats.update(pool_stats())
             self._send(200, stats)
         else:
             self._send(404, {"error": "unknown path"})

@@ -45,6 +45,7 @@ from forde_tpu_torch.core import graphs
 from forde_tpu_torch.core.config import DualEncoderConfig
 from forde_tpu_torch.models.dual_encoder import FORDEDualEncoder, clip_contrastive_loss
 from forde_tpu_torch.nn.stateful import stateful_layers
+from forde_tpu_torch.obs import spans
 from forde_tpu_torch.train.optim import AdamW
 from forde_tpu_torch.train.state import make_optimizer
 
@@ -127,31 +128,35 @@ def _step(state: CLIPTrainState, batch: Batch, sense: bool) -> Tuple[CLIPTrainSt
     }
     for name, layer in layers.items():
         layer.z_tap, layer.stat_group = taps[name], group
+    dev = batch["image"].device
     try:
-        img, txt, scale = model(
-            batch["image"], batch["input_ids"], batch.get("attention_mask"), sense=sense
-        )
-        if group is None:
-            loss, metrics = clip_contrastive_loss(img, txt, scale)
-        else:
-            from forde_tpu_torch.parallel.contrastive import sharded_contrastive_loss
+        with spans.span("train.forward", device=dev):
+            img, txt, scale = model(
+                batch["image"], batch["input_ids"], batch.get("attention_mask"), sense=sense
+            )
+            if group is None:
+                loss, metrics = clip_contrastive_loss(img, txt, scale)
+            else:
+                from forde_tpu_torch.parallel.contrastive import sharded_contrastive_loss
 
-            loss, metrics = sharded_contrastive_loss(img, txt, scale, state.mesh)
-        # every rank holds the loss
-        objective = loss if state.mesh is None else loss / state.mesh.size
-        grads = torch.autograd.grad(
-            objective, params + list(taps.values()), materialize_grads=True
-        )
+                loss, metrics = sharded_contrastive_loss(img, txt, scale, state.mesh)
+            # every rank holds the loss
+            objective = loss if state.mesh is None else loss / state.mesh.size
+        with spans.span("train.backward", device=dev):
+            grads = torch.autograd.grad(
+                objective, params + list(taps.values()), materialize_grads=True
+            )
+            param_grads = reduce_gradients(state, grads[: len(params)])
     finally:
         for layer in layers.values():
             layer.z_tap, layer.stat_group = None, None
-    param_grads = reduce_gradients(state, grads[: len(params)])
-    with torch.no_grad():
-        for name, g in zip(taps, grads[len(params):]):
-            state.grad_stats[name].add_(layers[name].gather_columns(g))
-        if sense:
-            state.grad_step_count.add_(1)
-    grad_norm = state.optimizer.step(param_grads)
+    with spans.span("train.optimizer", device=dev):
+        with torch.no_grad():
+            for name, g in zip(taps, grads[len(params):]):
+                state.grad_stats[name].add_(layers[name].gather_columns(g))
+            if sense:
+                state.grad_step_count.add_(1)
+        grad_norm = state.optimizer.step(param_grads)
     state.step += 1
     return state, {
         "loss/contrastive": loss.detach(),

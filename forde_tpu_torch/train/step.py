@@ -36,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from forde_tpu_torch.core import mesh as mesh_lib
+from forde_tpu_torch.obs import spans
 from forde_tpu_torch.train.state import TrainState
 
 Batch = Dict[str, torch.Tensor]
@@ -162,9 +163,14 @@ def train_step(
     ``loss/total``, ``loss/lm``, ``loss/aux`` and ``training/grad_norm``
     (the global norm of the gradients before clipping)."""
     params = state.optimizer.params
-    objective, total, lm, aux = loss_fn(state.model, batch, aux_loss_weight)
-    grads = torch.autograd.grad(objective, params, materialize_grads=True)
-    grad_norm = state.optimizer.step(reduce_gradients(state, grads))
+    dev = batch["input_ids"].device
+    with spans.span("train.forward", device=dev):
+        objective, total, lm, aux = loss_fn(state.model, batch, aux_loss_weight)
+    with spans.span("train.backward", device=dev):
+        grads = reduce_gradients(state, torch.autograd.grad(objective, params,
+                                                            materialize_grads=True))
+    with spans.span("train.optimizer", device=dev):
+        grad_norm = state.optimizer.step(grads)
     state.step += 1
     return state, {
         "loss/total": total.detach(),
@@ -199,15 +205,20 @@ def make_accum_train_step(accum_steps: int, aux_loss_weight: float = 1.0):
         sums = torch.zeros(3, dtype=torch.float32, device=ids.device)
         micro = {k: v.reshape(accum_steps, b // accum_steps, *v.shape[1:]).unbind(0)
                  for k, v in batch.items()}
+        inv = 1.0 / accum_steps
         for i in range(accum_steps):
             mb = {k: v[i] for k, v in micro.items()}
-            objective, total, lm, aux = loss_fn(state.model, mb, aux_loss_weight)
-            g = torch.autograd.grad(objective, params, materialize_grads=True)
-            torch._foreach_add_(grads, [x.float() for x in g])
-            sums += torch.stack([total.detach(), lm.detach(), aux.detach()]).float()
-        inv = 1.0 / accum_steps
-        torch._foreach_mul_(grads, inv)
-        grad_norm = state.optimizer.step(reduce_gradients(state, grads))
+            with spans.span("train.forward", device=ids.device):
+                objective, total, lm, aux = loss_fn(state.model, mb, aux_loss_weight)
+                sums += torch.stack([total.detach(), lm.detach(), aux.detach()]).float()
+            with spans.span("train.backward", device=ids.device):
+                g = torch.autograd.grad(objective, params, materialize_grads=True)
+                torch._foreach_add_(grads, [x.float() for x in g])
+                if i == accum_steps - 1:  # the mean, reduced over the ranks
+                    torch._foreach_mul_(grads, inv)
+                    grads = reduce_gradients(state, grads)
+        with spans.span("train.optimizer", device=ids.device):
+            grad_norm = state.optimizer.step(grads)
         state.step += 1
         sums *= inv
         return state, {

@@ -92,6 +92,7 @@ def test_port_imports_no_jax():
         "forde_tpu_torch.nn.remat",
         "forde_tpu_torch.obs.plots",
         "forde_tpu_torch.obs.profiler",
+        "forde_tpu_torch.obs.spans",
         "forde_tpu_torch.bench",
         "forde_tpu_torch.benchmarks",
         "forde_tpu_torch.benchmarks.decoder",

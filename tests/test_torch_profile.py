@@ -1,8 +1,8 @@
 """``--profile_dir`` in the port's two training loops (obs/profiler.py), on
 the CPU: each run writes one ``torch.profiler`` trace that loads as JSON
 and holds the step's ops (the LM step's cross-entropy, the contrastive
-step's log-softmax, the optimizer's foreach updates); a run without the
-flag writes none.
+step's log-softmax, the optimizer's foreach updates) and the program's
+``forde.train.forward`` span; a run without the flag writes none.
 """
 
 import glob
@@ -41,5 +41,6 @@ def test_profile_dir_writes_a_trace_of_the_steps(tmp_path, monkeypatch, capsys, 
     assert op in names
     assert any(n and n.startswith("aten::_foreach") for n in names)  # the AdamW update
     assert sum(e.get("name") == op for e in events) >= 2  # both steps
+    assert "forde.train.forward" in names  # the program's own spans (obs/spans.py)
     plain = main(argv)
     assert plain["traces"] == [] and len(glob.glob(os.path.join("prof", "*"))) == 1

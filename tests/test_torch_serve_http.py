@@ -7,7 +7,8 @@ tests/test_serve_http.py: concurrent requests of mixed lengths coalesce
 into one ragged batch and each returns exactly the JAX package's greedy
 tokens; per-request ``max_new_tokens`` trims; bad requests get 400 and an
 unknown path 404; continuous mode (dense and NSA) and ``--decode_fuse 4``
-return the greedy tokens with the pool's rows overlapping. Also: what
+return the greedy tokens with the pool's rows overlapping, and /stats
+counts the pool's work and times its spans. Also: what
 ``make_server`` refuses, and that it runs on CUDA unless told otherwise.
 """
 
@@ -22,6 +23,7 @@ import torch
 
 from forde_tpu.train.checkpoint import save_model_config
 from forde_tpu_torch import interop, serve, serve_http
+from forde_tpu_torch.obs import spans
 
 from test_torch_decode_pool import setup_variant, want
 
@@ -162,6 +164,7 @@ def test_http_continuous_exact_and_overlapping(request, name, fuse):
     v = request.getfixturevalue(name)
     prompts = PROMPTS if name == "dense" else NSA_PROMPTS
     budgets = [7, 5, 6]
+    spans.reset()
     srv, batcher, url = start_server(v.ckpt, "--continuous", "--max_batch", "2",
                                      "--decode_fuse", str(fuse), max_new=POOL_NEW)
     try:
@@ -175,6 +178,18 @@ def test_http_continuous_exact_and_overlapping(request, name, fuse):
         assert stats["requests"] == 3 and stats["ticks"] >= 2
         assert stats["tokens_generated"] == sum(budgets)
         assert stats["max_active_rows"] == 2  # the pool overlapped requests
+        # the pool's own counters and span times (obs/spans.py)
+        pool, times = stats["pool"], stats["spans"]
+        assert pool["pool.submitted"] == pool["pool.admitted"] == 3
+        assert pool["pool.steps"] == fuse * times["pool.step"]["count"]
+        assert pool["pool.rows_stepped"] >= sum(b - 1 for b in budgets)
+        if fuse == 1:  # no surplus tokens: every row step is a token served
+            assert pool["pool.rows_stepped"] == sum(b - 1 for b in budgets)
+        prefill = ["prefill.forward"] + (["prefill.cache"] if name == "nsa" else [])
+        for span in ["pool.queue", "pool.prefill", "pool.insert"] + prefill:
+            assert times[span]["count"] == 3, span
+        assert set(times) == {"pool.queue", "pool.prefill", "pool.insert", "pool.step", *prefill}
+        assert all(0 <= t["mean_ms"] <= t["max_ms"] for t in times.values())
     finally:
         stop_server(srv, batcher)
 
