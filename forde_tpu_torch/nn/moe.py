@@ -12,6 +12,41 @@ the bank holds int8 weights with per-(expert, output channel) scales and
 both products run int8 over dynamically quantized activations, one
 ``int8_matmul`` per expert.
 
+Dense dispatch weights each token's experts by a combine matrix that is
+exactly 0 for the E - k experts it did not pick, so a whole bank (no
+expert or model axis), not quantized, outside a CUDA graph's capture, runs
+it over the routed rows only once the mean rows an expert, T*k/E, reach
+``ROUTED_MIN_ROWS`` (``ExpertsFFN.routed``): the T*k choices sorted by
+expert, each expert's two products on its own contiguous group, the
+outputs summed back per token. That is dense dispatch's result in the
+same dtype, with no capacity and no drops; only the order of the fp32
+sums differs, and the experts a token did not pick get no gradient from
+it in either. It costs a host read of the group sizes a call and ~8x the
+bank's launches, so below the constant (short prefills) and in a graph's
+capture (the pooled decode) ``all_tokens`` runs. The counters
+``moe.routed`` and ``moe.dense`` (``obs/spans.py``) count the calls of
+each.
+
+``ROUTED_MIN_ROWS`` was measured on one H100 80GB HBM3 at 700 W (fp32,
+TF32 off, 8 experts top-2, d 512, h 2,048). Routed / dense ms a call of
+one MoE layer, "loop" back to back (the card's pace) and "single"
+between two synchronisations (a host-bound caller), and of one whole
+``nsa_prefill`` of a one-row prompt of the fp32 LM:
+
+    T       rows/expert  fwd loop      fwd single    fwd+bwd loop   fwd+bwd single  prefill
+    512       128        1.41 / 0.61   1.35 / 0.73    3.66 / 2.51    4.16 / 2.59    65.5 / 56.1
+    1,024     256        1.39 / 0.95   1.41 / 1.12    3.26 / 2.67    3.99 / 3.19    64.1 / 54.6
+    1,536     384        1.24 / 1.47   1.35 / 1.67    4.17 / 3.94    3.93 / 4.33    51.0 / 49.6
+    2,048     512        1.35 / 1.78   1.43 / 1.97    3.61 / 5.01    3.17 / 5.45    51.6 / 48.8
+    4,096   1,024        1.71 / 3.39   1.95 / 3.52    4.33 / 10.14   4.61 / 10.58   -
+    16,384  4,096        4.19 / 13.18  4.30 / 13.75  11.74 / 39.29  11.86 / 39.94   -
+
+A routed forward costs ~1.2-1.4 ms of host time at any size (its loop
+times' floor), so the layer alone crosses over at 320-512 rows, but a
+whole prefill, host-bound, stays faster dense up to 2,048 tokens (512
+rows, the model's longest). 1,024 rows is the first size at which routed
+wins every reading; the training step's 8 x 2,048 tokens give 4,096.
+
 Given a ``mesh`` (core/mesh.py) the layer takes this rank's tokens (split
 over data and context) and, with an expert axis above 1, this rank's
 slice of the bank (train/state.py keeps it): ``"ep"`` dispatch runs
@@ -34,11 +69,16 @@ import torch.nn.functional as F
 
 from forde_tpu_torch.nn.layers import Dense
 from forde_tpu_torch.nn.remat import recomputing
+from forde_tpu_torch.obs import spans
 from forde_tpu_torch.ops import moe_dispatch
 from forde_tpu_torch.ops.quant import int8_matmul, quantize_activations
 
 
 DISPATCHES = ("dense", "capacity", "ep")
+
+# the mean routed rows an expert (T*k/E) from which dense dispatch runs
+# routed (measured: the module's note)
+ROUTED_MIN_ROWS = 1024
 
 
 def _dispatch_check(dispatch: str) -> None:
@@ -153,6 +193,26 @@ class ExpertsFFN(torch.nn.Module):
         h = F.gelu(h + self.b_up.to(dt)[:, None, None, :], approximate="tanh")
         return self._down(h, "ebsh,ehd->ebsd") + self.b_down.to(dt)[:, None, None, :]
 
+    def routed(self, x: torch.Tensor, top_k_indices: torch.Tensor,
+               top_k_probs: torch.Tensor) -> torch.Tensor:
+        """Each expert on its routed tokens only: x (B, S, D) -> (B, S, D),
+        each token's top-k outputs summed by ``top_k_probs`` (dense
+        dispatch's result; the whole bank, neither quantized nor split)."""
+        b, s, d = x.shape
+        dt = self.dtype
+        order = moe_dispatch.routed_order(top_k_indices, self.w_up.shape[0])
+        rows = moe_dispatch.routed_rows(x.reshape(b * s, d).to(dt), order)
+        w_up, b_up, w_down, b_down = (p.to(dt).unbind(0) for p in (
+            self.w_up, self.b_up, self.w_down, self.b_down))
+        outs = []
+        # the one host read, last: the gather and the views are made before
+        # the host waits, so the first product follows the wait at once
+        for e, group in enumerate(rows.split(order.counts.tolist())):
+            if group.shape[0]:
+                h = F.gelu(torch.addmm(b_up[e], group, w_up[e]), approximate="tanh")
+                outs.append(torch.addmm(b_down[e], h, w_down[e]))
+        return moe_dispatch.routed_combine(torch.cat(outs), order, top_k_probs).reshape(b, s, d)
+
     def dispatched(self, expert_inputs: torch.Tensor) -> torch.Tensor:
         """Each expert on its own buffer: (E, C, D) -> (E, C, D)."""
         if self.quantized:
@@ -206,6 +266,17 @@ class MoELayer(torch.nn.Module):
         self.experts = ExpertsFFN(num_experts, expert_hidden_dim, d_model, **kw,
                                   quantized=quantized)
 
+    def _routed(self, x: torch.Tensor, split: bool) -> bool:
+        """Whether dense dispatch runs over the routed rows: a whole bank
+        (no expert or model axis), not quantized, outside a CUDA graph's
+        capture (the group sizes are read to the host), and at least
+        ``ROUTED_MIN_ROWS`` routed rows an expert on average."""
+        e = self.experts
+        rows = x.shape[0] * x.shape[1] * self.top_k
+        return (not split and not e.quantized and e.tp_group is None
+                and not (x.is_cuda and torch.cuda.is_current_stream_capturing())
+                and rows >= ROUTED_MIN_ROWS * self.num_experts)
+
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         router_logits = self.router(x).float()
         router_probs = torch.softmax(router_logits, dim=-1)
@@ -224,7 +295,11 @@ class MoELayer(torch.nn.Module):
                 capacity_factor=self.capacity_factor,
                 variant="auto" if self.dispatch == "ep" else "psum", tp_group=e.tp_group,
             )
+        elif self.dispatch == "dense" and self._routed(x, split):
+            spans.count("moe.routed")
+            output = self.experts.routed(x, top_k_indices, top_k_probs)
         elif self.dispatch == "dense":
+            spans.count("moe.dense")
             all_out = self.experts.all_tokens(x)  # (E or this rank's E/ep, B, S, D)
             combine = moe_dispatch.combine_matrix(top_k_indices, top_k_probs, self.num_experts)
             if split:

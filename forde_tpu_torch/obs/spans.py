@@ -41,7 +41,9 @@ Clocks. A kineto event's ``start_ns()`` reads Unix-epoch nanoseconds
 device trace's timeline.
 
 Counters live in ``counters``, a ``collections.Counter`` updated under a
-lock, as ``kernels.launches`` is.
+lock, as ``kernels.launches`` is: the pool's ``pool.*`` and the MoE
+layers' ``moe.routed`` / ``moe.dense`` (one a call of dense dispatch on
+each path, ``nn/moe.py``).
 """
 
 from __future__ import annotations

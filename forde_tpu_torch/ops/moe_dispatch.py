@@ -2,8 +2,17 @@
 forde_tpu/ops/moe_dispatch.py).
 
 Two dispatches:
-  * ``dense_combine``: the reference's math, every expert runs on every
-    token and the top-k outputs are mixed by a (..., E) combine matrix;
+  * dense: the reference's math. ``dense_combine`` mixes the outputs of
+    every expert on every token by a (..., E) combine matrix, which is 0
+    for the experts a token did not pick. The routed form computes the
+    same sum over the routed rows only (no capacity, no drops):
+    ``routed_order`` sorts the T*k routing choices by expert, stably (the
+    caller reads the group sizes to the host), ``routed_rows`` gathers each
+    choice's token row in that order, and ``routed_combine`` puts the
+    experts' outputs back in (T, k) order and sums each token's k by its
+    gates. Both moves are gathers whose backwards are gathers too (a
+    token's k gradient rows summed in slot order, not scattered onto its
+    row), so the output and every gradient repeat bit for bit;
   * capacity: ``capacity_route`` plans per-expert buffers of ``capacity``
     slots (slot 0 of every token before slot 1 of any, then token order;
     overflow dropped), ``capacity_gather`` fills them and
@@ -14,7 +23,7 @@ Expert parallelism over several devices comes with the multi-device slice.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,6 +71,83 @@ def dense_combine(all_expert_outputs: torch.Tensor, combine: torch.Tensor) -> to
     return torch.einsum(
         "ebsd,bse->bsd", all_expert_outputs, combine.to(all_expert_outputs.dtype)
     )
+
+
+class RoutedOrder(NamedTuple):
+    """The T*k routing choices (choice c = token c // k, slot c % k)
+    sorted by expert, stably: ``perm`` (T*k,) the choice at each sorted
+    position, ``inv`` (T*k,) the sorted position of each choice,
+    ``counts`` (E,) the group sizes on the device and ``k``."""
+
+    perm: torch.Tensor
+    inv: torch.Tensor
+    counts: torch.Tensor
+    k: int
+
+
+def routed_order(top_k_indices: torch.Tensor, num_experts: int) -> RoutedOrder:
+    """The expert order of (..., k) routing choices; nothing is read to
+    the host (the caller reads ``counts`` once, where it splits)."""
+    k = top_k_indices.shape[-1]
+    flat = top_k_indices.reshape(-1)
+    perm = torch.argsort(flat, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    return RoutedOrder(perm, inv, torch.bincount(flat, minlength=num_experts), k)
+
+
+class _RoutedRows(torch.autograd.Function):
+    """(T, D) token rows -> (T*k, D), the row of each choice in expert
+    order. The backward gathers each choice's gradient back to (T, k)
+    order and sums a token's k slots in order."""
+
+    @staticmethod
+    def forward(ctx, x, perm, inv, k):
+        ctx.save_for_backward(inv)
+        ctx.k = k
+        return x.index_select(0, torch.div(perm, k, rounding_mode="floor"))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        per_choice = grad.index_select(0, inv)
+        return per_choice.reshape(-1, ctx.k, grad.shape[-1]).sum(1), None, None, None
+
+
+class _Permute(torch.autograd.Function):
+    """Rows of ``x`` taken in the order ``index``, a permutation whose
+    inverse is ``inverse``; the backward is the inverse gather."""
+
+    @staticmethod
+    def forward(ctx, x, index, inverse):
+        ctx.save_for_backward(inverse)
+        return x.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inverse,) = ctx.saved_tensors
+        return grad.index_select(0, inverse), None, None
+
+
+def routed_rows(flat_x: torch.Tensor, order: RoutedOrder) -> torch.Tensor:
+    """(T, D) tokens -> (T*k, D) rows, grouped by expert in ``order``."""
+    return _RoutedRows.apply(flat_x, order.perm, order.inv, order.k)
+
+
+def routed_combine(expert_rows: torch.Tensor, order: RoutedOrder,
+                   top_k_probs: torch.Tensor) -> torch.Tensor:
+    """(T*k, D) expert outputs in expert order -> (T, D): each token's k
+    outputs weighted by ``top_k_probs`` (..., k), cast as ``dense_combine``
+    casts its combine matrix, and summed in slot order. As in
+    ``dense_combine``'s product, the products and their sum are fp32 and
+    the sum is rounded to the outputs' dtype once, so that a bf16 token
+    mixes its experts as dense dispatch does (a rounding of each product
+    alone flips later routing choices: a prefix-cached prompt, whose
+    prefix ran dense, then parts from the same prompt run routed)."""
+    per_choice = _Permute.apply(expert_rows, order.inv, order.perm)
+    per_choice = per_choice.reshape(-1, order.k, expert_rows.shape[-1])
+    weight = top_k_probs.reshape(-1, order.k, 1).to(expert_rows.dtype)
+    return torch.sum(per_choice.float() * weight.float(), dim=1).to(expert_rows.dtype)
 
 
 def capacity_route(
